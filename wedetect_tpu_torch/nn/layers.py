@@ -1,0 +1,123 @@
+"""Basic conv bricks in NCHW: Conv+BN+act, 2x transposed conv,
+BottleRep, RepBlock, BepC3, BiFusion.
+
+Module and parameter names are the reference checkpoint's
+(generate_proposal.py:317-465: ConvBNReLU/ConvBNSiLU wrap a `block`
+holding `conv` and `bn`; Transpose holds `upsample_transpose`), so a
+torch state dict loads as it is. Padding is the symmetric k//2 of the
+reference. BatchNorm eps is 1e-5 in the neck and 1e-3 in the head.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+ACTS = {"silu": nn.SiLU, "relu": nn.ReLU}
+
+
+class ConvModule(nn.Module):
+    """Conv2d(bias=False) + BatchNorm2d + activation."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, act: str = "silu", bn_eps: float = 1e-5):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2,
+                              bias=False)
+        self.bn = nn.BatchNorm2d(out_ch, eps=bn_eps)
+        self.act = ACTS[act]()
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class ConvBN(nn.Module):
+    """The reference's ConvBNReLU / ConvBNSiLU: a ConvModule under
+    `block` (keys `<name>.block.conv.weight`, `<name>.block.bn.*`)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, act: str = "silu", bn_eps: float = 1e-5):
+        super().__init__()
+        self.block = ConvModule(in_ch, out_ch, kernel, stride, act, bn_eps)
+
+    def forward(self, x):
+        return self.block(x)
+
+
+class Transpose2x(nn.Module):
+    """ConvTranspose2d(kernel=2, stride=2, bias=True): exact 2x upsample
+    on the torch (in_ch, out_ch, 2, 2) weight."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.upsample_transpose = nn.ConvTranspose2d(in_ch, out_ch, 2, 2,
+                                                     bias=True)
+
+    def forward(self, x):
+        return self.upsample_transpose(x)
+
+
+class BottleRep(nn.Module):
+    """Two 3x3 ConvBNSiLU + learnable-alpha residual (reference
+    generate_proposal.py:387-405, weight=True). Every BottleRep of the
+    neck keeps its width, so the residual is always on."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv1 = ConvBN(ch, ch, 3, 1, "silu")
+        self.conv2 = ConvBN(ch, ch, 3, 1, "silu")
+        self.alpha = nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x)) + self.alpha.to(x.dtype) * x
+
+
+class RepBlock(nn.Module):
+    """Stack of BottleReps: 1 + max(n//2 - 1, 0) blocks (reference
+    generate_proposal.py:369-384)."""
+
+    def __init__(self, ch: int, n: int = 1):
+        super().__init__()
+        self.conv1 = BottleRep(ch)
+        self.block = nn.ModuleList(
+            BottleRep(ch) for _ in range(max(n // 2 - 1, 0)))
+
+    def forward(self, x):
+        x = self.conv1(x)
+        for blk in self.block:
+            x = blk(x)
+        return x
+
+
+class BepC3(nn.Module):
+    """CSPStackRep block: split 1x1s, RepBlock branch, concat, 1x1 out
+    (reference generate_proposal.py:408-423, hidden width e = 0.5)."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1):
+        super().__init__()
+        c_ = out_ch // 2
+        self.cv1 = ConvBN(in_ch, c_, 1, 1, "silu")
+        self.cv2 = ConvBN(in_ch, c_, 1, 1, "silu")
+        self.cv3 = ConvBN(2 * c_, out_ch, 1, 1, "silu")
+        self.m = RepBlock(c_, n=n)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class BiFusion(nn.Module):
+    """3-way fusion: cat(upsample(x0), cv1(x1), downsample(cv2(x2))) ->
+    cv3, all ConvBNReLU (reference generate_proposal.py:442-465)."""
+
+    def __init__(self, in_chs, out_ch: int):
+        super().__init__()
+        c0, c1, c2 = in_chs
+        self.cv1 = ConvBN(c1, out_ch, 1, 1, "relu")
+        self.cv2 = ConvBN(c2, out_ch, 1, 1, "relu")
+        self.cv3 = ConvBN(3 * out_ch, out_ch, 1, 1, "relu")
+        self.upsample = Transpose2x(c0, out_ch)
+        self.downsample = ConvBN(out_ch, out_ch, 3, 2, "relu")
+
+    def forward(self, x0, x1, x2):
+        return self.cv3(torch.cat([self.upsample(x0), self.cv1(x1),
+                                   self.downsample(self.cv2(x2))], 1))
