@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Where the port's detect step spends its time on the card.
+"""Where the port's detect step, or its Ref scoring, spends its time on
+the card.
 
-    python3 tools/profile_detect_torch.py [--batch 8] [--bf16] [--table F]
+    python3 tools/profile_detect_torch.py [--ref] [--batch 8] [--bf16]
+                                          [--iters 3] [--table F]
 
-Builds full-width WeDetect-Base (640x640, K = 1203, random weights and
-random class embeddings, the head calibrated to a trained checkpoint's
-score profile by chip_smoke.calibrate_head), then runs Detector.__call__ under torch.profiler and
-prints one JSON line: wall time per call, device busy time per call
-(the union of kernel intervals on the card) and so the device's idle
-share, and the ops with the most device time. --table writes the full
-profiler table to file F. Needs a CUDA card.
+Detect (the default): full-width WeDetect-Base (640x640, K = 1203,
+random weights and random class embeddings, the head calibrated to a
+trained checkpoint's score profile by chip_smoke.calibrate_head), then
+Detector.__call__ on --batch images. --ref: WeDetect-Ref at ref_2b's
+full width (random weights, seed 0), then RefScorer.score (prefix
+sharing) on chip_smoke.py's Ref inputs: its seeded 480x640 image, the
+top 100 proposals of a random Uni-Base, its 8 queries and stub
+tokenizer. Either call runs under torch.profiler; the script prints one
+JSON line: wall time per call, device busy time per call (the union of
+kernel intervals on the card) and so the device's idle share, and the
+ops with the most device time. --table writes the full profiler table
+to file F. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -44,25 +51,10 @@ def busy_ms(events) -> float:
     return total / 1e3   # us -> ms
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=8)
-    p.add_argument("--iters", type=int, default=3)
-    p.add_argument("--bf16", action="store_true")
-    p.add_argument("--table", default="",
-                   help="write the full profiler table to this file")
-    args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("profile_detect_torch: no CUDA device", file=sys.stderr)
-        return 1
-    import chip_smoke as C
+def detect_call(args, C, dev):
     from wedetect_tpu_torch.configs import TEXT_BASE
     from wedetect_tpu_torch.models.api import Detector
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
     kw = dict(compute_dtype="bfloat16") if args.bf16 else {}
     det = Detector.from_random("base", seed=0, device=dev,
                                num_classes=C.N_CLASSES, **kw)
@@ -76,30 +68,66 @@ def main(argv=None) -> int:
         generator=torch.Generator().manual_seed(2)).numpy())
     C.calibrate_head(det, np.stack(images), det._text_embeds,
                      det.cfg.test.score_thr)
-    det(images)
+    return lambda: det(images), {"batch": args.batch}
+
+
+def ref_call(args, C, dev):
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    image, boxes = C.ref_inputs(dev)
+    cfg = ref_2b()
+    scorer = RefScorer(cfg=cfg, model=init_ref_variables(cfg, 0, dev),
+                       tokenizer=C.CharTok(),
+                       dtype="bfloat16" if args.bf16 else "float32",
+                       device=dev)
+    return (lambda: scorer.score(image, boxes, C.REF_QUERIES),
+            {"proposals": len(boxes), "queries": len(C.REF_QUERIES)})
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--ref", action="store_true",
+                   help="profile RefScorer.score instead of the detector")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--table", default="",
+                   help="write the full profiler table to this file")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_detect_torch: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as C
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    call, info = (ref_call if args.ref else detect_call)(args, C, dev)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            det(images)
+            call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / args.iters
-    events = prof.events()
-    busy = busy_ms(events) / args.iters
-    table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=40)
-    name = "bf16" if args.bf16 else "f32"
+    busy = busy_ms(prof.events()) / args.iters
     if args.table:
         with open(args.table, "w") as f:
-            f.write(table)
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=50))
     top = sorted(prof.key_averages(),
-                 key=lambda e: e.self_device_time_total, reverse=True)[:12]
+                 key=lambda e: e.self_device_time_total, reverse=True)[:14]
     print(json.dumps({
-        "profile": name, "batch": args.batch, "wall_ms": wall,
-        "device_busy_ms": busy,
+        "profile": ("ref_" if args.ref else "") + (
+            "bf16" if args.bf16 else "f32"),
+        **info, "wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1 - busy / wall) if wall else None,
-        "top": [{"op": e.key[:60], "device_ms":
+        "top": [{"op": e.key[:70], "device_ms":
                  e.self_device_time_total / 1e3 / args.iters,
                  "calls": e.count // args.iters} for e in top]}))
     return 0

@@ -1,0 +1,92 @@
+"""WeDetect-Ref REC demo: Uni proposals + one query -> best box.
+
+    python -m wedetect_tpu_torch.cli.infer_wedetect_ref \
+        --ref_checkpoint <hf-dir> --wedetect_uni_checkpoint u.pth \
+        --image demo.jpg --query "the red box"
+
+Scoring mode of the JAX package's CLI (reference
+infer_wedetect_ref.py:13-135): WeDetect-Uni proposals, then
+RefScorer.score. --generate and --video are not ported yet; drawing
+(--visualize) is not ported yet either. As in the JAX CLI, a random
+Ref model is refused: it needs a checkpoint's config.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="WeDetect-Ref REC demo "
+                                            "(PyTorch)")
+    p.add_argument("--ref_checkpoint", default="")
+    p.add_argument("--wedetect_uni_checkpoint", default="")
+    p.add_argument("--image", default="")
+    p.add_argument("--video", default="", help="not ported yet")
+    p.add_argument("--query", default="")
+    p.add_argument("--score_thre", type=float, default=-1.0,
+                   help="<0: top-1 box; >=0: threshold")
+    p.add_argument("--num_proposals", type=int, default=100)
+    p.add_argument("--visualize", action="store_true",
+                   help="not ported yet: nothing is drawn")
+    p.add_argument("--output", default="pred_ref.png")
+    p.add_argument("--random-init", action="store_true")
+    p.add_argument("--generate", default="", help="not ported yet")
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    import numpy as np
+
+    from wedetect_tpu_torch.data.loader import load_image_rgb
+    from wedetect_tpu_torch.models.api import Detector
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+
+    if args.video or args.generate:
+        raise SystemExit("--generate / --video (generation) are not "
+                         "ported yet")
+    if not args.image:
+        raise SystemExit("supply --image")
+    if not args.query:
+        raise SystemExit("--query is required for proposal scoring")
+    img = load_image_rgb(args.image)
+
+    # stage 1: Uni proposals
+    if args.random_init or not args.wedetect_uni_checkpoint:
+        uni = Detector.from_random("uni_base", device=args.device)
+    else:
+        uni = Detector.from_torch_checkpoint(
+            args.wedetect_uni_checkpoint, "base", uni=True,
+            device=args.device)
+    props = uni([img], score_thr=0.0)[0]
+    boxes = props["bboxes"][:args.num_proposals]
+    print(f"{len(boxes)} proposals from WeDetect-Uni")
+
+    # stage 2: Ref scoring
+    if args.random_init:
+        raise SystemExit(
+            "random-init Ref requires the full Qwen3-VL config; supply "
+            "--ref_checkpoint (HF dir with config.json + weights)")
+    from wedetect_tpu_torch.cli._ref_load import load_ref
+
+    cfg, model, tok = load_ref(args.ref_checkpoint, args.device)
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                       dtype="bfloat16" if args.bf16 else "float32",
+                       device=args.device)
+    scores = scorer.score(img, boxes, [args.query])[0]
+    keep = (np.argsort(-scores)[:1] if args.score_thre < 0
+            else np.nonzero(scores > args.score_thre)[0])
+    for i in keep:
+        b = boxes[i]
+        print(f"score {scores[i]:.3f} box "
+              f"[{b[0]:.0f},{b[1]:.0f},{b[2]:.0f},{b[3]:.0f}]")
+    if args.visualize:
+        print(f"drawing is not ported yet: {args.output} not written")
+    return {"boxes": boxes[keep], "scores": scores[keep]}
+
+
+if __name__ == "__main__":
+    main()
