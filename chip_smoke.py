@@ -56,6 +56,42 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             agrees with the split one (f32 limit). ms per call, prefix
             and suffix stage ms, f32 and bf16.
 
+12. k2_bwd the grouped-KV backward kernels (K2-bwd-dq, K2-bwd-dkdv)
+            against gqa_flash_attention_bwd_plain at the training path's
+            decoder shape (1, 2048, 16, 128 | 2048, 8), square causal,
+            the last 795 keys invalid, and on the JAX test grid, f32 and
+            bf16: dq, dk, dv within a limit relative to each gradient's
+            largest entry (TRAIN_BWD_TOL); a control through the plain
+            backward with one 64-key tile dropped must miss it; the two
+            kernels run twice and agree bitwise. Times each kernel, the
+            plain backward and SDPA's backward (autograd.grad through
+            scaled_dot_product_attention minus its forward; a yardstick).
+13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
+            K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
+            segment 0, and square causal.
+14. train_parity  a miniature Ref (head_dim 128) takes one stage-3
+            ref_sft_step on the card and one on the CPU from the same
+            weights: loss, grad_norm and every gradient within 1e-5
+            (relative), the updated parameters too (TRAIN_PARAM_RULE);
+            every parameter has a gradient on the card; K2 = K2-bwd-dq =
+            K2-bwd-dkdv = layers and K3 = K3-bwd-dq = K3-bwd-dkv = depth.
+15. train_grad  one stage-3 loss and gradient at ref_2b's full width
+            (random weights) at the --grid-tokens 256 bucket (ViT and
+            decoder L = 1024), through the kernels and through the plain
+            forward and backward versions: the loss difference, the
+            relative L2 error of each parameter group's gradient and of
+            grad_norm within TRAIN_GRAD_TOL, and a control with one key
+            tile dropped in every backward call that must miss it.
+16. train   cli/train_ref.train_ref_loop, stage 3, ref_2b at full width
+            in f32 with the CLI defaults (--grid-tokens 1024: ViT
+            L = 4144 padded to 4224; --seq-buckets 1024 2048 4096: L =
+            2048; 100 proposals; lr 1e-5 cosine; ref_optimizer, vision
+            frozen): the seeded image, two seeded ground-truth boxes and
+            the Uni proposals -> soft labels -> 3 SFT steps. Finite
+            losses, the vision tower bitwise unchanged, out_proj and the
+            decoder changed, launches per step as in train_parity; ms
+            per step (steps 2-3) and peak card memory.
+
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
@@ -640,34 +676,80 @@ REF_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 REF_CONTROL_DROP = slice(64, 128)
 
 
+class PlainFn(torch.autograd.Function):
+    """A kernel's plain forward and plain backward as one autograd op:
+    fwd(q, k, v) -> (O, lse); bwd(q, k, v, O, lse, dO) -> grads."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, q, k, v):
+        o, lse = fwd(q, k, v)
+        ctx.bwd = bwd
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (None, None, *ctx.bwd(q, k, v, o, lse, do.contiguous()))
+
+
+def _dropped_valid(k, kv_valid, drop):
+    if drop is None:
+        return kv_valid
+    kv = (torch.ones(k.shape[:2], dtype=torch.int32, device=k.device)
+          if kv_valid is None else kv_valid.clone())
+    kv[:, drop] = 0
+    return kv
+
+
+def _dropped_segs(q, seg, drop):
+    if drop is None:
+        return seg
+    seg = (torch.zeros(q.shape[:2], dtype=torch.int32, device=q.device)
+           if seg is None else seg.clone())
+    seg[:, drop] = -1
+    return seg
+
+
 @contextlib.contextmanager
-def plain_attention(drop: slice | None = None):
-    """Route the attention dispatch through K2's and K3's plain versions
-    (the reference side of a comparison). With `drop`, those key
-    positions are also masked in every call: a wrong attention, the
-    control that shows a comparison can fail."""
+def plain_attention(drop: slice | None = None,
+                    bwd_drop: slice | None = None):
+    """Route the attention dispatch through K2's and K3's plain forward
+    and plain backward versions (the reference side of a comparison).
+    With `drop`, those key positions are masked in every call, forward
+    and backward; with `bwd_drop`, in every backward call only: wrong
+    attention or wrong gradients, the controls that show a comparison
+    can fail."""
     from wedetect_tpu_torch.ops import flash_attention as fa
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
-    def gqa(q, k, v, *, kv_valid=None, **kw):
-        if drop is not None:
-            kv_valid = (torch.ones(k.shape[:2], dtype=torch.int32,
-                                   device=k.device)
-                        if kv_valid is None else kv_valid.clone())
-            kv_valid[:, drop] = 0
-        return fg.gqa_flash_attention_plain(q, k, v, kv_valid=kv_valid, **kw)
+    def gqa(q, k, v, *, causal=True, kv_valid=None, sm_scale=None):
+        scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+        kv = _dropped_valid(k, kv_valid, drop)
+        kvb = _dropped_valid(k, kv, bwd_drop)
+        return PlainFn.apply(
+            lambda q, k, v: fg.gqa_flash_attention_plain(
+                q, k, v, causal=causal, kv_valid=kv, sm_scale=scale,
+                return_lse=True),
+            lambda q, k, v, o, lse, do: fg.gqa_flash_attention_bwd_plain(
+                q, k, v, kvb, o, lse, do, causal, scale), q, k, v)
 
-    def flash(q, k, v, *, q_segment_ids=None, kv_segment_ids=None, **kw):
-        if drop is not None:
-            if q_segment_ids is None:
-                q_segment_ids = torch.zeros(q.shape[:2], dtype=torch.int32,
-                                            device=q.device)
-                kv_segment_ids = q_segment_ids
-            kv_segment_ids = kv_segment_ids.clone()
-            kv_segment_ids[:, drop] = -1
-        return fa.flash_attention_plain(
-            q, k, v, q_segment_ids=q_segment_ids,
-            kv_segment_ids=kv_segment_ids, **kw)
+    def flash(q, k, v, *, q_segment_ids=None, kv_segment_ids=None,
+              causal=False, sm_scale=1.0):
+        qs = q_segment_ids
+        if (drop is not None or bwd_drop is not None) and qs is None:
+            qs = torch.zeros(q.shape[:2], dtype=torch.int32,
+                             device=q.device)
+            kv_segment_ids = qs
+        ks = _dropped_segs(q, kv_segment_ids, drop)
+        ksb = _dropped_segs(q, ks, bwd_drop)
+        return PlainFn.apply(
+            lambda q, k, v: fa.flash_attention_plain(
+                q, k, v, q_segment_ids=qs, kv_segment_ids=ks, causal=causal,
+                sm_scale=sm_scale, return_lse=True),
+            lambda q, k, v, o, lse, do: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, q_segment_ids=qs, kv_segment_ids=ksb,
+                causal=causal, sm_scale=sm_scale), q, k, v)
 
     saved = fg.gqa_flash_attention, fa.flash_attention
     fg.gqa_flash_attention, fa.flash_attention = gqa, flash
@@ -693,14 +775,29 @@ def _stage_timer(ref_api, acc):
             for n in ("prefix", "suffix")}
 
 
-def launch_counts(reset: bool = False):
-    from wedetect_tpu_torch.ops.flash_attention import flash_attention
-    from wedetect_tpu_torch.ops.flash_gqa import gqa_flash_attention
+def _flash_counters():
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
 
+    return {"k2": fg.gqa_flash_attention, "k2_bwd_dq": fg.gqa_flash_bwd_dq,
+            "k2_bwd_dkdv": fg.gqa_flash_bwd_dkdv, "k3": fa.flash_attention,
+            "k3_bwd_dq": fa.flash_attention_bwd_dq,
+            "k3_bwd_dkv": fa.flash_attention_bwd_dkv}
+
+
+def launch_counts(reset: bool = False):
+    """The launch counts of the six attention kernels (set to 0 first
+    with `reset`)."""
+    counters = _flash_counters()
     if reset:
-        gqa_flash_attention.launches = flash_attention.launches = 0
-    return {"k2": gqa_flash_attention.launches,
-            "k3": flash_attention.launches}
+        for fn in counters.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0):
+    return {"k2": k2, "k2_bwd_dq": k2_bwd, "k2_bwd_dkdv": k2_bwd, "k3": k3,
+            "k3_bwd_dq": k3_bwd, "k3_bwd_dkv": k3_bwd}
 
 
 def ref_inputs(dev):
@@ -716,15 +813,15 @@ def ref_inputs(dev):
     return image, uni([image], score_thr=0.0)[0]["bboxes"][:100]
 
 
-def phase_ref(dev, cfg=None, timing: bool = True):
+def phase_ref(dev, inputs, cfg=None, timing: bool = True):
     """ref_2b (or `cfg`) at full width, random weights, through
-    RefScorer.score on a 480x640 image."""
+    RefScorer.score on a 480x640 image (`inputs`: ref_inputs)."""
     from wedetect_tpu_torch.models import ref_api
     from wedetect_tpu_torch.models.ref import init_ref_variables
     from wedetect_tpu_torch.nn.qwen3vl import ref_2b
 
     cfg = cfg or ref_2b()
-    image, boxes = ref_inputs(dev)
+    image, boxes = inputs
     n = len(boxes)
     assert n > 0, "no proposals"
     t0 = time.perf_counter()
@@ -743,8 +840,8 @@ def phase_ref(dev, cfg=None, timing: bool = True):
         assert scores.shape == (len(REF_QUERIES), n), scores.shape
         assert np.isfinite(scores).all()
         assert ((scores > 0) & (scores < 1)).all()
-        assert counts == {"k2": 2 * cfg.text.layers,
-                          "k3": cfg.vision.depth}, counts
+        assert counts == expected_counts(k2=2 * cfg.text.layers,
+                                         k3=cfg.vision.depth), counts
         logits = scorer.logits(image, boxes, REF_QUERIES)
         with plain_attention():
             plain = scorer.logits(image, boxes, REF_QUERIES)
@@ -845,10 +942,507 @@ def phase_ref_parity(dev):
     counts = launch_counts()
     want = ref_score_step(cpu, gh, gw, *args)
     err = float((got.cpu() - want).abs().max())
-    assert counts == {"k2": 2, "k3": 2}, counts
+    assert counts == expected_counts(k2=2, k3=2), counts
     assert err < 1e-5, err
     emit({"phase": "ref_parity", "logits_max_abs_err": err,
           "launches": counts})
+
+
+# --------------------------------------------------- K2-bwd and K3-bwd
+def attn_bwd_bound(h, d, pairs, q_elems, kv_elems, rows, dtype, kind):
+    """The least time for a backward kernel: 6*H*D (dq) or 8*H*D (dk/dv)
+    FLOPs per visible (query, key) pair at the type's peak, against q,
+    k, v, dO, lse and delta read once and the gradients written once at
+    the memory rate."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    out = q_elems if kind == "dq" else 2 * kv_elems
+    nbytes = (2 * q_elems + 2 * kv_elems + out) * size + 2 * rows * 4
+    flops = (6.0 if kind == "dq" else 8.0) * h * d * pairs
+    peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / peak * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "flops": flops, "bytes": nbytes}
+
+
+# gradient error / the gradient's largest entry, kernel vs plain: f32
+# the summation order only, bf16 a bf16 ulp (2^-8) of p or ds in a few
+# terms; each limit sits between the kernels' readings and the
+# dropped-tile control's
+TRAIN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+BWD_CONTROL_DROP = slice(64, 128)
+# the training path's decoder attention (ref_2b, --seq-buckets 2048 at
+# ~1253 real tokens: the last 795 keys invalid) and its ViT attention
+# (--grid-tokens 1024: 4144 tokens padded to 4224)
+K2_TRAIN = (1, 2048, 2048, 16, 8, 128, True, ((1253, 2048),))
+K3_TRAIN = (1, 4224, 16, 64, 4144, False)
+
+
+def rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def sdpa_bwd_ms(q, k, v, mask, do, iters):
+    """SDPA's backward alone: autograd.grad through the forward, minus
+    the forward (a yardstick; the port never calls it)."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        o = sdpa_gqa(qs, ks, vs, mask)
+        torch.autograd.grad(o, (qs, ks, vs), do)
+
+    both = cuda_ms(fwd_bwd, iters=iters)
+    fwd = cuda_ms(lambda: sdpa_gqa(qs, ks, vs, mask), iters=iters)
+    return both - fwd
+
+
+def check_bwd(name, got, again, plain, control, dtype):
+    """Each gradient within TRAIN_BWD_TOL of the plain one (relative to
+    its largest entry), repeats bitwise, the control outside the limit."""
+    tol = TRAIN_BWD_TOL[dtype]
+    errs = [rel_err(g, w) for g, w in zip(got, plain)]
+    ctrl = [rel_err(c, w) for c, w in zip(control, plain)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = same and max(errs) <= tol < max(ctrl)
+    res = {"dtype": str(dtype)[6:], "rel_err": dict(zip("qkv", errs)),
+           "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                              for g, w in zip(got, plain)),
+           "control_rel_err": dict(zip("qkv", ctrl)), "tolerance": tol,
+           "deterministic": same, "match": ok}
+    if not ok:
+        emit({"phase": name, **res})
+        raise AssertionError(f"{name}: backward out of limits at {dtype}")
+    return res
+
+
+def k2_bwd_run(dev, case, dtype, seed):
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    b, s, lk, h, kvh, d, causal, holes = case
+    q, k, v, valid = k2_case(dev, *case, dtype=dtype, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    do = torch.randn((b, s, h, d), generator=g, device=dev).to(dtype)
+    scale = d ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    args = (q, k, v, valid, o, lse, do)
+    kw = dict(causal=causal, sm_scale=scale)
+    return args, kw
+
+
+def phase_k2_bwd(dev, timing: bool = True):
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    checks = []
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate([K2_TRAIN, *K2_GRID[:5]]):
+            args, kw = k2_bwd_run(dev, case, dtype, seed=i)
+            q, k, v, valid, o, lse, do = args
+            got = fg.gqa_flash_attention_bwd(*args, **kw)
+            again = fg.gqa_flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            plain = fg.gqa_flash_attention_bwd_plain(*args, kw["causal"],
+                                                     kw["sm_scale"])
+            control = fg.gqa_flash_attention_bwd_plain(
+                q, k, v, _dropped_valid(k, valid, BWD_CONTROL_DROP), o, lse,
+                do, kw["causal"], kw["sm_scale"])
+            r = check_bwd("k2_bwd", got, again, plain, control, dtype)
+            checks.append({"shape": list(case[:6]), "causal": case[6], **r})
+            worst[dtype] = max(worst.get(dtype, 0.0),
+                               max(r["rel_err"].values()))
+            if i == 0:
+                worst[(dtype, "abs")] = r["max_abs_err"]
+            del got, again, plain, control
+    res = {"checks": checks, "max_rel_err_f32": worst[torch.float32],
+           "max_rel_err_bf16": worst[torch.bfloat16],
+           "max_abs_err_f32": worst[(torch.float32, "abs")],
+           "max_abs_err_bf16": worst[(torch.bfloat16, "abs")]}
+    if timing:
+        b, s, lk, h, kvh, d, causal, holes = K2_TRAIN
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = k2_bwd_run(dev, K2_TRAIN, dtype, seed=0)
+            q, k, v, valid, o, lse, do = args
+            pairs = k2_visible_pairs(s, lk, causal, valid)
+            delta = fg.row_delta(o, do, kvh)
+            qpos = lk - s + torch.arange(s, device=dev)
+            mask = (valid.bool()[:, None, None, :]
+                    & (torch.arange(lk, device=dev)[None, :]
+                       <= qpos[:, None])[None, None])
+            plain_ms = cuda_ms(lambda: fg.gqa_flash_attention_bwd_plain(
+                *args, causal, kw["sm_scale"]), iters=2, warmup=1)
+            lib_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
+            for kind, fn in (("dq", fg.gqa_flash_bwd_dq),
+                             ("dkdv", fg.gqa_flash_bwd_dkdv)):
+                r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
+                                   b * s * h, dtype, kind)
+                r["ms"] = cuda_ms(lambda: fn(q, k, v, valid, do, lse, delta,
+                                             **kw), iters=5)
+                r["plain_ms"] = plain_ms
+                r["library_ms"] = lib_ms
+                r["visible_pairs"] = pairs
+                res[f"{kind}_{str(dtype)[6:]}"] = r
+    emit({"phase": "k2_bwd", **res})
+    return res
+
+
+def k3_bwd_run(dev, case, dtype, seed):
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    b, l, h, d, n_real, causal = case
+    q, k, v, seg = k3_case(dev, *case, dtype=dtype, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    do = torch.randn((b, l, h, d), generator=g, device=dev).to(dtype)
+    do[:, n_real:] = 0                   # the ViT drops its pad rows
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
+              sm_scale=d ** -0.5)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+def phase_k3_bwd(dev, timing: bool = True):
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    checks = []
+    worst = {}
+    cases = [K3_TRAIN, (1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200,
+                                                        False)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(cases):
+            args, kw = k3_bwd_run(dev, case, dtype, seed=i)
+            got = fa.flash_attention_bwd(*args, **kw)
+            again = fa.flash_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            plain = fa.flash_attention_bwd_plain(*args, **kw)
+            ckw = dict(kw, kv_segment_ids=_dropped_segs(
+                args[0], kw["kv_segment_ids"], BWD_CONTROL_DROP))
+            control = fa.flash_attention_bwd_plain(*args, **ckw)
+            r = check_bwd("k3_bwd", got, again, plain, control, dtype)
+            checks.append({"shape": list(case[:4]), "real": case[4],
+                           "causal": case[5], **r})
+            worst[dtype] = max(worst.get(dtype, 0.0),
+                               max(r["rel_err"].values()))
+            if i == 0:
+                worst[(dtype, "abs")] = r["max_abs_err"]
+            del got, again, plain, control
+    res = {"checks": checks, "max_rel_err_f32": worst[torch.float32],
+           "max_rel_err_bf16": worst[torch.bfloat16],
+           "max_abs_err_f32": worst[(torch.float32, "abs")],
+           "max_abs_err_bf16": worst[(torch.bfloat16, "abs")]}
+    if timing:
+        b, l, h, d, n_real, causal = K3_TRAIN
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = k3_bwd_run(dev, K3_TRAIN, dtype, seed=0)
+            q, k, v, o, lse, do = args
+            seg = kw["q_segment_ids"]
+            pairs = b * (n_real * n_real + (l - n_real) ** 2)
+            delta = fa.row_delta(o, do)
+            mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+            plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                *args, **kw), iters=2, warmup=1)
+            lib_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
+            for kind, fn in (("dq", fa.flash_attention_bwd_dq),
+                             ("dkv", fa.flash_attention_bwd_dkv)):
+                r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
+                                   b * l * h, dtype,
+                                   "dq" if kind == "dq" else "dkdv")
+                r["ms"] = cuda_ms(lambda: fn(q, k, v, do, lse, delta, **kw),
+                                  iters=5)
+                r["plain_ms"] = plain_ms
+                r["library_ms"] = lib_ms
+                r["visible_pairs"] = pairs
+                res[f"{kind}_{str(dtype)[6:]}"] = r
+    emit({"phase": "k3_bwd", **res})
+    return res
+
+
+# ----------------------------------------------------------- training
+TRAIN_LR = 1e-5
+# gradient (and grad_norm) error of the full-width stage-3 step, kernels
+# vs the plain versions: relative L2 per parameter group; between the
+# kernels' reading and the dropped-tile control's
+TRAIN_GRAD_TOL = 1e-4
+# seeded ground-truth boxes of the training sample (x0, y0, x1, y1) in
+# the 480x640 image
+TRAIN_GT = [[112.0, 96.0, 304.0, 288.0], [380.0, 150.0, 620.0, 420.0]]
+
+
+def grad_groups(name: str) -> str:
+    if name.startswith("model.visual."):
+        return "vision"
+    if name.startswith("model.language_model.embed_tokens"):
+        return "embed"
+    if name.startswith("model.language_model."):
+        return "decoder"
+    if name.startswith("out_proj"):
+        return "out_proj"
+    return "extras"
+
+
+def param_close(got, want, mult):
+    """TRAIN_PARAM_RULE: within 1e-5 relative (+1e-6) on all but 0.1% of
+    the entries, and every entry within 2 * lr * mult (Adam divides each
+    entry by its own size, so a near-zero gradient whose sign differs in
+    the last bits moves the parameter by up to lr * mult)."""
+    err = (got.float() - want.float()).abs()
+    loose = err > 1e-6 + 1e-5 * want.float().abs()
+    return (float(loose.float().mean()) <= 1e-3
+            and float(err.max()) <= 2 * TRAIN_LR * mult + 1e-6)
+
+
+def mini_ref_cfg():
+    from wedetect_tpu_torch.nn.qwen3vl import RefCfg, RefTextCfg, RefVisionCfg
+
+    return RefCfg(
+        vision=RefVisionCfg(depth=2, hidden=128, heads=2, intermediate=256,
+                            patch=4, temporal_patch=2, merge=2,
+                            out_hidden=256, num_pos_emb=64,
+                            deepstack_idx=(0, 1)),
+        text=RefTextCfg(vocab_size=256, hidden=256, layers=2, heads=4,
+                        kv_heads=2, head_dim=128, intermediate=512,
+                        rope_theta=1000.0),
+        image_token_id=120, vision_start_token_id=122, object_token_id=123)
+
+
+def phase_train_parity(dev):
+    """Stage-3 steps of a miniature Ref on the card and on the CPU: the
+    first step's loss, grad_norm, gradients and updated parameters, and
+    the second step's loss."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_single_image
+    from wedetect_tpu_torch.train.ref_sft import ref_optimizer, ref_sft_step
+    from wedetect_tpu_torch.train.train_step import TrainState
+
+    cfg = mini_ref_cfg()
+    cpu = init_ref_variables(cfg, seed=7, device="cpu")
+    card = init_ref_variables(cfg, seed=7, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    gh, gw, l = 8, 12, 128
+    rng = np.random.default_rng(8)
+    patches = rng.standard_normal((gh * gw, 96)).astype(np.float32)
+    seq = np.concatenate([[1, 2, 122], np.full(24, 120), [7, 9],
+                          np.full(3, 123), [2]])
+    ids = np.zeros((1, l), np.int32)
+    ids[0, :len(seq)] = seq
+    mask = (np.arange(l) < len(seq)).astype(np.int32)[None]
+    pos = get_rope_index_single_image(ids[0], 120, gh, gw, 2)[:, None]
+    obj = np.nonzero(seq == 123)[0][None].astype(np.int32)
+    boxes = np.array([[2, 2, 30, 20], [10, 5, 47, 31], [0, 0, 48, 32]],
+                     np.float32)
+    labels = np.array([[0.8, 0.0, 0.6]], np.float32)
+    valid = np.ones((1, 3), np.float32)
+    args = (patches, ids, mask, pos, 3, boxes,
+            np.array([48.0, 32.0], np.float32), obj, labels, valid)
+    states = [TrainState.create(m, ref_optimizer(m, base_lr=TRAIN_LR))
+              for m in (card, cpu)]
+    launch_counts(reset=True)
+    _, got = ref_sft_step(cfg, gh, gw, states[0], *args)
+    counts = launch_counts()
+    _, want = ref_sft_step(cfg, gh, gw, states[1], *args)
+    res = {"launches": counts}
+    for key in ("loss", "grad_norm"):
+        res[f"{key}_rel_err"] = abs(float(got[key]) - float(want[key])) / \
+            abs(float(want[key]))
+    missing = [n for n, p in card.named_parameters() if p.grad is None]
+    grad_err = param_bad = 0.0
+    bad = []
+    for (n, p), q, m in zip(card.named_parameters(), cpu.parameters(),
+                            states[0].tx.mults):
+        if p.grad is not None:
+            e = rel_err(p.grad.cpu(), q.grad)
+            grad_err = max(grad_err, e)
+            if e > 1e-5:
+                bad.append(n)
+        if not param_close(p.detach().cpu(), q.detach(), m):
+            param_bad += 1
+            bad.append(n)
+    res.update(grad_max_rel_err=grad_err, params_out_of_rule=param_bad,
+               params=sum(1 for _ in card.parameters()),
+               without_grad=missing)
+    # a second step from the updated parameters: its loss too
+    losses = [float(ref_sft_step(cfg, gh, gw, st, *args)[1]["loss"])
+              for st in states]
+    res["step2_loss_rel_err"] = abs(losses[0] - losses[1]) / abs(losses[1])
+    ok = (not missing and not bad and res["loss_rel_err"] <= 1e-5
+          and res["grad_norm_rel_err"] <= 1e-5
+          and res["step2_loss_rel_err"] <= 1e-5
+          and counts == expected_counts(k2=cfg.text.layers,
+                                        k3=cfg.vision.depth,
+                                        k2_bwd=cfg.text.layers,
+                                        k3_bwd=cfg.vision.depth))
+    emit({"phase": "train_parity", **res, "out_of_limits": bad})
+    if not ok:
+        raise AssertionError("train_parity: card step != CPU step")
+
+
+def ref_sft_dataset(cfg, image, proposals, grid_tokens: int):
+    """The stage-3 dataset of the training phases: one seeded image (read
+    from memory), two seeded ground-truth boxes, the Uni proposals."""
+    from wedetect_tpu_torch.data.sft_chat import ReferringSftDataset
+    from wedetect_tpu_torch.data.vision_process import make_grid_buckets
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    data, props = os.path.join(root, "stage3.json"), \
+        os.path.join(root, "proposals.json")
+    with open(data, "w") as f:
+        json.dump([{"image": "image0", "class_name": REF_QUERIES[0],
+                    "bounding_boxes": TRAIN_GT}], f)
+    with open(props, "w") as f:
+        json.dump({"image0": np.asarray(proposals).tolist()}, f)
+    return ReferringSftDataset(
+        data, props, CharTok(), image_token_id=cfg.image_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        object_token_id=cfg.object_token_id, max_proposals=100,
+        grid_buckets=make_grid_buckets(total_tokens=grid_tokens),
+        patch=cfg.vision.patch, merge=cfg.vision.merge, seed=0,
+        image_reader={"image0": image}.__getitem__)
+
+
+def stage3_loss_grads(model, b):
+    """ref_sft_step's loss and gradients, without the update."""
+    from wedetect_tpu_torch.models.ref import sigmoid_focal_loss
+
+    dev = model.device
+    gh, gw = b["grid"]
+    model.zero_grad(set_to_none=True)
+    logits = model(b["patches"], b["input_ids"], b["attn_mask"],
+                   b["position_ids"], b["boxes"], b["ori_wh"],
+                   b["visual_start"], b["object_positions"], grid_h=gh,
+                   grid_w=gw)
+    loss = sigmoid_focal_loss(
+        logits.reshape(-1),
+        torch.as_tensor(b["soft_labels"], device=dev).reshape(-1),
+        valid=torch.as_tensor(b["valid"], device=dev).reshape(-1))
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def group_errors(got, want):
+    """Relative L2 error of each parameter group's gradient and of the
+    global norm."""
+    num, den = {}, {}
+    for n, w in want.items():
+        grp = grad_groups(n)
+        num[grp] = num.get(grp, 0.0) + float((got[n] - w).double().square()
+                                             .sum())
+        den[grp] = den.get(grp, 0.0) + float(w.double().square().sum())
+    errs = {grp: math.sqrt(num[grp] / max(den[grp], 1e-300)) for grp in num}
+    gn_got = math.sqrt(sum(float(g.double().square().sum())
+                           for g in got.values()))
+    gn_want = math.sqrt(sum(den.values()))
+    errs["grad_norm"] = abs(gn_got - gn_want) / gn_want
+    return errs
+
+
+def phase_train_grad(dev, image, proposals, cfg=None,
+                     grid_tokens: int = 256):
+    from wedetect_tpu_torch.cli.train_ref import build_step_inputs
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = cfg or ref_2b()
+    ds = ref_sft_dataset(cfg, image, proposals, grid_tokens=grid_tokens)
+    b = build_step_inputs(cfg, ds.sample(0), 3, (1024, 2048, 4096), 100,
+                          151643)
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    launch_counts(reset=True)
+    loss_k, gk = stage3_loss_grads(model, b)
+    counts = launch_counts()
+    with plain_attention():
+        loss_p, gp = stage3_loss_grads(model, b)
+    errs = group_errors(gk, gp)
+    del gk
+    with plain_attention(bwd_drop=BWD_CONTROL_DROP):
+        loss_c, gc = stage3_loss_grads(model, b)
+    ctrl = group_errors(gc, gp)
+    del gc, gp, model
+    torch.cuda.empty_cache()
+    gh, gw = b["grid"]
+    res = {"grid": [gh, gw], "vit_tokens": gh * gw,
+           "seq_len": int(b["input_ids"].shape[1]),
+           "real_tokens": int(b["attn_mask"].sum()), "launches": counts,
+           "loss": loss_k, "loss_abs_diff": abs(loss_k - loss_p),
+           "control_loss_abs_diff": abs(loss_c - loss_p),
+           "rel_l2_err": errs, "control_rel_l2_err": ctrl,
+           "tolerance": TRAIN_GRAD_TOL}
+    ok = (max(errs.values()) <= TRAIN_GRAD_TOL < max(ctrl.values())
+          and counts == expected_counts(k2=cfg.text.layers,
+                                        k3=cfg.vision.depth,
+                                        k2_bwd=cfg.text.layers,
+                                        k3_bwd=cfg.vision.depth))
+    emit({"phase": "train_grad", **res})
+    if not ok:
+        raise AssertionError("train_grad: kernel gradients out of limits")
+    return res
+
+
+def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
+                steps: int = 3):
+    """train_ref_loop, stage 3, at ref_2b's full width with the CLI
+    defaults."""
+    from wedetect_tpu_torch.cli.train_ref import train_ref_loop
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+    from wedetect_tpu_torch.train.optimizer import make_lr_schedule
+    from wedetect_tpu_torch.train.ref_sft import ref_optimizer
+    from wedetect_tpu_torch.train.train_step import TrainState
+
+    cfg = cfg or ref_2b()
+    ds = ref_sft_dataset(cfg, image, proposals, grid_tokens=grid_tokens)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    tx = ref_optimizer(model, base_lr=TRAIN_LR,
+                       lr_schedule=make_lr_schedule(TRAIN_LR, steps))
+    state = TrainState.create(model, tx)
+    watch = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n.startswith("model.visual.") or n in (
+                 "out_proj.weight",
+                 "model.language_model.layers.0.mlp.down_proj.weight")}
+    logs = []
+    launch_counts(reset=True)
+    state = train_ref_loop(cfg, state, ds, 3, steps,
+                           seq_buckets=(1024, 2048, 4096),
+                           max_proposals=100, pad_token_id=151643,
+                           log_every=1, seed=0,
+                           log_fn=lambda s, m: logs.append(m))
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    params = dict(model.named_parameters())
+    vision_same = all(torch.equal(params[n].detach(), w)
+                      for n, w in watch.items()
+                      if n.startswith("model.visual."))
+    changed = {n: not torch.equal(params[n].detach(), watch[n])
+               for n in ("out_proj.weight",
+                         "model.language_model.layers.0.mlp.down_proj.weight")}
+    losses = [m["loss"] for m in logs]
+    step_ms = [1e3 / m["steps_per_s"] for m in logs]
+    res = {"grid_tokens": grid_tokens, "steps": steps, "losses": losses,
+           "step_ms": step_ms, "ms_per_step": float(np.mean(step_ms[1:])),
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "vision_unchanged": vision_same, "changed": changed,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "optimizer_count": state.tx.count}
+    per_step = expected_counts(k2=cfg.text.layers, k3=cfg.vision.depth,
+                               k2_bwd=cfg.text.layers,
+                               k3_bwd=cfg.vision.depth)
+    ok = (len(losses) == steps and all(np.isfinite(losses)) and vision_same
+          and all(changed.values())
+          and counts == {k: v * steps for k, v in per_step.items()})
+    emit({"phase": "train", **res})
+    if not ok:
+        raise AssertionError("train: the SFT loop broke its checks")
+    del state, model, tx, watch, params
+    torch.cuda.empty_cache()
+    return res, counts
 
 
 def kernel_entry(name, source, replaces, launches, k, timing):
@@ -862,6 +1456,25 @@ def kernel_entry(name, source, replaces, launches, k, timing):
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"],
             "library_ms": timing["library_ms"]}
+
+
+def bwd_kernel_entry(name, replaces, launches, k, timing):
+    return {"name": name, "route": "cuda",
+            "source": "wedetect_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": k["max_abs_err_f32"],
+            "max_abs_err_bf16": k["max_abs_err_bf16"],
+            "max_rel_err": k["max_rel_err_f32"],
+            "max_rel_err_bf16": k["max_rel_err_bf16"],
+            "tolerance": {str(t)[6:]: {"rel_to_max": v}
+                          for t, v in TRAIN_BWD_TOL.items()},
+            "match": True, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
+STOCK_FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 
 
 def main() -> int:
@@ -884,8 +1497,14 @@ def main() -> int:
     phase_parity(dev)
     phase_uni(dev)
     phase_ref_parity(dev)
-    ref = phase_ref(dev)
+    image, proposals = ref_inputs(dev)
+    ref = phase_ref(dev, (image, proposals))
     launches = ref["float32"]["launches"]
+    k2_bwd = phase_k2_bwd(dev)
+    k3_bwd = phase_k3_bwd(dev)
+    phase_train_parity(dev)
+    phase_train_grad(dev, image, proposals)
+    _, train_counts = phase_train(dev, image, proposals)
     emit({"kernels": [
         {"name": "row_topk", "route": "cuda",
          "source": "wedetect_tpu_torch/csrc/row_topk.cu",
@@ -903,7 +1522,23 @@ def main() -> int:
         kernel_entry("flash_attention_fwd",
                      "wedetect_tpu_torch/csrc/flash_attn.cu",
                      "wedetect_tpu/ops/attention.py:126", launches["k3"],
-                     k3, k3["vit_float32"])]})
+                     k3, k3["vit_float32"]),
+        # the backward kernels' launches from the train phase, their
+        # times at its shapes (decoder and ViT), f32
+        bwd_kernel_entry("gqa_flash_bwd_dq",
+                         "wedetect_tpu/ops/flash_gqa.py:169",
+                         train_counts["k2_bwd_dq"], k2_bwd,
+                         k2_bwd["dq_float32"]),
+        bwd_kernel_entry("gqa_flash_bwd_dkdv",
+                         "wedetect_tpu/ops/flash_gqa.py:212",
+                         train_counts["k2_bwd_dkdv"], k2_bwd,
+                         k2_bwd["dkdv_float32"]),
+        bwd_kernel_entry("flash_attention_bwd_dq", f"{STOCK_FA}:1146",
+                         train_counts["k3_bwd_dq"], k3_bwd,
+                         k3_bwd["dq_float32"]),
+        bwd_kernel_entry("flash_attention_bwd_dkv", f"{STOCK_FA}:796",
+                         train_counts["k3_bwd_dkv"], k3_bwd,
+                         k3_bwd["dkv_float32"])]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -270,3 +270,143 @@ def test_ref_scorer_oversize_suffix_on_the_card(cuda, monkeypatch):
     scores = scorer.score(image, boxes, ["a dog"], pad_token_id=0)
     assert scores.shape == (1, 2) and np.isfinite(scores).all()
     assert gqa_flash_attention.launches == 2 * cfg.text.layers
+
+
+# ------------------------------------------------------------- backward
+# (atol, rtol) of the backward kernels against the plain backward, on
+# gradients scaled to unit magnitude (error / max |plain|). f32: the
+# summation order only; bf16: both round ds and p to bf16 before their
+# products, so a value may land one bf16 ulp apart (2^-8 relative)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,lk,h,kvh,d,causal,masked", K2_CASES[:5] + [
+    (1, 512, 512, 16, 8, 128, True, True)])
+def test_gqa_flash_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b, s,
+                                           lk, h, kvh, d, causal, masked):
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    monkeypatch.setattr(fg.gqa_flash_bwd_dq, "launches", 0)
+    monkeypatch.setattr(fg.gqa_flash_bwd_dkdv, "launches", 0)
+    q, k, v = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, cuda,
+                           seed=s + lk + 1)
+    do = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, cuda,
+                      seed=s + lk + 2)[0]
+    valid = None
+    if masked:
+        m = torch.ones((b, lk), dtype=torch.int32)
+        m[:, lk // 2 - 8:lk // 2] = 0
+        m[:, -5:] = 0
+        valid = m.to(cuda)
+    scale = d ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    got = [fg.gqa_flash_attention_bwd(q, k, v, valid, o, lse, do,
+                                      causal=causal, sm_scale=scale)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, o, lse, do,
+                                            causal, scale)
+    assert fg.gqa_flash_bwd_dq.launches == 2
+    assert fg.gqa_flash_bwd_dkdv.launches == 2
+    for a, a2, w in zip(got[0], got[1], want):
+        assert a.dtype == dtype
+        assert torch.equal(a, a2)                          # deterministic
+        assert _rel_err(a, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,d,n_real,causal", [
+    (1, 1280, 16, 64, 1200, False),
+    (1, 256, 4, 64, 256, True),
+    (2, 384, 4, 128, 300, False)])
+def test_flash_attention_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b,
+                                                 l, h, d, n_real, causal):
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa.flash_attention_bwd_dq, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_bwd_dkv, "launches", 0)
+    q, k, v = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda,
+                           seed=l + 1)
+    do = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda, seed=l + 2)[0]
+    do[:, n_real:] = 0                   # the ViT drops its pad rows
+    seg = (torch.arange(l, device=cuda) < n_real).to(torch.int32)
+    seg = seg[None].expand(b, l).contiguous()
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
+              sm_scale=d ** -0.5)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd_dq.launches == 2
+    assert fa.flash_attention_bwd_dkv.launches == 2
+    for a, a2, w in zip(got[0], got[1], want):
+        assert torch.equal(a, a2)                          # deterministic
+        assert _rel_err(a, w) <= BWD_TOL[dtype]
+
+
+def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
+    """loss.backward() through a miniature RefModules on the card reaches
+    every parameter (K2 and K3 carry gradients), equal to the CPU's."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import (RefCfg, RefTextCfg,
+                                               RefVisionCfg,
+                                               get_rope_index_single_image)
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        monkeypatch.setattr(fn, "launches", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = RefCfg(
+        vision=RefVisionCfg(depth=2, hidden=128, heads=2, intermediate=256,
+                            patch=4, temporal_patch=2, merge=2,
+                            out_hidden=256, num_pos_emb=64,
+                            deepstack_idx=(0, 1)),
+        text=RefTextCfg(vocab_size=256, hidden=256, layers=2, heads=4,
+                        kv_heads=2, head_dim=128, intermediate=512,
+                        rope_theta=1000.0),
+        image_token_id=120, vision_start_token_id=122, object_token_id=123)
+    cpu = init_ref_variables(cfg, seed=5, device="cpu")
+    card = init_ref_variables(cfg, seed=5, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    gh, gw, l = 8, 12, 128
+    rng = np.random.default_rng(6)
+    patches = rng.standard_normal((gh * gw, 96)).astype(np.float32)
+    seq = np.concatenate([[1, 2, 122], np.full(24, 120), [7, 9],
+                          np.full(3, 123), [2]])
+    ids = np.zeros((1, l), np.int32)
+    ids[0, :len(seq)] = seq
+    mask = (np.arange(l) < len(seq)).astype(np.int32)[None]
+    pos = get_rope_index_single_image(ids[0], 120, gh, gw, 2)[:, None]
+    obj = np.nonzero(seq == 123)[0][None].astype(np.int32)
+    boxes = np.array([[2, 2, 30, 20], [10, 5, 47, 31], [0, 0, 48, 32]],
+                     np.float32)
+    grads = []
+    for m in (card, cpu):
+        m.zero_grad()
+        out = m(patches, ids, mask, pos, boxes,
+                np.array([48.0, 32.0], np.float32), 3, obj, grid_h=gh,
+                grid_w=gw)
+        out.sum().backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    assert fg.gqa_flash_bwd_dq.launches == cfg.text.layers
+    assert fg.gqa_flash_bwd_dkdv.launches == cfg.text.layers
+    assert fa.flash_attention_bwd_dq.launches == cfg.vision.depth
+    assert fa.flash_attention_bwd_dkv.launches == cfg.vision.depth
+    missing = [n for n, g in grads[0].items() if g is None]
+    assert not missing, missing
+    for n, g in grads[0].items():
+        want = grads[1][n]
+        err = float((g.cpu() - want).abs().max())
+        assert err <= 1e-5 * max(float(want.abs().max()), 1e-3), (n, err)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the port's detect step, or its Ref scoring, spends its time on
-the card.
+"""Where the port's detect step, its Ref scoring, or its Ref SFT step
+spends its time on the card.
 
-    python3 tools/profile_detect_torch.py [--ref] [--batch 8] [--bf16]
-                                          [--iters 3] [--table F]
+    python3 tools/profile_detect_torch.py [--ref | --train] [--batch 8]
+                                          [--bf16] [--iters 3] [--table F]
 
 Detect (the default): full-width WeDetect-Base (640x640, K = 1203,
 random weights and random class embeddings, the head calibrated to a
@@ -12,7 +12,11 @@ Detector.__call__ on --batch images. --ref: WeDetect-Ref at ref_2b's
 full width (random weights, seed 0), then RefScorer.score (prefix
 sharing) on chip_smoke.py's Ref inputs: its seeded 480x640 image, the
 top 100 proposals of a random Uni-Base, its 8 queries and stub
-tokenizer. Either call runs under torch.profiler; the script prints one
+tokenizer. --train: one stage-3 SFT step (train/ref_sft.ref_sft_step,
+f32, ref_optimizer) at ref_2b's full width on chip_smoke.py's training
+sample with the train_ref CLI defaults (--grid-tokens 1024: ViT
+L = 4224; decoder L = 2048; 100 proposals); --bf16 does not apply.
+The call runs under torch.profiler; the script prints one
 JSON line: wall time per call, device busy time per call (the union of
 kernel intervals on the card) and so the device's idle share, and the
 ops with the most device time. --table writes the full profiler table
@@ -86,10 +90,35 @@ def ref_call(args, C, dev):
             {"proposals": len(boxes), "queries": len(C.REF_QUERIES)})
 
 
+def train_call(args, C, dev):
+    from wedetect_tpu_torch.cli.train_ref import build_step_inputs
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+    from wedetect_tpu_torch.train.ref_sft import ref_optimizer, ref_sft_step
+    from wedetect_tpu_torch.train.train_step import TrainState
+
+    image, boxes = C.ref_inputs(dev)
+    cfg = ref_2b()
+    b = build_step_inputs(cfg, C.ref_sft_dataset(cfg, image, boxes,
+                                                 1024).sample(0),
+                          3, (1024, 2048, 4096), 100, 151643)
+    model = init_ref_variables(cfg, 0, dev)
+    state = TrainState.create(model, ref_optimizer(model,
+                                                   base_lr=C.TRAIN_LR))
+    gh, gw = b["grid"]
+    args_ = (b["patches"], b["input_ids"], b["attn_mask"],
+             b["position_ids"], b["visual_start"], b["boxes"], b["ori_wh"],
+             b["object_positions"], b["soft_labels"], b["valid"])
+    return (lambda: ref_sft_step(cfg, gh, gw, state, *args_),
+            {"vit_tokens": gh * gw, "seq_len": int(b["input_ids"].shape[1])})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref", action="store_true",
                    help="profile RefScorer.score instead of the detector")
+    p.add_argument("--train", action="store_true",
+                   help="profile one Ref stage-3 SFT step")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--bf16", action="store_true")
@@ -105,7 +134,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    call, info = (ref_call if args.ref else detect_call)(args, C, dev)
+    make = train_call if args.train else ref_call if args.ref \
+        else detect_call
+    call, info = make(args, C, dev)
     call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -120,11 +151,12 @@ def main(argv=None) -> int:
         with open(args.table, "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=50))
+    dtype = "bf16" if args.bf16 and not args.train else "f32"
+    name = ("train_" if args.train else "ref_" if args.ref else "") + dtype
     top = sorted(prof.key_averages(),
                  key=lambda e: e.self_device_time_total, reverse=True)[:14]
     print(json.dumps({
-        "profile": ("ref_" if args.ref else "") + (
-            "bf16" if args.bf16 else "f32"),
+        "profile": name,
         **info, "wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1 - busy / wall) if wall else None,
         "top": [{"op": e.key[:70], "device_ms":

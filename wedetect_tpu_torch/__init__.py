@@ -3,11 +3,11 @@
 A port of the JAX package `wedetect_tpu`, module for module: the same
 configs, the same detect graph and the same fixed-slot outputs, as NCHW
 `nn.Module`s under the reference checkpoint's torch key names, and the
-WeDetect-Ref proposal scorer (Qwen3-VL) under the HF key names. The TPU
-kernels on these paths are CUDA C++ kernels under `csrc/`, built with
-nvcc at first use: the per-anchor row top-k (detection) and the two
-flash attention forwards (the Qwen3-VL decoder's grouped-KV one and the
-ViT's).
+WeDetect-Ref proposal scorer (Qwen3-VL) under the HF key names, and
+its SFT training (`train/`). The TPU kernels on these paths are CUDA
+C++ kernels under `csrc/`, built with nvcc at first use: the per-anchor
+row top-k (detection), the two flash attention forwards (the Qwen3-VL
+decoder's grouped-KV one and the ViT's) and their backward kernels.
 
 Entry points default to `device="cuda"` and raise when no card is
 present; pass `device="cpu"` to run the plain PyTorch versions.

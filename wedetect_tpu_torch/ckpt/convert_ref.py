@@ -11,14 +11,15 @@ that `wedetect_tpu/ckpt/convert_ref.py` reads (`model.visual.*`,
 `convert_ref_model`. Layouts: Dense (in, out) -> Linear (out, in); the
 patch-embed Dense (C*T*P*P, hidden) -> the checkpoint's Conv3d weight
 (hidden, C, T, P, P); ConvT2x (in, out, 2, 2) unchanged; norm scales ->
-`weight`.
+`weight`. `jax_param_paths` gives the same map as port key -> JAX path,
+which the optimizer's per-path rules read (`train/optimizer.py`).
 """
 
 from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -28,77 +29,98 @@ from wedetect_tpu_torch.nn.qwen3vl import RefCfg
 StateDict = Dict[str, torch.Tensor]
 
 
-def _lin(out: StateDict, key: str, p: Mapping, bias: bool = True):
-    out[key + ".weight"] = np.asarray(p["kernel"]).T
-    if bias:
-        out[key + ".bias"] = np.asarray(p["bias"])
+def _entries(cfg: RefCfg) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(port key, JAX param path, layout) of every tensor. Layout "T":
+    Dense kernel (in, out) -> Linear weight (out, in); "patch": the
+    patch-embed Dense -> the Conv3d weight; "": as is."""
+    v, t = cfg.vision, cfg.text
+    out: List[Tuple[str, Tuple[str, ...], str]] = []
+
+    def lin(key, path, bias=True):
+        out.append((key + ".weight", path + ("kernel",), "T"))
+        if bias:
+            out.append((key + ".bias", path + ("bias",), ""))
+
+    def norm(key, path, bias=True):
+        out.append((key + ".weight", path + ("scale",), ""))
+        if bias:
+            out.append((key + ".bias", path + ("bias",), ""))
+
+    def merger(key, path):
+        norm(key + "norm", path + ("norm",))
+        lin(key + "linear_fc1", path + ("fc1",))
+        lin(key + "linear_fc2", path + ("fc2",))
+
+    vp = "model.visual."
+    out.append((vp + "patch_embed.proj.weight",
+                ("vision", "patch_embed", "kernel"), "patch"))
+    out.append((vp + "patch_embed.proj.bias",
+                ("vision", "patch_embed", "bias"), ""))
+    out.append((vp + "pos_embed.weight", ("vision", "pos_embed"), ""))
+    for i in range(v.depth):
+        b, pb = f"{vp}blocks.{i}.", ("vision", f"block{i}")
+        norm(b + "norm1", pb + ("norm1",))
+        norm(b + "norm2", pb + ("norm2",))
+        lin(b + "attn.qkv", pb + ("qkv",))
+        lin(b + "attn.proj", pb + ("proj",))
+        lin(b + "mlp.linear_fc1", pb + ("fc1",))
+        lin(b + "mlp.linear_fc2", pb + ("fc2",))
+    merger(vp + "merger.", ("vision", "merger"))
+    for j in range(len(v.deepstack_idx)):
+        merger(f"{vp}deepstack_merger_list.{j}.", ("vision", f"deepstack{j}"))
+
+    tp = "model.language_model."
+    for i in range(t.layers):
+        b, pl = f"{tp}layers.{i}.", ("text", f"layer{i}")
+        norm(b + "input_layernorm", pl + ("input_ln",), bias=False)
+        norm(b + "post_attention_layernorm", pl + ("post_ln",), bias=False)
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            lin(b + "self_attn." + name, pl + (name,), bias=False)
+        norm(b + "self_attn.q_norm", pl + ("q_norm",), bias=False)
+        norm(b + "self_attn.k_norm", pl + ("k_norm",), bias=False)
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            lin(b + "mlp." + name, pl + (name,), bias=False)
+    norm(tp + "norm", ("text", "norm"), bias=False)
+    out.append((tp + "embed_tokens.weight",
+                ("embed", "embed_tokens", "embedding"), ""))
+
+    pe = ("extras",)
+    for name in ("image_pos_projector", "object_vision_projector",
+                 "object_pos_projector"):
+        lin(f"model.{name}.0", pe + (name, "fc0"))
+        lin(f"model.{name}.2", pe + (name, "fc1"))
+    for name in ("first_scale_conv1", "first_scale_conv2",
+                 "second_scale_conv"):
+        out.append((f"model.{name}.weight", pe + (name, "kernel"), ""))
+        out.append((f"model.{name}.bias", pe + (name, "bias"), ""))
+    norm("model.first_scale_norm", pe + ("first_scale_norm",))
+    lin("model.merge", pe + ("merge",))
+    lin("out_proj", pe + ("out_proj",))
+    return out
 
 
-def _norm(out: StateDict, key: str, p: Mapping, bias: bool = True):
-    out[key + ".weight"] = np.asarray(p["scale"])
-    if bias:
-        out[key + ".bias"] = np.asarray(p["bias"])
+def jax_param_paths(cfg: RefCfg) -> Dict[str, str]:
+    """Port key -> the JAX param path of the same tensor, "/"-joined as
+    the JAX optimizer's masks read it ("vision/block0/qkv/kernel")."""
+    return {key: "/".join(path) for key, path, _ in _entries(cfg)}
 
 
 def from_jax_ref_params(params: Mapping, cfg: RefCfg) -> StateDict:
     """JAX Ref params (numpy leaves) -> port state dict (f32 tensors)."""
-    v, t = cfg.vision, cfg.text
-    out: Dict[str, np.ndarray] = {}
-    pv, pt = params["vision"], params["text"]
-    vp = "model.visual."
-    k = np.asarray(pv["patch_embed"]["kernel"]).T
-    out[vp + "patch_embed.proj.weight"] = k.reshape(
-        v.hidden, v.in_ch, v.temporal_patch, v.patch, v.patch)
-    out[vp + "patch_embed.proj.bias"] = np.asarray(pv["patch_embed"]["bias"])
-    out[vp + "pos_embed.weight"] = np.asarray(pv["pos_embed"])
-    for i in range(v.depth):
-        b, pb = f"{vp}blocks.{i}.", pv[f"block{i}"]
-        _norm(out, b + "norm1", pb["norm1"])
-        _norm(out, b + "norm2", pb["norm2"])
-        _lin(out, b + "attn.qkv", pb["qkv"])
-        _lin(out, b + "attn.proj", pb["proj"])
-        _lin(out, b + "mlp.linear_fc1", pb["fc1"])
-        _lin(out, b + "mlp.linear_fc2", pb["fc2"])
-
-    def merger(key, p):
-        _norm(out, key + "norm", p["norm"])
-        _lin(out, key + "linear_fc1", p["fc1"])
-        _lin(out, key + "linear_fc2", p["fc2"])
-
-    merger(vp + "merger.", pv["merger"])
-    for j in range(len(v.deepstack_idx)):
-        merger(f"{vp}deepstack_merger_list.{j}.", pv[f"deepstack{j}"])
-
-    tp = "model.language_model."
-    for i in range(t.layers):
-        b, pl = f"{tp}layers.{i}.", pt[f"layer{i}"]
-        _norm(out, b + "input_layernorm", pl["input_ln"], bias=False)
-        _norm(out, b + "post_attention_layernorm", pl["post_ln"],
-              bias=False)
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            _lin(out, b + "self_attn." + name, pl[name], bias=False)
-        _norm(out, b + "self_attn.q_norm", pl["q_norm"], bias=False)
-        _norm(out, b + "self_attn.k_norm", pl["k_norm"], bias=False)
-        for name in ("gate_proj", "up_proj", "down_proj"):
-            _lin(out, b + "mlp." + name, pl[name], bias=False)
-    _norm(out, tp + "norm", pt["norm"], bias=False)
-    out[tp + "embed_tokens.weight"] = np.asarray(
-        params["embed"]["embed_tokens"]["embedding"])
-
-    pe = params["extras"]
-    for name in ("image_pos_projector", "object_vision_projector",
-                 "object_pos_projector"):
-        _lin(out, f"model.{name}.0", pe[name]["fc0"])
-        _lin(out, f"model.{name}.2", pe[name]["fc1"])
-    for name in ("first_scale_conv1", "first_scale_conv2",
-                 "second_scale_conv"):
-        out[f"model.{name}.weight"] = np.asarray(pe[name]["kernel"])
-        out[f"model.{name}.bias"] = np.asarray(pe[name]["bias"])
-    _norm(out, "model.first_scale_norm", pe["first_scale_norm"])
-    _lin(out, "model.merge", pe["merge"])
-    _lin(out, "out_proj", pe["out_proj"])
-    return {k: torch.tensor(np.asarray(a, np.float32))
-            for k, a in out.items()}
+    v = cfg.vision
+    out: StateDict = {}
+    for key, path, layout in _entries(cfg):
+        x = params
+        for name in path:
+            x = x[name]
+        x = np.asarray(x)
+        if layout == "T":
+            x = x.T
+        elif layout == "patch":
+            x = x.T.reshape(v.hidden, v.in_ch, v.temporal_patch, v.patch,
+                            v.patch)
+        out[key] = torch.tensor(np.asarray(x, np.float32))
+    return out
 
 
 def load_hf_state_dict(checkpoint_dir: str) -> StateDict:

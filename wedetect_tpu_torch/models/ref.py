@@ -15,14 +15,16 @@ batch as (B, L) rows sharing the image.
 `out_proj.*`. Its methods take the image grid per call (the JAX package
 fixes it per module instance). `cast_ref_model` casts the matmul weights
 to the compute dtype once; norms, the pos-embed table and `out_proj`
-stay f32, as in the JAX package. Not ported yet: the multi-image and
+stay f32, as in the JAX package. `sigmoid_focal_loss` is the stage-3
+training loss (`train/ref_sft.py`). Not ported yet: the multi-image and
 cross-image entry points (`score_multi`, `prefix_stage_multi`,
-`ref_rec_batch_step`) and `sigmoid_focal_loss` (training).
+`ref_rec_batch_step`).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -245,17 +247,27 @@ class RefModules(nn.Module):
         position_ids (3, B, L); boxes_xyxy (N, 4) in original image
         coords; ori_wh (2,) (width, height); object_positions (B, N)
         indices of the <object> slots. Returns (B, N) logits."""
+        hidden = self.hidden_states(
+            patches, input_ids, attn_mask, position_ids, boxes_xyxy, ori_wh,
+            visual_start, object_positions, grid_h=grid_h, grid_w=grid_w)
+        return self._pick(hidden, _t(object_positions, self.device))
+
+    def hidden_states(self, patches, input_ids, attn_mask, position_ids,
+                      boxes_xyxy, ori_wh, visual_start: int,
+                      object_positions, *, grid_h: int, grid_w: int):
+        """forward's final normed hidden states (B, L, D), before
+        out_proj (the LM-loss stages read them: train/ref_lm.py).
+        object_positions may hold -1 (a caption-only sample's or a padded
+        slot): that token keeps its own embedding."""
         dev = self.device
         img_tokens, obj, taps = self._vision_and_objects(
             patches, boxes_xyxy, ori_wh, grid_h, grid_w)
         x = self._put_span(self._embed(input_ids), img_tokens, visual_start)
-        objp = _t(object_positions, dev)
-        x = self._scatter_objects(x, obj, objp)
-        hidden = self.model.language_model(
+        x = self._scatter_objects(x, obj, _t(object_positions, dev))
+        return self.model.language_model(
             x, _t(position_ids, dev), _t(attn_mask, dev),
             deepstack_embeds=list(taps), visual_start=visual_start,
             attn_impl=self.attn_impl)
-        return self._pick(hidden, objp)
 
     def prefill_split(self, patches, prefix_ids, suffix_ids, prefix_mask,
                       suffix_mask, prefix_position_ids, suffix_position_ids,
@@ -415,3 +427,23 @@ def ref_suffix_step(model: RefModules, obj, kvs, suffix_ids, suffix_mask,
     return model.suffix_stage(obj, kvs, suffix_ids, suffix_mask,
                               suffix_position_ids, prefix_mask,
                               object_positions)
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       alpha: float = 0.25, gamma: float = 2.0,
+                       valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Reference qwen3vl_referring.py:69-91: alpha-weighted focal terms,
+    mean-reduced (the reference ignores the positive count it computes at
+    the call site). `valid` masks static-shape padding: the mean runs
+    over valid elements only."""
+    p = torch.sigmoid(logits)
+    ce = (torch.clamp(logits, min=0) - logits * targets
+          + torch.log1p(torch.exp(-torch.abs(logits))))
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * ((1 - p_t) ** gamma)
+    alpha_t = alpha * targets + (1 - alpha) * (1 - targets)
+    loss = alpha_t * loss
+    if valid is None:
+        return loss.mean()
+    v = valid.to(loss.dtype)
+    return (loss * v).sum() / torch.clamp(v.sum(), min=1.0)
