@@ -8,21 +8,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 1. device   card name and power limit (nvidia-smi), TF32 flags (both
             set off: the f32 runs are true f32).
 2. build    nvcc builds every kernel of the port (csrc/*.cu), all
-            sources at once, into build/kernels/; ptxas's report.
+            sources at once, into build/kernels/; ptxas's report. The
+            bf16 K2 library must show HGMMA (wgmma) and UTMALDG (TMA
+            load) instructions in `cuobjdump -sass` and spill nothing.
 3. k1       the row top-k kernel against its plain PyTorch version at
             the detect path's shape (B*8400, 1203), t = 64, on rows
             with -inf masks, ties and full masks, plus edge shapes
             (both kernel paths, K not a multiple of 32); vals and cls
             must agree bitwise. Times the kernel, the plain version
             and torch.topk (a yardstick only).
-4. k2       the grouped-KV flash kernel against gqa_flash_attention_plain
+4. k2       the grouped-KV flash kernels against gqa_flash_attention_plain
             at the Ref path's prefix (1, 384, 16, 128 | 384, 8) and
             suffix (8, 256, 16, 128 | 640, 8) shapes with kv_valid
-            holes, on the JAX test grid and on fully masked rows, f32
-            (atol 1e-4) and bf16 (atol 2e-3 + rtol 1e-2: one bf16 ulp
-            of |O| at every magnitude), O and lse; times the
-            kernel, the plain version and SDPA with enable_gqa and a
-            boolean mask (a yardstick only).
+            holes, on the JAX test grid, a partial last block and fully
+            masked rows, f32 through the SIMT kernel (atol 1e-4) and
+            bf16 through the wgmma + TMA kernel, its launches counted
+            (atol 2e-3 + rtol 1e-2: one bf16 ulp of |O| at every
+            magnitude), O and lse; times the kernels, the plain version
+            and SDPA with enable_gqa and a boolean mask (a yardstick
+            only). K2's and SDPA's times are device times: 20 calls
+            captured in a CUDA graph, replays timed (graph_ms); the
+            eager calls' times, host included, beside them.
 5. k3       the same for the ViT's flash kernel at (1, 1280, 16, 64)
             with 80 pad tokens in segment 0, and square causal.
 6. text     the full XLM-R base text tower, random init, on 1203 random
@@ -48,7 +54,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             Uni-Base on a seeded 480x640 image, 8 queries through a
             character-level stub tokenizer, RefScorer.score with prefix
             sharing. Scores (8, 100) finite in (0, 1); K2 = 56 and
-            K3 = 24 launches counted around the call; the pre-sigmoid
+            K3 = 24 launches counted around the call, the 56 K2 launches
+            all of the bf16 kernel in bf16, none in f32; the pre-sigmoid
             logits agree with the same call through the kernels' plain
             versions (REF_LOGIT_TOL), while a control through the plain
             versions with one key masked in every attention call must
@@ -137,6 +144,34 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of fn() per call: `iters` calls captured in one CUDA
+    graph, its replays timed with CUDA events. Without the host between
+    launches this is the kernels' own time even where eager calls are
+    enqueued slower than the card runs them (cuda_ms then reads the
+    host's rate)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def host_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean wall time of fn() over iters calls, synchronized."""
     for _ in range(warmup):
@@ -187,7 +222,20 @@ def phase_build():
     secs = time.perf_counter() - t0
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
-    emit({"phase": "build", "kernels": names, "seconds": secs})
+    # the bf16 K2 kernel runs on the tensor cores and the TMA, and its
+    # registers hold
+    sm90 = libs[names.index("flash_gqa_sm90")]
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                           str(sm90)], capture_output=True, text=True,
+                          check=True).stdout
+    found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    spills = [line for line in sm90.with_suffix(".log").read_text()
+              .splitlines() if "spill" in line and " 0 bytes spill stores, "
+              "0 bytes spill loads" not in line]
+    emit({"phase": "build", "kernels": names, "seconds": secs,
+          "sm90_sass": found, "sm90_spills": spills})
+    assert all(found.values()), f"flash_gqa_sm90: SASS lacks {found}"
+    assert not spills, f"flash_gqa_sm90 spills: {spills}"
 
 
 def k1_inputs(rows: int, k: int, dev, seed: int = 0) -> torch.Tensor:
@@ -514,6 +562,7 @@ K2_GRID = [  # tests/test_flash_gqa.py's grid, and fully masked rows
     (1, 256, 256, 8, 8, 128, False, ((120, 128), (251, 256))),
     (1, 128, 512, 16, 8, 128, True, ((248, 256), (507, 512))),
     (1, 128, 256, 4, 2, 128, True, ((0, 132),)),
+    (2, 96, 384, 4, 2, 128, True, ((200, 216),)),  # S*G = 192: partial
 ]
 # (atol, rtol) of kernel vs plain. f32: summation order only. bf16:
 # both round the same f32 value to bf16, at most one bf16 ulp of |O|
@@ -538,11 +587,14 @@ def sdpa_gqa(q, k, v, mask):
 
 def phase_k2(dev, timing: bool = True):
     from wedetect_tpu_torch.ops.flash_gqa import (gqa_flash_attention,
-                                                  gqa_flash_attention_plain)
+                                                  gqa_flash_attention_plain,
+                                                  gqa_flash_fwd_sm90)
 
     checks, worst = [], {}
+    cases = [K2_PREFIX, K2_SUFFIX, *K2_GRID]
+    gqa_flash_fwd_sm90.launches = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate([K2_PREFIX, K2_SUFFIX, *K2_GRID]):
+        for i, case in enumerate(cases):
             b, s, lk, h, kvh, d, causal, holes = case
             q, k, v, valid = k2_case(dev, *case, dtype=dtype, seed=i)
             o, lse = gqa_flash_attention(q, k, v, causal=causal,
@@ -560,6 +612,9 @@ def phase_k2(dev, timing: bool = True):
                 emit({"phase": "k2", "checks": checks})
                 raise AssertionError(f"K2 disagrees at {case} {dtype}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+    # every bf16 check ran the wgmma kernel, no f32 one did
+    assert gqa_flash_fwd_sm90.launches == len(cases), \
+        gqa_flash_fwd_sm90.launches
     res = {"checks": checks,
            "max_abs_err_f32": worst[torch.float32],
            "max_abs_err_bf16": worst[torch.bfloat16]}
@@ -575,13 +630,20 @@ def phase_k2(dev, timing: bool = True):
                            <= qpos[:, None])[None, None])
                 r = attn_bound(h, d, pairs, q.numel() + 2 * k.numel(),
                                q.numel(), b * s * h, dtype)
-                r["ms"] = cuda_ms(lambda: gqa_flash_attention(
-                    q, k, v, causal=True, kv_valid=valid), iters=10)
+                # ms and library_ms: device time (graph_ms), the same
+                # method for both; *_call_ms: eager calls with the host
+                # between them (cuda_ms), the host's rate where it is
+                # slower than the card
+                call = lambda: gqa_flash_attention(  # noqa: E731
+                    q, k, v, causal=True, kv_valid=valid)
+                lib = lambda: sdpa_gqa(q, k, v, mask)  # noqa: E731
+                r["ms"] = graph_ms(call)
+                r["call_ms"] = cuda_ms(call, iters=10)
                 r["plain_ms"] = cuda_ms(lambda: gqa_flash_attention_plain(
                     q, k, v, causal=True, kv_valid=valid), iters=3,
                     warmup=1)
-                r["library_ms"] = cuda_ms(lambda: sdpa_gqa(q, k, v, mask),
-                                          iters=10)
+                r["library_ms"] = graph_ms(lib)
+                r["library_call_ms"] = cuda_ms(lib, iters=10)
                 r["visible_pairs"] = pairs
                 res[f"{name}_{str(dtype)[6:]}"] = r
     emit({"phase": "k2", **res})
@@ -779,15 +841,18 @@ def _flash_counters():
     from wedetect_tpu_torch.ops import flash_attention as fa
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
-    return {"k2": fg.gqa_flash_attention, "k2_bwd_dq": fg.gqa_flash_bwd_dq,
+    return {"k2": fg.gqa_flash_attention,
+            "k2_sm90": fg.gqa_flash_fwd_sm90,
+            "k2_bwd_dq": fg.gqa_flash_bwd_dq,
             "k2_bwd_dkdv": fg.gqa_flash_bwd_dkdv, "k3": fa.flash_attention,
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
             "k3_bwd_dkv": fa.flash_attention_bwd_dkv}
 
 
 def launch_counts(reset: bool = False):
-    """The launch counts of the six attention kernels (set to 0 first
-    with `reset`)."""
+    """The launch counts of the attention kernels (set to 0 first with
+    `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
+    one's alone."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -795,9 +860,10 @@ def launch_counts(reset: bool = False):
     return {name: fn.launches for name, fn in counters.items()}
 
 
-def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0):
-    return {"k2": k2, "k2_bwd_dq": k2_bwd, "k2_bwd_dkdv": k2_bwd, "k3": k3,
-            "k3_bwd_dq": k3_bwd, "k3_bwd_dkv": k3_bwd}
+def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0):
+    return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
+            "k2_bwd_dkdv": k2_bwd, "k3": k3, "k3_bwd_dq": k3_bwd,
+            "k3_bwd_dkv": k3_bwd}
 
 
 def ref_inputs(dev):
@@ -840,8 +906,11 @@ def phase_ref(dev, inputs, cfg=None, timing: bool = True):
         assert scores.shape == (len(REF_QUERIES), n), scores.shape
         assert np.isfinite(scores).all()
         assert ((scores > 0) & (scores < 1)).all()
-        assert counts == expected_counts(k2=2 * cfg.text.layers,
-                                         k3=cfg.vision.depth), counts
+        # bf16: every K2 launch is the wgmma kernel; f32: none is
+        k2 = 2 * cfg.text.layers
+        assert counts == expected_counts(
+            k2=k2, k2_sm90=k2 if name == "bfloat16" else 0,
+            k3=cfg.vision.depth), counts
         logits = scorer.logits(image, boxes, REF_QUERIES)
         with plain_attention():
             plain = scorer.logits(image, boxes, REF_QUERIES)
@@ -1445,10 +1514,11 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
     return res, counts
 
 
-def kernel_entry(name, source, replaces, launches, k, timing):
+def kernel_entry(name, source, replaces, launches, k, timing,
+                 dtype="f32"):
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": k["max_abs_err_f32"],
+            "replaces": replaces, "launches": launches, "dtype": dtype,
+            "max_abs_err": k[f"max_abs_err_{dtype}"],
             "max_abs_err_bf16": k["max_abs_err_bf16"],
             "tolerance": {str(t)[6:]: {"atol": a, "rtol": r}
                           for t, (a, r) in K_TOL.items()},
@@ -1500,6 +1570,7 @@ def main() -> int:
     image, proposals = ref_inputs(dev)
     ref = phase_ref(dev, (image, proposals))
     launches = ref["float32"]["launches"]
+    launches_bf16 = ref["bfloat16"]["launches"]
     k2_bwd = phase_k2_bwd(dev)
     k3_bwd = phase_k3_bwd(dev)
     phase_train_parity(dev)
@@ -1515,10 +1586,18 @@ def main() -> int:
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"]},
-        # K2 timed at the suffix shape, K3 at the ViT shape, both f32
+        # K2 timed at the suffix shape (the f32 SIMT route and the bf16
+        # wgmma route, each with its launches in the score call of its
+        # type), K3 at the ViT shape, f32
         kernel_entry("gqa_flash_fwd", "wedetect_tpu_torch/csrc/flash_attn.cu",
-                     "wedetect_tpu/ops/flash_gqa.py:86", launches["k2"],
-                     k2, k2["suffix_float32"]),
+                     "wedetect_tpu/ops/flash_gqa.py:86",
+                     launches["k2"] - launches["k2_sm90"], k2,
+                     k2["suffix_float32"]),
+        kernel_entry("gqa_flash_fwd_sm90",
+                     "wedetect_tpu_torch/csrc/flash_gqa_sm90.cu",
+                     "wedetect_tpu/ops/flash_gqa.py:86",
+                     launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
+                     dtype="bf16"),
         kernel_entry("flash_attention_fwd",
                      "wedetect_tpu_torch/csrc/flash_attn.cu",
                      "wedetect_tpu/ops/attention.py:126", launches["k3"],

@@ -98,6 +98,7 @@ K2_CASES = [
     (1, 128, 512, 16, 8, 128, True, True),
     (1, 384, 384, 16, 8, 128, True, True),
     (8, 256, 640, 16, 8, 128, True, True),
+    (2, 96, 384, 4, 2, 128, True, True),      # S * G = 192: a partial block
 ]
 # (atol, rtol). f32: summation order only. bf16: the kernel and the
 # plain version round the same f32 value to bf16 (at most one bf16 ulp
@@ -144,6 +145,77 @@ def test_gqa_flash_kernel_matches_plain(cuda, monkeypatch, dtype, b, s, lk,
     assert got.dtype == dtype
     assert _close(got, want, dtype)
     assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,lk,h,kvh,d,causal,masked", K2_CASES)
+def test_gqa_flash_sm90_kernel_matches_plain(cuda, monkeypatch, b, s, lk, h,
+                                             kvh, d, causal, masked):
+    """bf16 goes to the wgmma + TMA kernel (its own launch count), and
+    agrees with the plain version."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    monkeypatch.setattr(fg.gqa_flash_attention, "launches", 0)
+    monkeypatch.setattr(fg.gqa_flash_fwd_sm90, "launches", 0)
+    dtype = torch.bfloat16
+    q, k, v = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, cuda,
+                           seed=s + lk + 7)
+    valid = torch.ones((b, lk), dtype=torch.int32)
+    if masked:
+        valid[:, lk // 2 - 8:lk // 2] = 0
+        valid[:, -5:] = 0
+        valid[-1, :4] = 0
+    valid = valid.to(cuda)
+    got, lse = fg.gqa_flash_attention(q, k, v, causal=causal, kv_valid=valid,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    want, wlse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                              kv_valid=valid,
+                                              return_lse=True)
+    assert fg.gqa_flash_fwd_sm90.launches == 1
+    assert fg.gqa_flash_attention.launches == 1
+    assert got.dtype == dtype
+    assert _close(got, want, dtype)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+
+
+def test_gqa_flash_sm90_fully_masked_rows(cuda):
+    """bf16: rows whose scanned keys are all masked get the mean of V
+    over the scanned keys."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    q, k, v = _attn_inputs((1, 128, 4, 128), (1, 256, 2, 128),
+                           torch.bfloat16, cuda, seed=5)
+    valid = torch.ones((1, 256), dtype=torch.int32, device=cuda)
+    valid[:, :132] = 0
+    launches = fg.gqa_flash_fwd_sm90.launches
+    got = fg.gqa_flash_attention(q, k, v, causal=True, kv_valid=valid)
+    want = fg.gqa_flash_attention_plain(q, k, v, causal=True, kv_valid=valid)
+    assert fg.gqa_flash_fwd_sm90.launches == launches + 1
+    assert _close(got, want, torch.bfloat16)
+    mean_v = v[0].float().mean(0)                         # (KVH, D)
+    assert _close(got[0, 0].reshape(2, 2, 128),
+                  mean_v[:, None].expand(2, 2, 128), torch.bfloat16)
+
+
+def test_gqa_flash_sm90_rejects_bad_input(cuda):
+    """Misaligned or non-contiguous bf16 input raises; nothing falls
+    back to the SIMT kernel."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    q = torch.zeros((1, 128, 4, 128), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 128, 2, 128), device=cuda, dtype=torch.bfloat16)
+    buf = torch.zeros(q.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:1 + q.numel()].view(q.shape)         # 2-byte offset
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_attention(shifted, k, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        fg.gqa_flash_attention(q, k.transpose(1, 2).contiguous()
+                               .transpose(1, 2), k)
+    x = torch.zeros((1, 128, 6, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="group size"):
+        fg.gqa_flash_attention(x, k[:, :, :2].contiguous(),
+                               k[:, :, :2].contiguous())
 
 
 def test_gqa_flash_kernel_fully_masked_rows(cuda):

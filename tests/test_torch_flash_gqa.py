@@ -61,18 +61,52 @@ def test_plain_matches_pallas_kernel(b, s, lk, h, kvh, d, causal, masked):
                                rtol=TOL)
 
 
-def test_plain_matches_pallas_kernel_bf16():
-    """tests/test_flash_gqa.py:113's case, in bf16 on both sides. The
-    two round p to bf16 against different running maxima: 2e-2."""
-    q, k, v = _inputs(1, 128, 384, 4, 2, 128, seed=3)
+# (B, S, Lk, H, KVH, D, causal, invalid key ranges): the cases the bf16
+# kernel (csrc/flash_gqa_sm90.cu) is held to on the card, at CPU sizes
+BF16_CASES = [
+    (1, 128, 384, 4, 2, 128, True, ()),            # tests/test_flash_gqa.py:113
+    (2, 128, 640, 4, 2, 128, True, ((332, 384), (600, 640))),  # suffix-like
+    (2, 96, 384, 4, 2, 128, True, ((200, 216),)),  # S*G = 192: partial block
+    (1, 128, 256, 4, 2, 128, True, ((0, 132),)),   # rows all masked
+]
+
+
+@pytest.mark.parametrize(
+    "b,s,lk,h,kvh,d,causal,holes", BF16_CASES,
+    ids=["rect", "suffix_holes", "partial_block", "all_masked_rows"])
+def test_plain_matches_pallas_kernel_bf16(b, s, lk, h, kvh, d, causal,
+                                          holes):
+    """The plain version in bf16 against the Pallas kernel in bf16 under
+    the interpreter. The two round p to bf16 against different running
+    maxima: 2e-2."""
+    q, k, v = _inputs(b, s, lk, h, kvh, d, seed=3 + s + lk)
+    valid = np.ones((b, lk), np.int32)
+    for lo, hi in holes:
+        valid[:, lo:hi] = 0
     want = J.gqa_flash_attention(*(jnp.asarray(x, jnp.bfloat16)
-                                   for x in (q, k, v)), causal=True)
+                                   for x in (q, k, v)), causal=causal,
+                                 kv_valid=jnp.asarray(valid))
     got = T.gqa_flash_attention(*(torch.from_numpy(x).bfloat16()
-                                  for x in (q, k, v)), causal=True)
+                                  for x in (q, k, v)), causal=causal,
+                                kv_valid=torch.from_numpy(valid))
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=2e-2,
                                rtol=2e-2)
+
+
+def test_fwd_route_by_type():
+    """bf16 at D = 128 takes the wgmma kernel, f32 the SIMT one; a bf16
+    input the wgmma kernel does not take raises (no fallback)."""
+    assert T.fwd_route(torch.bfloat16, 128, 2) == "sm90"
+    assert T.fwd_route(torch.bfloat16, 128, 1) == "sm90"
+    assert T.fwd_route(torch.float32, 128, 2) == "simt"
+    with pytest.raises(ValueError):
+        T.fwd_route(torch.bfloat16, 64, 2)
+    with pytest.raises(ValueError):
+        T.fwd_route(torch.bfloat16, 128, 3)
+    with pytest.raises(TypeError):
+        T.fwd_route(torch.float16, 128, 2)
 
 
 @pytest.mark.parametrize("lk,n_masked", [(128, 4), (256, 132), (384, 260)])

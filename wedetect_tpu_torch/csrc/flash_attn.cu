@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper: kernels K2 and K3 of the port.
+// Flash attention forward for Hopper: kernels K2 (f32) and K3 of the
+// port. K2 in bf16 is csrc/flash_gqa_sm90.cu (wgmma and TMA).
 //
 // K2 replaces wedetect_tpu/ops/flash_gqa.py:_fwd_kernel (the Pallas TPU
 // kernel behind gqa_flash_attention): native grouped KV, end-aligned
@@ -22,9 +23,9 @@
 // -1e30 (flash_gqa.py _NEG, not -inf). K2's F is the Pallas kernel's
 // causal tile frontier, min(Lk, bk * ceil((off + (qb + 1) * bq) / bk))
 // for the row's query block qb at JAX's bq and bk (the wrapper passes
-// them), or Lk when not causal; so a row whose scanned keys are all
-// masked returns the mean of V over those keys, as the Pallas kernel
-// does. K3's F is q + 1 when causal, else L; its mask is the segment
+// them; flash_common.cuh), or Lk when not causal; so a row whose
+// scanned keys are all masked returns the mean of V over those keys, as
+// the Pallas kernel does. K3's F is q + 1 when causal, else L; its mask is the segment
 // test. The key loop of a block runs to the largest F among its rows.
 //
 // Design (simple, right first): a block holds kBR = 64 folded rows and
@@ -49,12 +50,13 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int kBR = 64;        // folded rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
-constexpr float kNeg = -1e30f;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -93,10 +95,7 @@ template <bool kSeg>
 __device__ __forceinline__ int frontier(const Args& a, int qi) {
   if (!a.causal) return a.lk;
   if (kSeg) return qi + 1;
-  int qb = qi / a.bq;
-  int n = (a.off + (qb + 1) * a.bq + a.bk - 1) / a.bk;
-  int f = n * a.bk;
-  return f < a.lk ? f : a.lk;
+  return gqa_frontier(qi, a.lk, a.off, a.bq, a.bk);
 }
 
 template <typename T, int D, bool kSeg>
@@ -222,7 +221,7 @@ flash_fwd_kernel(const Args a) {
         int c = tx + 16 * j;
         int key = k0 + c;
         bool ok = kSeg ? (s_ktag[c] == s_qtag[r])
-                       : (s_ktag[c] != 0 && (!a.causal || key <= s_qtag[r]));
+                       : gqa_key_ok(s_ktag[c], key, s_qtag[r], a.causal);
         float val = ok ? sc[i][j] * a.sm_scale : kNeg;
         Ss[r * SP + c] = key < s_f[r] ? val : -CUDART_INF_F;
       }
@@ -335,21 +334,23 @@ int dispatch(const Args& a, int d, int bf16, cudaStream_t stream) {
 
 }  // namespace
 
-// K2. q, o (B, S, H, D); k, v (B, Lk, KVH, D); kv_valid (B, Lk) int32;
-// lse (B, KVH, S * H / KVH) f32. bq, bk: the Pallas kernel's query and
-// key blocks (flash_gqa._pick_bq / _pick_bk), which fix each row's
-// frontier. Launches on `stream`; returns cudaGetLastError() (0 = ok).
+// K2 in f32. q, o (B, S, H, D); k, v (B, Lk, KVH, D); kv_valid (B, Lk)
+// int32; lse (B, KVH, S * H / KVH) f32. bq, bk: the Pallas kernel's
+// query and key blocks (flash_gqa._pick_bq / _pick_bk), which fix each
+// row's frontier. bf16 is refused: K2 in bf16 is
+// csrc/flash_gqa_sm90.cu. Launches on `stream`; returns
+// cudaGetLastError() (0 = ok).
 extern "C" int gqa_flash_fwd(const void* q, const void* k, const void* v,
                              const int* kv_valid, void* o, float* lse,
                              int b, int s, int lk, int h, int kvh, int d,
                              int causal, int bq, int bk, float sm_scale,
                              int bf16, void* stream) {
-  if (kvh <= 0 || h % kvh != 0 || bq <= 0 || bk <= 0)
+  if (bf16 || kvh <= 0 || h % kvh != 0 || bq <= 0 || bk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, kv_valid, nullptr, nullptr, o, lse,
          b, s, lk, h, kvh, h / kvh,
          causal, causal ? lk - s : 0, bq, bk, sm_scale};
-  return dispatch<false>(a, d, bf16, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(a, d, 0, static_cast<cudaStream_t>(stream));
 }
 
 // K3. q, k, v, o (B, L, H, D); q_seg, kv_seg (B, L) int32 or both null;

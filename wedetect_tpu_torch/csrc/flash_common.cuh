@@ -1,0 +1,30 @@
+// Which keys a row of K2 sees: the rules both K2 forward kernels share
+// (csrc/flash_attn.cu, f32; csrc/flash_gqa_sm90.cu, bf16), those of the
+// Pallas kernel wedetect_tpu/ops/flash_gqa.py:_fwd_kernel.
+//
+// Query i sits at key position off + i (off = Lk - S, end-aligned
+// rectangular causal). Its row scans keys [0, F): a key at or past the
+// frontier F is absent (weight 0), a key below F that is invalid or
+// causally later has logit kNeg (-1e30, not -inf), so a row whose
+// scanned keys are all masked returns the mean of V over them.
+
+#pragma once
+
+constexpr float kNeg = -1e30f;
+
+// F of query i when causal: the Pallas kernel's causal tile frontier,
+// min(Lk, bk * ceil((off + (i / bq + 1) * bq) / bk)), at its query and
+// key blocks bq and bk (flash_gqa._pick_bq / _pick_bk).
+__host__ __device__ __forceinline__ int gqa_frontier(int qi, int lk, int off,
+                                                     int bq, int bk) {
+  int qb = qi / bq;
+  int f = (off + (qb + 1) * bq + bk - 1) / bk * bk;
+  return f < lk ? f : lk;
+}
+
+// A scanned key keeps its logit when it is valid and, if causal, not
+// later than the query's position qpos; otherwise its logit is kNeg.
+__device__ __forceinline__ bool gqa_key_ok(int valid, int key, int qpos,
+                                           int causal) {
+  return valid != 0 && (!causal || key <= qpos);
+}

@@ -9,9 +9,11 @@ compiled with
 
 into `build/kernels/` at the root of the checkout (ptxas's report beside
 it as `<name>-<hash>.log`) and loaded with ctypes. The file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt and a built one is reused. Nothing here runs at import time:
-the CPU tests import every module, and a CPU-only machine has no nvcc.
+carries a hash of the flags, the source and every `csrc/*.cuh` header it
+includes (`#include "x.cuh"`, followed into headers), so an edited
+source or header is rebuilt and a built one is reused. Nothing here
+runs at import time: the CPU tests import every module, and a CPU-only
+machine has no nvcc.
 """
 
 from __future__ import annotations
@@ -19,12 +21,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -33,27 +36,47 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
-def nvcc_path() -> str:
-    """The nvcc binary: on PATH, else under CUDA_HOME or /usr/local/cuda."""
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """A CUDA toolkit binary (nvcc, cuobjdump): on PATH, else under
+    CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
+    path = os.path.join(home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+        raise RuntimeError(f"{name} not found: the CUDA kernels build only "
                            "where the CUDA toolkit is installed")
     return path
+
+
+def _sources(src: Path) -> List[Path]:
+    """src and the csrc headers it includes, each once, in include
+    order."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
 
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu (if not built yet) and return the .so."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,7 +84,7 @@ def build(name: str) -> Path:
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [cuda_tool(), *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

@@ -22,9 +22,11 @@ below F that is invalid or causally later has logit -1e30 (not -inf).
 So a row whose scanned keys are all masked returns the mean of V over
 them, not 0; for every row with a valid key, F changes nothing.
 
-`gqa_flash_attention` launches the CUDA kernel
-(`csrc/flash_attn.cu:gqa_flash_fwd`) on CUDA tensors and runs the plain
-version on CPU tensors; there is no fallback. It is differentiable in
+`gqa_flash_attention` launches a CUDA kernel on CUDA tensors and runs
+the plain version on CPU tensors; there is no fallback. The kernel goes
+by type (`fwd_route`): bf16 (D = 128) launches
+`csrc/flash_gqa_sm90.cu:gqa_flash_fwd_sm90` (wgmma tiles fed by TMA),
+f32 `csrc/flash_attn.cu:gqa_flash_fwd` (SIMT). It is differentiable in
 q, k and v (a `torch.autograd.Function`, the JAX package's custom VJP):
 the forward saves q, k, v, kv_valid, O and lse, and the backward
 (`gqa_flash_attention_bwd`) launches kernels K2-bwd-dq and K2-bwd-dkdv
@@ -191,16 +193,29 @@ def gqa_flash_attention_bwd_plain(q, k, v, kv_valid, o, lse, do, causal,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
+
+
 def _lib():
     from wedetect_tpu_torch.ops import _build
 
     lib = _build.load("flash_attn")
     if not getattr(lib, "_typed_gqa", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gqa_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                      i, i, i, ctypes.c_float, i, p]
+        lib.gqa_flash_fwd.argtypes = _FWD_ARGS + [ctypes.c_int,
+                                                  ctypes.c_void_p]
         lib.gqa_flash_fwd.restype = ctypes.c_int
         lib._typed_gqa = True
+    return lib
+
+
+def _sm90_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_gqa_sm90")
+    if not getattr(lib, "_typed", False):
+        lib.gqa_flash_fwd_sm90.argtypes = _FWD_ARGS + [ctypes.c_void_p]
+        lib.gqa_flash_fwd_sm90.restype = ctypes.c_int
+        lib._typed = True
     return lib
 
 
@@ -250,28 +265,68 @@ def _valid_i32(kv_valid, b, lk, device, name):
     return kv_valid.to(device=device, dtype=torch.int32).contiguous()
 
 
-def _fwd_kernel(q, k, v, kv_valid, causal, sm_scale):
-    """One launch of K2: (O, lse)."""
-    _check_cuda("gqa_flash_attention", q, k, v)
+def fwd_route(dtype: torch.dtype, d: int, g: int) -> str:
+    """The K2 forward kernel a CUDA input takes: "sm90" for bf16
+    (csrc/flash_gqa_sm90.cu, D = 128 and G dividing 128), "simt" for f32
+    (csrc/flash_attn.cu). Raises for any other input."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"gqa_flash_attention: dtype {dtype} (float32 or "
+                        "bfloat16 only)")
+    if d != 128 or 128 % g:
+        raise ValueError(f"gqa_flash_attention: bf16 takes head dim 128 "
+                         f"and a group size dividing 128 (D={d}, G={g})")
+    return "sm90"
+
+
+def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
+    """Allocate O and lse and launch one K2 forward kernel `fn`."""
     b, s, h, d = q.shape
     lk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    valid = _valid_i32(kv_valid, b, lk, q.device, "gqa_flash_attention")
+    valid = _valid_i32(kv_valid, b, lk, q.device, name)
     o = torch.empty_like(q)
     lse = torch.empty((b, kvh, s * g), dtype=torch.float32, device=q.device)
-    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gqa_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, s, lk, h, kvh, d, int(causal),
-            _pick_bq(s, g), _pick_bk(lk), float(sm_scale),
-            int(q.dtype == torch.bfloat16), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                 o.data_ptr(), lse.data_ptr(), b, s, lk, h, kvh, d,
+                 int(causal), _pick_bq(s, g), _pick_bk(lk), float(sm_scale),
+                 *tail, stream)
     if err != 0:
-        raise RuntimeError(f"gqa_flash_attention: CUDA launch failed with "
-                           f"error {err}")
-    gqa_flash_attention.launches += 1
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     return o, lse
+
+
+def gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale):
+    """One launch of K2's bf16 kernel (wgmma + TMA): (O, lse), on inputs
+    that `_check_cuda` and `fwd_route` passed. TMA also needs q, k and v
+    16-byte aligned."""
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"gqa_flash_attention: {tname} must be 16-byte "
+                             "aligned (TMA)")
+    out = _launch_fwd("gqa_flash_attention", _sm90_lib().gqa_flash_fwd_sm90,
+                      q, k, v, kv_valid, causal, sm_scale)
+    gqa_flash_fwd_sm90.launches += 1
+    return out
+
+
+gqa_flash_fwd_sm90.launches = 0
+
+
+def _fwd_kernel(q, k, v, kv_valid, causal, sm_scale):
+    """One launch of K2, by type (`fwd_route`): (O, lse)."""
+    name = "gqa_flash_attention"
+    _check_cuda(name, q, k, v)
+    if fwd_route(q.dtype, q.shape[3], q.shape[2] // k.shape[2]) == "sm90":
+        out = gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale)
+    else:
+        out = _launch_fwd(name, _lib().gqa_flash_fwd, q, k, v, kv_valid,
+                          causal, sm_scale, 0)
+    gqa_flash_attention.launches += 1
+    return out
 
 
 def _forward(q, k, v, kv_valid, causal, sm_scale):
@@ -400,14 +455,20 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         return_lse: bool = False):
     """(B, S, H, D) x (B, Lk, KVH, D) -> (B, S, H, D) [, lse].
 
-    CUDA tensors: one launch of the CUDA kernel, counted in
-    `gqa_flash_attention.launches`. CPU tensors: the plain version.
+    CUDA tensors: one launch of a CUDA kernel (`fwd_route`), counted in
+    `gqa_flash_attention.launches` (the bf16 kernel's also in
+    `gqa_flash_fwd_sm90.launches`). CPU tensors: the plain version.
     Differentiable in q, k and v (module docstring).
     """
     _check(q, k, v, causal)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    o, lse = _GqaFlash.apply(q, k, v, kv_valid, causal, float(sm_scale))
+    args = (q, k, v, kv_valid, causal, float(sm_scale))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o, lse = _GqaFlash.apply(*args)
+    else:       # no graph to record: skip the autograd Function's cost
+        o, lse = _forward(*args)
     return (o, lse) if return_lse else o
 
 
