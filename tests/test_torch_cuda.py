@@ -100,6 +100,11 @@ K2_CASES = [
     (8, 256, 640, 16, 8, 128, True, True),
     (2, 96, 384, 4, 2, 128, True, True),      # S * G = 192: a partial block
 ]
+# D = 256: the SIMT kernels in both types (JAX tiles any D % 128 == 0)
+K2_D256 = [
+    (1, 128, 256, 4, 2, 256, True, True),
+    (1, 128, 128, 2, 2, 256, False, False),
+]
 # (atol, rtol). f32: summation order only. bf16: the kernel and the
 # plain version round the same f32 value to bf16 (at most one bf16 ulp
 # of |O| apart, 0.0039 at |O| < 1 on the card), so the limit is
@@ -120,7 +125,7 @@ def _attn_inputs(shape_q, shape_kv, dtype, dev, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,lk,h,kvh,d,causal,masked", K2_CASES)
+@pytest.mark.parametrize("b,s,lk,h,kvh,d,causal,masked", K2_CASES + K2_D256)
 def test_gqa_flash_kernel_matches_plain(cuda, monkeypatch, dtype, b, s, lk,
                                         h, kvh, d, causal, masked):
     from wedetect_tpu_torch.ops.flash_gqa import (gqa_flash_attention,
@@ -197,9 +202,11 @@ def test_gqa_flash_sm90_fully_masked_rows(cuda):
                   mean_v[:, None].expand(2, 2, 128), torch.bfloat16)
 
 
-def test_gqa_flash_sm90_rejects_bad_input(cuda):
+def test_gqa_flash_sm90_rejects_bad_input(cuda, monkeypatch):
     """Misaligned or non-contiguous bf16 input raises; nothing falls
-    back to the SIMT kernel."""
+    back to the SIMT kernel. A group size that does not divide 128 goes
+    to the SIMT kernel by route (`fwd_route`), and the wgmma kernel
+    itself refuses it."""
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
     q = torch.zeros((1, 128, 4, 128), device=cuda, dtype=torch.bfloat16)
@@ -212,10 +219,15 @@ def test_gqa_flash_sm90_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fg.gqa_flash_attention(q, k.transpose(1, 2).contiguous()
                                .transpose(1, 2), k)
-    x = torch.zeros((1, 128, 6, 128), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="group size"):
-        fg.gqa_flash_attention(x, k[:, :, :2].contiguous(),
-                               k[:, :, :2].contiguous())
+    monkeypatch.setattr(fg.gqa_flash_fwd_sm90, "launches", 0)
+    x, k3, v3 = _attn_inputs((1, 128, 6, 128), (1, 128, 2, 128),
+                             torch.bfloat16, cuda, seed=4)
+    got = fg.gqa_flash_attention(x, k3, v3)
+    assert fg.gqa_flash_fwd_sm90.launches == 0
+    assert _close(got, fg.gqa_flash_attention_plain(x, k3, v3),
+                  torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fg.gqa_flash_fwd_sm90(x, k3, v3, None, True, 0.1)
 
 
 def test_gqa_flash_kernel_fully_masked_rows(cuda):
@@ -241,7 +253,9 @@ def test_gqa_flash_kernel_fully_masked_rows(cuda):
     (1, 1280, 16, 64, 1200, False),      # the ViT at a 480x640 image
     (1, 256, 4, 64, 256, True),
     (2, 384, 4, 128, 300, False),
-    (1, 128, 2, 128, 128, False)])
+    (1, 128, 2, 128, 128, False),
+    (1, 256, 2, 256, 200, False),
+    (1, 128, 2, 256, 128, True)])
 def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, l,
                                               h, d, n_real, causal):
     from wedetect_tpu_torch.ops.flash_attention import (flash_attention,
@@ -360,7 +374,7 @@ def _rel_err(got, want):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,lk,h,kvh,d,causal,masked", K2_CASES[:5] + [
-    (1, 512, 512, 16, 8, 128, True, True)])
+    (1, 512, 512, 16, 8, 128, True, True)] + K2_D256)
 def test_gqa_flash_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b, s,
                                            lk, h, kvh, d, causal, masked):
     from wedetect_tpu_torch.ops import flash_gqa as fg
@@ -399,7 +413,9 @@ def test_gqa_flash_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b, s,
 @pytest.mark.parametrize("b,l,h,d,n_real,causal", [
     (1, 1280, 16, 64, 1200, False),
     (1, 256, 4, 64, 256, True),
-    (2, 384, 4, 128, 300, False)])
+    (2, 384, 4, 128, 300, False),
+    (1, 256, 2, 256, 200, False),
+    (1, 128, 2, 256, 128, True)])
 def test_flash_attention_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b,
                                                  l, h, d, n_real, causal):
     from wedetect_tpu_torch.ops import flash_attention as fa
@@ -424,6 +440,116 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b,
     for a, a2, w in zip(got[0], got[1], want):
         assert torch.equal(a, a2)                          # deterministic
         assert _rel_err(a, w) <= BWD_TOL[dtype]
+
+
+# (B, S, Lk, H, KVH, D, causal, invalid key ranges): the bf16 backward
+# kernels' cases. S = 336 has bq = 16, so F moves every 32 folded rows,
+# inside the dk/dv kernel's 64-row tiles
+SM90_BWD_CASES = [
+    (2, 128, 384, 4, 2, 128, True, ()),                    # rectangular
+    (1, 256, 256, 8, 8, 128, False, ((120, 128),)),        # non-causal
+    (2, 128, 640, 8, 2, 128, True, ((312, 320), (635, 640))),  # G = 4
+    (1, 128, 256, 4, 2, 128, True, ((0, 132),)),           # rows all masked
+    (2, 96, 384, 4, 2, 128, True, ((200, 216),)),          # S*G = 192
+    (1, 336, 384, 4, 2, 128, True, ((100, 110),)),         # straddling F
+    (1, 512, 512, 16, 8, 128, True, ((300, 512),)),        # training-like
+]
+
+
+def _bwd_case(case, dtype, dev, seed):
+    b, s, lk, h, kvh, d, causal, holes = case
+    q, k, v = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, dev, seed)
+    do = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, dev,
+                      seed + 1)[0]
+    valid = torch.ones((b, lk), dtype=torch.int32)
+    for lo, hi in holes:
+        valid[:, lo:hi] = 0
+    return q, k, v, do, valid.to(dev)
+
+
+@pytest.mark.parametrize("case", SM90_BWD_CASES)
+def test_gqa_flash_bwd_sm90_kernels_match_plain(cuda, monkeypatch, case):
+    """bf16 K2-bwd goes to the wgmma + TMA kernels (their own launch
+    counts), agrees with the plain backward and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
+               fg.gqa_flash_bwd_dq_sm90, fg.gqa_flash_bwd_dkdv_sm90):
+        monkeypatch.setattr(fn, "launches", 0)
+    causal = case[6]
+    q, k, v, do, valid = _bwd_case(case, torch.bfloat16, cuda,
+                                   seed=sum(case[:3]))
+    scale = case[5] ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    got = [fg.gqa_flash_attention_bwd(q, k, v, valid, o, lse, do,
+                                      causal=causal, sm_scale=scale)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, o, lse, do,
+                                            causal, scale)
+    assert fg.gqa_flash_bwd_dq_sm90.launches == 2
+    assert fg.gqa_flash_bwd_dkdv_sm90.launches == 2
+    assert fg.gqa_flash_bwd_dq.launches == 2
+    assert fg.gqa_flash_bwd_dkdv.launches == 2
+    for a, a2, w in zip(got[0], got[1], want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, a2)                          # deterministic
+        assert _rel_err(a, w) <= BWD_TOL[torch.bfloat16]
+
+
+def test_gqa_flash_bwd_sm90_through_autograd(cuda, monkeypatch):
+    """loss.backward() through gqa_flash_attention in bf16 reaches the
+    wgmma backward kernels, once each."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in (fg.gqa_flash_bwd_dq_sm90, fg.gqa_flash_bwd_dkdv_sm90,
+               fg.gqa_flash_fwd_sm90):
+        monkeypatch.setattr(fn, "launches", 0)
+    case = (1, 256, 384, 8, 4, 128, True, ((300, 384),))
+    q, k, v, do, valid = _bwd_case(case, torch.bfloat16, cuda, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fg.gqa_flash_attention(*leaves, causal=True, kv_valid=valid)
+    o.backward(do)
+    assert fg.gqa_flash_fwd_sm90.launches == 1
+    assert fg.gqa_flash_bwd_dq_sm90.launches == 1
+    assert fg.gqa_flash_bwd_dkdv_sm90.launches == 1
+    po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                            kv_valid=valid, return_lse=True)
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, po, plse, do,
+                                            True, 128 ** -0.5)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.bfloat16]
+
+
+def test_gqa_flash_bwd_sm90_rejects_bad_input(cuda, monkeypatch):
+    """Misaligned bf16 input raises (TMA); nothing falls back. G not
+    dividing 64 takes the SIMT kernels by route, and the wgmma kernel
+    itself refuses it."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    q, k, v, do, valid = _bwd_case((1, 128, 128, 4, 2, 128, True, ()),
+                                   torch.bfloat16, cuda, seed=1)
+    lse = torch.zeros((1, 2, 256), device=cuda)
+    buf = torch.zeros(do.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:1 + do.numel()].view(do.shape)       # 2-byte offset
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    kw = dict(causal=True, sm_scale=0.1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dq(q, k, v, valid, shifted, lse, lse, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dkdv(q, k, v, valid, shifted, lse, lse, **kw)
+    monkeypatch.setattr(fg.gqa_flash_bwd_dq_sm90, "launches", 0)
+    x, k3, v3, d3, valid3 = _bwd_case((1, 128, 128, 6, 2, 128, True, ()),
+                                      torch.bfloat16, cuda, seed=2)
+    lse3 = torch.zeros((1, 2, 384), device=cuda)
+    assert fg.bwd_route(x.dtype, 128, 3) == "simt"
+    fg.gqa_flash_bwd_dq(x, k3, v3, valid3, d3, lse3, lse3, **kw)
+    assert fg.gqa_flash_bwd_dq_sm90.launches == 0
+    dq = torch.empty_like(x)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fg.gqa_flash_bwd_dq_sm90(x, k3, v3, valid3, d3, lse3, lse3, dq, **kw)
 
 
 def test_ref_modules_backward_on_the_card(cuda, monkeypatch):

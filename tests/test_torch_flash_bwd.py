@@ -34,6 +34,7 @@ K2_CASES = [
     (2, 128, 640, 8, 2, 128, True, True),
     (1, 128, 128, 4, 1, 128, True, False),
     (1, 256, 256, 8, 8, 128, False, True),
+    (1, 128, 256, 4, 2, 256, True, True),     # D = 256 (the SIMT route)
 ]
 
 
@@ -75,7 +76,8 @@ def _port_k2_grads(q, k, v, w, valid, causal, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("case", K2_CASES,
-                         ids=["rect_g2", "rect_g4_m", "square", "noncausal"])
+                         ids=["rect_g2", "rect_g4_m", "square", "noncausal",
+                              "d256"])
 def test_k2_plain_backward_matches_jax_kernel(case):
     q, k, v, w, valid = _k2_inputs(case, seed=sum(case[:3]))
     want = _jax_k2_grads(q, k, v, w, valid, case[6])
@@ -143,7 +145,7 @@ def _port_k3_grads(q, k, v, w, seg, causal, scale):
 
 @pytest.mark.parametrize("b,l,h,d,n_real,causal", [
     (1, 256, 2, 64, 200, False), (2, 128, 2, 64, 128, True),
-    (1, 128, 1, 128, 100, False)])
+    (1, 128, 1, 128, 100, False), (1, 128, 2, 256, 100, False)])
 def test_k3_plain_backward_matches_stock_reference(b, l, h, d, n_real,
                                                    causal):
     from jax.experimental.pallas.ops.tpu.flash_attention import (

@@ -25,6 +25,9 @@ CASES = [
     (2, 128, 640, 8, 2, 128, True, True),
     (1, 256, 256, 8, 8, 128, False, True),
     (1, 128, 512, 16, 8, 128, True, True),
+    # D = 256: JAX tiles any D % 128 == 0; the card runs it on the SIMT
+    # kernel in both types
+    (1, 128, 256, 4, 2, 256, True, True),
 ]
 
 
@@ -47,7 +50,7 @@ def _both(q, k, v, causal, valid):
 
 @pytest.mark.parametrize(
     "b,s,lk,h,kvh,d,causal,masked", CASES,
-    ids=[f"B{c[0]}S{c[1]}L{c[2]}H{c[3]}KV{c[4]}"
+    ids=[f"B{c[0]}S{c[1]}L{c[2]}H{c[3]}KV{c[4]}D{c[5]}"
          f"{'c' if c[6] else 'n'}{'m' if c[7] else ''}" for c in CASES])
 def test_plain_matches_pallas_kernel(b, s, lk, h, kvh, d, causal, masked):
     q, k, v = _inputs(b, s, lk, h, kvh, d, seed=b * 1000 + s + lk)
@@ -96,17 +99,32 @@ def test_plain_matches_pallas_kernel_bf16(b, s, lk, h, kvh, d, causal,
 
 
 def test_fwd_route_by_type():
-    """bf16 at D = 128 takes the wgmma kernel, f32 the SIMT one; a bf16
-    input the wgmma kernel does not take raises (no fallback)."""
+    """bf16 at D = 128 with G dividing 128 takes the wgmma kernel; f32,
+    and bf16 at any other shape (D = 256, G = 3), the SIMT one; other
+    types raise."""
     assert T.fwd_route(torch.bfloat16, 128, 2) == "sm90"
     assert T.fwd_route(torch.bfloat16, 128, 1) == "sm90"
+    assert T.fwd_route(torch.bfloat16, 128, 128) == "sm90"
     assert T.fwd_route(torch.float32, 128, 2) == "simt"
-    with pytest.raises(ValueError):
-        T.fwd_route(torch.bfloat16, 64, 2)
-    with pytest.raises(ValueError):
-        T.fwd_route(torch.bfloat16, 128, 3)
+    assert T.fwd_route(torch.float32, 256, 2) == "simt"
+    assert T.fwd_route(torch.bfloat16, 256, 2) == "simt"
+    assert T.fwd_route(torch.bfloat16, 128, 3) == "simt"
     with pytest.raises(TypeError):
         T.fwd_route(torch.float16, 128, 2)
+
+
+def test_bwd_route_by_type():
+    """The backward's wgmma kernels take bf16 at D = 128 with G dividing
+    64 (the dk/dv kernel's 64-row boxes); f32 and other bf16 shapes take
+    the SIMT kernels; other types raise."""
+    assert T.bwd_route(torch.bfloat16, 128, 2) == "sm90"
+    assert T.bwd_route(torch.bfloat16, 128, 64) == "sm90"
+    assert T.bwd_route(torch.bfloat16, 256, 2) == "simt"
+    assert T.bwd_route(torch.bfloat16, 128, 128) == "simt"
+    assert T.bwd_route(torch.bfloat16, 128, 3) == "simt"
+    assert T.bwd_route(torch.float32, 128, 2) == "simt"
+    with pytest.raises(TypeError):
+        T.bwd_route(torch.float16, 128, 2)
 
 
 @pytest.mark.parametrize("lk,n_masked", [(128, 4), (256, 132), (384, 260)])

@@ -1,5 +1,7 @@
 // Flash attention forward for Hopper: kernels K2 (f32) and K3 of the
-// port. K2 in bf16 is csrc/flash_gqa_sm90.cu (wgmma and TMA).
+// port. K2 in bf16 at D = 128 with G dividing 128 is
+// csrc/flash_gqa_sm90.cu (wgmma and TMA); other bf16 K2 shapes (D = 256)
+// run here.
 //
 // K2 replaces wedetect_tpu/ops/flash_gqa.py:_fwd_kernel (the Pallas TPU
 // kernel behind gqa_flash_attention): native grouped KV, end-aligned
@@ -30,13 +32,13 @@
 //
 // Design (simple, right first): a block holds kBR = 64 folded rows and
 // 256 threads; key tiles of kBK = 64 keys are staged in dynamic shared
-// memory as f32 (f32: Q 33 KB, K 33 KB, V 32 KB, logits 17 KB at
-// D = 128). Logits are scalar FMAs into a 4x4 register tile per thread,
-// the row softmax is one warp per row, and each thread keeps a 4 x D/16
-// slice of the f32 output accumulator in registers. In bf16, p is
-// rounded to bf16 before the p.V product, as the Pallas kernel casts p
-// to V's type; l sums the unrounded p. No tensor cores, TMA or
-// pipelining yet.
+// memory as f32 (Q 33 KB, K 33 KB, V 32 KB, logits 17 KB at D = 128;
+// 210 KB in all at D = 256). Logits are scalar FMAs into a 4x4
+// register tile per thread, the row softmax is one warp per row, and
+// each thread keeps a 4 x D/16 slice of the f32 output accumulator in
+// registers. In bf16, p is rounded to bf16 before the p.V product, as
+// the Pallas kernel casts p to V's type; l sums the unrounded p. No
+// tensor cores, TMA or pipelining yet.
 //
 // Bound on the H100: 4 * B * H * D * (visible (query, key) pairs) FLOPs
 // against 67 TFLOP/s f32 (no tensor cores) or 989 TFLOP/s bf16, and the
@@ -329,28 +331,31 @@ int dispatch(const Args& a, int d, int bf16, cudaStream_t stream) {
   if (d == 128)
     return bf16 ? launch<__nv_bfloat16, 128, kSeg>(a, stream)
                 : launch<float, 128, kSeg>(a, stream);
+  if (d == 256)   // 210 KB of shared memory
+    return bf16 ? launch<__nv_bfloat16, 256, kSeg>(a, stream)
+                : launch<float, 256, kSeg>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// K2 in f32. q, o (B, S, H, D); k, v (B, Lk, KVH, D); kv_valid (B, Lk)
-// int32; lse (B, KVH, S * H / KVH) f32. bq, bk: the Pallas kernel's
-// query and key blocks (flash_gqa._pick_bq / _pick_bk), which fix each
-// row's frontier. bf16 is refused: K2 in bf16 is
-// csrc/flash_gqa_sm90.cu. Launches on `stream`; returns
-// cudaGetLastError() (0 = ok).
+// K2 in f32, and in bf16 at the shapes csrc/flash_gqa_sm90.cu does not
+// take (ops/flash_gqa.py:fwd_route: D = 256, or G not dividing 128).
+// q, o (B, S, H, D); k, v (B, Lk, KVH, D); kv_valid (B, Lk) int32; lse
+// (B, KVH, S * H / KVH) f32. bq, bk: the Pallas kernel's query and key
+// blocks (flash_gqa._pick_bq / _pick_bk), which fix each row's
+// frontier. Launches on `stream`; returns cudaGetLastError() (0 = ok).
 extern "C" int gqa_flash_fwd(const void* q, const void* k, const void* v,
                              const int* kv_valid, void* o, float* lse,
                              int b, int s, int lk, int h, int kvh, int d,
                              int causal, int bq, int bk, float sm_scale,
                              int bf16, void* stream) {
-  if (bf16 || kvh <= 0 || h % kvh != 0 || bq <= 0 || bk <= 0)
+  if (kvh <= 0 || h % kvh != 0 || bq <= 0 || bk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, kv_valid, nullptr, nullptr, o, lse,
          b, s, lk, h, kvh, h / kvh,
          causal, causal ? lk - s : 0, bq, bk, sm_scale};
-  return dispatch<false>(a, d, 0, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(a, d, bf16, static_cast<cudaStream_t>(stream));
 }
 
 // K3. q, k, v, o (B, L, H, D); q_seg, kv_seg (B, L) int32 or both null;

@@ -9,8 +9,12 @@
 // Qwen3-VL ViT reaches through wedetect_tpu/ops/attention.py:
 // _flash_attention. One template pair serves both, as in flash_attn.cu:
 // a dq kernel over blocks of query rows and a dk/dv kernel over blocks of
-// keys. The split is JAX's: each block owns its output rows, so there are
-// no atomics and the gradients are the same bit for bit from run to run.
+// keys. The split is JAX's: each block owns its output rows, so there
+// are no atomics and the gradients are the same bit for bit from run to
+// run. K2-bwd in bf16 at D = 128 with G dividing 64 is
+// csrc/flash_gqa_bwd_sm90.cu (wgmma and TMA); these kernels take K2-bwd
+// in f32 and the other bf16 shapes (ops/flash_gqa.py:bwd_route, e.g.
+// D = 256), and K3-bwd in both types.
 //
 // Layouts are the JAX package's public ones, read in place: q, o, dO, dq
 // (B, S, H, D); k, v, dk, dv (B, Lk, KVH, D); the G = H / KVH query heads
@@ -32,14 +36,15 @@
 // ds to the input type before ds.k and ds^T.q; sums are f32.
 //
 // Design (simple, right first; the forward's SIMT scheme): 256 threads
-// in a 16 x 16 grid, 64 x 64 tiles staged in dynamic shared memory as
-// f32, logits and dp as scalar FMAs into 4 x 4 register tiles, each
-// thread keeping a 4 x D/16 slice of its f32 accumulators. dq: a block
-// holds 64 folded rows (Q, dO) and walks the key tiles up to its last
-// row's frontier. dk/dv: a block holds 64 keys (K, V) and walks the row
-// tiles, skipping those whose last row's frontier does not reach its
-// first key (JAX's j0 rule per 64-row tile). Shared memory at D = 128:
-// 150 KB (dq), 166 KB (dk/dv), one block per SM.
+// in a 16 x 16 grid, BR x BK tiles staged in dynamic shared memory as
+// f32, logits and dp as scalar FMAs into BR/16 x BK/16 register tiles,
+// each thread keeping a BR/16 x D/16 slice of its f32 accumulators. dq:
+// a block holds BR folded rows (Q, dO) and walks the key tiles up to its
+// last row's frontier. dk/dv: a block holds BK keys (K, V) and walks the
+// row tiles, skipping those whose last row's frontier does not reach
+// its first key (JAX's j0 rule per BR-row tile). 64 x 64 tiles at
+// D <= 128 (shared memory at D = 128: 150 KB dq, 166 KB dk/dv), 32 x 32
+// at D = 256 (136 KB, 141 KB); one block per SM.
 //
 // Bound on the H100: dq 6 * H * D and dk/dv 8 * H * D FLOPs per visible
 // (query, key) pair (two and four products of the pair), against
@@ -55,8 +60,6 @@
 
 namespace {
 
-constexpr int kBR = 64;        // folded rows per tile
-constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
 constexpr float kNeg = -1e30f;
 
@@ -152,9 +155,9 @@ __device__ __forceinline__ int64_t key_offset(const Args& a, int bi, int hk,
   return ((static_cast<int64_t>(bi) * a.lk + key) * a.kvh + hk) * D;
 }
 
-// Stage rows [row0, row0 + kBR) of q and dO (f32, pitch D + 1) and their
+// Stage rows [row0, row0 + BR) of q and dO (f32, pitch D + 1) and their
 // frontier, tag, lse and delta. Rows past the end get F = 0 (no key).
-template <typename T, int D, bool kSeg>
+template <typename T, int D, bool kSeg, int BR>
 __device__ __forceinline__ void load_rows(const Args& a, int bi, int hk,
                                           int row0, float* Qs, float* dOs,
                                           float* s_lse, float* s_delta,
@@ -164,7 +167,7 @@ __device__ __forceinline__ void load_rows(const Args& a, int bi, int hk,
   const T* dout = static_cast<const T*>(a.dout);
   const int rows = a.s * a.g;
   const int tid = threadIdx.x;
-  if (tid < kBR) {
+  if (tid < BR) {
     int gr = row0 + tid;
     int f = 0, tag = 0;
     float l = 0.f, dl = 0.f;
@@ -181,7 +184,7 @@ __device__ __forceinline__ void load_rows(const Args& a, int bi, int hk,
     s_lse[tid] = l;
     s_delta[tid] = dl;
   }
-  for (int idx = tid; idx < kBR * D; idx += kThreads) {
+  for (int idx = tid; idx < BR * D; idx += kThreads) {
     int r = idx / D, dd = idx % D;
     int gr = row0 + r;
     float qv = 0.f, ov = 0.f;
@@ -195,8 +198,8 @@ __device__ __forceinline__ void load_rows(const Args& a, int bi, int hk,
   }
 }
 
-// Stage keys [k0, k0 + kBK) of k and v (f32, pitch D + 1) and their tags.
-template <typename T, int D, bool kSeg>
+// Stage keys [k0, k0 + BK) of k and v (f32, pitch D + 1) and their tags.
+template <typename T, int D, bool kSeg, int BK>
 __device__ __forceinline__ void load_keys(const Args& a, int bi, int hk,
                                           int k0, float* Ks, float* Vs,
                                           int* s_ktag) {
@@ -204,7 +207,7 @@ __device__ __forceinline__ void load_keys(const Args& a, int bi, int hk,
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const int tid = threadIdx.x;
-  for (int idx = tid; idx < kBK * D; idx += kThreads) {
+  for (int idx = tid; idx < BK * D; idx += kThreads) {
     int kk = idx / D, dd = idx % D;
     int key = k0 + kk;
     float kv = 0.f, vv = 0.f;
@@ -216,39 +219,39 @@ __device__ __forceinline__ void load_keys(const Args& a, int bi, int hk,
     Ks[kk * QP + dd] = kv;
     Vs[kk * QP + dd] = vv;
   }
-  if (tid < kBK) s_ktag[tid] = key_tag<kSeg>(a, bi, k0 + tid);
+  if (tid < BK) s_ktag[tid] = key_tag<kSeg>(a, bi, k0 + tid);
 }
 
 // s = Q.K^T and dp = dO.V^T for rows ty + 16 i and keys tx + 16 j.
-template <int D>
+template <int D, int RI, int CJ>
 __device__ __forceinline__ void tile_products(const float* Qs,
                                               const float* dOs,
                                               const float* Ks,
                                               const float* Vs, int ty,
-                                              int tx, float (&sc)[4][4],
-                                              float (&dp)[4][4]) {
+                                              int tx, float (&sc)[RI][CJ],
+                                              float (&dp)[RI][CJ]) {
   constexpr int QP = D + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < CJ; ++j) sc[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int dd = 0; dd < D; ++dd) {
-    float qa[4], oa[4], kb[4], vb[4];
+    float qa[RI], oa[RI], kb[CJ], vb[CJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       qa[i] = Qs[(ty + 16 * i) * QP + dd];
       oa[i] = dOs[(ty + 16 * i) * QP + dd];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < CJ; ++j) {
       kb[j] = Ks[(tx + 16 * j) * QP + dd];
       vb[j] = Vs[(tx + 16 * j) * QP + dd];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
         dp[i][j] = fmaf(oa[i], vb[j], dp[i][j]);
       }
@@ -269,56 +272,58 @@ __device__ __forceinline__ float prob(const Args& a, float s, int r, int c,
 }
 
 // ------------------------------------------------------------------ dq
-template <typename T, int D, bool kSeg>
+template <typename T, int D, bool kSeg, int BR, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const Args a) {
   constexpr int QP = D + 1;
-  constexpr int SP = kBK + 1;
+  constexpr int SP = BK + 1;
+  constexpr int RI = BR / 16;    // rows per thread
+  constexpr int CJ = BK / 16;    // keys per thread
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
-  float* Qs = smem;                      // [kBR][QP]
-  float* dOs = Qs + kBR * QP;            // [kBR][QP]
-  float* Ks = dOs + kBR * QP;            // [kBK][QP]
-  float* Vs = Ks + kBK * QP;             // [kBK][QP]
-  float* DSs = Vs + kBK * QP;            // [kBR][SP] ds, rounded
-  float* s_lse = DSs + kBR * SP;         // [kBR]
-  float* s_delta = s_lse + kBR;          // [kBR]
-  int* s_f = reinterpret_cast<int*>(s_delta + kBR);  // [kBR]
-  int* s_qtag = s_f + kBR;               // [kBR]
-  int* s_ktag = s_qtag + kBR;            // [kBK]
+  float* Qs = smem;                      // [BR][QP]
+  float* dOs = Qs + BR * QP;             // [BR][QP]
+  float* Ks = dOs + BR * QP;             // [BK][QP]
+  float* Vs = Ks + BK * QP;              // [BK][QP]
+  float* DSs = Vs + BK * QP;             // [BR][SP] ds, rounded
+  float* s_lse = DSs + BR * SP;          // [BR]
+  float* s_delta = s_lse + BR;           // [BR]
+  int* s_f = reinterpret_cast<int*>(s_delta + BR);  // [BR]
+  int* s_qtag = s_f + BR;                // [BR]
+  int* s_ktag = s_qtag + BR;             // [BK]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.x * kBR;
+  const int row0 = blockIdx.x * BR;
   const int hk = blockIdx.y;
   const int bi = blockIdx.z;
   const int rows = a.s * a.g;
 
-  load_rows<T, D, kSeg>(a, bi, hk, row0, Qs, dOs, s_lse, s_delta, s_f,
-                        s_qtag);
+  load_rows<T, D, kSeg, BR>(a, bi, hk, row0, Qs, dOs, s_lse, s_delta, s_f,
+                            s_qtag);
   // F grows with the row, so the last live row's bounds the key loop
-  const int last = min(row0 + kBR, rows) - 1;
-  const int ntiles = (frontier<kSeg>(a, last / a.g) + kBK - 1) / kBK;
+  const int last = min(row0 + BR, rows) - 1;
+  const int ntiles = (frontier<kSeg>(a, last / a.g) + BK - 1) / BK;
 
-  float acc[4][DJ];
+  float acc[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBK;
+    const int k0 = t * BK;
     __syncthreads();  // rows staged; the previous tile's K and ds consumed
-    load_keys<T, D, kSeg>(a, bi, hk, k0, Ks, Vs, s_ktag);
+    load_keys<T, D, kSeg, BK>(a, bi, hk, k0, Ks, Vs, s_ktag);
     __syncthreads();
 
-    float sc[4][4], dp[4][4];
+    float sc[RI][CJ], dp[RI][CJ];
     tile_products<D>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       int r = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         int c = tx + 16 * j;
         float p = prob<kSeg>(a, sc[i][j], r, c, k0, s_lse, s_f, s_qtag,
                              s_ktag);
@@ -330,14 +335,14 @@ flash_bwd_dq_kernel(const Args a) {
 
     // dq += ds . K
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float dsv[4], kv[DJ];
+    for (int c = 0; c < BK; ++c) {
+      float dsv[RI], kv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = DSs[(ty + 16 * i) * SP + c];
+      for (int i = 0; i < RI; ++i) dsv[i] = DSs[(ty + 16 * i) * SP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) kv[j] = Ks[c * QP + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
     }
@@ -345,7 +350,7 @@ flash_bwd_dq_kernel(const Args a) {
 
   T* dq = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     int gr = row0 + ty + 16 * i;
     if (gr >= rows) continue;
     int64_t base = row_offset<D>(a, bi, hk, gr);
@@ -355,61 +360,63 @@ flash_bwd_dq_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------- dk/dv
-template <typename T, int D, bool kSeg>
+template <typename T, int D, bool kSeg, int BR, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const Args a) {
   constexpr int QP = D + 1;
-  constexpr int SP = kBK + 1;
+  constexpr int SP = BK + 1;
+  constexpr int RI = BR / 16;
+  constexpr int CJ = BK / 16;
   constexpr int DJ = D / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;                      // [kBK][QP]
-  float* Vs = Ks + kBK * QP;             // [kBK][QP]
-  float* Qs = Vs + kBK * QP;             // [kBR][QP]
-  float* dOs = Qs + kBR * QP;            // [kBR][QP]
-  float* Ps = dOs + kBR * QP;            // [kBR][SP] p, rounded
-  float* DSs = Ps + kBR * SP;            // [kBR][SP] ds, rounded
-  float* s_lse = DSs + kBR * SP;         // [kBR]
-  float* s_delta = s_lse + kBR;          // [kBR]
-  int* s_f = reinterpret_cast<int*>(s_delta + kBR);  // [kBR]
-  int* s_qtag = s_f + kBR;               // [kBR]
-  int* s_ktag = s_qtag + kBR;            // [kBK]
+  float* Ks = smem;                      // [BK][QP]
+  float* Vs = Ks + BK * QP;              // [BK][QP]
+  float* Qs = Vs + BK * QP;              // [BR][QP]
+  float* dOs = Qs + BR * QP;             // [BR][QP]
+  float* Ps = dOs + BR * QP;             // [BR][SP] p, rounded
+  float* DSs = Ps + BR * SP;             // [BR][SP] ds, rounded
+  float* s_lse = DSs + BR * SP;          // [BR]
+  float* s_delta = s_lse + BR;           // [BR]
+  int* s_f = reinterpret_cast<int*>(s_delta + BR);  // [BR]
+  int* s_qtag = s_f + BR;                // [BR]
+  int* s_ktag = s_qtag + BR;             // [BK]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * BK;
   const int hk = blockIdx.y;
   const int bi = blockIdx.z;
   const int rows = a.s * a.g;
 
-  load_keys<T, D, kSeg>(a, bi, hk, k0, Ks, Vs, s_ktag);
+  load_keys<T, D, kSeg, BK>(a, bi, hk, k0, Ks, Vs, s_ktag);
 
   // keys ty + 16 i, columns tx + 16 j
-  float dk[4][DJ], dv[4][DJ];
+  float dk[CJ][DJ], dv[CJ][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < CJ; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  const int ntiles = (rows + kBR - 1) / kBR;
+  const int ntiles = (rows + BR - 1) / BR;
   for (int t = 0; t < ntiles; ++t) {
-    const int row0 = t * kBR;
+    const int row0 = t * BR;
     // F grows with the row: skip a tile whose last row does not reach
     // this block's first key (the same for every thread of the block)
-    const int last = min(row0 + kBR, rows) - 1;
+    const int last = min(row0 + BR, rows) - 1;
     if (frontier<kSeg>(a, last / a.g) <= k0) continue;
     __syncthreads();  // the previous tile's rows, p and ds are consumed
-    load_rows<T, D, kSeg>(a, bi, hk, row0, Qs, dOs, s_lse, s_delta, s_f,
-                          s_qtag);
+    load_rows<T, D, kSeg, BR>(a, bi, hk, row0, Qs, dOs, s_lse, s_delta, s_f,
+                              s_qtag);
     __syncthreads();
 
     // logits and dp with rows ty + 16 i and keys tx + 16 j
-    float sc[4][4], dp[4][4];
+    float sc[RI][CJ], dp[RI][CJ];
     tile_products<D>(Qs, dOs, Ks, Vs, ty, tx, sc, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       int r = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         int c = tx + 16 * j;
         float p = prob<kSeg>(a, sc[i][j], r, c, k0, s_lse, s_f, s_qtag,
                              s_ktag);
@@ -422,10 +429,10 @@ flash_bwd_dkdv_kernel(const Args a) {
 
     // dv += p^T . dO, dk += ds^T . Q over the tile's rows
 #pragma unroll 2
-    for (int r = 0; r < kBR; ++r) {
-      float pv[4], dsv[4], ov[DJ], qv[DJ];
+    for (int r = 0; r < BR; ++r) {
+      float pv[CJ], dsv[CJ], ov[DJ], qv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < CJ; ++i) {
         pv[i] = Ps[r * SP + ty + 16 * i];
         dsv[i] = DSs[r * SP + ty + 16 * i];
       }
@@ -435,7 +442,7 @@ flash_bwd_dkdv_kernel(const Args a) {
         qv[j] = Qs[r * QP + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < CJ; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) {
           dv[i][j] = fmaf(pv[i], ov[j], dv[i][j]);
@@ -447,7 +454,7 @@ flash_bwd_dkdv_kernel(const Args a) {
   T* dkp = static_cast<T*>(a.dk);
   T* dvp = static_cast<T*>(a.dv);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < CJ; ++i) {
     int key = k0 + ty + 16 * i;
     if (key >= a.lk) continue;
     int64_t base = key_offset<D>(a, bi, hk, key);
@@ -459,72 +466,74 @@ flash_bwd_dkdv_kernel(const Args a) {
   }
 }
 
-size_t meta_bytes() {
-  return 2 * kBR * sizeof(float) + (2 * kBR + kBK) * sizeof(int);
+size_t meta_bytes(int br, int bk) {
+  return 2 * br * sizeof(float) + (2 * br + bk) * sizeof(int);
 }
 
-size_t dq_shared_bytes(int d) {
-  size_t floats = static_cast<size_t>(2 * kBR + 2 * kBK) * (d + 1)
-                  + static_cast<size_t>(kBR) * (kBK + 1);
-  return floats * sizeof(float) + meta_bytes();
+size_t dq_shared_bytes(int d, int br, int bk) {
+  size_t floats = static_cast<size_t>(2 * br + 2 * bk) * (d + 1)
+                  + static_cast<size_t>(br) * (bk + 1);
+  return floats * sizeof(float) + meta_bytes(br, bk);
 }
 
-size_t dkdv_shared_bytes(int d) {
-  size_t floats = static_cast<size_t>(2 * kBR + 2 * kBK) * (d + 1)
-                  + 2 * static_cast<size_t>(kBR) * (kBK + 1);
-  return floats * sizeof(float) + meta_bytes();
+size_t dkdv_shared_bytes(int d, int br, int bk) {
+  size_t floats = static_cast<size_t>(2 * br + 2 * bk) * (d + 1)
+                  + 2 * static_cast<size_t>(br) * (bk + 1);
+  return floats * sizeof(float) + meta_bytes(br, bk);
 }
 
-template <typename T, int D, bool kSeg>
-int launch_dq(const Args& a, cudaStream_t stream) {
-  auto kern = flash_bwd_dq_kernel<T, D, kSeg>;
-  size_t smem = dq_shared_bytes(D);
-  static bool configured = false;
-  if (!configured) {
+template <typename Kernel>
+int launch(Kernel kern, bool* configured, dim3 grid, size_t smem,
+           const Args& a, cudaStream_t stream) {
+  if (!*configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    *configured = true;
   }
-  dim3 grid((a.s * a.g + kBR - 1) / kBR, a.kvh, a.b);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 64 x 64 tiles up to D = 128 (150-166 KB of shared memory at D = 128);
+// 32 x 32 at D = 256 (136-141 KB: 64 x 64 would need 263 KB). 32 still
+// divides every JAX key block bk (>= 128), so no frontier splits a tile
+template <typename T, int D, bool kSeg>
+int launch_dq(const Args& a, cudaStream_t stream) {
+  constexpr int B = D > 128 ? 32 : 64;
+  static bool configured = false;
+  dim3 grid((a.s * a.g + B - 1) / B, a.kvh, a.b);
+  return launch(flash_bwd_dq_kernel<T, D, kSeg, B, B>, &configured, grid,
+                dq_shared_bytes(D, B, B), a, stream);
 }
 
 template <typename T, int D, bool kSeg>
 int launch_dkdv(const Args& a, cudaStream_t stream) {
-  auto kern = flash_bwd_dkdv_kernel<T, D, kSeg>;
-  size_t smem = dkdv_shared_bytes(D);
+  constexpr int B = D > 128 ? 32 : 64;
   static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  dim3 grid((a.lk + kBK - 1) / kBK, a.kvh, a.b);
-  kern<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  dim3 grid((a.lk + B - 1) / B, a.kvh, a.b);
+  return launch(flash_bwd_dkdv_kernel<T, D, kSeg, B, B>, &configured, grid,
+                dkdv_shared_bytes(D, B, B), a, stream);
+}
+
+template <typename T, int D, bool kSeg>
+int launch_one(const Args& a, bool dq, cudaStream_t stream) {
+  return dq ? launch_dq<T, D, kSeg>(a, stream)
+            : launch_dkdv<T, D, kSeg>(a, stream);
 }
 
 template <bool kSeg>
 int dispatch(const Args& a, bool dq, int d, int bf16, cudaStream_t stream) {
-  if (d == 64) {
-    if (dq)
-      return bf16 ? launch_dq<__nv_bfloat16, 64, kSeg>(a, stream)
-                  : launch_dq<float, 64, kSeg>(a, stream);
-    return bf16 ? launch_dkdv<__nv_bfloat16, 64, kSeg>(a, stream)
-                : launch_dkdv<float, 64, kSeg>(a, stream);
-  }
-  if (d == 128) {
-    if (dq)
-      return bf16 ? launch_dq<__nv_bfloat16, 128, kSeg>(a, stream)
-                  : launch_dq<float, 128, kSeg>(a, stream);
-    return bf16 ? launch_dkdv<__nv_bfloat16, 128, kSeg>(a, stream)
-                : launch_dkdv<float, 128, kSeg>(a, stream);
-  }
+  if (d == 64)
+    return bf16 ? launch_one<__nv_bfloat16, 64, kSeg>(a, dq, stream)
+                : launch_one<float, 64, kSeg>(a, dq, stream);
+  if (d == 128)
+    return bf16 ? launch_one<__nv_bfloat16, 128, kSeg>(a, dq, stream)
+                : launch_one<float, 128, kSeg>(a, dq, stream);
+  if (d == 256)
+    return bf16 ? launch_one<__nv_bfloat16, 256, kSeg>(a, dq, stream)
+                : launch_one<float, 256, kSeg>(a, dq, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,6 +1,7 @@
-// Which keys a row of K2 sees: the rules both K2 forward kernels share
-// (csrc/flash_attn.cu, f32; csrc/flash_gqa_sm90.cu, bf16), those of the
-// Pallas kernel wedetect_tpu/ops/flash_gqa.py:_fwd_kernel.
+// Which keys a row of K2 sees: the rules K2's kernels share
+// (csrc/flash_attn.cu, the SIMT forward; csrc/flash_gqa_sm90.cu and
+// csrc/flash_gqa_bwd_sm90.cu, the bf16 forward and backward), those of
+// the Pallas kernels in wedetect_tpu/ops/flash_gqa.py.
 //
 // Query i sits at key position off + i (off = Lk - S, end-aligned
 // rectangular causal). Its row scans keys [0, F): a key at or past the

@@ -170,8 +170,9 @@ def _check_cuda(name, q, *others):
                         "device")
     if not all(t.is_contiguous() for t in (q, *others)):
         raise ValueError(f"{name}: q, k, v (and dO) must be contiguous")
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(f"{name}: head dim {q.shape[-1]} (64 or 128)")
+    if q.shape[-1] not in (64, 128, 256):
+        raise ValueError(f"{name}: head dim {q.shape[-1]} (64, 128 or "
+                         "256)")
 
 
 def _segs(q, q_segment_ids, kv_segment_ids):

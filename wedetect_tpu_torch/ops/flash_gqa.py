@@ -24,15 +24,18 @@ them, not 0; for every row with a valid key, F changes nothing.
 
 `gqa_flash_attention` launches a CUDA kernel on CUDA tensors and runs
 the plain version on CPU tensors; there is no fallback. The kernel goes
-by type (`fwd_route`): bf16 (D = 128) launches
-`csrc/flash_gqa_sm90.cu:gqa_flash_fwd_sm90` (wgmma tiles fed by TMA),
-f32 `csrc/flash_attn.cu:gqa_flash_fwd` (SIMT). It is differentiable in
-q, k and v (a `torch.autograd.Function`, the JAX package's custom VJP):
-the forward saves q, k, v, kv_valid, O and lse, and the backward
+by type and shape (`fwd_route`): bf16 at D = 128 with G dividing 128
+launches `csrc/flash_gqa_sm90.cu:gqa_flash_fwd_sm90` (wgmma tiles fed by
+TMA); f32, and bf16 at other shapes (D = 256), the SIMT
+`csrc/flash_attn.cu:gqa_flash_fwd`. It is differentiable in q, k and v
+(a `torch.autograd.Function`, the JAX package's custom VJP): the
+forward saves q, k, v, kv_valid, O and lse, and the backward
 (`gqa_flash_attention_bwd`) launches kernels K2-bwd-dq and K2-bwd-dkdv
-(`csrc/flash_attn_bwd.cu`) on CUDA tensors and runs
-`gqa_flash_attention_bwd_plain` on CPU tensors. delta = rowsum(dO * O)
-is plain torch in both, as in JAX (`_bwd_grouped`).
+on CUDA tensors and runs `gqa_flash_attention_bwd_plain` on CPU
+tensors. Those go by type and shape too (`bwd_route`): bf16 at D = 128
+with G dividing 64 to `csrc/flash_gqa_bwd_sm90.cu` (wgmma + TMA), f32
+and other bf16 shapes to the SIMT `csrc/flash_attn_bwd.cu`. delta =
+rowsum(dO * O) is plain torch in both, as in JAX (`_bwd_grouped`).
 """
 
 from __future__ import annotations
@@ -233,6 +236,20 @@ def _bwd_lib():
     return lib
 
 
+def _bwd_sm90_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_gqa_bwd_sm90")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gqa_flash_bwd_dq_sm90.argtypes = [p] * 8 + [i] * 9 + [f, p]
+        lib.gqa_flash_bwd_dkdv_sm90.argtypes = [p] * 9 + [i] * 9 + [f, p]
+        lib.gqa_flash_bwd_dq_sm90.restype = ctypes.c_int
+        lib.gqa_flash_bwd_dkdv_sm90.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
 def _check_cuda(name, q, k, v, others=()):
     """The kernels' input rules: dtype, device, shapes, contiguity."""
     b, s, h, d = q.shape
@@ -252,8 +269,8 @@ def _check_cuda(name, q, k, v, others=()):
             raise ValueError(f"{name}: {tname} must be contiguous")
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
-    if d not in (64, 128):
-        raise ValueError(f"{name}: head dim {d} (64 or 128)")
+    if d not in (64, 128, 256):
+        raise ValueError(f"{name}: head dim {d} (64, 128 or 256)")
 
 
 def _valid_i32(kv_valid, b, lk, device, name):
@@ -265,19 +282,30 @@ def _valid_i32(kv_valid, b, lk, device, name):
     return kv_valid.to(device=device, dtype=torch.int32).contiguous()
 
 
-def fwd_route(dtype: torch.dtype, d: int, g: int) -> str:
-    """The K2 forward kernel a CUDA input takes: "sm90" for bf16
-    (csrc/flash_gqa_sm90.cu, D = 128 and G dividing 128), "simt" for f32
-    (csrc/flash_attn.cu). Raises for any other input."""
+def _route(name, dtype, d, rows, g):
     if dtype == torch.float32:
         return "simt"
     if dtype != torch.bfloat16:
-        raise TypeError(f"gqa_flash_attention: dtype {dtype} (float32 or "
-                        "bfloat16 only)")
-    if d != 128 or 128 % g:
-        raise ValueError(f"gqa_flash_attention: bf16 takes head dim 128 "
-                         f"and a group size dividing 128 (D={d}, G={g})")
-    return "sm90"
+        raise TypeError(f"{name}: dtype {dtype} (float32 or bfloat16 only)")
+    return "sm90" if d == 128 and rows % g == 0 else "simt"
+
+
+def fwd_route(dtype: torch.dtype, d: int, g: int) -> str:
+    """The K2 forward kernel a CUDA input takes: "sm90"
+    (csrc/flash_gqa_sm90.cu, wgmma + TMA) for bf16 at D = 128 with G
+    dividing 128 (its 128-row Q box); "simt" (csrc/flash_attn.cu) for
+    f32 and for any other bf16 shape (D = 256). Raises for other
+    types."""
+    return _route("gqa_flash_attention", dtype, d, 128, g)
+
+
+def bwd_route(dtype: torch.dtype, d: int, g: int) -> str:
+    """The K2 backward kernels a CUDA input takes: "sm90"
+    (csrc/flash_gqa_bwd_sm90.cu, wgmma + TMA) for bf16 at D = 128 with G
+    dividing 64 (the dk/dv kernel's 64-row Q and dO boxes); "simt"
+    (csrc/flash_attn_bwd.cu) for f32 and for any other bf16 shape
+    (D = 256). Raises for other types."""
+    return _route("gqa_flash_attention_bwd", dtype, d, 64, g)
 
 
 def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
@@ -299,14 +327,18 @@ def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
     return o, lse
 
 
+def _check_aligned(name, *named):
+    """TMA reads q, k, v (and dO) in place: each 16-byte aligned."""
+    for tname, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be 16-byte aligned "
+                             "(TMA)")
+
+
 def gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale):
     """One launch of K2's bf16 kernel (wgmma + TMA): (O, lse), on inputs
-    that `_check_cuda` and `fwd_route` passed. TMA also needs q, k and v
-    16-byte aligned."""
-    for tname, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"gqa_flash_attention: {tname} must be 16-byte "
-                             "aligned (TMA)")
+    that `_check_cuda` and `fwd_route` passed."""
+    _check_aligned("gqa_flash_attention", ("q", q), ("k", k), ("v", v))
     out = _launch_fwd("gqa_flash_attention", _sm90_lib().gqa_flash_fwd_sm90,
                       q, k, v, kv_valid, causal, sm_scale)
     gqa_flash_fwd_sm90.launches += 1
@@ -324,7 +356,7 @@ def _fwd_kernel(q, k, v, kv_valid, causal, sm_scale):
         out = gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale)
     else:
         out = _launch_fwd(name, _lib().gqa_flash_fwd, q, k, v, kv_valid,
-                          causal, sm_scale, 0)
+                          causal, sm_scale, int(q.dtype == torch.bfloat16))
     gqa_flash_attention.launches += 1
     return out
 
@@ -354,27 +386,71 @@ def _check_bwd(name, q, k, v, kv_valid, do, lse, delta):
     return _valid_i32(kv_valid, b, lk, q.device, name)
 
 
-def gqa_flash_bwd_dq(q, k, v, kv_valid, do, lse, delta, *, causal,
-                     sm_scale):
-    """One launch of K2-bwd-dq on CUDA tensors: dq (B, S, H, D). lse and
-    delta (B, KVH, S * G) f32 (`row_delta`)."""
+def _launch_bwd(name, fn, q, k, v, valid, do, lse, delta, outs, causal,
+                sm_scale, *tail):
+    """Launch one K2 backward kernel `fn` writing `outs`."""
     b, s, h, d = q.shape
     lk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    valid = _check_bwd("gqa_flash_bwd_dq", q, k, v, kv_valid, do, lse,
-                       delta)
-    dq = torch.empty_like(q)
-    lib = _bwd_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gqa_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, s, lk, h, kvh, d, int(causal), _pick_bq(s, g), _pick_bk(lk),
-            float(sm_scale), int(q.dtype == torch.bfloat16), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), b, s, lk, h, kvh, d,
+                 int(causal), _pick_bq(s, g), _pick_bk(lk), float(sm_scale),
+                 *tail, stream)
     if err != 0:
-        raise RuntimeError(f"gqa_flash_bwd_dq: CUDA launch failed with "
-                           f"error {err}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _bwd_sm90(name, q, k, v, do):
+    """Whether bf16 input takes the wgmma kernels (`bwd_route`); they
+    read q, k, v and dO through TMA, which needs each 16-byte aligned."""
+    if bwd_route(q.dtype, q.shape[3], q.shape[2] // k.shape[2]) != "sm90":
+        return False
+    _check_aligned(name, ("q", q), ("k", k), ("v", v), ("do", do))
+    return True
+
+
+def gqa_flash_bwd_dq_sm90(q, k, v, valid, do, lse, delta, dq, *, causal,
+                          sm_scale):
+    """One launch of K2-bwd-dq's bf16 kernel (wgmma + TMA) into dq, on
+    inputs that `_check_bwd` and `_bwd_sm90` passed."""
+    _launch_bwd("gqa_flash_bwd_dq", _bwd_sm90_lib().gqa_flash_bwd_dq_sm90,
+                q, k, v, valid, do, lse, delta, (dq,), causal, sm_scale)
+    gqa_flash_bwd_dq_sm90.launches += 1
+
+
+def gqa_flash_bwd_dkdv_sm90(q, k, v, valid, do, lse, delta, dk, dv, *,
+                            causal, sm_scale):
+    """One launch of K2-bwd-dkdv's bf16 kernel (wgmma + TMA) into dk and
+    dv, on inputs that `_check_bwd` and `_bwd_sm90` passed."""
+    _launch_bwd("gqa_flash_bwd_dkdv",
+                _bwd_sm90_lib().gqa_flash_bwd_dkdv_sm90, q, k, v, valid, do,
+                lse, delta, (dk, dv), causal, sm_scale)
+    gqa_flash_bwd_dkdv_sm90.launches += 1
+
+
+gqa_flash_bwd_dq_sm90.launches = 0
+gqa_flash_bwd_dkdv_sm90.launches = 0
+
+
+def gqa_flash_bwd_dq(q, k, v, kv_valid, do, lse, delta, *, causal,
+                     sm_scale):
+    """One launch of K2-bwd-dq on CUDA tensors: dq (B, S, H, D). lse and
+    delta (B, KVH, S * G) f32 (`row_delta`). The kernel goes by
+    `bwd_route`; every launch is counted here, the bf16 wgmma kernel's
+    also in `gqa_flash_bwd_dq_sm90.launches`."""
+    name = "gqa_flash_bwd_dq"
+    valid = _check_bwd(name, q, k, v, kv_valid, do, lse, delta)
+    dq = torch.empty_like(q)
+    if _bwd_sm90(name, q, k, v, do):
+        gqa_flash_bwd_dq_sm90(q, k, v, valid, do, lse, delta, dq,
+                              causal=causal, sm_scale=sm_scale)
+    else:
+        _launch_bwd(name, _bwd_lib().gqa_flash_bwd_dq, q, k, v, valid, do,
+                    lse, delta, (dq,), causal, sm_scale,
+                    int(q.dtype == torch.bfloat16))
     gqa_flash_bwd_dq.launches += 1
     return dq
 
@@ -382,25 +458,17 @@ def gqa_flash_bwd_dq(q, k, v, kv_valid, do, lse, delta, *, causal,
 def gqa_flash_bwd_dkdv(q, k, v, kv_valid, do, lse, delta, *, causal,
                        sm_scale):
     """One launch of K2-bwd-dkdv on CUDA tensors: (dk, dv), each
-    (B, Lk, KVH, D)."""
-    b, s, h, d = q.shape
-    lk, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    valid = _check_bwd("gqa_flash_bwd_dkdv", q, k, v, kv_valid, do, lse,
-                       delta)
+    (B, Lk, KVH, D); routed and counted as `gqa_flash_bwd_dq`."""
+    name = "gqa_flash_bwd_dkdv"
+    valid = _check_bwd(name, q, k, v, kv_valid, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gqa_flash_bwd_dkdv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, s, lk, h, kvh, d, int(causal), _pick_bq(s, g),
-            _pick_bk(lk), float(sm_scale), int(q.dtype == torch.bfloat16),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"gqa_flash_bwd_dkdv: CUDA launch failed with "
-                           f"error {err}")
+    if _bwd_sm90(name, q, k, v, do):
+        gqa_flash_bwd_dkdv_sm90(q, k, v, valid, do, lse, delta, dk, dv,
+                                causal=causal, sm_scale=sm_scale)
+    else:
+        _launch_bwd(name, _bwd_lib().gqa_flash_bwd_dkdv, q, k, v, valid, do,
+                    lse, delta, (dk, dv), causal, sm_scale,
+                    int(q.dtype == torch.bfloat16))
     gqa_flash_bwd_dkdv.launches += 1
     return dk, dv
 
@@ -456,7 +524,7 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(B, S, H, D) x (B, Lk, KVH, D) -> (B, S, H, D) [, lse].
 
     CUDA tensors: one launch of a CUDA kernel (`fwd_route`), counted in
-    `gqa_flash_attention.launches` (the bf16 kernel's also in
+    `gqa_flash_attention.launches` (the wgmma kernel's also in
     `gqa_flash_fwd_sm90.launches`). CPU tensors: the plain version.
     Differentiable in q, k and v (module docstring).
     """
