@@ -9,9 +9,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             set off: the f32 runs are true f32).
 2. build    nvcc builds every kernel of the port (csrc/*.cu), all
             sources at once, into build/kernels/; ptxas's report. The
-            two bf16 K2 libraries (forward, backward) must show HGMMA
-            (wgmma) and UTMALDG (TMA load) instructions in
-            `cuobjdump -sass` and spill nothing.
+            three wgmma libraries (K2's bf16 forward and backward, K3's
+            bf16 backward) must show HGMMA (wgmma) and UTMALDG (TMA
+            load) instructions in `cuobjdump -sass` and spill nothing.
 3. k1       the row top-k kernel against its plain PyTorch version at
             the detect path's shape (B*8400, 1203), t = 64, on rows
             with -inf masks, ties and full masks, plus edge shapes
@@ -87,7 +87,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             backward.
 13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
-            segment 0, and square causal.
+            segment 0, square causal, D = 128, three segments with
+            boundaries off the 64-grid and a tail (L = 200): bf16 at
+            D = 64 runs the wgmma + TMA kernels
+            (csrc/flash_attn_bwd_sm90.cu), f32 and D = 128 the SIMT
+            ones, launches counted per case; loss.backward() through
+            flash_attention in bf16 at the training shape, its launches
+            counted; device and eager times beside SDPA's backward.
 14. train_parity  a miniature Ref (head_dim 128) takes one stage-3
             ref_sft_step on the card and one on the CPU from the same
             weights: loss, grad_norm and every gradient within 1e-5
@@ -221,8 +227,9 @@ def phase_device():
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
 
-# the wgmma + TMA libraries: K2's bf16 forward and backward
-SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90")
+# the wgmma + TMA libraries: K2's bf16 forward and backward, K3's bf16
+# backward
+SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_bwd_sm90")
 
 
 def phase_build():
@@ -238,7 +245,7 @@ def phase_build():
     secs = time.perf_counter() - t0
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
-    # the bf16 K2 kernels run on the tensor cores and the TMA, and their
+    # the wgmma kernels run on the tensor cores and the TMA, and their
     # registers hold
     found, spills = {}, {}
     for name in SM90_LIBS:
@@ -685,10 +692,17 @@ K3_CASES = [K3_VIT, (1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200,
 
 
 def k3_case(dev, b, l, h, d, n_real, causal, dtype, seed):
+    """q, k, v and segment ids (B, L): n_real real tokens in segment 1
+    and pad in 0, or for a tuple of (end, id) runs, each run's id up to
+    its end, then 0."""
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((b, l, h, d), generator=g, device=dev).to(dtype)
                for _ in range(3))
-    seg = (torch.arange(l, device=dev) < n_real).to(torch.int32)
+    seg = torch.zeros(l, dtype=torch.int32, device=dev)
+    start = 0
+    for end, sid in ((n_real, 1),) if isinstance(n_real, int) else n_real:
+        seg[start:end] = sid
+        start = end
     return q, k, v, seg[None].expand(b, l).contiguous()
 
 
@@ -883,13 +897,16 @@ def _flash_counters():
             "k2_bwd_dkdv_sm90": fg.gqa_flash_bwd_dkdv_sm90,
             "k3": fa.flash_attention,
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
-            "k3_bwd_dkv": fa.flash_attention_bwd_dkv}
+            "k3_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "k3_bwd_dq_sm90": fa.flash_attention_bwd_dq_sm90,
+            "k3_bwd_dkv_sm90": fa.flash_attention_bwd_dkv_sm90}
 
 
 def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
     `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
-    wgmma one's alone; likewise "k2_bwd_*" and "k2_bwd_*_sm90"."""
+    wgmma one's alone; likewise "k2_bwd_*" and "k2_bwd_*_sm90", "k3_bwd_*"
+    and "k3_bwd_*_sm90"."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -898,11 +915,12 @@ def launch_counts(reset: bool = False):
 
 
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
-                    k2_bwd_sm90=0):
+                    k2_bwd_sm90=0, k3_bwd_sm90=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_sm90": k2_bwd_sm90, "k3": k3, "k3_bwd_dq": k3_bwd,
-            "k3_bwd_dkv": k3_bwd}
+            "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
+            "k3_bwd_dkv_sm90": k3_bwd_sm90}
 
 
 def ref_inputs(dev):
@@ -1270,11 +1288,19 @@ def k3_bwd_run(dev, case, dtype, seed):
     q, k, v, seg = k3_case(dev, *case, dtype=dtype, seed=seed)
     g = torch.Generator(device=dev).manual_seed(seed + 100)
     do = torch.randn((b, l, h, d), generator=g, device=dev).to(dtype)
-    do[:, n_real:] = 0                   # the ViT drops its pad rows
+    do[seg == 0] = 0                     # the ViT drops its pad rows
     kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
               sm_scale=d ** -0.5)
     o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     return (q, k, v, o, lse, do), kw
+
+
+# K3-bwd's further cases: three segments with boundaries off the 64-grid
+# (ids 1 on [0, 100), 2 on [100, 300), 3 on [300, 480), 0 after), where
+# the wgmma kernels take their per-element path, and a tail (L = 200)
+K3_THREE_SEGMENTS = (1, 512, 4, 64, ((100, 1), (300, 2), (480, 3)), False)
+K3_BWD_MORE = [(1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200, False),
+               K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False)]
 
 
 def phase_k3_bwd(dev, timing: bool = True):
@@ -1282,30 +1308,56 @@ def phase_k3_bwd(dev, timing: bool = True):
 
     checks = []
     worst = {}
-    cases = [K3_TRAIN, (1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200,
-                                                        False)]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, case in enumerate(cases):
+        for i, case in enumerate([K3_TRAIN, *K3_BWD_MORE]):
+            route = fa.bwd_route(dtype, case[3])
             args, kw = k3_bwd_run(dev, case, dtype, seed=i)
+            before = launch_counts()
             got = fa.flash_attention_bwd(*args, **kw)
             again = fa.flash_attention_bwd(*args, **kw)
             torch.cuda.synchronize()
+            after = launch_counts()
             plain = fa.flash_attention_bwd_plain(*args, **kw)
             ckw = dict(kw, kv_segment_ids=_dropped_segs(
                 args[0], kw["kv_segment_ids"], BWD_CONTROL_DROP))
             control = fa.flash_attention_bwd_plain(*args, **ckw)
             r = check_bwd("k3_bwd", got, again, plain, control, dtype)
+            # bf16 at D = 64 ran the wgmma kernels, the rest the SIMT ones
+            sm90 = {n: after[n] - before[n]
+                    for n in ("k3_bwd_dq_sm90", "k3_bwd_dkv_sm90")}
+            want = 2 if route == "sm90" else 0
             checks.append({"shape": list(case[:4]), "real": case[4],
-                           "causal": case[5], **r})
-            worst[dtype] = max(worst.get(dtype, 0.0),
-                               max(r["rel_err"].values()))
+                           "causal": case[5], "route": route,
+                           "sm90_launches": sm90, **r})
+            assert sm90 == {n: want for n in sm90}, (case, dtype, sm90)
+            key = f"{route}_{str(dtype)[6:]}"
+            worst[key] = max(worst.get(key, 0.0), max(r["rel_err"].values()))
             if i == 0:
                 worst[(dtype, "abs")] = r["max_abs_err"]
             del got, again, plain, control
-    res = {"checks": checks, "max_rel_err_f32": worst[torch.float32],
-           "max_rel_err_bf16": worst[torch.bfloat16],
+    res = {"checks": checks, "max_rel_err_f32": worst["simt_float32"],
+           "max_rel_err_bf16": worst["sm90_bfloat16"],
+           "max_rel_err_bf16_simt": worst["simt_bfloat16"],
            "max_abs_err_f32": worst[(torch.float32, "abs")],
            "max_abs_err_bf16": worst[(torch.bfloat16, "abs")]}
+
+    # the path a user calls: loss.backward() through flash_attention in
+    # bf16 at the training shape (no CLI trains in bf16)
+    args, kw = k3_bwd_run(dev, K3_TRAIN, torch.bfloat16, seed=0)
+    q, k, v, o, lse, do = args
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    launch_counts(reset=True)
+    fa.flash_attention(*leaves, **kw).backward(do)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts == expected_counts(k3=1, k3_bwd=1, k3_bwd_sm90=1), counts
+    plain = fa.flash_attention_bwd_plain(*args, **kw)
+    errs = [rel_err(t.grad, w) for t, w in zip(leaves, plain)]
+    res["autograd_bf16"] = {"launches": counts,
+                            "rel_err": dict(zip("qkv", errs))}
+    assert max(errs) <= TRAIN_BWD_TOL[torch.bfloat16], errs
+    del leaves, plain
+
     if timing:
         b, l, h, d, n_real, causal = K3_TRAIN
         for dtype in (torch.float32, torch.bfloat16):
@@ -1317,16 +1369,22 @@ def phase_k3_bwd(dev, timing: bool = True):
             mask = (seg[:, :, None] == seg[:, None, :])[:, None]
             plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
                 *args, **kw), iters=2, warmup=1)
-            lib_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
+            # ms and library_ms: device time (graph_ms), one method for
+            # both; *_call_ms: eager calls (cuda_ms), host between them
+            lib_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5, timer=graph_ms)
+            lib_call_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
             for kind, fn in (("dq", fa.flash_attention_bwd_dq),
                              ("dkv", fa.flash_attention_bwd_dkv)):
                 r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
                                    b * l * h, dtype,
                                    "dq" if kind == "dq" else "dkdv")
-                r["ms"] = cuda_ms(lambda: fn(q, k, v, do, lse, delta, **kw),
-                                  iters=5)
+                call = lambda: fn(q, k, v, do, lse, delta, **kw)  # noqa
+                r["route"] = fa.bwd_route(dtype, d)
+                r["ms"] = graph_ms(call)
+                r["call_ms"] = cuda_ms(call, iters=5)
                 r["plain_ms"] = plain_ms
                 r["library_ms"] = lib_ms
+                r["library_call_ms"] = lib_call_ms
                 r["visible_pairs"] = pairs
                 res[f"{kind}_{str(dtype)[6:]}"] = r
     emit({"phase": "k3_bwd", **res})
@@ -1650,6 +1708,7 @@ def bwd_kernel_entry(name, replaces, launches, k, timing, dtype="f32",
 
 STOCK_FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_sm90.cu"
+K3_SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
 
 
 def main() -> int:
@@ -1736,7 +1795,19 @@ def main() -> int:
                          k3_bwd["dq_float32"]),
         bwd_kernel_entry("flash_attention_bwd_dkv", f"{STOCK_FA}:796",
                          train_counts["k3_bwd_dkv"], k3_bwd,
-                         k3_bwd["dkv_float32"])]})
+                         k3_bwd["dkv_float32"]),
+        # K3-bwd in bf16 at D = 64 (wgmma + TMA): launches from the k3_bwd
+        # phase's loss.backward() through flash_attention, times at the
+        # training shape
+        bwd_kernel_entry("flash_attention_bwd_dq_sm90", f"{STOCK_FA}:1146",
+                         k3_bwd["autograd_bf16"]["launches"]["k3_bwd_dq_sm90"],
+                         k3_bwd, k3_bwd["dq_bfloat16"], dtype="bf16",
+                         source=K3_SM90_BWD_SOURCE),
+        bwd_kernel_entry("flash_attention_bwd_dkv_sm90", f"{STOCK_FA}:796",
+                         k3_bwd["autograd_bf16"]["launches"][
+                             "k3_bwd_dkv_sm90"],
+                         k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bf16",
+                         source=K3_SM90_BWD_SOURCE)]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -69,10 +69,11 @@ def test_edited_source_or_header_rebuilds(tree, edit):
     assert _ncalls(calls) == 2
 
 
-@pytest.mark.parametrize("name", ["flash_gqa_sm90", "flash_gqa_bwd_sm90"])
+@pytest.mark.parametrize("name", ["flash_gqa_sm90", "flash_gqa_bwd_sm90",
+                                  "flash_attn_bwd_sm90"])
 def test_sm90_libraries_hash_the_shared_header(name):
-    """Both wgmma + TMA sources of the repository include
-    csrc/sm90_common.cuh, so an edit of its helpers rebuilds both."""
+    """Every wgmma + TMA source of the repository includes
+    csrc/sm90_common.cuh, so an edit of its helpers rebuilds each."""
     names = [p.name for p in _build._sources(_build.CSRC / f"{name}.cu")]
     assert names[0] == f"{name}.cu"
     assert "sm90_common.cuh" in names and "flash_common.cuh" in names

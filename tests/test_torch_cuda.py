@@ -409,6 +409,12 @@ def test_gqa_flash_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b, s,
         assert _rel_err(a, w) <= BWD_TOL[dtype]
 
 
+def _k3_bwd_counters(fa):
+    """K3-bwd's launch counters: both routes, then the wgmma kernels'."""
+    return (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+            fa.flash_attention_bwd_dq_sm90, fa.flash_attention_bwd_dkv_sm90)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,l,h,d,n_real,causal", [
     (1, 1280, 16, 64, 1200, False),
@@ -420,8 +426,8 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b,
                                                  l, h, d, n_real, causal):
     from wedetect_tpu_torch.ops import flash_attention as fa
 
-    monkeypatch.setattr(fa.flash_attention_bwd_dq, "launches", 0)
-    monkeypatch.setattr(fa.flash_attention_bwd_dkv, "launches", 0)
+    for fn in _k3_bwd_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
     q, k, v = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda,
                            seed=l + 1)
     do = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda, seed=l + 2)[0]
@@ -437,9 +443,124 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, monkeypatch, dtype, b,
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     assert fa.flash_attention_bwd_dq.launches == 2
     assert fa.flash_attention_bwd_dkv.launches == 2
+    # bf16 at D = 64 ran the wgmma kernels, the rest the SIMT ones
+    sm90 = 2 if fa.bwd_route(dtype, d) == "sm90" else 0
+    assert fa.flash_attention_bwd_dq_sm90.launches == sm90
+    assert fa.flash_attention_bwd_dkv_sm90.launches == sm90
     for a, a2, w in zip(got[0], got[1], want):
         assert torch.equal(a, a2)                          # deterministic
         assert _rel_err(a, w) <= BWD_TOL[dtype]
+
+
+# (B, L, H, causal, segment runs per batch row): the bf16 K3 backward
+# kernels' cases at D = 64. A row's runs are (end, id) pairs: each id up
+# to its end, then segment 0 (pad); None: no segment ids
+SM90_K3_BWD_CASES = [
+    (1, 1280, 16, False, [((1200, 1),)]),          # the ViT, 80 pad tokens
+    (1, 256, 4, True, [((256, 1),)]),              # causal
+    (1, 512, 4, False, [((100, 1), (300, 2), (480, 3))]),  # off the grid
+    (1, 200, 4, False, [((180, 1),)]),             # L = 200: a tail
+    (2, 384, 4, False, [((300, 1),), ((350, 1),)]),  # pads per batch row
+    (1, 320, 2, True, None),                       # no ids, causal tail
+]
+
+
+def _k3_seg(b, l, runs, dev):
+    if runs is None:
+        return None
+    seg = torch.zeros((b, l), dtype=torch.int32)
+    for row, row_runs in enumerate(runs):
+        start = 0
+        for end, sid in row_runs:
+            seg[row, start:end] = sid
+            start = end
+    return seg.to(dev)
+
+
+def _k3_bwd_case(case, dev, seed):
+    b, l, h, causal, runs = case
+    q, k, v = _attn_inputs((b, l, h, 64), (b, l, h, 64), torch.bfloat16,
+                           dev, seed)
+    do = _attn_inputs((b, l, h, 64), (b, l, h, 64), torch.bfloat16, dev,
+                      seed + 1)[0]
+    seg = _k3_seg(b, l, runs, dev)
+    if seg is not None:
+        do[seg == 0] = 0                 # the ViT drops its pad rows
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
+              sm_scale=0.125)
+    return q, k, v, do, kw
+
+
+@pytest.mark.parametrize("case", SM90_K3_BWD_CASES)
+def test_flash_attention_bwd_sm90_kernels_match_plain(cuda, monkeypatch,
+                                                      case):
+    """bf16 K3-bwd at D = 64 goes to the wgmma + TMA kernels (their own
+    launch counts), agrees with the plain backward and repeats bit for
+    bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _k3_bwd_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _k3_bwd_case(case, cuda, seed=case[1])
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = [fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for fn in _k3_bwd_counters(fa):
+        assert fn.launches == 2
+    for a, a2, w in zip(got[0], got[1], want):
+        assert a.dtype == torch.bfloat16
+        assert torch.equal(a, a2)                          # deterministic
+        assert _rel_err(a, w) <= BWD_TOL[torch.bfloat16]
+
+
+def test_flash_attention_bwd_sm90_through_autograd(cuda, monkeypatch):
+    """loss.backward() through flash_attention in bf16 at D = 64 reaches
+    the wgmma backward kernels, once each."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in (*_k3_bwd_counters(fa), fa.flash_attention):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _k3_bwd_case(SM90_K3_BWD_CASES[2], cuda, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, **kw).backward(do)
+    for fn in (*_k3_bwd_counters(fa), fa.flash_attention):
+        assert fn.launches == 1
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.bfloat16]
+
+
+def test_flash_attention_bwd_sm90_rejects_bad_input(cuda, monkeypatch):
+    """The wgmma wrappers raise for f32, for D = 128 and for misaligned
+    input (TMA); nothing falls back."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _k3_bwd_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    wrappers = (fa.flash_attention_bwd_dq_sm90,
+                fa.flash_attention_bwd_dkv_sm90)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 128)):
+        q, k, v = _attn_inputs((1, 128, 2, d), (1, 128, 2, d), dtype, cuda,
+                               seed=d)
+        rows = torch.zeros((1, 2, 128), device=cuda)
+        for fn in wrappers:
+            with pytest.raises(ValueError, match="head dim 64"):
+                fn(q, k, v, q, rows, rows)
+    q, k, v = _attn_inputs((1, 128, 2, 64), (1, 128, 2, 64), torch.bfloat16,
+                           cuda, seed=1)
+    rows = torch.zeros((1, 2, 128), device=cuda)
+    buf = torch.zeros(q.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:1 + q.numel()].view(q.shape)         # 2-byte offset
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for fn in (*wrappers, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q, k, v, shifted, rows, rows)
+    for fn in _k3_bwd_counters(fa):
+        assert fn.launches == 0
 
 
 # (B, S, Lk, H, KVH, D, causal, invalid key ranges): the bf16 backward

@@ -124,35 +124,46 @@ def test_k2_function_runs_plain_backward_on_cpu():
         assert torch.equal(g, x)
 
 
+# three segments with boundaries off the 64-grid, then pad (segment 0):
+# ids 1 on [0, 100), 2 on [100, 300), 3 on [300, 480), 0 on [480, 512)
+K3_THREE_SEGMENTS = ((100, 1), (300, 2), (480, 3))
+
+
+def _k3_ids(l, n_real):
+    """Segment ids (l,): n_real real tokens in segment 1 and pad in 0, or
+    for a tuple of (end, id) runs, each run's id up to its end, then 0."""
+    runs = ((n_real, 1),) if isinstance(n_real, int) else n_real
+    ids = np.zeros(l, np.int32)
+    start = 0
+    for end, sid in runs:
+        ids[start:end] = sid
+        start = end
+    return ids
+
+
 def _k3_inputs(b, l, h, d, n_real, seed):
     rng = np.random.default_rng(seed)
     q, k, v, w = (rng.standard_normal((b, l, h, d)).astype(np.float32)
                   for _ in range(4))
-    seg = np.broadcast_to((np.arange(l) < n_real).astype(np.int32),
-                          (b, l)).copy()
+    seg = np.broadcast_to(_k3_ids(l, n_real), (b, l)).copy()
     return q, k, v, w, seg
 
 
-def _port_k3_grads(q, k, v, w, seg, causal, scale):
-    t = [torch.from_numpy(x) for x in (q, k, v)]
+def _port_k3_grads(q, k, v, w, seg, causal, scale, dtype=torch.float32):
+    t = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
     s = torch.from_numpy(seg)
     kw = dict(q_segment_ids=s, kv_segment_ids=s, causal=causal,
               sm_scale=scale)
     o, lse = fa.flash_attention_plain(*t, return_lse=True, **kw)
-    return fa.flash_attention_bwd_plain(*t, o, lse, torch.from_numpy(w),
-                                        **kw)
+    return fa.flash_attention_bwd_plain(
+        *t, o, lse, torch.from_numpy(w).to(dtype), **kw)
 
 
-@pytest.mark.parametrize("b,l,h,d,n_real,causal", [
-    (1, 256, 2, 64, 200, False), (2, 128, 2, 64, 128, True),
-    (1, 128, 1, 128, 100, False), (1, 128, 2, 256, 100, False)])
-def test_k3_plain_backward_matches_stock_reference(b, l, h, d, n_real,
-                                                   causal):
+def _stock_k3_grads(q, k, v, w, seg, causal, scale, dtype=jnp.float32):
+    """jax.grad of the stock kernel's autograd reference, in `dtype`."""
     from jax.experimental.pallas.ops.tpu.flash_attention import (
         SegmentIds, mha_reference_no_custom_vjp)
 
-    q, k, v, w, seg = _k3_inputs(b, l, h, d, n_real, seed=l + h)
-    scale = d ** -0.5
     ids = jnp.asarray(seg)
 
     def loss(q, k, v):
@@ -160,13 +171,93 @@ def test_k3_plain_backward_matches_stock_reference(b, l, h, d, n_real,
             q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
             v.transpose(0, 2, 1, 3), segment_ids=SegmentIds(q=ids, kv=ids),
             causal=causal, sm_scale=scale)
-        return jnp.sum(o.transpose(0, 2, 1, 3) * w)
+        return jnp.sum(o.transpose(0, 2, 1, 3).astype(jnp.float32) * w)
 
-    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    args = [jnp.asarray(x).astype(dtype) for x in (q, k, v)]
+    return [np.asarray(g.astype(jnp.float32))
+            for g in jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+@pytest.mark.parametrize("b,l,h,d,n_real,causal", [
+    (1, 256, 2, 64, 200, False), (2, 128, 2, 64, 128, True),
+    (1, 128, 1, 128, 100, False), (1, 128, 2, 256, 100, False),
+    (1, 512, 2, 64, K3_THREE_SEGMENTS, False)])
+def test_k3_plain_backward_matches_stock_reference(b, l, h, d, n_real,
+                                                   causal):
+    q, k, v, w, seg = _k3_inputs(b, l, h, d, n_real, seed=l + h)
+    scale = d ** -0.5
+    want = _stock_k3_grads(q, k, v, w, seg, causal, scale)
     got = _port_k3_grads(q, k, v, w, seg, causal, scale)
     for g, x in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(x), atol=1e-5,
-                                   rtol=1e-5)
+        np.testing.assert_allclose(g.numpy(), x, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,l,h,n_real,causal", [
+    (1, 256, 2, 200, False), (1, 256, 2, 256, True),
+    (1, 512, 2, K3_THREE_SEGMENTS, False)])
+def test_k3_plain_backward_bf16_matches_stock_reference(b, l, h, n_real,
+                                                        causal):
+    """bf16 at D = 64, the input of the wgmma backward kernels, which
+    are held to this plain version. Errors relative to each gradient's
+    largest entry. The stock reference runs in bf16 throughout (logits,
+    softmax and products rounded to bf16), which puts it 2.1-2.4% from
+    the f64 gradient of the same bf16 inputs here, so it is held within
+    3e-2; the plain version rounds only p and ds to bf16 before their
+    products (f32 sums), and is held within 1e-2 of the f64 gradient
+    (it reads 0.3-0.5%)."""
+    q, k, v, w, seg = _k3_inputs(b, l, h, 64, n_real, seed=l + 7)
+    want = _stock_k3_grads(q, k, v, w, seg, causal, 0.125, jnp.bfloat16)
+    got = _port_k3_grads(q, k, v, w, seg, causal, 0.125, torch.bfloat16)
+    s = torch.from_numpy(seg)
+    exact = [torch.from_numpy(x).to(torch.bfloat16).double()
+             for x in (q, k, v)]
+    kw = dict(q_segment_ids=s, kv_segment_ids=s, causal=causal,
+              sm_scale=0.125)
+    o, lse = fa.flash_attention_plain(*exact, return_lse=True, **kw)
+    truth = fa.flash_attention_bwd_plain(
+        *exact, o, lse, torch.from_numpy(w).to(torch.bfloat16).double(),
+        **kw)
+    for g, x, t in zip(got, want, truth):
+        assert g.dtype == torch.bfloat16
+        g, t = g.float().numpy(), t.numpy()
+        assert np.abs(g - x).max() <= 3e-2 * np.abs(x).max()
+        assert np.abs(g - t).max() <= 1e-2 * np.abs(t).max()
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "sm90"), (torch.float32, 64, "simt"),
+    (torch.bfloat16, 128, "simt"), (torch.bfloat16, 256, "simt")])
+def test_k3_bwd_route_by_type(dtype, d, route):
+    assert fa.bwd_route(dtype, d) == route
+
+
+def test_k3_bwd_route_rejects_other_types():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.bwd_route(torch.float16, 64)
+
+
+def test_k3_backward_on_cpu_loads_no_library(monkeypatch):
+    """flash_attention_bwd on CPU tensors (bf16 at D = 64, the wgmma
+    route's input on the card) runs the plain version and never builds
+    or loads a kernel library."""
+    from wedetect_tpu_torch.ops import _build
+
+    def no_load(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    monkeypatch.setattr(_build, "build", no_load)
+    q, k, v, w, seg = _k3_inputs(1, 256, 2, 64, K3_THREE_SEGMENTS[:2],
+                                 seed=4)
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, w)]
+    s = torch.from_numpy(seg)
+    kw = dict(q_segment_ids=s, kv_segment_ids=s, causal=False,
+              sm_scale=0.125)
+    o, lse = fa.flash_attention_plain(*t[:3], return_lse=True, **kw)
+    got = fa.flash_attention_bwd(*t[:3], o, lse, t[3], **kw)
+    want = fa.flash_attention_bwd_plain(*t[:3], o, lse, t[3], **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
 
 
 def test_k3_plain_backward_matches_einsum_on_real_rows():

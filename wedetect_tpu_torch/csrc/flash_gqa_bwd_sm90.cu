@@ -532,10 +532,10 @@ int prepare(const void* q, const void* k, const void* v, const void* dout,
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
       16 != 0)
     return bad;
-  if (!make_map(&maps[0], q, b, s, h, g, box_rows / g) ||
-      !make_map(&maps[1], dout, b, s, h, g, box_rows / g) ||
-      !make_map(&maps[2], k, b, lk, kvh, 1, box_keys) ||
-      !make_map(&maps[3], v, b, lk, kvh, 1, box_keys))
+  if (!make_map(&maps[0], q, b, s, h, kD, g, box_rows / g) ||
+      !make_map(&maps[1], dout, b, s, h, kD, g, box_rows / g) ||
+      !make_map(&maps[2], k, b, lk, kvh, kD, 1, box_keys) ||
+      !make_map(&maps[3], v, b, lk, kvh, kD, 1, box_keys))
     return bad;
   return 0;
 }

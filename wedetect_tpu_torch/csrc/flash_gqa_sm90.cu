@@ -306,9 +306,9 @@ extern "C" int gqa_flash_fwd_sm90(const void* q, const void* k, const void* v,
       16 != 0)
     return bad;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map(&qmap, q, b, s, h, g, kRows / g) ||
-      !make_map(&kmap, k, b, lk, kvh, 1, kKeys) ||
-      !make_map(&vmap, v, b, lk, kvh, 1, kKeys))
+  if (!make_map(&qmap, q, b, s, h, kD, g, kRows / g) ||
+      !make_map(&kmap, k, b, lk, kvh, kD, 1, kKeys) ||
+      !make_map(&vmap, v, b, lk, kvh, kD, 1, kKeys))
     return bad;
   static bool configured = false;
   if (!configured) {

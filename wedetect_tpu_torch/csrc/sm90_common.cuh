@@ -1,12 +1,14 @@
-// Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels of
-// K2: the bf16 forward (csrc/flash_gqa_sm90.cu) and the bf16 backward
-// (csrc/flash_gqa_bwd_sm90.cu). mbarriers, 4-D TMA loads of 128-byte
-// swizzled bf16 boxes, wgmma shared-memory descriptors, the two wgmma
-// shapes every product of K2 uses, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels:
+// K2's bf16 forward (csrc/flash_gqa_sm90.cu) and backward
+// (csrc/flash_gqa_bwd_sm90.cu), and K3's bf16 backward
+// (csrc/flash_attn_bwd_sm90.cu). mbarriers, 4-D TMA loads of 128-byte
+// swizzled bf16 boxes, wgmma shared-memory descriptors, the wgmma shapes
+// their products use, and the host-side tensor-map encoder.
 //
-// Tiles are bf16 with a head dim of kD = 128, stored as two 64-wide
-// halves (kHalf bf16 = one 128-byte swizzled row); 8 rows make a
-// 1024-byte swizzle atom, so every tile starts 1024-aligned.
+// Tiles are bf16 stored as 64-wide pieces of the head dim (kHalf bf16 =
+// one 128-byte swizzled row): K2's D = kD = 128 as two halves, K3's
+// D = 64 as one; 8 rows make a 1024-byte swizzle atom, so every tile
+// starts 1024-aligned.
 
 #pragma once
 
@@ -17,7 +19,7 @@
 
 namespace {
 
-constexpr int kD = 128;    // head dim
+constexpr int kD = 128;    // K2's head dim
 constexpr int kHalf = 64;  // bf16 per 128-byte swizzled row
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -156,6 +158,32 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64, smem,
+// MN-major: the transpose bit)
+__device__ __forceinline__ void wgmma_pv64(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0)
@@ -198,14 +226,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the bf16 tensor (B, n, heads, D) in place as a 4-D map (D, heads, n,
+// the bf16 tensor (B, n, heads, d) in place as a 4-D map (d, heads, n,
 // B) with box (64, box_heads, box_n, 1), 128-byte swizzle, zero fill
 bool make_map(CUtensorMap* map, const void* ptr, int b, int n, int heads,
-              int box_heads, int box_n) {
+              int d, int box_heads, int box_n) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t row = static_cast<cuuint64_t>(kD) * 2;
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * 2;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                         static_cast<cuuint64_t>(heads),
                         static_cast<cuuint64_t>(n),
                         static_cast<cuuint64_t>(b)};

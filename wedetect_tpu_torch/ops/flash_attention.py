@@ -23,12 +23,15 @@ plain version on CPU tensors; there is no fallback. It is differentiable
 in q, k and v (a `torch.autograd.Function`, the stock kernel's custom
 VJP): the forward saves q, k, v, the segment ids, O and lse, and the
 backward (`flash_attention_bwd`) launches kernels K3-bwd-dq and
-K3-bwd-dkv (`csrc/flash_attn_bwd.cu`, the stock `_flash_attention_bwd_dq`
-and `_flash_attention_bwd_dkv`) on CUDA tensors and runs
-`flash_attention_bwd_plain` on CPU tensors. p is recomputed as
-exp(s - lse) from the saved logsumexp (the stock kernels keep m and l
-apart: the same p up to rounding); di = rowsum(dO * O) is plain torch,
-as in the stock VJP.
+K3-bwd-dkv (the stock `_flash_attention_bwd_dq` and
+`_flash_attention_bwd_dkv`) on CUDA tensors and runs
+`flash_attention_bwd_plain` on CPU tensors. The backward kernels go by
+`bwd_route`: bf16 at D = 64 (the ViT's) takes the wgmma + TMA pair of
+`csrc/flash_attn_bwd_sm90.cu`, f32 and the other bf16 head dims the SIMT
+pair of `csrc/flash_attn_bwd.cu`; a CUDA input that its kernel cannot
+take raises. p is recomputed as exp(s - lse) from the saved logsumexp
+(the stock kernels keep m and l apart: the same p up to rounding);
+di = rowsum(dO * O) is plain torch, as in the stock VJP.
 """
 
 from __future__ import annotations
@@ -161,6 +164,34 @@ def _bwd_lib():
     return lib
 
 
+def _bwd_sm90_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_bwd_sm90")
+    if not getattr(lib, "_typed_fa", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_dq_sm90.argtypes = [p] * 9 + [i] * 4 + [f, p]
+        lib.flash_attention_bwd_dkv_sm90.argtypes = [p] * 10 + [i] * 4 + [f,
+                                                                          p]
+        lib.flash_attention_bwd_dq_sm90.restype = ctypes.c_int
+        lib.flash_attention_bwd_dkv_sm90.restype = ctypes.c_int
+        lib._typed_fa = True
+    return lib
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The K3 backward kernels a CUDA input takes: "sm90"
+    (csrc/flash_attn_bwd_sm90.cu, wgmma + TMA) for bf16 at D = 64;
+    "simt" (csrc/flash_attn_bwd.cu) for f32 and for bf16 at any other
+    head dim. Raises for other types."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_bwd: dtype {dtype} (float32 or "
+                        "bfloat16 only)")
+    return "sm90" if d == 64 else "simt"
+
+
 def _check_cuda(name, q, *others):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {q.dtype} (float32 or bfloat16 "
@@ -228,27 +259,96 @@ def _check_rows(name, lse, delta, q):
                              f"{(b, h, l)}")
 
 
+def _check_bwd(name, q, k, v, do, lse, delta, kw):
+    """The backward kernels' input rules; `kw` holds the segment ids."""
+    _check(q, k, v, kw["q_segment_ids"], kw["kv_segment_ids"])
+    _check_cuda(name, q, k, v, do)
+    _check_rows(name, lse, delta, q)
+
+
+def _launch_bwd(name, fn, q, k, v, do, lse, delta, outs, dims, kw, *tail):
+    """Launch one K3 backward kernel `fn` writing `outs`; `dims` are the
+    shape arguments it takes, `kw` the segment ids, causal and
+    sm_scale."""
+    segs = _segs(q, kw["q_segment_ids"], kw["kv_segment_ids"])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *map(_ptr, segs),
+                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), *dims, int(kw["causal"]),
+                 float(kw["sm_scale"]), *tail, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def _check_sm90(name, q, k, v, do):
+    """The wgmma kernels take bf16 at D = 64 only, and read q, k, v and
+    dO through TMA, which needs each 16-byte aligned."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
+        raise ValueError(f"{name}: bf16 at head dim 64 only, got "
+                         f"{q.dtype} at {q.shape[-1]}")
+    for tname, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be 16-byte aligned "
+                             "(TMA)")
+
+
+def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, *,
+                                q_segment_ids=None, kv_segment_ids=None,
+                                causal=False, sm_scale=1.0):
+    """One launch of K3-bwd-dq's bf16 kernel (wgmma + TMA) on CUDA
+    tensors: dq (B, L, H, 64). Raises for input it does not take."""
+    name = "flash_attention_bwd_dq_sm90"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    _check_bwd(name, q, k, v, do, lse, delta, kw)
+    _check_sm90(name, q, k, v, do)
+    dq = torch.empty_like(q)
+    _launch_bwd(name, _bwd_sm90_lib().flash_attention_bwd_dq_sm90, q, k, v,
+                do, lse, delta, (dq,), q.shape[:3], kw)
+    flash_attention_bwd_dq_sm90.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, *,
+                                 q_segment_ids=None, kv_segment_ids=None,
+                                 causal=False, sm_scale=1.0):
+    """One launch of K3-bwd-dkv's bf16 kernel (wgmma + TMA) on CUDA
+    tensors: (dk, dv), each (B, L, H, 64). Raises for input it does not
+    take."""
+    name = "flash_attention_bwd_dkv_sm90"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    _check_bwd(name, q, k, v, do, lse, delta, kw)
+    _check_sm90(name, q, k, v, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd(name, _bwd_sm90_lib().flash_attention_bwd_dkv_sm90, q, k,
+                v, do, lse, delta, (dk, dv), q.shape[:3], kw)
+    flash_attention_bwd_dkv_sm90.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dq_sm90.launches = 0
+flash_attention_bwd_dkv_sm90.launches = 0
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, q_segment_ids=None,
                            kv_segment_ids=None, causal=False, sm_scale=1.0):
     """One launch of K3-bwd-dq on CUDA tensors: dq (B, L, H, D). lse and
-    delta (B, H, L) f32 (`row_delta`)."""
-    _check(q, k, v, q_segment_ids, kv_segment_ids)
-    _check_cuda("flash_attention_bwd_dq", q, k, v, do)
-    _check_rows("flash_attention_bwd_dq", lse, delta, q)
-    b, l, h, d = q.shape
-    segs = _segs(q, q_segment_ids, kv_segment_ids)
-    dq = torch.empty_like(q)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *map(_ptr, segs),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, l, h, d, int(causal), float(sm_scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq: CUDA launch failed "
-                           f"with error {err}")
+    delta (B, H, L) f32 (`row_delta`). The kernel goes by `bwd_route`;
+    every launch is counted here, the bf16 wgmma kernel's also in
+    `flash_attention_bwd_dq_sm90.launches`."""
+    name = "flash_attention_bwd_dq"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    if bwd_route(q.dtype, q.shape[-1]) == "sm90":
+        dq = flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, **kw)
+    else:
+        _check_bwd(name, q, k, v, do, lse, delta, kw)
+        dq = torch.empty_like(q)
+        _launch_bwd(name, _bwd_lib().flash_attention_bwd_dq, q, k, v, do,
+                    lse, delta, (dq,), q.shape, kw,
+                    int(q.dtype == torch.bfloat16))
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -257,24 +357,18 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, q_segment_ids=None,
                             kv_segment_ids=None, causal=False,
                             sm_scale=1.0):
     """One launch of K3-bwd-dkv on CUDA tensors: (dk, dv), each
-    (B, L, H, D)."""
-    _check(q, k, v, q_segment_ids, kv_segment_ids)
-    _check_cuda("flash_attention_bwd_dkv", q, k, v, do)
-    _check_rows("flash_attention_bwd_dkv", lse, delta, q)
-    b, l, h, d = q.shape
-    segs = _segs(q, q_segment_ids, kv_segment_ids)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *map(_ptr, segs),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, l, h, d, int(causal), float(sm_scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv: CUDA launch failed "
-                           f"with error {err}")
+    (B, L, H, D); routed and counted as `flash_attention_bwd_dq`."""
+    name = "flash_attention_bwd_dkv"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    if bwd_route(q.dtype, q.shape[-1]) == "sm90":
+        dk, dv = flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, **kw)
+    else:
+        _check_bwd(name, q, k, v, do, lse, delta, kw)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch_bwd(name, _bwd_lib().flash_attention_bwd_dkv, q, k, v, do,
+                    lse, delta, (dk, dv), q.shape, kw,
+                    int(q.dtype == torch.bfloat16))
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -286,8 +380,8 @@ flash_attention_bwd_dkv.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, *, q_segment_ids=None,
                         kv_segment_ids=None, causal=False, sm_scale=1.0):
     """(dq, dk, dv) of flash_attention from the saved O and lse. CUDA
-    tensors: K3-bwd-dq and K3-bwd-dkv, one launch each; CPU tensors: the
-    plain version."""
+    tensors: K3-bwd-dq and K3-bwd-dkv, one launch each (`bwd_route`);
+    CPU tensors: the plain version."""
     kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               causal=causal, sm_scale=sm_scale)
     if q.device.type == "cpu":
