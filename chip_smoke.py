@@ -9,9 +9,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             set off: the f32 runs are true f32).
 2. build    nvcc builds every kernel of the port (csrc/*.cu), all
             sources at once, into build/kernels/; ptxas's report. The
-            three wgmma libraries (K2's bf16 forward and backward, K3's
-            bf16 backward) must show HGMMA (wgmma) and UTMALDG (TMA
-            load) instructions in `cuobjdump -sass` and spill nothing.
+            four wgmma libraries (K2's and K3's bf16 forward and
+            backward) must show HGMMA (wgmma) and UTMALDG (TMA load)
+            instructions in `cuobjdump -sass` and spill nothing.
 3. k1       the row top-k kernel against its plain PyTorch version at
             the detect path's shape (B*8400, 1203), t = 64, on rows
             with -inf masks, ties and full masks, plus edge shapes
@@ -32,7 +32,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             captured in a CUDA graph, replays timed (graph_ms); the
             eager calls' times, host included, beside them.
 5. k3       the same for the ViT's flash kernel at (1, 1280, 16, 64)
-            with 80 pad tokens in segment 0, square causal, and D = 256.
+            with 80 pad tokens in segment 0, at the training shape
+            (1, 4224, 16, 64; 80 pad), square causal, causal with
+            segment ids, three segments off the 64-grid, a tail
+            (L = 200), D = 128 and D = 256: bf16 at D = 64 runs the
+            wgmma + TMA kernel (csrc/flash_attn_sm90.cu), its launches
+            counted per case, f32 and the other head dims the SIMT one;
+            a control through the plain version with one 64-key tile
+            dropped must miss the limit in every case. Kernel and SDPA
+            timed alike, as device time (graph_ms) and as eager calls,
+            at the ViT's two shapes and at D = 256.
 6. text     the full XLM-R base text tower, random init, on 1203 random
             token-id prompts -> (1203, 768) unit vectors; 8 prompts
             checked against the same tower on the CPU.
@@ -56,8 +65,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             Uni-Base on a seeded 480x640 image, 8 queries through a
             character-level stub tokenizer, RefScorer.score with prefix
             sharing. Scores (8, 100) finite in (0, 1); K2 = 56 and
-            K3 = 24 launches counted around the call, the 56 K2 launches
-            all of the bf16 kernel in bf16, none in f32; the pre-sigmoid
+            K3 = 24 launches counted around the call, in bf16 all of
+            them on the wgmma kernels, in f32 none; the pre-sigmoid
             logits agree with the same call through the kernels' plain
             versions (REF_LOGIT_TOL), while a control through the plain
             versions with one key tile masked in every attention call
@@ -227,9 +236,9 @@ def phase_device():
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
 
 
-# the wgmma + TMA libraries: K2's bf16 forward and backward, K3's bf16
-# backward
-SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_bwd_sm90")
+# the wgmma + TMA libraries: K2's and K3's bf16 forward and backward
+SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
+             "flash_attn_bwd_sm90")
 
 
 def phase_build():
@@ -617,8 +626,17 @@ def sdpa_gqa(q, k, v, mask):
         attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
+def route_errors(worst):
+    """A forward phase's worst max_abs_err by (type, route): f32 (SIMT),
+    bf16 on the wgmma kernel, bf16 on the SIMT one."""
+    return {"max_abs_err_f32": worst[(torch.float32, "simt")],
+            "max_abs_err_bf16": worst[(torch.bfloat16, "sm90")],
+            "max_abs_err_bf16_simt": worst[(torch.bfloat16, "simt")]}
+
+
 def phase_k2(dev, timing: bool = True):
-    from wedetect_tpu_torch.ops.flash_gqa import (gqa_flash_attention,
+    from wedetect_tpu_torch.ops.flash_gqa import (fwd_route,
+                                                  gqa_flash_attention,
                                                   gqa_flash_attention_plain,
                                                   gqa_flash_fwd_sm90)
 
@@ -643,14 +661,13 @@ def phase_k2(dev, timing: bool = True):
             if not ok:
                 emit({"phase": "k2", "checks": checks})
                 raise AssertionError(f"K2 disagrees at {case} {dtype}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            key = (dtype, fwd_route(dtype, d, h // kvh))
+            worst[key] = max(worst.get(key, 0.0), err)
     # every bf16 check at D = 128 ran the wgmma kernel; no f32 one and
     # no D = 256 one did
     assert gqa_flash_fwd_sm90.launches == len(cases) - len(K2_D256), \
         gqa_flash_fwd_sm90.launches
-    res = {"checks": checks,
-           "max_abs_err_f32": worst[torch.float32],
-           "max_abs_err_bf16": worst[torch.bfloat16]}
+    res = {"checks": checks, **route_errors(worst)}
     if timing:
         for name, case in (("prefix", K2_PREFIX), ("suffix", K2_SUFFIX),
                            ("d256", K2_D256[0])):
@@ -685,10 +702,21 @@ def phase_k2(dev, timing: bool = True):
 
 
 K3_VIT = (1, 1280, 16, 64, 1200, False)      # 480x640: 1200 real tokens
+# the training path's ViT attention (--grid-tokens 1024: 4144 tokens
+# padded to 4224)
+K3_TRAIN = (1, 4224, 16, 64, 4144, False)
 K3_D256 = (1, 1280, 4, 256, 1200, False)
-K3_CASES = [K3_VIT, (1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200,
-                                                      False),
-            K3_D256, (1, 256, 2, 256, 256, True)]
+# three segments with boundaries off the 64-grid (ids 1 on [0, 100), 2 on
+# [100, 300), 3 on [300, 480), 0 after), where the wgmma kernels take
+# their per-element path
+K3_THREE_SEGMENTS = (1, 512, 4, 64, ((100, 1), (300, 2), (480, 3)), False)
+# the controls' wrong attention: one 64-key tile masked
+K3_CONTROL_DROP = slice(64, 128)
+K3_CASES = [K3_VIT, K3_TRAIN, (1, 1280, 16, 64, 1280, True),
+            (1, 384, 4, 64, ((150, 1), (300, 2)), True),  # causal + ids
+            K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False),  # a tail
+            (2, 256, 4, 128, 200, False), K3_D256, (1, 256, 2, 256, 256,
+                                                     True)]
 
 
 def k3_case(dev, b, l, h, d, n_real, causal, dtype, seed):
@@ -706,37 +734,57 @@ def k3_case(dev, b, l, h, d, n_real, causal, dtype, seed):
     return q, k, v, seg[None].expand(b, l).contiguous()
 
 
+def k3_real(n_real) -> int:
+    """The rows a K3 case's caller keeps: up to the end of its last run."""
+    return n_real if isinstance(n_real, int) else n_real[-1][0]
+
+
 def phase_k3(dev, timing: bool = True):
-    from wedetect_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain)
+    from wedetect_tpu_torch.ops import flash_attention as fa
 
     checks, worst = [], {}
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(K3_CASES):
             b, l, h, d, n_real, causal = case
+            route = fa.fwd_route(dtype, d)
             q, k, v, seg = k3_case(dev, *case, dtype=dtype, seed=i)
             kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
                       sm_scale=d ** -0.5, return_lse=True)
-            o, lse = flash_attention(q, k, v, **kw)
+            before = launch_counts()
+            o, lse = fa.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            po, plse = flash_attention_plain(q, k, v, **kw)
-            err = float((o[:, :n_real].float()
-                         - po[:, :n_real].float()).abs().max())
+            after = launch_counts()
+            po, plse = fa.flash_attention_plain(q, k, v, **kw)
+            # the control: one 64-key tile dropped
+            co, _ = fa.flash_attention_plain(
+                q, k, v, **dict(kw, kv_segment_ids=_dropped_segs(
+                    q, seg, K3_CONTROL_DROP)))
+            real = k3_real(n_real)
+            err = float((o[:, :real].float()
+                         - po[:, :real].float()).abs().max())
             pad_err = float((o.float() - po.float()).abs().max())
             lse_err = float((lse - plse).abs().max())
-            ok = kernel_close(o, po, dtype) and lse_err <= 1e-3
+            control_err = float((co.float() - po.float()).abs().max())
+            # bf16 at D = 64 ran the wgmma kernel, the rest the SIMT one
+            launches = {n: after[n] - before[n] for n in ("k3", "k3_sm90")}
+            want = {"k3": 1, "k3_sm90": 1 if route == "sm90" else 0}
+            ok = (kernel_close(o, po, dtype) and lse_err <= 1e-3
+                  and not kernel_close(co, po, dtype) and launches == want)
             checks.append({"shape": [b, l, h, d], "real": n_real,
                            "causal": causal, "dtype": str(dtype)[6:],
+                           "route": route, "launches": launches,
                            "max_abs_err": err, "all_rows_err": pad_err,
-                           "lse_err": lse_err, "match": ok})
+                           "lse_err": lse_err,
+                           "control_max_abs_err": control_err, "match": ok})
             if not ok:
                 emit({"phase": "k3", "checks": checks})
                 raise AssertionError(f"K3 disagrees at {case} {dtype}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-    res = {"checks": checks, "max_abs_err_f32": worst[torch.float32],
-           "max_abs_err_bf16": worst[torch.bfloat16]}
+            worst[(dtype, route)] = max(worst.get((dtype, route), 0.0), err)
+            del o, lse, po, plse, co
+    res = {"checks": checks, **route_errors(worst)}
     if timing:
-        for name, case in (("vit", K3_VIT), ("d256", K3_D256)):
+        for name, case in (("vit", K3_VIT), ("train", K3_TRAIN),
+                           ("d256", K3_D256)):
             b, l, h, d, n_real, causal = case
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, seg = k3_case(dev, *case, dtype=dtype, seed=0)
@@ -746,12 +794,19 @@ def phase_k3(dev, timing: bool = True):
                                b * l * h, dtype)
                 kw = dict(q_segment_ids=seg, kv_segment_ids=seg,
                           sm_scale=d ** -0.5)
-                r["ms"] = cuda_ms(lambda: flash_attention(q, k, v, **kw),
-                                  iters=10)
-                r["plain_ms"] = cuda_ms(lambda: flash_attention_plain(
+                # ms and library_ms: device time (graph_ms), the same
+                # method for both; *_call_ms: eager calls with the host
+                # between them (cuda_ms)
+                call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa
+                lib = lambda: sdpa_gqa(q, k, v, mask)  # noqa: E731
+                r["route"] = fa.fwd_route(dtype, d)
+                r["ms"] = graph_ms(call)
+                r["call_ms"] = cuda_ms(call, iters=10)
+                r["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
                     q, k, v, **kw), iters=3, warmup=1)
-                r["library_ms"] = cuda_ms(lambda: sdpa_gqa(q, k, v, mask),
-                                          iters=10)
+                r["library_ms"] = graph_ms(lib)
+                r["library_call_ms"] = cuda_ms(lib, iters=10)
+                r["visible_pairs"] = pairs
                 res[f"{name}_{str(dtype)[6:]}"] = r
     emit({"phase": "k3", **res})
     return res
@@ -896,6 +951,7 @@ def _flash_counters():
             "k2_bwd_dq_sm90": fg.gqa_flash_bwd_dq_sm90,
             "k2_bwd_dkdv_sm90": fg.gqa_flash_bwd_dkdv_sm90,
             "k3": fa.flash_attention,
+            "k3_sm90": fa.flash_attention_fwd_sm90,
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
             "k3_bwd_dkv": fa.flash_attention_bwd_dkv,
             "k3_bwd_dq_sm90": fa.flash_attention_bwd_dq_sm90,
@@ -905,8 +961,8 @@ def _flash_counters():
 def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
     `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
-    wgmma one's alone; likewise "k2_bwd_*" and "k2_bwd_*_sm90", "k3_bwd_*"
-    and "k3_bwd_*_sm90"."""
+    wgmma one's alone; likewise "k3" and "k3_sm90", "k2_bwd_*" and
+    "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -915,10 +971,11 @@ def launch_counts(reset: bool = False):
 
 
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
-                    k2_bwd_sm90=0, k3_bwd_sm90=0):
+                    k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
-            "k2_bwd_dkdv_sm90": k2_bwd_sm90, "k3": k3, "k3_bwd_dq": k3_bwd,
+            "k2_bwd_dkdv_sm90": k2_bwd_sm90, "k3": k3, "k3_sm90": k3_sm90,
+            "k3_bwd_dq": k3_bwd,
             "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
             "k3_bwd_dkv_sm90": k3_bwd_sm90}
 
@@ -963,11 +1020,12 @@ def phase_ref(dev, inputs, cfg=None, timing: bool = True):
         assert scores.shape == (len(REF_QUERIES), n), scores.shape
         assert np.isfinite(scores).all()
         assert ((scores > 0) & (scores < 1)).all()
-        # bf16: every K2 launch is the wgmma kernel; f32: none is
-        k2 = 2 * cfg.text.layers
+        # bf16: every K2 and K3 launch is a wgmma kernel; f32: none is
+        k2, k3 = 2 * cfg.text.layers, cfg.vision.depth
+        bf16 = name == "bfloat16"
         assert counts == expected_counts(
-            k2=k2, k2_sm90=k2 if name == "bfloat16" else 0,
-            k3=cfg.vision.depth), counts
+            k2=k2, k2_sm90=k2 if bf16 else 0, k3=k3,
+            k3_sm90=k3 if bf16 else 0), counts
         logits = scorer.logits(image, boxes, REF_QUERIES)
         with plain_attention():
             plain = scorer.logits(image, boxes, REF_QUERIES)
@@ -1102,10 +1160,9 @@ def attn_bwd_bound(h, d, pairs, q_elems, kv_elems, rows, dtype, kind):
 TRAIN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 BWD_CONTROL_DROP = slice(64, 128)
 # the training path's decoder attention (ref_2b, --seq-buckets 2048 at
-# ~1253 real tokens: the last 795 keys invalid) and its ViT attention
-# (--grid-tokens 1024: 4144 tokens padded to 4224)
+# ~1253 real tokens: the last 795 keys invalid); its ViT attention is
+# K3_TRAIN
 K2_TRAIN = (1, 2048, 2048, 16, 8, 128, True, ((1253, 2048),))
-K3_TRAIN = (1, 4224, 16, 64, 4144, False)
 # the backward's further cases: S = 336 has bq = 16, so F moves every 32
 # folded rows, inside a 64-row tile of the dk/dv kernel; and D = 256
 K2_BWD_MORE = [
@@ -1295,10 +1352,7 @@ def k3_bwd_run(dev, case, dtype, seed):
     return (q, k, v, o, lse, do), kw
 
 
-# K3-bwd's further cases: three segments with boundaries off the 64-grid
-# (ids 1 on [0, 100), 2 on [100, 300), 3 on [300, 480), 0 after), where
-# the wgmma kernels take their per-element path, and a tail (L = 200)
-K3_THREE_SEGMENTS = (1, 512, 4, 64, ((100, 1), (300, 2), (480, 3)), False)
+# K3-bwd's further cases: K3_THREE_SEGMENTS and a tail (L = 200)
 K3_BWD_MORE = [(1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200, False),
                K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False)]
 
@@ -1350,7 +1404,8 @@ def phase_k3_bwd(dev, timing: bool = True):
     fa.flash_attention(*leaves, **kw).backward(do)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts == expected_counts(k3=1, k3_bwd=1, k3_bwd_sm90=1), counts
+    assert counts == expected_counts(k3=1, k3_sm90=1, k3_bwd=1,
+                                     k3_bwd_sm90=1), counts
     plain = fa.flash_attention_bwd_plain(*args, **kw)
     errs = [rel_err(t.grad, w) for t, w in zip(leaves, plain)]
     res["autograd_bf16"] = {"launches": counts,
@@ -1678,10 +1733,13 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
 
 def kernel_entry(name, source, replaces, launches, k, timing,
                  dtype="f32"):
+    """A forward kernel's entry: dtype "f32" is the SIMT route's (its
+    bf16 error that of the bf16 cases it ran), "bf16" the wgmma one's."""
+    bf16 = "max_abs_err_bf16" if dtype == "bf16" else "max_abs_err_bf16_simt"
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "dtype": dtype,
             "max_abs_err": k[f"max_abs_err_{dtype}"],
-            "max_abs_err_bf16": k["max_abs_err_bf16"],
+            "max_abs_err_bf16": k[bf16],
             "tolerance": {str(t)[6:]: {"atol": a, "rtol": r}
                           for t, (a, r) in K_TOL.items()},
             "match": True, "ms": timing["ms"],
@@ -1750,9 +1808,9 @@ def main() -> int:
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"]},
-        # K2 timed at the suffix shape (the f32 SIMT route and the bf16
-        # wgmma route, each with its launches in the score call of its
-        # type), K3 at the ViT shape, f32
+        # K2 timed at the suffix shape, K3 at the ViT shape (the f32 SIMT
+        # route and the bf16 wgmma route, each with its launches in the
+        # score call of its type)
         kernel_entry("gqa_flash_fwd", "wedetect_tpu_torch/csrc/flash_attn.cu",
                      "wedetect_tpu/ops/flash_gqa.py:86",
                      launches["k2"] - launches["k2_sm90"], k2,
@@ -1764,8 +1822,14 @@ def main() -> int:
                      dtype="bf16"),
         kernel_entry("flash_attention_fwd",
                      "wedetect_tpu_torch/csrc/flash_attn.cu",
-                     "wedetect_tpu/ops/attention.py:126", launches["k3"],
-                     k3, k3["vit_float32"]),
+                     "wedetect_tpu/ops/attention.py:126",
+                     launches["k3"] - launches["k3_sm90"], k3,
+                     k3["vit_float32"]),
+        kernel_entry("flash_attention_fwd_sm90",
+                     "wedetect_tpu_torch/csrc/flash_attn_sm90.cu",
+                     "wedetect_tpu/ops/attention.py:126",
+                     launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
+                     dtype="bf16"),
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32
         bwd_kernel_entry("gqa_flash_bwd_dq",

@@ -70,7 +70,7 @@ def test_edited_source_or_header_rebuilds(tree, edit):
 
 
 @pytest.mark.parametrize("name", ["flash_gqa_sm90", "flash_gqa_bwd_sm90",
-                                  "flash_attn_bwd_sm90"])
+                                  "flash_attn_bwd_sm90", "flash_attn_sm90"])
 def test_sm90_libraries_hash_the_shared_header(name):
     """Every wgmma + TMA source of the repository includes
     csrc/sm90_common.cuh, so an edit of its helpers rebuilds each."""

@@ -258,10 +258,12 @@ def test_gqa_flash_kernel_fully_masked_rows(cuda):
     (1, 128, 2, 256, 128, True)])
 def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, l,
                                               h, d, n_real, causal):
+    from wedetect_tpu_torch.ops import flash_attention as fa
     from wedetect_tpu_torch.ops.flash_attention import (flash_attention,
                                                         flash_attention_plain)
 
     monkeypatch.setattr(flash_attention, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_fwd_sm90, "launches", 0)
     q, k, v = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda, seed=l)
     seg = (torch.arange(l, device=cuda) < n_real).to(torch.int32)
     seg = seg[None].expand(b, l).contiguous()
@@ -271,6 +273,9 @@ def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, l,
     torch.cuda.synchronize()
     want, wlse = flash_attention_plain(q, k, v, **kw)
     assert flash_attention.launches == 1
+    # bf16 at D = 64 ran the wgmma kernel, the rest the SIMT one
+    assert fa.flash_attention_fwd_sm90.launches == (
+        1 if fa.fwd_route(dtype, d) == "sm90" else 0)
     assert _close(got, want, dtype)
     assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
 
@@ -517,20 +522,91 @@ def test_flash_attention_bwd_sm90_kernels_match_plain(cuda, monkeypatch,
 
 def test_flash_attention_bwd_sm90_through_autograd(cuda, monkeypatch):
     """loss.backward() through flash_attention in bf16 at D = 64 reaches
-    the wgmma backward kernels, once each."""
+    the wgmma forward kernel and the wgmma backward kernels, once each."""
     from wedetect_tpu_torch.ops import flash_attention as fa
 
-    for fn in (*_k3_bwd_counters(fa), fa.flash_attention):
+    counters = (*_k3_bwd_counters(fa), fa.flash_attention,
+                fa.flash_attention_fwd_sm90)
+    for fn in counters:
         monkeypatch.setattr(fn, "launches", 0)
     q, k, v, do, kw = _k3_bwd_case(SM90_K3_BWD_CASES[2], cuda, seed=3)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     fa.flash_attention(*leaves, **kw).backward(do)
-    for fn in (*_k3_bwd_counters(fa), fa.flash_attention):
+    for fn in counters:
         assert fn.launches == 1
     o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for t, w in zip(leaves, want):
         assert _rel_err(t.grad, w) <= BWD_TOL[torch.bfloat16]
+
+
+# (B, L, H, causal, segment runs per batch row) of the bf16 K3 forward
+# kernel at D = 64, as SM90_K3_BWD_CASES: the ViT at a 480x640 image and
+# at the training grid bucket (4144 of 4224 tokens), square causal
+# without ids, causal with ids, three segments off the 64-grid, a tail,
+# pads per batch row, and L shorter than one 64-key tile
+SM90_K3_FWD_CASES = [
+    (1, 1280, 16, False, [((1200, 1),)]),
+    (1, 4224, 16, False, [((4144, 1),)]),
+    (1, 1280, 16, True, None),
+    (1, 384, 4, True, [((150, 1), (300, 2))]),
+    (1, 512, 4, False, [((100, 1), (300, 2), (480, 3))]),
+    (1, 200, 4, False, [((180, 1),)]),
+    (2, 384, 4, False, [((300, 1),), ((350, 1),)]),
+    (1, 40, 2, True, [((30, 1),)]),
+]
+
+
+@pytest.mark.parametrize("case", SM90_K3_FWD_CASES)
+def test_flash_attention_fwd_sm90_kernel_matches_plain(cuda, monkeypatch,
+                                                       case):
+    """bf16 K3 at D = 64 goes to the wgmma + TMA kernel (its own launch
+    count) and agrees with the plain version: O within TOL, lse within
+    1e-3."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_attention, fa.flash_attention_fwd_sm90):
+        monkeypatch.setattr(fn, "launches", 0)
+    b, l, h, causal, runs = case
+    q, k, v = _attn_inputs((b, l, h, 64), (b, l, h, 64), torch.bfloat16,
+                           cuda, seed=l + h)
+    seg = _k3_seg(b, l, runs, cuda)
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
+              sm_scale=0.125, return_lse=True)
+    got, lse = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want, wlse = fa.flash_attention_plain(q, k, v, **kw)
+    assert fa.flash_attention.launches == 1
+    assert fa.flash_attention_fwd_sm90.launches == 1
+    assert got.dtype == torch.bfloat16
+    assert _close(got, want, torch.bfloat16)
+    assert (lse - wlse).abs().max() <= 1e-3
+
+
+def test_flash_attention_fwd_sm90_rejects_bad_input(cuda, monkeypatch):
+    """The wgmma wrapper raises for f32, for D = 128 and for a misaligned
+    q, k or v (TMA), and launches nothing; nothing falls back."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in (fa.flash_attention, fa.flash_attention_fwd_sm90):
+        monkeypatch.setattr(fn, "launches", 0)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 128)):
+        q, k, v = _attn_inputs((1, 128, 2, d), (1, 128, 2, d), dtype, cuda,
+                               seed=d)
+        with pytest.raises(ValueError, match="head dim 64"):
+            fa.flash_attention_fwd_sm90(q, k, v)
+    q, k, v = _attn_inputs((1, 128, 2, 64), (1, 128, 2, 64), torch.bfloat16,
+                           cuda, seed=1)
+    buf = torch.zeros(q.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = buf[1:1 + q.numel()].view(q.shape)         # 2-byte offset
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for args in ((shifted, k, v), (q, shifted, v), (q, k, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_fwd_sm90(*args)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention(*args)
+    assert fa.flash_attention.launches == 0
+    assert fa.flash_attention_fwd_sm90.launches == 0
 
 
 def test_flash_attention_bwd_sm90_rejects_bad_input(cuda, monkeypatch):

@@ -17,9 +17,11 @@ the pad keys only, so it differs from the einsum reference
 (`_reference_attention`, which masks pad keys for every row) on pad rows
 and agrees on real rows; callers discard pad rows.
 
-`flash_attention` launches the CUDA kernel
-(`csrc/flash_attn.cu:flash_attention_fwd`) on CUDA tensors and runs the
-plain version on CPU tensors; there is no fallback. It is differentiable
+`flash_attention` launches K3 on CUDA tensors and runs the plain version
+on CPU tensors; there is no fallback. The kernel goes by `fwd_route`:
+bf16 at D = 64 (the ViT's) takes the wgmma + TMA kernel of
+`csrc/flash_attn_sm90.cu`, f32 and the other bf16 head dims the SIMT
+template of `csrc/flash_attn.cu:flash_attention_fwd`. It is differentiable
 in q, k and v (a `torch.autograd.Function`, the stock kernel's custom
 VJP): the forward saves q, k, v, the segment ids, O and lse, and the
 backward (`flash_attention_bwd`) launches kernels K3-bwd-dq and
@@ -150,6 +152,19 @@ def _lib():
     return lib
 
 
+def _sm90_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_sm90")
+    if not getattr(lib, "_typed_fa", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_fwd_sm90.argtypes = [p] * 7 + [i] * 5 + [
+            ctypes.c_float, p]
+        lib.flash_attention_fwd_sm90.restype = ctypes.c_int
+        lib._typed_fa = True
+    return lib
+
+
 def _bwd_lib():
     from wedetect_tpu_torch.ops import _build
 
@@ -179,17 +194,29 @@ def _bwd_sm90_lib():
     return lib
 
 
+def _route(name: str, dtype: torch.dtype, d: int) -> str:
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {dtype} (float32 or bfloat16 "
+                        "only)")
+    return "sm90" if d == 64 else "simt"
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The K3 forward kernel a CUDA input takes: "sm90"
+    (csrc/flash_attn_sm90.cu, wgmma + TMA) for bf16 at D = 64; "simt"
+    (csrc/flash_attn.cu) for f32 and for bf16 at any other head dim.
+    Raises for other types."""
+    return _route("flash_attention", dtype, d)
+
+
 def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The K3 backward kernels a CUDA input takes: "sm90"
     (csrc/flash_attn_bwd_sm90.cu, wgmma + TMA) for bf16 at D = 64;
     "simt" (csrc/flash_attn_bwd.cu) for f32 and for bf16 at any other
     head dim. Raises for other types."""
-    if dtype == torch.float32:
-        return "simt"
-    if dtype != torch.bfloat16:
-        raise TypeError(f"flash_attention_bwd: dtype {dtype} (float32 or "
-                        "bfloat16 only)")
-    return "sm90" if d == 64 else "simt"
+    return _route("flash_attention_bwd", dtype, d)
 
 
 def _check_cuda(name, q, *others):
@@ -217,23 +244,53 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_kernel(q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale):
-    """One launch of K3: (O, lse)."""
-    _check_cuda("flash_attention", q, k, v)
+def _launch_fwd(name, fn, q, k, v, q_segment_ids, kv_segment_ids, causal,
+                sm_scale, *tail):
+    """Launch one K3 forward kernel `fn`: (O, lse)."""
     b, l, h, d = q.shape
     segs = _segs(q, q_segment_ids, kv_segment_ids)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
-    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), *map(_ptr, segs),
-            o.data_ptr(), lse.data_ptr(), b, l, h, d, int(causal),
-            float(sm_scale), int(q.dtype == torch.bfloat16), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), *map(_ptr, segs),
+                 o.data_ptr(), lse.data_ptr(), b, l, h, d, int(causal),
+                 float(sm_scale), *tail, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention: CUDA launch failed with "
-                           f"error {err}")
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    return o, lse
+
+
+def flash_attention_fwd_sm90(q, k, v, q_segment_ids=None,
+                             kv_segment_ids=None, causal=False,
+                             sm_scale=1.0):
+    """One launch of K3's bf16 kernel (wgmma + TMA) on CUDA tensors:
+    (O (B, L, H, 64), lse (B, H, L) f32). Raises for input it does not
+    take."""
+    name = "flash_attention_fwd_sm90"
+    _check(q, k, v, q_segment_ids, kv_segment_ids)
+    _check_cuda(name, q, k, v)
+    _check_sm90(name, q=q, k=k, v=v)
+    o, lse = _launch_fwd(name, _sm90_lib().flash_attention_fwd_sm90, q, k,
+                         v, q_segment_ids, kv_segment_ids, causal, sm_scale)
+    flash_attention_fwd_sm90.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_sm90.launches = 0
+
+
+def _fwd_kernel(q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale):
+    """One launch of K3: (O, lse). The kernel goes by `fwd_route`; every
+    launch is counted in `flash_attention.launches`, the bf16 wgmma
+    kernel's also in `flash_attention_fwd_sm90.launches`."""
+    args = (q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale)
+    if fwd_route(q.dtype, q.shape[-1]) == "sm90":
+        o, lse = flash_attention_fwd_sm90(*args)
+    else:
+        _check_cuda("flash_attention", q, k, v)
+        o, lse = _launch_fwd("flash_attention", _lib().flash_attention_fwd,
+                             *args, int(q.dtype == torch.bfloat16))
     flash_attention.launches += 1
     return o, lse
 
@@ -281,13 +338,15 @@ def _launch_bwd(name, fn, q, k, v, do, lse, delta, outs, dims, kw, *tail):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def _check_sm90(name, q, k, v, do):
-    """The wgmma kernels take bf16 at D = 64 only, and read q, k, v and
-    dO through TMA, which needs each 16-byte aligned."""
+def _check_sm90(name, **tensors):
+    """The wgmma kernels take bf16 at D = 64 only, and read their
+    tensors (q, k, v and dO) through TMA, which needs each 16-byte
+    aligned."""
+    q = tensors["q"]
     if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
         raise ValueError(f"{name}: bf16 at head dim 64 only, got "
                          f"{q.dtype} at {q.shape[-1]}")
-    for tname, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+    for tname, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} must be 16-byte aligned "
                              "(TMA)")
@@ -302,7 +361,7 @@ def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, *,
     kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               causal=causal, sm_scale=sm_scale)
     _check_bwd(name, q, k, v, do, lse, delta, kw)
-    _check_sm90(name, q, k, v, do)
+    _check_sm90(name, q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     _launch_bwd(name, _bwd_sm90_lib().flash_attention_bwd_dq_sm90, q, k, v,
                 do, lse, delta, (dq,), q.shape[:3], kw)
@@ -320,7 +379,7 @@ def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, *,
     kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               causal=causal, sm_scale=sm_scale)
     _check_bwd(name, q, k, v, do, lse, delta, kw)
-    _check_sm90(name, q, k, v, do)
+    _check_sm90(name, q=q, k=k, v=v, do=do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd(name, _bwd_sm90_lib().flash_attention_bwd_dkv_sm90, q, k,
                 v, do, lse, delta, (dk, dv), q.shape[:3], kw)
