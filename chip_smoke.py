@@ -11,7 +11,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             sources at once, into build/kernels/; ptxas's report. The
             four wgmma libraries (K2's and K3's bf16 forward and
             backward) must show HGMMA (wgmma) and UTMALDG (TMA load)
-            instructions in `cuobjdump -sass` and spill nothing.
+            instructions in `cuobjdump -sass`; the FFMA library (K2-bwd
+            dk/dv in f32) its count of FFMA, LDS.128 and all LDS, whole
+            and in each innermost loop, where every shared-memory load
+            must feed at least 8 FFMA; none of the five may spill.
 3. k1       the row top-k kernel against its plain PyTorch version at
             the detect path's shape (B*8400, 1203), t = 64, on rows
             with -inf masks, ties and full masks, plus edge shapes
@@ -85,15 +88,22 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (TRAIN_BWD_TOL); a control through the plain backward with
             one 64-key tile dropped must miss it; the two kernels run
             twice and agree bitwise. bf16 at D = 128 runs the wgmma +
-            TMA kernels (csrc/flash_gqa_bwd_sm90.cu), f32 and D = 256 the
-            SIMT ones, launches counted. Then the bf16 path a user
+            TMA kernels (csrc/flash_gqa_bwd_sm90.cu); f32 dk/dv at
+            D = 128 the FFMA kernel (csrc/flash_gqa_bwd_f32.cu); f32 dq
+            and D = 256 the SIMT ones; each kernel's launches counted on
+            its own route (dq by bwd_route, dk/dv by dkdv_route), its
+            worst errors kept by kernel. Then the bf16 path a user
             calls: loss.backward() through gqa_flash_attention at the
             training shape, the wgmma kernels' launches counted around
-            it. Times each kernel and SDPA's backward as device time
-            (graph_ms; SDPA's: autograd.grad through
-            scaled_dot_product_attention minus its forward, a
-            yardstick), the eager calls beside them, and the plain
-            backward.
+            it (the f32 path is the train phases'). Times each kernel
+            and SDPA's backward as device time (graph_ms; SDPA's:
+            autograd.grad through scaled_dot_product_attention minus
+            its forward, a yardstick), the eager calls beside them, and
+            the plain backward; at f32 also the SIMT dk/dv kernel the
+            FFMA one replaced (called through its library and held to
+            the plain version), the two timed in turns (SIMT, f32, f32,
+            SIMT), and the 32-row x 64-key tiles the FFMA kernel walks
+            against those the frontier alone scans.
 13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
             segment 0, square causal, D = 128, three segments with
@@ -108,7 +118,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
-            K2-bwd-dkdv = layers and K3 = K3-bwd-dq = K3-bwd-dkv = depth.
+            K2-bwd-dkdv = layers (all dk/dv on the FFMA kernel) and
+            K3 = K3-bwd-dq = K3-bwd-dkv = depth.
 15. train_grad  one stage-3 loss and gradient at ref_2b's full width
             (random weights) at the --grid-tokens 256 bucket (ViT and
             decoder L = 1024), through the kernels and through the plain
@@ -123,8 +134,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             frozen): the seeded image, two seeded ground-truth boxes and
             the Uni proposals -> soft labels -> 3 SFT steps. Finite
             losses, the vision tower bitwise unchanged, out_proj and the
-            decoder changed, launches per step as in train_parity; ms
-            per step (steps 2-3) and peak card memory.
+            decoder changed, launches per step as in train_parity (28
+            of the FFMA dk/dv kernel a step); ms per step (steps 2-3)
+            and peak card memory.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -138,6 +150,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -239,6 +252,8 @@ def phase_device():
 # the wgmma + TMA libraries: K2's and K3's bf16 forward and backward
 SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
              "flash_attn_bwd_sm90")
+# the FFMA library: K2-bwd-dkdv in f32
+F32_LIB = "flash_gqa_bwd_f32"
 
 
 def phase_build():
@@ -254,24 +269,67 @@ def phase_build():
     secs = time.perf_counter() - t0
     for lib in libs:
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
-    # the wgmma kernels run on the tensor cores and the TMA, and their
-    # registers hold
-    found, spills = {}, {}
-    for name in SM90_LIBS:
+
+    def sass_and_spills(name):
         lib = libs[names.index(name)]
         sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
                                str(lib)], capture_output=True, text=True,
                               check=True).stdout
-        found[name] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
         spills[name] = [
             line for line in lib.with_suffix(".log").read_text()
             .splitlines() if "spill" in line and " 0 bytes spill stores, "
             "0 bytes spill loads" not in line]
+        return sass
+
+    # the wgmma kernels run on the tensor cores and the TMA, the FFMA
+    # kernel's instruction mix is counted whole and by innermost loop,
+    # and none of their registers spill
+    found, spills = {}, {}
+    for name in SM90_LIBS:
+        sass = sass_and_spills(name)
+        found[name] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    f32_sass = sass_mix(sass_and_spills(F32_LIB))
     emit({"phase": "build", "kernels": names, "seconds": secs,
-          "sm90_sass": found, "sm90_spills": spills})
+          "sm90_sass": found, "f32_sass": f32_sass, "spills": spills})
     for name in SM90_LIBS:
         assert all(found[name].values()), f"{name}: SASS lacks {found}"
-        assert not spills[name], f"{name} spills: {spills[name]}"
+    for name, bad in spills.items():
+        assert not bad, f"{name} spills: {bad}"
+    # the FFMA kernel's main loops (the S / dP products, the dV / dK sums)
+    # feed at least 8 FFMA from each shared-memory load
+    assert len(f32_sass["loops"]) >= 2 and all(
+        m["FFMA"] >= 8 * m["LDS"] for m in f32_sass["loops"]), f32_sass
+
+
+SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z0-9.]+)([^;]*);", re.M)
+
+
+def _mix(ops) -> dict:
+    return {"FFMA": sum(op.split(".")[0] == "FFMA" for op in ops),
+            "LDS.128": sum(op.split(".")[0] == "LDS"
+                           and "128" in op.split(".") for op in ops),
+            "LDS": sum(op.split(".")[0] == "LDS" for op in ops)}
+
+
+def sass_mix(sass: str) -> dict:
+    """FFMA and shared-memory load instructions in a `cuobjdump -sass`
+    listing (LDS.128 and every LDS of any width): in the whole listing,
+    and in each innermost loop that holds FFMA (a backward BRA's range
+    holding no other backward BRA), in address order."""
+    lines = [(int(a, 16), op, rest) for a, op, rest in SASS_LINE.findall(sass)]
+    loops = []
+    for addr, op, rest in lines:
+        target = re.match(r"\s*0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+    inner = [(lo, hi) for lo, hi in loops
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                        for a, b in loops)]
+    body = [_mix([op for a, op, _ in lines if lo <= a <= hi])
+            for lo, hi in sorted(inner)]
+    return {**_mix([op for _, op, _ in lines]),
+            "loops": [m for m in body if m["FFMA"]]}
 
 
 def k1_inputs(rows: int, k: int, dev, seed: int = 0) -> torch.Tensor:
@@ -950,6 +1008,7 @@ def _flash_counters():
             "k2_bwd_dkdv": fg.gqa_flash_bwd_dkdv,
             "k2_bwd_dq_sm90": fg.gqa_flash_bwd_dq_sm90,
             "k2_bwd_dkdv_sm90": fg.gqa_flash_bwd_dkdv_sm90,
+            "k2_bwd_dkdv_f32": fg.gqa_flash_bwd_dkdv_f32,
             "k3": fa.flash_attention,
             "k3_sm90": fa.flash_attention_fwd_sm90,
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
@@ -962,7 +1021,8 @@ def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
     `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
     wgmma one's alone; likewise "k3" and "k3_sm90", "k2_bwd_*" and
-    "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"."""
+    "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32"
+    the f32 dk/dv kernel's alone."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -971,10 +1031,12 @@ def launch_counts(reset: bool = False):
 
 
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
-                    k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0):
+                    k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0,
+                    k2_bwd_dkdv_f32=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
-            "k2_bwd_dkdv_sm90": k2_bwd_sm90, "k3": k3, "k3_sm90": k3_sm90,
+            "k2_bwd_dkdv_sm90": k2_bwd_sm90,
+            "k2_bwd_dkdv_f32": k2_bwd_dkdv_f32, "k3": k3, "k3_sm90": k3_sm90,
             "k3_bwd_dq": k3_bwd,
             "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
             "k3_bwd_dkv_sm90": k3_bwd_sm90}
@@ -1204,9 +1266,11 @@ def check_bwd(name, got, again, plain, control, dtype):
     ctrl = [rel_err(c, w) for c, w in zip(control, plain)]
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     ok = same and max(errs) <= tol < max(ctrl)
+    abs_errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, plain)]
     res = {"dtype": str(dtype)[6:], "rel_err": dict(zip("qkv", errs)),
-           "max_abs_err": max(float((g.float() - w.float()).abs().max())
-                              for g, w in zip(got, plain)),
+           "abs_err": dict(zip("qkv", abs_errs)),
+           "max_abs_err": max(abs_errs),
            "control_rel_err": dict(zip("qkv", ctrl)), "tolerance": tol,
            "deterministic": same, "match": ok}
     if not ok:
@@ -1241,15 +1305,54 @@ def k2_control_drop(valid):
     return slice(lo, lo + 64)
 
 
+# K2-bwd's kernels by (product, route): dq goes by bwd_route, dk/dv by
+# dkdv_route
+K2_BWD_KERNELS = {("dq", "simt"): "gqa_flash_bwd_dq",
+                  ("dq", "sm90"): "gqa_flash_bwd_dq_sm90",
+                  ("dkdv", "simt"): "gqa_flash_bwd_dkdv",
+                  ("dkdv", "sm90"): "gqa_flash_bwd_dkdv_sm90",
+                  ("dkdv", "f32"): "gqa_flash_bwd_dkdv_f32"}
+
+
+def k2_bwd_routes(dtype, d, g):
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    return {"dq": fg.bwd_route(dtype, d, g),
+            "dkdv": fg.dkdv_route(dtype, d, g)}
+
+
+def keep_worst(errors, name, dtype, rel, abs_):
+    """errors["<kernel>/<dtype>"]: the worst relative and absolute
+    gradient errors of that kernel over the cases it ran."""
+    e = errors.setdefault(f"{name}/{str(dtype)[6:]}",
+                          {"max_rel_err": 0.0, "max_abs_err": 0.0})
+    e["max_rel_err"] = max(e["max_rel_err"], rel)
+    e["max_abs_err"] = max(e["max_abs_err"], abs_)
+
+
+def simt_dkdv(q, k, v, valid, do, lse, delta, *, causal, sm_scale):
+    """The SIMT dk/dv kernel (csrc/flash_attn_bwd.cu) called through its
+    library: the kernel f32 at D = 128 ran before
+    csrc/flash_gqa_bwd_f32.cu (no launch counted)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fg._launch_bwd("gqa_flash_bwd_dkdv", fg._bwd_lib().gqa_flash_bwd_dkdv,
+                   q, k, v, valid, do, lse, delta, (dk, dv), causal,
+                   sm_scale, int(q.dtype == torch.bfloat16))
+    return dk, dv
+
+
 def phase_k2_bwd(dev, timing: bool = True):
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
-    checks = []
-    worst = {}
+    checks, errors = [], {}
+    counted = ("k2_bwd_dq_sm90", "k2_bwd_dkdv_sm90", "k2_bwd_dkdv_f32")
+    simt_dkdv_launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate([K2_TRAIN, *K2_GRID, *K2_BWD_MORE]):
             b, s, lk, h, kvh, d, causal, holes = case
-            route = fg.bwd_route(dtype, d, h // kvh)
+            routes = k2_bwd_routes(dtype, d, h // kvh)
             args, kw = k2_bwd_run(dev, case, dtype, seed=i)
             q, k, v, valid, o, lse, do = args
             before = launch_counts()
@@ -1264,27 +1367,27 @@ def phase_k2_bwd(dev, timing: bool = True):
                 q, k, v, _dropped_valid(k, valid, drop), o, lse, do,
                 kw["causal"], kw["sm_scale"])
             r = check_bwd("k2_bwd", got, again, plain, control, dtype)
-            # bf16 at D = 128 ran the wgmma kernels, the rest the SIMT ones
-            sm90 = {n: after[n] - before[n]
-                    for n in ("k2_bwd_dq_sm90", "k2_bwd_dkdv_sm90")}
-            want = 2 if route == "sm90" else 0
+            # each kernel launched twice on its own route, the others never
+            launched = {n: after[n] - before[n] for n in counted}
+            want = {"k2_bwd_dq_sm90": 2 * (routes["dq"] == "sm90"),
+                    "k2_bwd_dkdv_sm90": 2 * (routes["dkdv"] == "sm90"),
+                    "k2_bwd_dkdv_f32": 2 * (routes["dkdv"] == "f32")}
             checks.append({"shape": list(case[:6]), "causal": causal,
-                           "route": route, "sm90_launches": sm90,
+                           "routes": routes, "launches": launched,
                            "control_drop": [drop.start, drop.stop], **r})
-            assert sm90 == {n: want for n in sm90}, (case, dtype, sm90)
-            key = f"{route}_{str(dtype)[6:]}"
-            worst[key] = max(worst.get(key, 0.0), max(r["rel_err"].values()))
-            if i == 0:
-                worst[(dtype, "abs")] = r["max_abs_err"]
+            assert launched == want, (case, dtype, launched)
+            simt_dkdv_launches += 2 * (routes["dkdv"] == "simt")
+            for kind, grads in (("dq", "q"), ("dkdv", "kv")):
+                keep_worst(errors, K2_BWD_KERNELS[(kind, routes[kind])],
+                           dtype, max(r["rel_err"][x] for x in grads),
+                           max(r["abs_err"][x] for x in grads))
             del got, again, plain, control
-    res = {"checks": checks, "max_rel_err_f32": worst["simt_float32"],
-           "max_rel_err_bf16": worst["sm90_bfloat16"],
-           "max_rel_err_bf16_simt": worst["simt_bfloat16"],
-           "max_abs_err_f32": worst[(torch.float32, "abs")],
-           "max_abs_err_bf16": worst[(torch.bfloat16, "abs")]}
+    res = {"checks": checks, "errors": errors,
+           "simt_dkdv_launches": simt_dkdv_launches}
 
     # the path a user calls: loss.backward() through gqa_flash_attention
-    # in bf16 at the training shape (no CLI trains in bf16)
+    # in bf16 at the training shape (no CLI trains in bf16; f32 is the
+    # train phases' path)
     args, kw = k2_bwd_run(dev, K2_TRAIN, torch.bfloat16, seed=0)
     q, k, v, valid, o, lse, do = args
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -1308,6 +1411,7 @@ def phase_k2_bwd(dev, timing: bool = True):
         for dtype in (torch.float32, torch.bfloat16):
             args, kw = k2_bwd_run(dev, K2_TRAIN, dtype, seed=0)
             q, k, v, valid, o, lse, do = args
+            routes = k2_bwd_routes(dtype, d, h // kvh)
             pairs = k2_visible_pairs(s, lk, causal, valid)
             delta = fg.row_delta(o, do, kvh)
             qpos = lk - s + torch.arange(s, device=dev)
@@ -1320,20 +1424,51 @@ def phase_k2_bwd(dev, timing: bool = True):
             # both; *_call_ms: eager calls (cuda_ms), host between them
             lib_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5, timer=graph_ms)
             lib_call_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
-            for kind, fn in (("dq", fg.gqa_flash_bwd_dq),
-                             ("dkdv", fg.gqa_flash_bwd_dkdv)):
+            kernels = [("dq", fg.gqa_flash_bwd_dq, routes["dq"]),
+                       ("dkdv", fg.gqa_flash_bwd_dkdv, routes["dkdv"])]
+            if routes["dkdv"] == "f32":
+                # the SIMT kernel it replaced, held to the plain version
+                _, pdk, pdv = fg.gqa_flash_attention_bwd_plain(
+                    *args, causal, kw["sm_scale"])
+                got = simt_dkdv(q, k, v, valid, do, lse, delta, **kw)
+                for w, g_ in zip((pdk, pdv), got):
+                    e = rel_err(g_, w)
+                    assert e <= TRAIN_BWD_TOL[dtype], ("simt dkdv", e)
+                    keep_worst(errors, "gqa_flash_bwd_dkdv", dtype, e,
+                               float((g_ - w).abs().max()))
+                del pdk, pdv, got
+                kernels.append(("dkdv_simt", simt_dkdv, "simt"))
+            for kind, fn, route in kernels:
                 r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
-                                   b * s * h, dtype, kind)
+                                   b * s * h, dtype, kind[:4])
                 call = lambda: fn(q, k, v, valid, do, lse, delta,  # noqa
                                   **kw)
-                r["route"] = fg.bwd_route(dtype, d, h // kvh)
+                r["route"] = route
                 r["ms"] = graph_ms(call)
                 r["call_ms"] = cuda_ms(call, iters=5)
                 r["plain_ms"] = plain_ms
                 r["library_ms"] = lib_ms
                 r["library_call_ms"] = lib_call_ms
                 r["visible_pairs"] = pairs
+                if route == "f32":
+                    # 32-row x 64-key tiles: walked by the skip rule, and
+                    # scanned by the frontier alone (every row as if it
+                    # saw no valid key)
+                    r["tiles_walked"] = int(fg.dkdv_walk_map(
+                        s, lk, h // kvh, causal, valid, lse).sum())
+                    r["tiles_scanned"] = int(fg.dkdv_walk_map(
+                        s, lk, h // kvh, causal, valid,
+                        torch.full_like(lse, float("-inf"))).sum())
                 res[f"{kind}_{str(dtype)[6:]}"] = r
+            if routes["dkdv"] == "f32":
+                # before and after in turns: SIMT, f32, f32, SIMT
+                new = lambda: fg.gqa_flash_bwd_dkdv(  # noqa: E731
+                    q, k, v, valid, do, lse, delta, **kw)
+                old = lambda: simt_dkdv(  # noqa: E731
+                    q, k, v, valid, do, lse, delta, **kw)
+                turns = [graph_ms(fn) for fn in (old, new, new, old)]
+                res["dkdv_turns_float32"] = {"simt_ms": turns[::3],
+                                             "f32_ms": turns[1:3]}
     emit({"phase": "k2_bwd", **res})
     return res
 
@@ -1559,7 +1694,8 @@ def phase_train_parity(dev):
           and counts == expected_counts(k2=cfg.text.layers,
                                         k3=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
-                                        k3_bwd=cfg.vision.depth))
+                                        k3_bwd=cfg.vision.depth,
+                                        k2_bwd_dkdv_f32=cfg.text.layers))
     emit({"phase": "train_parity", **res, "out_of_limits": bad})
     if not ok:
         raise AssertionError("train_parity: card step != CPU step")
@@ -1663,7 +1799,8 @@ def phase_train_grad(dev, image, proposals, cfg=None,
           and counts == expected_counts(k2=cfg.text.layers,
                                         k3=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
-                                        k3_bwd=cfg.vision.depth))
+                                        k3_bwd=cfg.vision.depth,
+                                        k2_bwd_dkdv_f32=cfg.text.layers))
     emit({"phase": "train_grad", **res})
     if not ok:
         raise AssertionError("train_grad: kernel gradients out of limits")
@@ -1719,7 +1856,8 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
            "optimizer_count": state.tx.count}
     per_step = expected_counts(k2=cfg.text.layers, k3=cfg.vision.depth,
                                k2_bwd=cfg.text.layers,
-                               k3_bwd=cfg.vision.depth)
+                               k3_bwd=cfg.vision.depth,
+                               k2_bwd_dkdv_f32=cfg.text.layers)
     ok = (len(losses) == steps and all(np.isfinite(losses)) and vision_same
           and all(changed.values())
           and counts == {k: v * steps for k, v in per_step.items()})
@@ -1764,8 +1902,30 @@ def bwd_kernel_entry(name, replaces, launches, k, timing, dtype="f32",
             "library_ms": timing["library_ms"]}
 
 
+def k2_bwd_entry(name, launches, k2_bwd, timing, dtype="float32",
+                 source="wedetect_tpu_torch/csrc/flash_attn_bwd.cu"):
+    """A K2-bwd kernel's entry with its own worst errors over the cases
+    it ran (the k2_bwd phase's `errors`), in `dtype` and, for the SIMT
+    kernels, also in the other type (D = 256)."""
+    errs = {key.split("/")[1]: e for key, e in k2_bwd["errors"].items()
+            if key.split("/")[0] == name}
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": "wedetect_tpu/ops/flash_gqa.py:"
+                        + ("169" if "_dq" in name else "212"),
+            "launches": launches, "dtype": dtype,
+            "max_abs_err": errs[dtype]["max_abs_err"],
+            "max_rel_err": errs[dtype]["max_rel_err"], "errors": errs,
+            "tolerance": {str(t)[6:]: {"rel_to_max": v}
+                          for t, v in TRAIN_BWD_TOL.items()},
+            "match": True, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
 STOCK_FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
 SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_sm90.cu"
+F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_f32.cu"
 K3_SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
 
 
@@ -1831,29 +1991,29 @@ def main() -> int:
                      launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
                      dtype="bf16"),
         # the backward kernels' launches from the train phase, their
-        # times at its shapes (decoder and ViT), f32
-        bwd_kernel_entry("gqa_flash_bwd_dq",
-                         "wedetect_tpu/ops/flash_gqa.py:169",
-                         train_counts["k2_bwd_dq"], k2_bwd,
-                         k2_bwd["dq_float32"]),
-        bwd_kernel_entry("gqa_flash_bwd_dkdv",
-                         "wedetect_tpu/ops/flash_gqa.py:212",
-                         train_counts["k2_bwd_dkdv"], k2_bwd,
-                         k2_bwd["dkdv_float32"]),
+        # times at its shapes (decoder and ViT), f32; K2-bwd-dkdv in f32
+        # at D = 128 is the FFMA kernel
+        k2_bwd_entry("gqa_flash_bwd_dq", train_counts["k2_bwd_dq"], k2_bwd,
+                     k2_bwd["dq_float32"]),
+        k2_bwd_entry("gqa_flash_bwd_dkdv_f32",
+                     train_counts["k2_bwd_dkdv_f32"], k2_bwd,
+                     k2_bwd["dkdv_float32"], source=F32_BWD_SOURCE),
+        # the SIMT dk/dv kernel, which the f32 step no longer reaches:
+        # launches from the k2_bwd phase's D = 256 cases, times at the
+        # training shape through its library
+        k2_bwd_entry("gqa_flash_bwd_dkdv", k2_bwd["simt_dkdv_launches"],
+                     k2_bwd, k2_bwd["dkdv_simt_float32"]),
         # K2-bwd in bf16 (wgmma + TMA): launches from the k2_bwd phase's
         # loss.backward() through gqa_flash_attention (no CLI trains in
         # bf16), times at the training shape
-        bwd_kernel_entry("gqa_flash_bwd_dq_sm90",
-                         "wedetect_tpu/ops/flash_gqa.py:169",
-                         k2_bwd["autograd_bf16"]["launches"]["k2_bwd_dq_sm90"],
-                         k2_bwd, k2_bwd["dq_bfloat16"], dtype="bf16",
-                         source=SM90_BWD_SOURCE),
-        bwd_kernel_entry("gqa_flash_bwd_dkdv_sm90",
-                         "wedetect_tpu/ops/flash_gqa.py:212",
-                         k2_bwd["autograd_bf16"]["launches"][
-                             "k2_bwd_dkdv_sm90"],
-                         k2_bwd, k2_bwd["dkdv_bfloat16"], dtype="bf16",
-                         source=SM90_BWD_SOURCE),
+        k2_bwd_entry("gqa_flash_bwd_dq_sm90",
+                     k2_bwd["autograd_bf16"]["launches"]["k2_bwd_dq_sm90"],
+                     k2_bwd, k2_bwd["dq_bfloat16"], dtype="bfloat16",
+                     source=SM90_BWD_SOURCE),
+        k2_bwd_entry("gqa_flash_bwd_dkdv_sm90",
+                     k2_bwd["autograd_bf16"]["launches"]["k2_bwd_dkdv_sm90"],
+                     k2_bwd, k2_bwd["dkdv_bfloat16"], dtype="bfloat16",
+                     source=SM90_BWD_SOURCE),
         bwd_kernel_entry("flash_attention_bwd_dq", f"{STOCK_FA}:1146",
                          train_counts["k3_bwd_dq"], k3_bwd,
                          k3_bwd["dq_float32"]),

@@ -749,6 +749,144 @@ def test_gqa_flash_bwd_sm90_rejects_bad_input(cuda, monkeypatch):
         fg.gqa_flash_bwd_dq_sm90(x, k3, v3, valid3, d3, lse3, lse3, dq, **kw)
 
 
+# (B, S, Lk, H, KVH, D, causal, invalid key ranges): the f32 dk/dv
+# kernel's cases, chip_smoke.py's K2_TRAIN, the f32 D = 128 cases of its
+# K2_GRID and K2_BWD_MORE, a last row tile past S * G (S = 40) and
+# G = 3 (not a power of two)
+F32_DKDV_CASES = [
+    (1, 2048, 2048, 16, 8, 128, True, ((1253, 2048),)),    # K2_TRAIN
+    (2, 128, 384, 4, 2, 128, True, ()),
+    (1, 128, 128, 4, 1, 128, True, ()),
+    (2, 128, 640, 8, 2, 128, True, ((312, 320), (635, 640))),
+    (1, 256, 256, 8, 8, 128, False, ((120, 128), (251, 256))),
+    (1, 128, 512, 16, 8, 128, True, ((248, 256), (507, 512))),
+    (1, 128, 256, 4, 2, 128, True, ((0, 132),)),           # rows all masked
+    (2, 96, 384, 4, 2, 128, True, ((200, 216),)),          # S*G = 192
+    (1, 336, 384, 4, 2, 128, True, ((100, 110),)),         # straddling F
+    (1, 40, 128, 2, 2, 128, True, ((20, 30),)),            # partial tile
+    (1, 128, 256, 6, 2, 128, True, ((30, 40),)),           # G = 3
+]
+
+
+def _f32_bwd_counters(fg):
+    return (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
+            fg.gqa_flash_bwd_dkdv_f32, fg.gqa_flash_bwd_dkdv_sm90)
+
+
+@pytest.mark.parametrize("case", F32_DKDV_CASES)
+def test_gqa_flash_bwd_dkdv_f32_kernel_matches_plain(cuda, monkeypatch,
+                                                     case):
+    """f32 K2-bwd-dkdv at D = 128 goes to the FFMA kernel (one launch a
+    call, its own count), agrees with the plain backward (TOL's f32 atol
+    and BWD_TOL) and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _f32_bwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    causal = case[6]
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda,
+                                   seed=sum(case[:3]))
+    scale = case[5] ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    delta = fg.row_delta(o, do, k.shape[2])
+    kw = dict(causal=causal, sm_scale=scale)
+    got = [fg.gqa_flash_bwd_dkdv(q, k, v, valid, do, lse, delta, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    _, dk, dv = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, o, lse,
+                                                 do, causal, scale)
+    assert fg.gqa_flash_bwd_dkdv_f32.launches == 2
+    assert fg.gqa_flash_bwd_dkdv.launches == 2
+    assert fg.gqa_flash_bwd_dkdv_sm90.launches == 0
+    for a, a2, w in zip(got[0], got[1], (dk, dv)):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, a2)                          # deterministic
+        assert _rel_err(a, w) <= BWD_TOL[torch.float32]
+        assert _close(a, w, torch.float32)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_gqa_flash_bwd_dkdv_f32_only_at_d128(cuda, monkeypatch, d):
+    """f32 at D = 64 or 256 keeps the SIMT dk/dv kernel: no launch of the
+    f32 kernel."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _f32_bwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, valid = _bwd_case((1, 128, 256, 4, 2, d, True, ()),
+                                   torch.float32, cuda, seed=d)
+    lse = torch.zeros((1, 2, 256), device=cuda)
+    assert fg.dkdv_route(torch.float32, d, 2) == "simt"
+    fg.gqa_flash_bwd_dkdv(q, k, v, valid, do, lse, lse, causal=True,
+                          sm_scale=0.1)
+    torch.cuda.synchronize()
+    assert fg.gqa_flash_bwd_dkdv.launches == 1
+    assert fg.gqa_flash_bwd_dkdv_f32.launches == 0
+
+
+def test_gqa_flash_bwd_dkdv_f32_rejects_bad_input(cuda, monkeypatch):
+    """An unaligned q, dO, dk or dv, a wrong type or a wrong head dim
+    raises before any launch; nothing falls back."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    monkeypatch.setattr(fg.gqa_flash_bwd_dkdv_f32, "launches", 0)
+    q, k, v, do, valid = _bwd_case((1, 128, 128, 4, 2, 128, True, ()),
+                                   torch.float32, cuda, seed=1)
+    lse = torch.zeros((1, 2, 256), device=cuda)
+    kw = dict(causal=True, sm_scale=0.1)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 8, device=cuda, dtype=t.dtype)
+        x = buf[1:1 + t.numel()].view(t.shape)           # 4-byte offset
+        assert x.is_contiguous() and x.data_ptr() % 16
+        return x
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dkdv(q, k, v, valid, shifted(do), lse, lse, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dkdv(shifted(q), k, v, valid, do, lse, lse, **kw)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, lse, dk,
+                                  shifted(v), **kw)
+    with pytest.raises(TypeError, match="float32"):
+        fg.gqa_flash_bwd_dkdv_f32(*(t.bfloat16() for t in (q, k, v)),
+                                  valid, do.bfloat16(), lse, lse,
+                                  dk.bfloat16(), dv.bfloat16(), **kw)
+    q2, k2, v2, do2, valid2 = _bwd_case((1, 128, 128, 4, 2, 256, True, ()),
+                                        torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError, match="head dim 128"):
+        fg.gqa_flash_bwd_dkdv_f32(q2, k2, v2, valid2, do2, lse, lse,
+                                  torch.empty_like(k2), torch.empty_like(v2),
+                                  **kw)
+    assert fg.gqa_flash_bwd_dkdv_f32.launches == 0
+
+
+def test_gqa_flash_bwd_dkdv_f32_through_autograd(cuda, monkeypatch):
+    """loss.backward() through gqa_flash_attention in f32 reaches the f32
+    dk/dv kernel once (and dq's SIMT kernel once)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _f32_bwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    case = (1, 256, 384, 8, 4, 128, True, ((300, 384),))
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fg.gqa_flash_attention(*leaves, causal=True, kv_valid=valid)
+    o.backward(do)
+    assert fg.gqa_flash_bwd_dkdv_f32.launches == 1
+    assert fg.gqa_flash_bwd_dkdv.launches == 1
+    assert fg.gqa_flash_bwd_dq.launches == 1
+    po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                            kv_valid=valid, return_lse=True)
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, po, plse, do,
+                                            True, 128 ** -0.5)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
+
+
 def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     """loss.backward() through a miniature RefModules on the card reaches
     every parameter (K2 and K3 carry gradients), equal to the CPU's."""
@@ -760,7 +898,8 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
     for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
-               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+               fg.gqa_flash_bwd_dkdv_f32, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv):
         monkeypatch.setattr(fn, "launches", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = RefCfg(
@@ -797,6 +936,7 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
         grads.append({n: p.grad for n, p in m.named_parameters()})
     assert fg.gqa_flash_bwd_dq.launches == cfg.text.layers
     assert fg.gqa_flash_bwd_dkdv.launches == cfg.text.layers
+    assert fg.gqa_flash_bwd_dkdv_f32.launches == cfg.text.layers
     assert fa.flash_attention_bwd_dq.launches == cfg.vision.depth
     assert fa.flash_attention_bwd_dkv.launches == cfg.vision.depth
     missing = [n for n, g in grads[0].items() if g is None]

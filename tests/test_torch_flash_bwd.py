@@ -124,6 +124,151 @@ def test_k2_function_runs_plain_backward_on_cpu():
         assert torch.equal(g, x)
 
 
+# (B, S, Lk, H, KVH, D, causal, invalid key ranges): the f32 dk/dv
+# kernel's walk cases: K2_GRID of chip_smoke.py at reduced heads, a last
+# row tile past S * G (S = 40, G = 1), S = 336 (bq = 16: F moves every 32
+# folded rows) and a non-causal block of invalid keys
+WALK_CASES = [
+    (2, 128, 384, 4, 2, 128, True, ()),
+    (1, 128, 128, 4, 1, 128, True, ()),
+    (2, 128, 640, 4, 1, 128, True, ((312, 320), (635, 640))),
+    (1, 256, 256, 2, 2, 128, False, ((120, 128), (251, 256))),
+    (1, 128, 512, 2, 1, 128, True, ((248, 256), (507, 512))),
+    (1, 128, 256, 4, 2, 128, True, ((0, 132),)),    # rows see no valid key
+    (2, 96, 384, 4, 2, 128, True, ((200, 216),)),
+    (1, 40, 128, 2, 2, 128, True, ((20, 30),)),      # a partial row tile
+    (1, 336, 384, 4, 2, 128, True, ((100, 110),)),
+    (1, 128, 256, 2, 1, 128, False, ((64, 128),)),
+]
+WALK_IDS = ["rect_g2", "square_g4", "holes_g4", "noncausal", "rect_512",
+            "no_valid_key", "s96", "partial_tile", "s336",
+            "noncausal_dead_block"]
+
+
+def _walk_inputs(case, seed):
+    b, s, lk, h, kvh, d, causal, holes = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh)
+                                    .astype(np.float32))
+                   for sh in ((b, s, h, d), (b, lk, kvh, d),
+                              (b, lk, kvh, d), (b, s, h, d)))
+    valid = torch.ones((b, lk), dtype=torch.int32)
+    for lo, hi in holes:
+        valid[:, lo:hi] = 0
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=d ** -0.5,
+                                          return_lse=True)
+    return (q, k, v, valid, o, lse, do), d ** -0.5
+
+
+def _skipped_pairs(walked, b, kvh, g, s, lk):
+    """(B, KVH, G, S, Lk) bool: the (row, key) pairs of the tiles that a
+    walk map (B, KVH, Lk / 64, tiles) skips, in the plain version's
+    layout (folded row r = position r // G, head r % G)."""
+    rows = s * g
+    skip = (~walked).permute(0, 1, 3, 2)                 # (B, KVH, NT, NKB)
+    skip = skip.repeat_interleave(fg.DKDV_F32_ROWS, 2)[:, :, :rows]
+    skip = skip.repeat_interleave(fg.DKDV_F32_KEYS, 3)   # (B, KVH, rows, Lk)
+    return skip.reshape(b, kvh, s, g, lk).permute(0, 1, 3, 2, 4)
+
+
+def _walk_exact(args, scale, causal, walked):
+    """(p is exactly 0 on every skipped pair, dk and dv unchanged with p
+    and ds zeroed there) for a walk map."""
+    q, k, v, valid, o, lse, do = args
+    b, s, h, _ = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    skip = _skipped_pairs(walked, b, kvh, h // kvh, s, lk)
+    p, ds = fg.bwd_plain_weights(*args, causal, scale)
+    _, dk, dv = fg.gqa_flash_attention_bwd_plain(*args, causal, scale)
+    _, dk0, dv0 = fg.bwd_plain_products(q, k, v, do, p.masked_fill(skip, 0),
+                                        ds.masked_fill(skip, 0))
+    return bool((p[skip] == 0).all()), (torch.equal(dk0, dk)
+                                        and torch.equal(dv0, dv))
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
+def test_dkdv_f32_walk_skips_only_zero_tiles(case):
+    """The f32 dk/dv kernel's skip rule (`dkdv_tile_walked`) is exact: on
+    every skipped (row tile, key block) p is exactly 0, and the plain dk
+    and dv are bitwise unchanged with p and ds zeroed there. A rule that
+    also skips one contributing tile fails the same check."""
+    b, s, lk, h, kvh, d, causal, holes = case
+    args, scale = _walk_inputs(case, seed=s + lk + h)
+    walked = fg.dkdv_walk_map(s, lk, h // kvh, causal, args[3], args[5])
+    assert walked.shape == (b, kvh, lk // 64, -(-s * h // kvh // 32))
+    assert _walk_exact(args, scale, causal, walked) == (True, True)
+    # the control: drop the walked tile with the largest p
+    p, _ = fg.bwd_plain_weights(*args, causal, scale)
+    g = h // kvh
+    pf = p.permute(0, 1, 3, 2, 4).reshape(b, kvh, s * g, lk)
+    nt = walked.shape[-1]
+    pf = torch.cat([pf, pf.new_zeros(b, kvh, nt * 32 - s * g, lk)], 2)
+    tile_max = pf.reshape(b, kvh, nt, 32, lk // 64, 64).amax((3, 5))
+    tile_max = tile_max.permute(0, 1, 3, 2).masked_fill(~walked, 0)
+    assert float(tile_max.max()) > 0
+    wrong = walked.clone()
+    wrong.view(-1)[int(tile_max.argmax())] = False
+    assert _walk_exact(args, scale, causal, wrong) == (False, False)
+
+
+def test_dkdv_f32_walk_at_the_training_shape():
+    """One kv head of the SFT step's decoder attention (S = Lk = 2048,
+    G = 2, 1253 valid keys): the frontier alone scans 2560 tiles of
+    32 rows x 64 keys, the skip rule walks 1800 (1280 and 900 in
+    64 x 64 tiles), and the 12 key blocks past the last valid key walk
+    none."""
+    case = (1, 2048, 2048, 2, 1, 128, True, ((1253, 2048),))
+    args, _ = _walk_inputs(case, seed=0)
+    valid, lse = args[3], args[5]
+    walked = fg.dkdv_walk_map(2048, 2048, 2, True, valid, lse)
+    scanned = fg.dkdv_walk_map(2048, 2048, 2, True, valid,
+                               torch.full_like(lse, float("-inf")))
+    assert int(walked.sum()) == 1800 and int(scanned.sum()) == 2560
+    per_block = walked.sum(-1)[0, 0]
+    assert per_block[0] == 128 and per_block[19] == 128 - 4 * 19
+    assert not per_block[20:].any()
+
+
+def test_dkdv_tile_walked_keeps_rows_without_a_valid_key():
+    """A row whose lse is ~-1e30 has p = 1 on its scanned keys: it keeps
+    a tile of invalid keys below its frontier; with a finite lse the
+    same tile is skipped, and past the frontier it is skipped either
+    way."""
+    f = torch.full((32,), 256)
+    qpos = torch.arange(32) + 200
+    dead = torch.zeros(64, dtype=torch.bool)
+    assert fg.dkdv_tile_walked(f, qpos, torch.full((32,), -1e30), dead,
+                               128, True)
+    assert not fg.dkdv_tile_walked(f, qpos, torch.zeros(32), dead, 128,
+                                   True)
+    assert not fg.dkdv_tile_walked(f, qpos, torch.full((32,), -1e30), dead,
+                                   256, True)
+    live = torch.ones(64, dtype=torch.bool)
+    assert fg.dkdv_tile_walked(f, qpos, torch.zeros(32), live, 128, True)
+    # causal: valid keys all after every row's position
+    assert not fg.dkdv_tile_walked(f, qpos - 110, torch.zeros(32), live,
+                                   128, True)
+
+
+def test_k2_backward_f32_on_cpu_loads_no_library(monkeypatch):
+    """gqa_flash_attention_bwd on f32 CPU tensors at D = 128 (the f32
+    dk/dv kernel's input on the card) runs the plain version and never
+    builds or loads a kernel library."""
+    from wedetect_tpu_torch.ops import _build
+
+    def no_load(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    monkeypatch.setattr(_build, "build", no_load)
+    args, scale = _walk_inputs(WALK_CASES[0], seed=1)
+    got = fg.gqa_flash_attention_bwd(*args, causal=True, sm_scale=scale)
+    want = fg.gqa_flash_attention_bwd_plain(*args, True, scale)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
 # three segments with boundaries off the 64-grid, then pad (segment 0):
 # ids 1 on [0, 100), 2 on [100, 300), 3 on [300, 480), 0 on [480, 512)
 K3_THREE_SEGMENTS = ((100, 1), (300, 2), (480, 3))

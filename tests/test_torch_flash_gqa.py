@@ -127,6 +127,27 @@ def test_bwd_route_by_type():
         T.bwd_route(torch.float16, 128, 2)
 
 
+@pytest.mark.parametrize("dtype,d,g,route", [
+    (torch.float32, 128, 2, "f32"), (torch.float32, 128, 1, "f32"),
+    (torch.float32, 128, 3, "f32"), (torch.float32, 128, 128, "f32"),
+    (torch.float32, 64, 2, "simt"), (torch.float32, 256, 2, "simt"),
+    (torch.bfloat16, 128, 2, "sm90"), (torch.bfloat16, 128, 64, "sm90"),
+    (torch.bfloat16, 128, 128, "simt"), (torch.bfloat16, 128, 3, "simt"),
+    (torch.bfloat16, 256, 2, "simt"), (torch.bfloat16, 64, 1, "simt")])
+def test_dkdv_route_by_type_dim_and_group(dtype, d, g, route):
+    """K2-bwd-dkdv: f32 at D = 128 takes the FFMA kernel at any G; bf16
+    at D = 128 with G dividing 64 the wgmma one; every other shape the
+    SIMT one. dq keeps bwd_route (f32 on the SIMT kernel)."""
+    assert T.dkdv_route(dtype, d, g) == route
+    if dtype == torch.float32:
+        assert T.bwd_route(dtype, d, g) == "simt"
+
+
+def test_dkdv_route_rejects_other_types():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        T.dkdv_route(torch.float16, 128, 2)
+
+
 @pytest.mark.parametrize("lk,n_masked", [(128, 4), (256, 132), (384, 260)])
 def test_leading_keys_masked_all_rows(lk, n_masked):
     """The first rows see only masked keys among those the kernel scans:

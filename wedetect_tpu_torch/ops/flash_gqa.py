@@ -32,10 +32,12 @@ TMA); f32, and bf16 at other shapes (D = 256), the SIMT
 forward saves q, k, v, kv_valid, O and lse, and the backward
 (`gqa_flash_attention_bwd`) launches kernels K2-bwd-dq and K2-bwd-dkdv
 on CUDA tensors and runs `gqa_flash_attention_bwd_plain` on CPU
-tensors. Those go by type and shape too (`bwd_route`): bf16 at D = 128
-with G dividing 64 to `csrc/flash_gqa_bwd_sm90.cu` (wgmma + TMA), f32
-and other bf16 shapes to the SIMT `csrc/flash_attn_bwd.cu`. delta =
-rowsum(dO * O) is plain torch in both, as in JAX (`_bwd_grouped`).
+tensors. Those go by type and shape too: bf16 at D = 128 with G
+dividing 64 to `csrc/flash_gqa_bwd_sm90.cu` (wgmma + TMA, `bwd_route`);
+dk/dv in f32 at D = 128 to `csrc/flash_gqa_bwd_f32.cu` (FFMA register
+tiles fed by cp.async, `dkdv_route`); f32 dq and the other shapes to
+the SIMT `csrc/flash_attn_bwd.cu`. delta = rowsum(dO * O) is plain
+torch in both, as in JAX (`_bwd_grouped`).
 """
 
 from __future__ import annotations
@@ -173,6 +175,15 @@ def gqa_flash_attention_bwd_plain(q, k, v, kv_valid, o, lse, do, causal,
     frontier, ds = p * (dO.V^T - delta) * sm_scale, dv = p^T.dO with p
     cast to dO's dtype, dk = ds^T.Q and dq = ds.K with ds cast to the
     input dtype; f32 sums, dq in q's dtype, dk and dv in k's."""
+    p, ds = bwd_plain_weights(q, k, v, kv_valid, o, lse, do, causal,
+                              sm_scale)
+    return bwd_plain_products(q, k, v, do, p, ds)
+
+
+def bwd_plain_weights(q, k, v, kv_valid, o, lse, do, causal, sm_scale):
+    """p and ds of the plain backward, each (B, KVH, G, S, Lk) in the
+    accumulation type: p = exp(s - lse) with the forward's -1e30 fill and
+    frontier (0 past it), ds = p * (dO.V^T - delta) * sm_scale."""
     acc = _acc_dtype(q)
     _check(q, k, v, causal)
     b, s, h, d = q.shape
@@ -184,16 +195,87 @@ def gqa_flash_attention_bwd_plain(q, k, v, kv_valid, o, lse, do, causal,
     delta = row_delta(o, do, kvh).reshape(b, kvh, s, g).permute(
         0, 1, 3, 2)[..., None]
     dog = do.reshape(b, s, kvh, g, d)
+    dp = torch.einsum("bskgd,blkd->bkgsl", dog.to(acc), v.to(acc))
+    return p, p * (dp - delta) * sm_scale
+
+
+def bwd_plain_products(q, k, v, do, p, ds):
+    """(dq, dk, dv) of the plain backward from its p and ds: dv = p^T.dO
+    with p cast to dO's dtype, dk = ds^T.Q and dq = ds.K with ds cast to
+    the input dtype; f32 sums, dq in q's dtype, dk in k's, dv in v's."""
+    acc = _acc_dtype(q)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    dog = do.reshape(b, s, kvh, g, d)
     qg = q.reshape(b, s, kvh, g, d)
     dv = torch.einsum("bkgsl,bskgd->blkd", p.to(do.dtype).to(acc),
                       dog.to(acc))
-    dp = torch.einsum("bskgd,blkd->bkgsl", dog.to(acc), v.to(acc))
-    ds = p * (dp - delta) * sm_scale
     dk = torch.einsum("bkgsl,bskgd->blkd", ds.to(q.dtype).to(acc),
                       qg.to(acc))
     dq = torch.einsum("bkgsl,blkd->bskgd", ds.to(k.dtype).to(acc),
                       k.to(acc)).reshape(b, s, h, d)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# the f32 dk/dv kernel's tiles (csrc/flash_gqa_bwd_f32.cu): a block owns
+# DKDV_F32_KEYS keys and walks the folded rows DKDV_F32_ROWS at a time
+DKDV_F32_ROWS = 32
+DKDV_F32_KEYS = 64
+# lse above it: p = exp(-1e30 - lse) is exactly +0 in f32
+_LSE_NONE = -1e29
+
+
+def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
+    """Whether the f32 dk/dv kernel walks a row tile for a key block: the
+    kernel's rule, batched over any leading dims.
+
+    frontier, qpos, lse (..., R): the tile's rows (F, key position, lse;
+    F = 0 for rows past S * G); key_valid (..., BK) bool: the block's
+    keys, the first of them at k0 (int or (...)). A row keeps the tile
+    when its F passes k0 and it sees a valid key of the block (causal:
+    one at or before qpos) or has lse <= -1e29 (no visible valid key
+    anywhere: p = 1 on its scanned keys). Any other row's pairs in the
+    block have p = 0 (past F) or exp(-1e30 - lse) = +0, so a tile
+    without a keeping row adds nothing to dk or dv."""
+    k0 = torch.as_tensor(k0, device=frontier.device)
+    if causal:
+        keys = k0[..., None] + torch.arange(key_valid.shape[-1],
+                                            device=frontier.device)
+        first = torch.where(key_valid, keys, torch.iinfo(torch.int64).max)
+        sees = first.amin(-1)[..., None] <= qpos
+    else:
+        sees = key_valid.any(-1)[..., None]
+    keep = (frontier > k0[..., None]) & (sees | (lse <= _LSE_NONE))
+    return keep.any(-1)
+
+
+def dkdv_walk_map(s: int, lk: int, g: int, causal: bool,
+                  kv_valid: Optional[torch.Tensor],
+                  lse: torch.Tensor) -> torch.Tensor:
+    """(B, KVH, Lk / DKDV_F32_KEYS, ceil(S * G / DKDV_F32_ROWS)) bool: the
+    row tiles each key block of the f32 dk/dv kernel walks
+    (`dkdv_tile_walked`), for lse (B, KVH, S * G)."""
+    b, kvh, rows = lse.shape
+    dev = lse.device
+    nt = -(-rows // DKDV_F32_ROWS)
+    r = torch.arange(nt * DKDV_F32_ROWS, device=dev)
+    qi = torch.clamp(r // g, max=s - 1)
+    live = r < rows
+    f = torch.where(live, row_frontier(s, lk, g, causal, dev)[qi], 0)
+    qpos = (lk - s if causal else 0) + qi
+    pad = torch.zeros((b, kvh, nt * DKDV_F32_ROWS - rows), dtype=lse.dtype,
+                      device=dev)
+    lse_t = torch.cat([lse, pad], -1).reshape(b, kvh, 1, nt, DKDV_F32_ROWS)
+    if kv_valid is None:
+        kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    nkb = lk // DKDV_F32_KEYS
+    valid = kv_valid.to(device=dev, dtype=torch.bool).reshape(
+        b, 1, nkb, 1, DKDV_F32_KEYS)
+    k0 = (torch.arange(nkb, device=dev) * DKDV_F32_KEYS)[:, None]
+    return dkdv_tile_walked(f.reshape(nt, DKDV_F32_ROWS),
+                            qpos.reshape(nt, DKDV_F32_ROWS), lse_t, valid,
+                            k0, causal)
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
@@ -246,6 +328,18 @@ def _bwd_sm90_lib():
         lib.gqa_flash_bwd_dkdv_sm90.argtypes = [p] * 9 + [i] * 9 + [f, p]
         lib.gqa_flash_bwd_dq_sm90.restype = ctypes.c_int
         lib.gqa_flash_bwd_dkdv_sm90.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _bwd_f32_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_gqa_bwd_f32")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gqa_flash_bwd_dkdv_f32.argtypes = [p] * 9 + [i] * 9 + [f, p]
+        lib.gqa_flash_bwd_dkdv_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -308,6 +402,19 @@ def bwd_route(dtype: torch.dtype, d: int, g: int) -> str:
     return _route("gqa_flash_attention_bwd", dtype, d, 64, g)
 
 
+def dkdv_route(dtype: torch.dtype, d: int, g: int) -> str:
+    """The K2-bwd-dkdv kernel a CUDA input takes: "f32"
+    (csrc/flash_gqa_bwd_f32.cu, FFMA register tiles fed by cp.async) for
+    f32 at D = 128; "sm90" (csrc/flash_gqa_bwd_sm90.cu) for bf16 at
+    D = 128 with G dividing 64, as `bwd_route`; "simt"
+    (csrc/flash_attn_bwd.cu) for everything else (f32 or bf16 at D = 64
+    or 256, other bf16 group sizes). K2-bwd-dq keeps `bwd_route` (f32 on
+    the SIMT kernel). Raises TypeError for other types."""
+    if dtype == torch.float32 and d == 128:
+        return "f32"
+    return bwd_route(dtype, d, g)
+
+
 def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
     """Allocate O and lse and launch one K2 forward kernel `fn`."""
     b, s, h, d = q.shape
@@ -327,12 +434,13 @@ def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
     return o, lse
 
 
-def _check_aligned(name, *named):
-    """TMA reads q, k, v (and dO) in place: each 16-byte aligned."""
+def _check_aligned(name, *named, by="TMA"):
+    """TMA (or cp.async) copies q, k, v (and dO, dk, dv) in 16-byte
+    pieces in place: each must be 16-byte aligned."""
     for tname, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} must be 16-byte aligned "
-                             "(TMA)")
+                             f"({by})")
 
 
 def gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale):
@@ -431,8 +539,30 @@ def gqa_flash_bwd_dkdv_sm90(q, k, v, valid, do, lse, delta, dk, dv, *,
     gqa_flash_bwd_dkdv_sm90.launches += 1
 
 
+def gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv, *,
+                           causal, sm_scale):
+    """One launch of K2-bwd-dkdv's f32 kernel (FFMA register tiles fed by
+    cp.async, D = 128) into dk and dv, on inputs that `_check_bwd`
+    passed. Raises for another type or head dim, and for a q, k, v, dO,
+    dk or dv that is not 16-byte aligned (cp.async copies 16 bytes)."""
+    name = "gqa_flash_bwd_dkdv"
+    if q.dtype != torch.float32 or dk.dtype != torch.float32 \
+            or dv.dtype != torch.float32:
+        raise TypeError(f"{name}: the f32 kernel takes float32, got "
+                        f"{q.dtype}")
+    if q.shape[3] != 128:
+        raise ValueError(f"{name}: the f32 kernel takes head dim 128, got "
+                         f"{q.shape[3]}")
+    _check_aligned(name, ("q", q), ("k", k), ("v", v), ("do", do),
+                   ("dk", dk), ("dv", dv), by="cp.async")
+    _launch_bwd(name, _bwd_f32_lib().gqa_flash_bwd_dkdv_f32, q, k, v, valid,
+                do, lse, delta, (dk, dv), causal, sm_scale)
+    gqa_flash_bwd_dkdv_f32.launches += 1
+
+
 gqa_flash_bwd_dq_sm90.launches = 0
 gqa_flash_bwd_dkdv_sm90.launches = 0
+gqa_flash_bwd_dkdv_f32.launches = 0
 
 
 def gqa_flash_bwd_dq(q, k, v, kv_valid, do, lse, delta, *, causal,
@@ -458,13 +588,20 @@ def gqa_flash_bwd_dq(q, k, v, kv_valid, do, lse, delta, *, causal,
 def gqa_flash_bwd_dkdv(q, k, v, kv_valid, do, lse, delta, *, causal,
                        sm_scale):
     """One launch of K2-bwd-dkdv on CUDA tensors: (dk, dv), each
-    (B, Lk, KVH, D); routed and counted as `gqa_flash_bwd_dq`."""
+    (B, Lk, KVH, D). The kernel goes by `dkdv_route`; every launch is
+    counted here, the f32 kernel's also in
+    `gqa_flash_bwd_dkdv_f32.launches`, the bf16 wgmma kernel's in
+    `gqa_flash_bwd_dkdv_sm90.launches`."""
     name = "gqa_flash_bwd_dkdv"
     valid = _check_bwd(name, q, k, v, kv_valid, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if _bwd_sm90(name, q, k, v, do):
+    route = dkdv_route(q.dtype, q.shape[3], q.shape[2] // k.shape[2])
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    if route == "f32":
+        gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv, **kw)
+    elif _bwd_sm90(name, q, k, v, do):
         gqa_flash_bwd_dkdv_sm90(q, k, v, valid, do, lse, delta, dk, dv,
-                                causal=causal, sm_scale=sm_scale)
+                                **kw)
     else:
         _launch_bwd(name, _bwd_lib().gqa_flash_bwd_dkdv, q, k, v, valid, do,
                     lse, delta, (dk, dv), causal, sm_scale,
