@@ -1314,6 +1314,23 @@ K2_BWD_KERNELS = {("dq", "simt"): "gqa_flash_bwd_dq",
                   ("dkdv", "f32"): "gqa_flash_bwd_dkdv_f32"}
 
 
+def k2_bwd_launches(counts):
+    """K2-bwd's launches by kernel from launch_counts() (or the difference
+    of two readings): "k2_bwd_dq" and "k2_bwd_dkdv" count every route, so
+    a SIMT kernel's share is its counter's less the other routes'."""
+    return {"gqa_flash_bwd_dq": counts["k2_bwd_dq"]
+            - counts["k2_bwd_dq_sm90"],
+            "gqa_flash_bwd_dq_sm90": counts["k2_bwd_dq_sm90"],
+            "gqa_flash_bwd_dkdv": counts["k2_bwd_dkdv"]
+            - counts["k2_bwd_dkdv_sm90"] - counts["k2_bwd_dkdv_f32"],
+            "gqa_flash_bwd_dkdv_sm90": counts["k2_bwd_dkdv_sm90"],
+            "gqa_flash_bwd_dkdv_f32": counts["k2_bwd_dkdv_f32"]}
+
+
+def count_delta(before, after):
+    return {n: after[n] - before[n] for n in after}
+
+
 def k2_bwd_routes(dtype, d, g):
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
@@ -1347,8 +1364,7 @@ def phase_k2_bwd(dev, timing: bool = True):
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
     checks, errors = [], {}
-    counted = ("k2_bwd_dq_sm90", "k2_bwd_dkdv_sm90", "k2_bwd_dkdv_f32")
-    simt_dkdv_launches = 0
+    phase_launches = dict.fromkeys(K2_BWD_KERNELS.values(), 0)
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate([K2_TRAIN, *K2_GRID, *K2_BWD_MORE]):
             b, s, lk, h, kvh, d, causal, holes = case
@@ -1367,23 +1383,24 @@ def phase_k2_bwd(dev, timing: bool = True):
                 q, k, v, _dropped_valid(k, valid, drop), o, lse, do,
                 kw["causal"], kw["sm_scale"])
             r = check_bwd("k2_bwd", got, again, plain, control, dtype)
-            # each kernel launched twice on its own route, the others never
-            launched = {n: after[n] - before[n] for n in counted}
-            want = {"k2_bwd_dq_sm90": 2 * (routes["dq"] == "sm90"),
-                    "k2_bwd_dkdv_sm90": 2 * (routes["dkdv"] == "sm90"),
-                    "k2_bwd_dkdv_f32": 2 * (routes["dkdv"] == "f32")}
+            # each product's kernel on its route launched twice, the
+            # others never
+            launched = k2_bwd_launches(count_delta(before, after))
+            want = dict.fromkeys(launched, 0)
+            for kind in ("dq", "dkdv"):
+                want[K2_BWD_KERNELS[(kind, routes[kind])]] = 2
             checks.append({"shape": list(case[:6]), "causal": causal,
                            "routes": routes, "launches": launched,
                            "control_drop": [drop.start, drop.stop], **r})
             assert launched == want, (case, dtype, launched)
-            simt_dkdv_launches += 2 * (routes["dkdv"] == "simt")
+            for n, c in launched.items():
+                phase_launches[n] += c
             for kind, grads in (("dq", "q"), ("dkdv", "kv")):
                 keep_worst(errors, K2_BWD_KERNELS[(kind, routes[kind])],
                            dtype, max(r["rel_err"][x] for x in grads),
                            max(r["abs_err"][x] for x in grads))
             del got, again, plain, control
-    res = {"checks": checks, "errors": errors,
-           "simt_dkdv_launches": simt_dkdv_launches}
+    res = {"checks": checks, "errors": errors, "launches": phase_launches}
 
     # the path a user calls: loss.backward() through gqa_flash_attention
     # in bf16 at the training shape (no CLI trains in bf16; f32 is the
@@ -1451,12 +1468,13 @@ def phase_k2_bwd(dev, timing: bool = True):
                 r["library_call_ms"] = lib_call_ms
                 r["visible_pairs"] = pairs
                 if route == "f32":
-                    # 32-row x 64-key tiles: walked by the skip rule, and
-                    # scanned by the frontier alone (every row as if it
-                    # saw no valid key)
-                    r["tiles_walked"] = int(fg.dkdv_walk_map(
+                    # 32-row x 64-key tiles as the skip rule counts them
+                    # (ops.flash_gqa.dkdv_walk_map; not read back from
+                    # the kernel): walked, and scanned by the frontier
+                    # alone (every row as if it saw no valid key)
+                    r["rule_tiles_walked"] = int(fg.dkdv_walk_map(
                         s, lk, h // kvh, causal, valid, lse).sum())
-                    r["tiles_scanned"] = int(fg.dkdv_walk_map(
+                    r["rule_tiles_scanned"] = int(fg.dkdv_walk_map(
                         s, lk, h // kvh, causal, valid,
                         torch.full_like(lse, float("-inf"))).sum())
                 res[f"{kind}_{str(dtype)[6:]}"] = r
@@ -1492,11 +1510,28 @@ K3_BWD_MORE = [(1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200, False),
                K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False)]
 
 
+# K3-bwd's kernels by (product, route), the route fa.bwd_route's
+K3_BWD_KERNELS = {("dq", "simt"): "flash_attention_bwd_dq",
+                  ("dq", "sm90"): "flash_attention_bwd_dq_sm90",
+                  ("dkv", "simt"): "flash_attention_bwd_dkv",
+                  ("dkv", "sm90"): "flash_attention_bwd_dkv_sm90"}
+
+
+def k3_bwd_launches(counts):
+    """K3-bwd's launches by kernel, as k2_bwd_launches."""
+    return {"flash_attention_bwd_dq": counts["k3_bwd_dq"]
+            - counts["k3_bwd_dq_sm90"],
+            "flash_attention_bwd_dq_sm90": counts["k3_bwd_dq_sm90"],
+            "flash_attention_bwd_dkv": counts["k3_bwd_dkv"]
+            - counts["k3_bwd_dkv_sm90"],
+            "flash_attention_bwd_dkv_sm90": counts["k3_bwd_dkv_sm90"]}
+
+
 def phase_k3_bwd(dev, timing: bool = True):
     from wedetect_tpu_torch.ops import flash_attention as fa
 
-    checks = []
-    worst = {}
+    checks, errors = [], {}
+    phase_launches = dict.fromkeys(K3_BWD_KERNELS.values(), 0)
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate([K3_TRAIN, *K3_BWD_MORE]):
             route = fa.bwd_route(dtype, case[3])
@@ -1511,24 +1546,24 @@ def phase_k3_bwd(dev, timing: bool = True):
                 args[0], kw["kv_segment_ids"], BWD_CONTROL_DROP))
             control = fa.flash_attention_bwd_plain(*args, **ckw)
             r = check_bwd("k3_bwd", got, again, plain, control, dtype)
-            # bf16 at D = 64 ran the wgmma kernels, the rest the SIMT ones
-            sm90 = {n: after[n] - before[n]
-                    for n in ("k3_bwd_dq_sm90", "k3_bwd_dkv_sm90")}
-            want = 2 if route == "sm90" else 0
+            # bf16 at D = 64 ran the wgmma pair twice, the rest the SIMT
+            # pair
+            launched = k3_bwd_launches(count_delta(before, after))
+            want = dict.fromkeys(launched, 0)
+            for kind in ("dq", "dkv"):
+                want[K3_BWD_KERNELS[(kind, route)]] = 2
             checks.append({"shape": list(case[:4]), "real": case[4],
                            "causal": case[5], "route": route,
-                           "sm90_launches": sm90, **r})
-            assert sm90 == {n: want for n in sm90}, (case, dtype, sm90)
-            key = f"{route}_{str(dtype)[6:]}"
-            worst[key] = max(worst.get(key, 0.0), max(r["rel_err"].values()))
-            if i == 0:
-                worst[(dtype, "abs")] = r["max_abs_err"]
+                           "launches": launched, **r})
+            assert launched == want, (case, dtype, launched)
+            for n, c in launched.items():
+                phase_launches[n] += c
+            for kind, grads in (("dq", "q"), ("dkv", "kv")):
+                keep_worst(errors, K3_BWD_KERNELS[(kind, route)], dtype,
+                           max(r["rel_err"][x] for x in grads),
+                           max(r["abs_err"][x] for x in grads))
             del got, again, plain, control
-    res = {"checks": checks, "max_rel_err_f32": worst["simt_float32"],
-           "max_rel_err_bf16": worst["sm90_bfloat16"],
-           "max_rel_err_bf16_simt": worst["simt_bfloat16"],
-           "max_abs_err_f32": worst[(torch.float32, "abs")],
-           "max_abs_err_bf16": worst[(torch.bfloat16, "abs")]}
+    res = {"checks": checks, "errors": errors, "launches": phase_launches}
 
     # the path a user calls: loss.backward() through flash_attention in
     # bf16 at the training shape (no CLI trains in bf16)
@@ -1886,33 +1921,15 @@ def kernel_entry(name, source, replaces, launches, k, timing,
             "library_ms": timing["library_ms"]}
 
 
-def bwd_kernel_entry(name, replaces, launches, k, timing, dtype="f32",
-                     source="wedetect_tpu_torch/csrc/flash_attn_bwd.cu"):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "dtype": dtype,
-            "max_abs_err": k[f"max_abs_err_{dtype}"],
-            "max_abs_err_bf16": k["max_abs_err_bf16"],
-            "max_rel_err": k[f"max_rel_err_{dtype}"],
-            "max_rel_err_bf16": k["max_rel_err_bf16"],
-            "tolerance": {str(t)[6:]: {"rel_to_max": v}
-                          for t, v in TRAIN_BWD_TOL.items()},
-            "match": True, "ms": timing["ms"],
-            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"]}
-
-
-def k2_bwd_entry(name, launches, k2_bwd, timing, dtype="float32",
-                 source="wedetect_tpu_torch/csrc/flash_attn_bwd.cu"):
-    """A K2-bwd kernel's entry with its own worst errors over the cases
-    it ran (the k2_bwd phase's `errors`), in `dtype` and, for the SIMT
-    kernels, also in the other type (D = 256)."""
-    errs = {key.split("/")[1]: e for key, e in k2_bwd["errors"].items()
+def bwd_entry(name, source, replaces, launches, phase, timing,
+              dtype="float32"):
+    """A backward kernel's entry with its own worst errors over the cases
+    it ran (its phase's `errors`): in `dtype`, and under "errors" in each
+    type it ran (the SIMT kernels also ran bf16)."""
+    errs = {key.split("/")[1]: e for key, e in phase["errors"].items()
             if key.split("/")[0] == name}
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": "wedetect_tpu/ops/flash_gqa.py:"
-                        + ("169" if "_dq" in name else "212"),
-            "launches": launches, "dtype": dtype,
+            "replaces": replaces, "launches": launches, "dtype": dtype,
             "max_abs_err": errs[dtype]["max_abs_err"],
             "max_rel_err": errs[dtype]["max_rel_err"], "errors": errs,
             "tolerance": {str(t)[6:]: {"rel_to_max": v}
@@ -1924,6 +1941,8 @@ def k2_bwd_entry(name, launches, k2_bwd, timing, dtype="float32",
 
 
 STOCK_FA = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+K2_BWD = "wedetect_tpu/ops/flash_gqa.py"
+SIMT_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd.cu"
 SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_sm90.cu"
 F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_f32.cu"
 K3_SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
@@ -1958,6 +1977,10 @@ def main() -> int:
     phase_train_parity(dev)
     phase_train_grad(dev, image, proposals)
     _, train_counts = phase_train(dev, image, proposals)
+    k2_train, k3_train = (k2_bwd_launches(train_counts),
+                          k3_bwd_launches(train_counts))
+    k2_bf16 = k2_bwd_launches(k2_bwd["autograd_bf16"]["launches"])
+    k3_bf16 = k3_bwd_launches(k3_bwd["autograd_bf16"]["launches"])
     emit({"kernels": [
         {"name": "row_topk", "route": "cuda",
          "source": "wedetect_tpu_torch/csrc/row_topk.cu",
@@ -1992,46 +2015,40 @@ def main() -> int:
                      dtype="bf16"),
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32; K2-bwd-dkdv in f32
-        # at D = 128 is the FFMA kernel
-        k2_bwd_entry("gqa_flash_bwd_dq", train_counts["k2_bwd_dq"], k2_bwd,
-                     k2_bwd["dq_float32"]),
-        k2_bwd_entry("gqa_flash_bwd_dkdv_f32",
-                     train_counts["k2_bwd_dkdv_f32"], k2_bwd,
-                     k2_bwd["dkdv_float32"], source=F32_BWD_SOURCE),
-        # the SIMT dk/dv kernel, which the f32 step no longer reaches:
-        # launches from the k2_bwd phase's D = 256 cases, times at the
-        # training shape through its library
-        k2_bwd_entry("gqa_flash_bwd_dkdv", k2_bwd["simt_dkdv_launches"],
-                     k2_bwd, k2_bwd["dkdv_simt_float32"]),
+        # at D = 128 is the FFMA kernel, and the SIMT dk/dv kernel (timed
+        # at the training shape through its library) is not launched there
+        bwd_entry("gqa_flash_bwd_dq", SIMT_BWD_SOURCE, f"{K2_BWD}:169",
+                  k2_train["gqa_flash_bwd_dq"], k2_bwd, k2_bwd["dq_float32"]),
+        bwd_entry("gqa_flash_bwd_dkdv_f32", F32_BWD_SOURCE, f"{K2_BWD}:212",
+                  k2_train["gqa_flash_bwd_dkdv_f32"], k2_bwd,
+                  k2_bwd["dkdv_float32"]),
+        bwd_entry("gqa_flash_bwd_dkdv", SIMT_BWD_SOURCE, f"{K2_BWD}:212",
+                  k2_train["gqa_flash_bwd_dkdv"], k2_bwd,
+                  k2_bwd["dkdv_simt_float32"]),
         # K2-bwd in bf16 (wgmma + TMA): launches from the k2_bwd phase's
         # loss.backward() through gqa_flash_attention (no CLI trains in
         # bf16), times at the training shape
-        k2_bwd_entry("gqa_flash_bwd_dq_sm90",
-                     k2_bwd["autograd_bf16"]["launches"]["k2_bwd_dq_sm90"],
-                     k2_bwd, k2_bwd["dq_bfloat16"], dtype="bfloat16",
-                     source=SM90_BWD_SOURCE),
-        k2_bwd_entry("gqa_flash_bwd_dkdv_sm90",
-                     k2_bwd["autograd_bf16"]["launches"]["k2_bwd_dkdv_sm90"],
-                     k2_bwd, k2_bwd["dkdv_bfloat16"], dtype="bfloat16",
-                     source=SM90_BWD_SOURCE),
-        bwd_kernel_entry("flash_attention_bwd_dq", f"{STOCK_FA}:1146",
-                         train_counts["k3_bwd_dq"], k3_bwd,
-                         k3_bwd["dq_float32"]),
-        bwd_kernel_entry("flash_attention_bwd_dkv", f"{STOCK_FA}:796",
-                         train_counts["k3_bwd_dkv"], k3_bwd,
-                         k3_bwd["dkv_float32"]),
+        bwd_entry("gqa_flash_bwd_dq_sm90", SM90_BWD_SOURCE, f"{K2_BWD}:169",
+                  k2_bf16["gqa_flash_bwd_dq_sm90"], k2_bwd,
+                  k2_bwd["dq_bfloat16"], dtype="bfloat16"),
+        bwd_entry("gqa_flash_bwd_dkdv_sm90", SM90_BWD_SOURCE,
+                  f"{K2_BWD}:212", k2_bf16["gqa_flash_bwd_dkdv_sm90"],
+                  k2_bwd, k2_bwd["dkdv_bfloat16"], dtype="bfloat16"),
+        bwd_entry("flash_attention_bwd_dq", SIMT_BWD_SOURCE,
+                  f"{STOCK_FA}:1146", k3_train["flash_attention_bwd_dq"],
+                  k3_bwd, k3_bwd["dq_float32"]),
+        bwd_entry("flash_attention_bwd_dkv", SIMT_BWD_SOURCE,
+                  f"{STOCK_FA}:796", k3_train["flash_attention_bwd_dkv"],
+                  k3_bwd, k3_bwd["dkv_float32"]),
         # K3-bwd in bf16 at D = 64 (wgmma + TMA): launches from the k3_bwd
         # phase's loss.backward() through flash_attention, times at the
         # training shape
-        bwd_kernel_entry("flash_attention_bwd_dq_sm90", f"{STOCK_FA}:1146",
-                         k3_bwd["autograd_bf16"]["launches"]["k3_bwd_dq_sm90"],
-                         k3_bwd, k3_bwd["dq_bfloat16"], dtype="bf16",
-                         source=K3_SM90_BWD_SOURCE),
-        bwd_kernel_entry("flash_attention_bwd_dkv_sm90", f"{STOCK_FA}:796",
-                         k3_bwd["autograd_bf16"]["launches"][
-                             "k3_bwd_dkv_sm90"],
-                         k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bf16",
-                         source=K3_SM90_BWD_SOURCE)]})
+        bwd_entry("flash_attention_bwd_dq_sm90", K3_SM90_BWD_SOURCE,
+                  f"{STOCK_FA}:1146", k3_bf16["flash_attention_bwd_dq_sm90"],
+                  k3_bwd, k3_bwd["dq_bfloat16"], dtype="bfloat16"),
+        bwd_entry("flash_attention_bwd_dkv_sm90", K3_SM90_BWD_SOURCE,
+                  f"{STOCK_FA}:796", k3_bf16["flash_attention_bwd_dkv_sm90"],
+                  k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bfloat16")]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -434,13 +434,13 @@ def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
     return o, lse
 
 
-def _check_aligned(name, *named, by="TMA"):
+def _check_aligned(name, *named):
     """TMA (or cp.async) copies q, k, v (and dO, dk, dv) in 16-byte
     pieces in place: each must be 16-byte aligned."""
     for tname, t in named:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} must be 16-byte aligned "
-                             f"({by})")
+                             "(TMA / cp.async copy 16-byte pieces)")
 
 
 def gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale):
@@ -554,7 +554,7 @@ def gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv, *,
         raise ValueError(f"{name}: the f32 kernel takes head dim 128, got "
                          f"{q.shape[3]}")
     _check_aligned(name, ("q", q), ("k", k), ("v", v), ("do", do),
-                   ("dk", dk), ("dv", dv), by="cp.async")
+                   ("dk", dk), ("dv", dv))
     _launch_bwd(name, _bwd_f32_lib().gqa_flash_bwd_dkdv_f32, q, k, v, valid,
                 do, lse, delta, (dk, dv), causal, sm_scale)
     gqa_flash_bwd_dkdv_f32.launches += 1
