@@ -28,8 +28,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             masked rows, f32 through the SIMT kernel (atol 1e-4) and
             bf16 through the wgmma + TMA kernel, its launches counted
             (atol 2e-3 + rtol 1e-2: one bf16 ulp of |O| at every
-            magnitude), O and lse; D = 256 in both types through the
-            SIMT kernel; times the kernels, the plain version
+            magnitude), O and lse; D = 256 and 384 in both types through
+            the SIMT kernel; times the kernels, the plain version
             and SDPA with enable_gqa and a boolean mask (a yardstick
             only). K2's and SDPA's times are device times: 20 calls
             captured in a CUDA graph, replays timed (graph_ms); the
@@ -38,7 +38,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             with 80 pad tokens in segment 0, at the training shape
             (1, 4224, 16, 64; 80 pad), square causal, causal with
             segment ids, three segments off the 64-grid, a tail
-            (L = 200), D = 128 and D = 256: bf16 at D = 64 runs the
+            (L = 200), D = 128, D = 256 and D = 72 (zero-padded to 128
+            for the SIMT kernel): bf16 at D = 64 runs the
             wgmma + TMA kernel (csrc/flash_attn_sm90.cu), its launches
             counted per case, f32 and the other head dims the SIMT one;
             a control through the plain version with one 64-key tile
@@ -83,7 +84,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             decoder shape (1, 2048, 16, 128 | 2048, 8), square causal,
             the last 795 keys invalid, on the JAX test grid (fully
             masked rows, S*G = 192), a tile that straddles two
-            frontiers (bq*G = 32) and D = 256, f32 and bf16: dq, dk, dv
+            frontiers (bq*G = 32), D = 256 and 384, f32 and bf16: dq, dk, dv
             within a limit relative to each gradient's largest entry
             (TRAIN_BWD_TOL); a control through the plain backward with
             one 64-key tile dropped must miss it; the two kernels run
@@ -107,7 +108,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
             segment 0, square causal, D = 128, three segments with
-            boundaries off the 64-grid and a tail (L = 200): bf16 at
+            boundaries off the 64-grid, a tail (L = 200) and D = 72: bf16 at
             D = 64 runs the wgmma + TMA kernels
             (csrc/flash_attn_bwd_sm90.cu), f32 and D = 128 the SIMT
             ones, launches counted per case; loss.backward() through
@@ -663,6 +664,8 @@ K2_D256 = [
     (2, 128, 384, 4, 2, 256, True, ((200, 216),)),
     (1, 256, 256, 8, 8, 256, False, ((120, 128),)),
 ]
+# D = 384: the SIMT kernels' 32 x 32 forward and 16 x 16 backward tiles
+K2_D384 = (1, 128, 256, 4, 2, 384, True, ((120, 136),))
 # (atol, rtol) of kernel vs plain. f32: summation order only. bf16:
 # both round the same f32 value to bf16, at most one bf16 ulp of |O|
 # apart, and 2e-3 + 1e-2 |O| is above one ulp at every magnitude
@@ -699,7 +702,7 @@ def phase_k2(dev, timing: bool = True):
                                                   gqa_flash_fwd_sm90)
 
     checks, worst = [], {}
-    cases = [K2_PREFIX, K2_SUFFIX, *K2_GRID, *K2_D256]
+    cases = [K2_PREFIX, K2_SUFFIX, *K2_GRID, *K2_D256, K2_D384]
     gqa_flash_fwd_sm90.launches = 0
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(cases):
@@ -722,8 +725,8 @@ def phase_k2(dev, timing: bool = True):
             key = (dtype, fwd_route(dtype, d, h // kvh))
             worst[key] = max(worst.get(key, 0.0), err)
     # every bf16 check at D = 128 ran the wgmma kernel; no f32 one and
-    # no D = 256 one did
-    assert gqa_flash_fwd_sm90.launches == len(cases) - len(K2_D256), \
+    # no D = 256 or 384 one did
+    assert gqa_flash_fwd_sm90.launches == len(cases) - len(K2_D256) - 1, \
         gqa_flash_fwd_sm90.launches
     res = {"checks": checks, **route_errors(worst)}
     if timing:
@@ -764,6 +767,9 @@ K3_VIT = (1, 1280, 16, 64, 1200, False)      # 480x640: 1200 real tokens
 # padded to 4224)
 K3_TRAIN = (1, 4224, 16, 64, 4144, False)
 K3_D256 = (1, 1280, 4, 256, 1200, False)
+# D = 72: a head dim the SIMT kernels are not built for, zero-padded to
+# 128 by the wrappers (ops/flash_attention.simt_head_dim)
+K3_D72 = (1, 256, 2, 72, 200, False)
 # three segments with boundaries off the 64-grid (ids 1 on [0, 100), 2 on
 # [100, 300), 3 on [300, 480), 0 after), where the wgmma kernels take
 # their per-element path
@@ -774,7 +780,7 @@ K3_CASES = [K3_VIT, K3_TRAIN, (1, 1280, 16, 64, 1280, True),
             (1, 384, 4, 64, ((150, 1), (300, 2)), True),  # causal + ids
             K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False),  # a tail
             (2, 256, 4, 128, 200, False), K3_D256, (1, 256, 2, 256, 256,
-                                                     True)]
+                                                     True), K3_D72]
 
 
 def k3_case(dev, b, l, h, d, n_real, causal, dtype, seed):
@@ -1231,6 +1237,7 @@ K2_BWD_MORE = [
     (1, 336, 384, 4, 2, 128, True, ((100, 110),)),
     (1, 128, 256, 4, 2, 256, True, ((120, 136),)),
     (1, 256, 256, 4, 4, 256, False, ()),
+    K2_D384,
 ]
 
 
@@ -1505,9 +1512,9 @@ def k3_bwd_run(dev, case, dtype, seed):
     return (q, k, v, o, lse, do), kw
 
 
-# K3-bwd's further cases: K3_THREE_SEGMENTS and a tail (L = 200)
+# K3-bwd's further cases: K3_THREE_SEGMENTS, a tail (L = 200) and D = 72
 K3_BWD_MORE = [(1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200, False),
-               K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False)]
+               K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False), K3_D72]
 
 
 # K3-bwd's kernels by (product, route), the route fa.bwd_route's

@@ -295,9 +295,89 @@ def test_attention_kernels_reject_bad_input(cuda):
                             k)
     with pytest.raises(ValueError):                      # not square
         flash_attention(q, q[:, :64], q[:, :64])
-    x = torch.zeros((1, 128, 4, 32), device=cuda)
-    with pytest.raises(ValueError):                      # head dim 32
+    # above 512, the card's limit, both raise before any launch
+    x = torch.zeros((1, 128, 4, 520), device=cuda)
+    with pytest.raises(ValueError, match="up to 512"):
         flash_attention(x, x, x)
+    x = torch.zeros((1, 128, 4, 640), device=cuda)
+    xk = torch.zeros((1, 128, 2, 640), device=cuda)
+    with pytest.raises(ValueError, match="at most 512"):
+        gqa_flash_attention(x, xk, xk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal", [(32, False), (72, False), (80, True),
+                                      (512, False)])
+def test_flash_attention_head_dims_match_plain(cuda, monkeypatch, dtype, d,
+                                               causal):
+    """K3 at a head dim the SIMT kernels are not built for (32, 72, 80:
+    padded with zero columns to 64 or 128) and at 512 (16 x 16 backward
+    tiles): forward and backward on the SIMT kernels, against the plain
+    versions (TOL, BWD_TOL), the backward bitwise over two runs."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    others = (fa.flash_attention_fwd_sm90, fa.flash_attention_bwd_dq_sm90,
+              fa.flash_attention_bwd_dkv_sm90)
+    for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv, *others):
+        monkeypatch.setattr(fn, "launches", 0)
+    b, l, h, n_real = 1, 256, 2, 200
+    q, k, v = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda, seed=d)
+    do = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda, seed=d + 1)[0]
+    do[:, n_real:] = 0
+    seg = (torch.arange(l, device=cuda) < n_real).to(torch.int32)[None]
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
+              sm_scale=d ** -0.5)
+    got, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    grads = [fa.flash_attention_bwd(q, k, v, got, lse, do, **kw)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    want, wlse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert got.shape == q.shape and got.is_contiguous()
+    assert _close(got, want, dtype)
+    assert (lse - wlse).abs().max() <= 1e-3
+    plain = fa.flash_attention_bwd_plain(q, k, v, got, lse, do, **kw)
+    for a, a2, w in zip(grads[0], grads[1], plain):
+        assert a.shape == q.shape and a.dtype == dtype
+        assert torch.equal(a, a2)
+        assert _rel_err(a, w) <= BWD_TOL[dtype]
+    assert fa.flash_attention.launches == 1
+    assert fa.flash_attention_bwd_dq.launches == 2
+    assert fa.flash_attention_bwd_dkv.launches == 2
+    assert all(fn.launches == 0 for fn in others)      # the SIMT kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [384, 512])
+def test_gqa_flash_head_dims_match_plain(cuda, monkeypatch, dtype, d):
+    """K2 at D = 384 and 512 (JAX tiles any D % 128 == 0): forward and
+    backward on the SIMT kernels against the plain versions."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in (fg.gqa_flash_attention, fg.gqa_flash_fwd_sm90,
+               fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, valid = _bwd_case((1, 128, 256, 4, 2, d, True,
+                                    ((120, 136),)), dtype, cuda, seed=d)
+    got, lse = fg.gqa_flash_attention(q, k, v, causal=True, kv_valid=valid,
+                                      return_lse=True)
+    grads = [fg.gqa_flash_attention_bwd(q, k, v, valid, got, lse, do,
+                                        causal=True, sm_scale=d ** -0.5)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    want, wlse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                              kv_valid=valid, return_lse=True)
+    assert _close(got, want, dtype)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+    plain = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, got, lse, do,
+                                             True, d ** -0.5)
+    for a, a2, w in zip(grads[0], grads[1], plain):
+        assert torch.equal(a, a2)
+        assert _rel_err(a, w) <= BWD_TOL[dtype]
+    assert fg.gqa_flash_attention.launches == 1
+    assert fg.gqa_flash_fwd_sm90.launches == 0
+    assert fg.gqa_flash_bwd_dq.launches == 2
+    assert fg.gqa_flash_bwd_dkdv.launches == 2
 
 
 def test_attention_auto_on_the_card_raises_on_untileable_shapes(cuda,

@@ -1,7 +1,9 @@
 // Flash attention forward for Hopper: kernels K2 (f32) and K3 of the
 // port. K2 in bf16 at D = 128 with G dividing 128 is
-// csrc/flash_gqa_sm90.cu (wgmma and TMA); other bf16 K2 shapes (D = 256)
-// run here.
+// csrc/flash_gqa_sm90.cu (wgmma and TMA); other bf16 K2 shapes (D = 256,
+// 384 or 512) run here. Head dims 64, 128, 256, 384 and 512 are built;
+// ops/flash_attention.py pads any other K3 width up to 512 with zero
+// columns, and both wrappers refuse a wider one.
 //
 // K2 replaces wedetect_tpu/ops/flash_gqa.py:_fwd_kernel (the Pallas TPU
 // kernel behind gqa_flash_attention): native grouped KV, end-aligned
@@ -30,13 +32,14 @@
 // the Pallas kernel does. K3's F is q + 1 when causal, else L; its mask is the segment
 // test. The key loop of a block runs to the largest F among its rows.
 //
-// Design (simple, right first): a block holds kBR = 64 folded rows and
-// 256 threads; key tiles of kBK = 64 keys are staged in dynamic shared
-// memory as f32 (Q 33 KB, K 33 KB, V 32 KB, logits 17 KB at D = 128;
-// 210 KB in all at D = 256). Logits are scalar FMAs into a 4x4
+// Design (simple, right first): a block holds BR folded rows and 256
+// threads; key tiles of BK keys are staged in dynamic shared memory as
+// f32. BR = BK = 64 up to D = 256 (Q 33 KB, K 33 KB, V 32 KB, logits
+// 17 KB at D = 128; 210 KB in all at D = 256), 32 at D = 384 and 512
+// (197 KB at D = 512). Logits are scalar FMAs into a BR/16 x BK/16
 // register tile per thread, the row softmax is one warp per row, and
-// each thread keeps a 4 x D/16 slice of the f32 output accumulator in
-// registers. In bf16, p is rounded to bf16 before the p.V product, as
+// each thread keeps a BR/16 x D/16 slice of the f32 output accumulator
+// in registers. In bf16, p is rounded to bf16 before the p.V product, as
 // the Pallas kernel casts p to V's type; l sums the unrounded p. No
 // tensor cores, TMA or pipelining yet.
 //
@@ -56,8 +59,6 @@
 
 namespace {
 
-constexpr int kBR = 64;        // folded rows per block
-constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16 thread grid, 8 warps
 
 template <typename T>
@@ -100,23 +101,27 @@ __device__ __forceinline__ int frontier(const Args& a, int qi) {
   return gqa_frontier(qi, a.lk, a.off, a.bq, a.bk);
 }
 
-template <typename T, int D, bool kSeg>
+// BR folded rows a block, BK keys a tile
+template <typename T, int D, bool kSeg, int BR, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Args a) {
   constexpr int QP = D + 1;      // padded pitches: no bank conflicts
-  constexpr int SP = kBK + 1;
+  constexpr int SP = BK + 1;
+  constexpr int RI = BR / 16;    // rows per thread
+  constexpr int CJ = BK / 16;    // keys per thread
+  constexpr int KL = BK / 32;    // keys per lane in the row softmax
   constexpr int DJ = D / 16;     // output columns per thread
   extern __shared__ float smem[];
-  float* Qs = smem;                      // [kBR][QP]
-  float* Ks = Qs + kBR * QP;             // [kBK][QP]
-  float* Vs = Ks + kBK * QP;             // [kBK][D]
-  float* Ss = Vs + kBK * D;              // [kBR][SP]
-  float* s_m = Ss + kBR * SP;            // [kBR]
-  float* s_l = s_m + kBR;
-  float* s_alpha = s_l + kBR;
-  int* s_f = reinterpret_cast<int*>(s_alpha + kBR);  // [kBR] frontier
-  int* s_qtag = s_f + kBR;               // [kBR] qpos (K2) / segment (K3)
-  int* s_ktag = s_qtag + kBR;            // [kBK] valid (K2) / segment (K3)
+  float* Qs = smem;                      // [BR][QP]
+  float* Ks = Qs + BR * QP;             // [BK][QP]
+  float* Vs = Ks + BK * QP;             // [BK][D]
+  float* Ss = Vs + BK * D;              // [BR][SP]
+  float* s_m = Ss + BR * SP;            // [BR]
+  float* s_l = s_m + BR;
+  float* s_alpha = s_l + BR;
+  int* s_f = reinterpret_cast<int*>(s_alpha + BR);  // [BR] frontier
+  int* s_qtag = s_f + BR;               // [BR] qpos (K2) / segment (K3)
+  int* s_ktag = s_qtag + BR;            // [BK] valid (K2) / segment (K3)
 
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -126,7 +131,7 @@ flash_fwd_kernel(const Args a) {
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * kBR;
+  const int row0 = blockIdx.x * BR;
   const int hk = blockIdx.y;
   const int bi = blockIdx.z;
   const int rows = a.s * a.g;
@@ -138,7 +143,7 @@ flash_fwd_kernel(const Args a) {
   };
 
   // row metadata and the Q tile
-  if (tid < kBR) {
+  if (tid < BR) {
     int gr = row0 + tid;
     int f = 0, tag = 0;
     if (gr < rows) {
@@ -152,27 +157,27 @@ flash_fwd_kernel(const Args a) {
     s_m[tid] = kNeg;
     s_l[tid] = 0.f;
   }
-  for (int idx = tid; idx < kBR * D; idx += kThreads) {
+  for (int idx = tid; idx < BR * D; idx += kThreads) {
     int r = idx / D, dd = idx % D;
     int gr = row0 + r;
     Qs[r * QP + dd] = gr < rows ? to_f<T>(q[row_offset(gr) + dd]) : 0.f;
   }
   // frontier of the block: F grows with the row, so the last live row's
-  int last = min(row0 + kBR, rows) - 1;
+  int last = min(row0 + BR, rows) - 1;
   int fmax = frontier<kSeg>(a, last / a.g);
-  int ntiles = (fmax + kBK - 1) / kBK;
+  int ntiles = (fmax + BK - 1) / BK;
 
-  float acc[4][DJ];
+  float acc[RI][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   const int64_t kv_base = static_cast<int64_t>(bi) * a.lk;
   for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kBK;
+    const int k0 = t * BK;
     __syncthreads();  // previous tile's K, V and p are consumed
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
+    for (int idx = tid; idx < BK * D; idx += kThreads) {
       int kk = idx / D, dd = idx % D;
       int key = k0 + kk;
       float kvk = 0.f, kvv = 0.f;
@@ -184,7 +189,7 @@ flash_fwd_kernel(const Args a) {
       Ks[kk * QP + dd] = kvk;
       Vs[kk * D + dd] = kvv;
     }
-    if (tid < kBK) {
+    if (tid < BK) {
       int key = k0 + tid;
       int tag = 0;
       if (key < a.lk) {
@@ -198,28 +203,28 @@ flash_fwd_kernel(const Args a) {
     __syncthreads();
 
     // logits: rows ty + 16 i, keys tx + 16 j
-    float sc[4][4];
+    float sc[RI][CJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+      for (int j = 0; j < CJ; ++j) sc[i][j] = 0.f;
 #pragma unroll 8
     for (int dd = 0; dd < D; ++dd) {
-      float qa[4], kb[4];
+      float qa[RI], kb[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * QP + dd];
+      for (int i = 0; i < RI; ++i) qa[i] = Qs[(ty + 16 * i) * QP + dd];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * QP + dd];
+      for (int j = 0; j < CJ; ++j) kb[j] = Ks[(tx + 16 * j) * QP + dd];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
+        for (int j = 0; j < CJ; ++j) sc[i][j] = fmaf(qa[i], kb[j], sc[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       int r = ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < CJ; ++j) {
         int c = tx + 16 * j;
         int key = k0 + c;
         bool ok = kSeg ? (s_ktag[c] == s_qtag[r])
@@ -231,21 +236,29 @@ flash_fwd_kernel(const Args a) {
     __syncthreads();
 
     // online softmax, one warp per row
-    for (int r = warp; r < kBR; r += kThreads / 32) {
-      float x0 = Ss[r * SP + lane], x1 = Ss[r * SP + lane + 32];
-      float mx = fmaxf(x0, x1);
+    for (int r = warp; r < BR; r += kThreads / 32) {
+      float x[KL];
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int c = 0; c < KL; ++c) {
+        x[c] = Ss[r * SP + lane + 32 * c];
+        mx = fmaxf(mx, x[c]);
+      }
 #pragma unroll
       for (int sh = 16; sh > 0; sh >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, sh));
       float m_old = s_m[r];
       float m_new = fmaxf(m_old, mx);
-      float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      float sum = p0 + p1;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KL; ++c) {
+        float p = expf(x[c] - m_new);
+        sum += p;
+        Ss[r * SP + lane + 32 * c] = to_f<T>(from_f<T>(p));
+      }
 #pragma unroll
       for (int sh = 16; sh > 0; sh >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, sh);
-      Ss[r * SP + lane] = to_f<T>(from_f<T>(p0));
-      Ss[r * SP + lane + 32] = to_f<T>(from_f<T>(p1));
       if (lane == 0) {
         float alpha = expf(m_old - m_new);
         s_alpha[r] = alpha;
@@ -257,20 +270,20 @@ flash_fwd_kernel(const Args a) {
 
     // acc = acc * alpha + p . V
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       float al = s_alpha[ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) acc[i][j] *= al;
     }
 #pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4], vv[DJ];
+    for (int c = 0; c < BK; ++c) {
+      float p[RI], vv[DJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SP + c];
+      for (int i = 0; i < RI; ++i) p[i] = Ss[(ty + 16 * i) * SP + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) vv[j] = Vs[c * D + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
     }
@@ -278,7 +291,7 @@ flash_fwd_kernel(const Args a) {
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     int r = ty + 16 * i;
     int gr = row0 + r;
     if (gr >= rows) continue;
@@ -296,20 +309,25 @@ flash_fwd_kernel(const Args a) {
   }
 }
 
-size_t shared_bytes(int d) {
-  size_t floats = static_cast<size_t>(kBR) * (d + 1)   // Q
-                  + static_cast<size_t>(kBK) * (d + 1) // K
-                  + static_cast<size_t>(kBK) * d       // V
-                  + static_cast<size_t>(kBR) * (kBK + 1)
-                  + 3 * kBR;                           // m, l, alpha
-  size_t ints = 2 * kBR + kBK;
+size_t shared_bytes(int d, int br, int bk) {
+  size_t floats = static_cast<size_t>(br) * (d + 1)    // Q
+                  + static_cast<size_t>(bk) * (d + 1)  // K
+                  + static_cast<size_t>(bk) * d        // V
+                  + static_cast<size_t>(br) * (bk + 1)
+                  + 3 * br;                            // m, l, alpha
+  size_t ints = 2 * br + bk;
   return floats * sizeof(float) + ints * sizeof(int);
 }
 
+// 64 x 64 tiles up to D = 256 (210 KB of shared memory at D = 256);
+// 32 x 32 at D = 384 and 512 (151 KB, 201 KB: 64 x 64 would need 296 KB
+// and 394 KB). 32 divides every JAX key block bk (>= 128), so no K2
+// frontier splits a tile
 template <typename T, int D, bool kSeg>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D, kSeg>;
-  size_t smem = shared_bytes(D);
+  constexpr int B = D > 256 ? 32 : 64;
+  auto kern = flash_fwd_kernel<T, D, kSeg, B, B>;
+  size_t smem = shared_bytes(D, B, B);
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -318,7 +336,7 @@ int launch(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  dim3 grid((a.s * a.g + kBR - 1) / kBR, a.kvh, a.b);
+  dim3 grid((a.s * a.g + B - 1) / B, a.kvh, a.b);
   kern<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -334,13 +352,20 @@ int dispatch(const Args& a, int d, int bf16, cudaStream_t stream) {
   if (d == 256)   // 210 KB of shared memory
     return bf16 ? launch<__nv_bfloat16, 256, kSeg>(a, stream)
                 : launch<float, 256, kSeg>(a, stream);
+  if (d == 384)
+    return bf16 ? launch<__nv_bfloat16, 384, kSeg>(a, stream)
+                : launch<float, 384, kSeg>(a, stream);
+  if (d == 512)
+    return bf16 ? launch<__nv_bfloat16, 512, kSeg>(a, stream)
+                : launch<float, 512, kSeg>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // K2 in f32, and in bf16 at the shapes csrc/flash_gqa_sm90.cu does not
-// take (ops/flash_gqa.py:fwd_route: D = 256, or G not dividing 128).
+// take (ops/flash_gqa.py:fwd_route: D = 256, 384 or 512, or G not
+// dividing 128).
 // q, o (B, S, H, D); k, v (B, Lk, KVH, D); kv_valid (B, Lk) int32; lse
 // (B, KVH, S * H / KVH) f32. bq, bk: the Pallas kernel's query and key
 // blocks (flash_gqa._pick_bq / _pick_bk), which fix each row's
@@ -358,8 +383,8 @@ extern "C" int gqa_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch<false>(a, d, bf16, static_cast<cudaStream_t>(stream));
 }
 
-// K3. q, k, v, o (B, L, H, D); q_seg, kv_seg (B, L) int32 or both null;
-// lse (B, H, L) f32. Launches on `stream`; returns cudaGetLastError().
+// K3. q, k, v, o (B, L, H, D), D one of 64, 128, 256, 384, 512; q_seg,
+// kv_seg (B, L) int32 or both null; lse (B, H, L) f32. Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* q_seg,
                                    const int* kv_seg, void* o, float* lse,

@@ -12,9 +12,14 @@
 // keys. The split is JAX's: each block owns its output rows, so there
 // are no atomics and the gradients are the same bit for bit from run to
 // run. K2-bwd in bf16 at D = 128 with G dividing 64 is
-// csrc/flash_gqa_bwd_sm90.cu (wgmma and TMA); these kernels take K2-bwd
-// in f32 and the other bf16 shapes (ops/flash_gqa.py:bwd_route, e.g.
-// D = 256), and K3-bwd in both types.
+// csrc/flash_gqa_bwd_sm90.cu (wgmma and TMA), and its f32 dk/dv at
+// D = 128 csrc/flash_gqa_bwd_f32.cu; K3-bwd in bf16 at D = 64 is
+// csrc/flash_attn_bwd_sm90.cu. These kernels take the rest: K2-bwd dq in
+// f32 and the other bf16 shapes (ops/flash_gqa.py:bwd_route, e.g.
+// D = 256), K3-bwd in f32 and every other head dim. Head dims 64,
+// 128, 256, 384 and 512 are built; ops/flash_attention.py pads any other
+// K3 width up to 512 with zero columns, and both wrappers refuse a wider
+// one.
 //
 // Layouts are the JAX package's public ones, read in place: q, o, dO, dq
 // (B, S, H, D); k, v, dk, dv (B, Lk, KVH, D); the G = H / KVH query heads
@@ -44,7 +49,8 @@
 // row tiles, skipping those whose last row's frontier does not reach
 // its first key (JAX's j0 rule per BR-row tile). 64 x 64 tiles at
 // D <= 128 (shared memory at D = 128: 150 KB dq, 166 KB dk/dv), 32 x 32
-// at D = 256 (136 KB, 141 KB); one block per SM.
+// at D = 256 (136 KB, 141 KB), 16 x 16 at D = 384 (99 KB, 100 KB) and
+// 512 (132 KB, 134 KB); one block per SM.
 //
 // Bound on the H100: dq 6 * H * D and dk/dv 8 * H * D FLOPs per visible
 // (query, key) pair (two and four products of the pair), against
@@ -497,11 +503,17 @@ int launch(Kernel kern, bool* configured, dim3 grid, size_t smem,
 }
 
 // 64 x 64 tiles up to D = 128 (150-166 KB of shared memory at D = 128);
-// 32 x 32 at D = 256 (136-141 KB: 64 x 64 would need 263 KB). 32 still
-// divides every JAX key block bk (>= 128), so no frontier splits a tile
+// 32 x 32 at D = 256 (136-141 KB: 64 x 64 would need 263 KB); 16 x 16 at
+// D = 384 and 512 (99-134 KB). 16 and 32 still divide every JAX
+// key block bk (>= 128), so no frontier splits a tile
+template <int D>
+constexpr int tile_rows() {
+  return D > 256 ? 16 : D > 128 ? 32 : 64;
+}
+
 template <typename T, int D, bool kSeg>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  constexpr int B = D > 128 ? 32 : 64;
+  constexpr int B = tile_rows<D>();
   static bool configured = false;
   dim3 grid((a.s * a.g + B - 1) / B, a.kvh, a.b);
   return launch(flash_bwd_dq_kernel<T, D, kSeg, B, B>, &configured, grid,
@@ -510,7 +522,7 @@ int launch_dq(const Args& a, cudaStream_t stream) {
 
 template <typename T, int D, bool kSeg>
 int launch_dkdv(const Args& a, cudaStream_t stream) {
-  constexpr int B = D > 128 ? 32 : 64;
+  constexpr int B = tile_rows<D>();
   static bool configured = false;
   dim3 grid((a.lk + B - 1) / B, a.kvh, a.b);
   return launch(flash_bwd_dkdv_kernel<T, D, kSeg, B, B>, &configured, grid,
@@ -534,6 +546,12 @@ int dispatch(const Args& a, bool dq, int d, int bf16, cudaStream_t stream) {
   if (d == 256)
     return bf16 ? launch_one<__nv_bfloat16, 256, kSeg>(a, dq, stream)
                 : launch_one<float, 256, kSeg>(a, dq, stream);
+  if (d == 384)
+    return bf16 ? launch_one<__nv_bfloat16, 384, kSeg>(a, dq, stream)
+                : launch_one<float, 384, kSeg>(a, dq, stream);
+  if (d == 512)
+    return bf16 ? launch_one<__nv_bfloat16, 512, kSeg>(a, dq, stream)
+                : launch_one<float, 512, kSeg>(a, dq, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

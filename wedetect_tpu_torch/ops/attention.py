@@ -15,6 +15,13 @@ read as "on a CUDA tensor":
   on TPU, the port raises on the card: callers pad lengths to multiples
   of 128 (`models/ref_api.RefScorer` does).
 - `"einsum"` runs `_reference_attention`, or its grouped form (G > 1).
+- Head dims: on a CUDA tensor the kernels take D up to 512, a
+  deliberate difference from the JAX package, whose Pallas kernels
+  take any D (K2: any D % 128 == 0). K3 zero-pads a D the kernels are
+  not built for to the next of 64, 128, 256, 384 and 512; K2 needs no
+  padding (its D % 128 == 0 up to 512 are all built). Above 512 both
+  raise before any launch (`flash_attention.simt_head_dim`,
+  `flash_gqa._check_cuda`).
 
 The einsum paths keep the JAX contract: end-aligned rectangular causal
 (query i sits at key position Lk - S + i), kv_valid key masking, f32

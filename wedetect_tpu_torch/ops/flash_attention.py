@@ -34,6 +34,14 @@ pair of `csrc/flash_attn_bwd.cu`; a CUDA input that its kernel cannot
 take raises. p is recomputed as exp(s - lse) from the saved logsumexp
 (the stock kernels keep m and l apart: the same p up to rounding);
 di = rowsum(dO * O) is plain torch, as in the stock VJP.
+
+Head dims on the card. The SIMT kernels are built for D = 64, 128, 256,
+384 and 512 (`SIMT_HEAD_DIMS`); any other D up to 512 is zero-padded to
+the next of them (`simt_head_dim`, `pad_head_dim`) and O, dq, dk and dv
+are sliced back. Zero columns change no logit and no real output
+column, and sm_scale stays the caller's. Above 512 a CUDA input raises
+before any launch: a deliberate difference from the stock Pallas kernel,
+which takes any D. CPU tensors take any D.
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ from typing import Optional
 import torch
 
 _NEG = -1e30
+# the head dims the SIMT kernels are built for (csrc/flash_attn.cu,
+# csrc/flash_attn_bwd.cu); the largest is the card's limit
+SIMT_HEAD_DIMS = (64, 128, 256, 384, 512)
 
 
 def _check(q, k, v, q_segment_ids, kv_segment_ids):
@@ -139,6 +150,25 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, q_segment_ids=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def simt_head_dim(d: int, name: str = "flash_attention") -> int:
+    """The width the SIMT kernels run head dim d at: the smallest of
+    SIMT_HEAD_DIMS at or above d. Raises ValueError above 512, the
+    card's limit (module docstring)."""
+    for w in SIMT_HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"{name}: head dim {d}: the CUDA kernels take head "
+                     f"dims up to {SIMT_HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(width: int, *tensors: torch.Tensor):
+    """The tensors (..., D), each zero-padded in D to (..., width), as a
+    list: the SIMT launches' input at a D they are not built for."""
+    return [t if t.shape[-1] == width
+            else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
 def _lib():
     from wedetect_tpu_torch.ops import _build
 
@@ -228,9 +258,7 @@ def _check_cuda(name, q, *others):
                         "device")
     if not all(t.is_contiguous() for t in (q, *others)):
         raise ValueError(f"{name}: q, k, v (and dO) must be contiguous")
-    if q.shape[-1] not in (64, 128, 256):
-        raise ValueError(f"{name}: head dim {q.shape[-1]} (64, 128 or "
-                         "256)")
+    simt_head_dim(q.shape[-1], name)
 
 
 def _segs(q, q_segment_ids, kv_segment_ids):
@@ -284,13 +312,16 @@ def _fwd_kernel(q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale):
     """One launch of K3: (O, lse). The kernel goes by `fwd_route`; every
     launch is counted in `flash_attention.launches`, the bf16 wgmma
     kernel's also in `flash_attention_fwd_sm90.launches`."""
-    args = (q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale)
+    args = (q_segment_ids, kv_segment_ids, causal, sm_scale)
     if fwd_route(q.dtype, q.shape[-1]) == "sm90":
-        o, lse = flash_attention_fwd_sm90(*args)
+        o, lse = flash_attention_fwd_sm90(q, k, v, *args)
     else:
         _check_cuda("flash_attention", q, k, v)
+        d = q.shape[-1]
         o, lse = _launch_fwd("flash_attention", _lib().flash_attention_fwd,
-                             *args, int(q.dtype == torch.bfloat16))
+                             *pad_head_dim(simt_head_dim(d), q, k, v), *args,
+                             int(q.dtype == torch.bfloat16))
+        o = _unpad(o, d)
     flash_attention.launches += 1
     return o, lse
 
@@ -305,6 +336,11 @@ def _forward(q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _fwd_kernel(q, k, v, q_segment_ids, kv_segment_ids, causal,
                        sm_scale)
+
+
+def _unpad(t, d):
+    """A SIMT output (..., width) cut back to the caller's head dim d."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _check_rows(name, lse, delta, q):
@@ -404,10 +440,13 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, q_segment_ids=None,
         dq = flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, **kw)
     else:
         _check_bwd(name, q, k, v, do, lse, delta, kw)
-        dq = torch.empty_like(q)
-        _launch_bwd(name, _bwd_lib().flash_attention_bwd_dq, q, k, v, do,
-                    lse, delta, (dq,), q.shape, kw,
+        d = q.shape[-1]
+        qp, kp, vp, dop = pad_head_dim(simt_head_dim(d), q, k, v, do)
+        dq = torch.empty_like(qp)
+        _launch_bwd(name, _bwd_lib().flash_attention_bwd_dq, qp, kp, vp, dop,
+                    lse, delta, (dq,), qp.shape, kw,
                     int(q.dtype == torch.bfloat16))
+        dq = _unpad(dq, d)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -424,10 +463,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, q_segment_ids=None,
         dk, dv = flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, **kw)
     else:
         _check_bwd(name, q, k, v, do, lse, delta, kw)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        _launch_bwd(name, _bwd_lib().flash_attention_bwd_dkv, q, k, v, do,
-                    lse, delta, (dk, dv), q.shape, kw,
+        d = q.shape[-1]
+        qp, kp, vp, dop = pad_head_dim(simt_head_dim(d), q, k, v, do)
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+        _launch_bwd(name, _bwd_lib().flash_attention_bwd_dkv, qp, kp, vp,
+                    dop, lse, delta, (dk, dv), qp.shape, kw,
                     int(q.dtype == torch.bfloat16))
+        dk, dv = _unpad(dk, d), _unpad(dv, d)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -26,7 +26,7 @@ them, not 0; for every row with a valid key, F changes nothing.
 the plain version on CPU tensors; there is no fallback. The kernel goes
 by type and shape (`fwd_route`): bf16 at D = 128 with G dividing 128
 launches `csrc/flash_gqa_sm90.cu:gqa_flash_fwd_sm90` (wgmma tiles fed by
-TMA); f32, and bf16 at other shapes (D = 256), the SIMT
+TMA); f32, and bf16 at other shapes (D = 256, 384, 512), the SIMT
 `csrc/flash_attn.cu:gqa_flash_fwd`. It is differentiable in q, k and v
 (a `torch.autograd.Function`, the JAX package's custom VJP): the
 forward saves q, k, v, kv_valid, O and lse, and the backward
@@ -38,6 +38,13 @@ dk/dv in f32 at D = 128 to `csrc/flash_gqa_bwd_f32.cu` (FFMA register
 tiles fed by cp.async, `dkdv_route`); f32 dq and the other shapes to
 the SIMT `csrc/flash_attn_bwd.cu`. delta = rowsum(dO * O) is plain
 torch in both, as in JAX (`_bwd_grouped`).
+
+Head dims on the card. `supports` is JAX's rule (any D % 128 == 0), and
+the SIMT kernels are built for every such D up to 512 (128, 256, 384
+and 512, beside 64), so K2 pads nothing. Above 512 a CUDA input raises
+before any launch: a deliberate difference from the Pallas kernel,
+which tiles any D % 128 == 0. CPU tensors take any D that `supports`
+takes.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ import math
 from typing import Optional
 
 import torch
+
+from wedetect_tpu_torch.ops.flash_attention import SIMT_HEAD_DIMS
 
 _NEG = -1e30
 
@@ -363,8 +372,10 @@ def _check_cuda(name, q, k, v, others=()):
             raise ValueError(f"{name}: {tname} must be contiguous")
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
-    if d not in (64, 128, 256):
-        raise ValueError(f"{name}: head dim {d} (64, 128 or 256)")
+    if d not in SIMT_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d}: the CUDA kernels take "
+                         f"{', '.join(map(str, SIMT_HEAD_DIMS))}, at most "
+                         f"{SIMT_HEAD_DIMS[-1]}")
 
 
 def _valid_i32(kv_valid, b, lk, device, name):
