@@ -11,10 +11,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             sources at once, into build/kernels/; ptxas's report. The
             four wgmma libraries (K2's and K3's bf16 forward and
             backward) must show HGMMA (wgmma) and UTMALDG (TMA load)
-            instructions in `cuobjdump -sass`; the FFMA library (K2-bwd
-            dk/dv in f32) its count of FFMA, LDS.128 and all LDS, whole
-            and in each innermost loop, where every shared-memory load
-            must feed at least 8 FFMA; none of the five may spill.
+            instructions in `cuobjdump -sass`; the two FFMA libraries
+            (K2-bwd dk/dv in f32 at D = 128, K3-bwd dk/dv in f32 at
+            D = 64) their count of FFMA, LDS.128 and all LDS, whole and
+            in each innermost loop, where every shared-memory load must
+            feed at least 8 FFMA, and their registers; none of the six
+            may spill.
 3. k1       the row top-k kernel against its plain PyTorch version at
             the detect path's shape (B*8400, 1203), t = 64, on rows
             with -inf masks, ties and full masks, plus edge shapes
@@ -108,19 +110,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
             segment 0, square causal, D = 128, three segments with
-            boundaries off the 64-grid, a tail (L = 200) and D = 72: bf16 at
-            D = 64 runs the wgmma + TMA kernels
-            (csrc/flash_attn_bwd_sm90.cu), f32 and D = 128 the SIMT
-            ones, launches counted per case; loss.backward() through
-            flash_attention in bf16 at the training shape, its launches
-            counted; device and eager times beside SDPA's backward.
+            boundaries off the 64-grid, a tail (L = 200) and D = 72:
+            bf16 at D = 64 runs the wgmma + TMA kernels
+            (csrc/flash_attn_bwd_sm90.cu); f32 dk/dv at D = 64 the FFMA
+            kernel (csrc/flash_attn_bwd_f32.cu, `dkv_route`); f32 dq and
+            the other head dims the SIMT ones; launches counted per case
+            and route; loss.backward() through flash_attention in bf16
+            at the training shape, its launches counted; device and
+            eager times beside SDPA's backward; at f32 also the SIMT
+            dk/dv kernel the FFMA one replaced (through its library,
+            held to the plain version), the two timed in turns (SIMT,
+            f32, f32, SIMT), and the 64 x 128 tiles the FFMA kernel's
+            skip rule walks against those it scans.
 14. train_parity  a miniature Ref (head_dim 128) takes one stage-3
             ref_sft_step on the card and one on the CPU from the same
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
             K2-bwd-dkdv = layers (all dk/dv on the FFMA kernel) and
-            K3 = K3-bwd-dq = K3-bwd-dkv = depth.
+            K3 = K3-bwd-dq = K3-bwd-dkv = depth (all dk/dv on the FFMA
+            kernel).
 15. train_grad  one stage-3 loss and gradient at ref_2b's full width
             (random weights) at the --grid-tokens 256 bucket (ViT and
             decoder L = 1024), through the kernels and through the plain
@@ -136,7 +145,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the Uni proposals -> soft labels -> 3 SFT steps. Finite
             losses, the vision tower bitwise unchanged, out_proj and the
             decoder changed, launches per step as in train_parity (28
-            of the FFMA dk/dv kernel a step); ms per step (steps 2-3)
+            of K2-bwd's FFMA dk/dv kernel and 24 of K3-bwd's a step,
+            none of the SIMT dk/dv kernels); ms per step (steps 2-3)
             and peak card memory.
 
 Then the kernels line, the nvidia-smi line, and as the last line
@@ -253,8 +263,9 @@ def phase_device():
 # the wgmma + TMA libraries: K2's and K3's bf16 forward and backward
 SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
              "flash_attn_bwd_sm90")
-# the FFMA library: K2-bwd-dkdv in f32
-F32_LIB = "flash_gqa_bwd_f32"
+# the FFMA libraries: K2-bwd-dkdv in f32 at D = 128, K3-bwd-dkv in f32 at
+# D = 64
+F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32")
 
 
 def phase_build():
@@ -283,23 +294,34 @@ def phase_build():
         return sass
 
     # the wgmma kernels run on the tensor cores and the TMA, the FFMA
-    # kernel's instruction mix is counted whole and by innermost loop,
+    # kernels' instruction mix is counted whole and by innermost loop,
     # and none of their registers spill
     found, spills = {}, {}
     for name in SM90_LIBS:
         sass = sass_and_spills(name)
         found[name] = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    f32_sass = sass_mix(sass_and_spills(F32_LIB))
+    f32_sass = {name: sass_mix(sass_and_spills(name)) for name in F32_LIBS}
+    registers = {name: ptxas_registers(libs[names.index(name)])
+                 for name in F32_LIBS}
     emit({"phase": "build", "kernels": names, "seconds": secs,
-          "sm90_sass": found, "f32_sass": f32_sass, "spills": spills})
+          "sm90_sass": found, "f32_sass": f32_sass,
+          "f32_registers": registers, "spills": spills})
     for name in SM90_LIBS:
         assert all(found[name].values()), f"{name}: SASS lacks {found}"
     for name, bad in spills.items():
         assert not bad, f"{name} spills: {bad}"
-    # the FFMA kernel's main loops (the S / dP products, the dV / dK sums)
-    # feed at least 8 FFMA from each shared-memory load
-    assert len(f32_sass["loops"]) >= 2 and all(
-        m["FFMA"] >= 8 * m["LDS"] for m in f32_sass["loops"]), f32_sass
+    # each FFMA kernel's main loops (the S / dP products, the dV / dK
+    # sums) feed at least 8 FFMA from each shared-memory load
+    for name, mix in f32_sass.items():
+        assert len(mix["loops"]) >= 2 and all(
+            m["FFMA"] >= 8 * m["LDS"] for m in mix["loops"]), (name, mix)
+
+
+def ptxas_registers(lib) -> list:
+    """The registers a thread of each kernel in a library uses, from
+    ptxas's report beside it."""
+    return [int(n) for n in re.findall(r"Used (\d+) registers",
+                                        lib.with_suffix(".log").read_text())]
 
 
 SASS_LINE = re.compile(r"^\s+/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1020,7 +1042,8 @@ def _flash_counters():
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
             "k3_bwd_dkv": fa.flash_attention_bwd_dkv,
             "k3_bwd_dq_sm90": fa.flash_attention_bwd_dq_sm90,
-            "k3_bwd_dkv_sm90": fa.flash_attention_bwd_dkv_sm90}
+            "k3_bwd_dkv_sm90": fa.flash_attention_bwd_dkv_sm90,
+            "k3_bwd_dkv_f32": fa.flash_attention_bwd_dkv_f32}
 
 
 def launch_counts(reset: bool = False):
@@ -1028,7 +1051,7 @@ def launch_counts(reset: bool = False):
     `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
     wgmma one's alone; likewise "k3" and "k3_sm90", "k2_bwd_*" and
     "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32"
-    the f32 dk/dv kernel's alone."""
+    and "k3_bwd_dkv_f32" the f32 dk/dv kernels' alone."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -1038,14 +1061,15 @@ def launch_counts(reset: bool = False):
 
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
                     k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0,
-                    k2_bwd_dkdv_f32=0):
+                    k2_bwd_dkdv_f32=0, k3_bwd_dkv_f32=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_f32": k2_bwd_dkdv_f32, "k3": k3, "k3_sm90": k3_sm90,
             "k3_bwd_dq": k3_bwd,
             "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
-            "k3_bwd_dkv_sm90": k3_bwd_sm90}
+            "k3_bwd_dkv_sm90": k3_bwd_sm90,
+            "k3_bwd_dkv_f32": k3_bwd_dkv_f32}
 
 
 def ref_inputs(dev):
@@ -1517,11 +1541,13 @@ K3_BWD_MORE = [(1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200, False),
                K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False), K3_D72]
 
 
-# K3-bwd's kernels by (product, route), the route fa.bwd_route's
+# K3-bwd's kernels by (product, route): dq goes by fa.bwd_route, dk/dv by
+# fa.dkv_route
 K3_BWD_KERNELS = {("dq", "simt"): "flash_attention_bwd_dq",
                   ("dq", "sm90"): "flash_attention_bwd_dq_sm90",
                   ("dkv", "simt"): "flash_attention_bwd_dkv",
-                  ("dkv", "sm90"): "flash_attention_bwd_dkv_sm90"}
+                  ("dkv", "sm90"): "flash_attention_bwd_dkv_sm90",
+                  ("dkv", "f32"): "flash_attention_bwd_dkv_f32"}
 
 
 def k3_bwd_launches(counts):
@@ -1530,8 +1556,29 @@ def k3_bwd_launches(counts):
             - counts["k3_bwd_dq_sm90"],
             "flash_attention_bwd_dq_sm90": counts["k3_bwd_dq_sm90"],
             "flash_attention_bwd_dkv": counts["k3_bwd_dkv"]
-            - counts["k3_bwd_dkv_sm90"],
-            "flash_attention_bwd_dkv_sm90": counts["k3_bwd_dkv_sm90"]}
+            - counts["k3_bwd_dkv_sm90"] - counts["k3_bwd_dkv_f32"],
+            "flash_attention_bwd_dkv_sm90": counts["k3_bwd_dkv_sm90"],
+            "flash_attention_bwd_dkv_f32": counts["k3_bwd_dkv_f32"]}
+
+
+def k3_bwd_routes(dtype, d):
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    return {"dq": fa.bwd_route(dtype, d), "dkv": fa.dkv_route(dtype, d)}
+
+
+def simt_dkv(q, k, v, do, lse, delta, **kw):
+    """The SIMT dk/dv kernel (csrc/flash_attn_bwd.cu) called through its
+    library: the kernel f32 at D = 64 ran before
+    csrc/flash_attn_bwd_f32.cu (no launch counted)."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fa._launch_bwd("flash_attention_bwd_dkv",
+                   fa._bwd_lib().flash_attention_bwd_dkv, q, k, v, do, lse,
+                   delta, (dk, dv), q.shape, kw,
+                   int(q.dtype == torch.bfloat16))
+    return dk, dv
 
 
 def phase_k3_bwd(dev, timing: bool = True):
@@ -1541,7 +1588,7 @@ def phase_k3_bwd(dev, timing: bool = True):
     phase_launches = dict.fromkeys(K3_BWD_KERNELS.values(), 0)
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate([K3_TRAIN, *K3_BWD_MORE]):
-            route = fa.bwd_route(dtype, case[3])
+            routes = k3_bwd_routes(dtype, case[3])
             args, kw = k3_bwd_run(dev, case, dtype, seed=i)
             before = launch_counts()
             got = fa.flash_attention_bwd(*args, **kw)
@@ -1553,20 +1600,21 @@ def phase_k3_bwd(dev, timing: bool = True):
                 args[0], kw["kv_segment_ids"], BWD_CONTROL_DROP))
             control = fa.flash_attention_bwd_plain(*args, **ckw)
             r = check_bwd("k3_bwd", got, again, plain, control, dtype)
-            # bf16 at D = 64 ran the wgmma pair twice, the rest the SIMT
-            # pair
+            # each product's kernel on its route launched twice (bf16 at
+            # D = 64: the wgmma pair; f32 at D = 64: SIMT dq and the FFMA
+            # dk/dv), the others never
             launched = k3_bwd_launches(count_delta(before, after))
             want = dict.fromkeys(launched, 0)
             for kind in ("dq", "dkv"):
-                want[K3_BWD_KERNELS[(kind, route)]] = 2
+                want[K3_BWD_KERNELS[(kind, routes[kind])]] = 2
             checks.append({"shape": list(case[:4]), "real": case[4],
-                           "causal": case[5], "route": route,
+                           "causal": case[5], "routes": routes,
                            "launches": launched, **r})
             assert launched == want, (case, dtype, launched)
             for n, c in launched.items():
                 phase_launches[n] += c
             for kind, grads in (("dq", "q"), ("dkv", "kv")):
-                keep_worst(errors, K3_BWD_KERNELS[(kind, route)], dtype,
+                keep_worst(errors, K3_BWD_KERNELS[(kind, routes[kind])], dtype,
                            max(r["rel_err"][x] for x in grads),
                            max(r["abs_err"][x] for x in grads))
             del got, again, plain, control
@@ -1605,20 +1653,52 @@ def phase_k3_bwd(dev, timing: bool = True):
             # both; *_call_ms: eager calls (cuda_ms), host between them
             lib_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5, timer=graph_ms)
             lib_call_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
-            for kind, fn in (("dq", fa.flash_attention_bwd_dq),
-                             ("dkv", fa.flash_attention_bwd_dkv)):
+            routes = k3_bwd_routes(dtype, d)
+            kernels = [("dq", fa.flash_attention_bwd_dq, routes["dq"]),
+                       ("dkv", fa.flash_attention_bwd_dkv, routes["dkv"])]
+            if routes["dkv"] == "f32":
+                # the SIMT kernel it replaced, held to the plain version
+                _, pdk, pdv = fa.flash_attention_bwd_plain(*args, **kw)
+                got = simt_dkv(q, k, v, do, lse, delta, **kw)
+                for w, g_ in zip((pdk, pdv), got):
+                    e = rel_err(g_, w)
+                    assert e <= TRAIN_BWD_TOL[dtype], ("simt dkv", e)
+                    keep_worst(errors, "flash_attention_bwd_dkv", dtype, e,
+                               float((g_ - w).abs().max()))
+                del pdk, pdv, got
+                kernels.append(("dkv_simt", simt_dkv, "simt"))
+            for kind, fn, route in kernels:
                 r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
                                    b * l * h, dtype,
                                    "dq" if kind == "dq" else "dkdv")
                 call = lambda: fn(q, k, v, do, lse, delta, **kw)  # noqa
-                r["route"] = fa.bwd_route(dtype, d)
+                r["route"] = route
                 r["ms"] = graph_ms(call)
                 r["call_ms"] = cuda_ms(call, iters=5)
                 r["plain_ms"] = plain_ms
                 r["library_ms"] = lib_ms
                 r["library_call_ms"] = lib_call_ms
                 r["visible_pairs"] = pairs
+                if route == "f32":
+                    # 64-row x 128-key tiles as the skip rule counts them
+                    # (ops.flash_attention.dkv_walk_map; not read back
+                    # from the kernel): walked, and scanned with no skip
+                    # (every row as if it saw no key)
+                    r["rule_tiles_walked"] = int(fa.dkv_walk_map(
+                        l, causal, seg, seg, lse).sum())
+                    r["rule_tiles_scanned"] = int(fa.dkv_walk_map(
+                        l, causal, seg, seg,
+                        torch.full_like(lse, float("-inf"))).sum())
                 res[f"{kind}_{str(dtype)[6:]}"] = r
+            if routes["dkv"] == "f32":
+                # before and after in turns: SIMT, f32, f32, SIMT
+                new = lambda: fa.flash_attention_bwd_dkv(  # noqa: E731
+                    q, k, v, do, lse, delta, **kw)
+                old = lambda: simt_dkv(  # noqa: E731
+                    q, k, v, do, lse, delta, **kw)
+                turns = [graph_ms(fn) for fn in (old, new, new, old)]
+                res["dkv_turns_float32"] = {"simt_ms": turns[::3],
+                                            "f32_ms": turns[1:3]}
     emit({"phase": "k3_bwd", **res})
     return res
 
@@ -1737,7 +1817,8 @@ def phase_train_parity(dev):
                                         k3=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
-                                        k2_bwd_dkdv_f32=cfg.text.layers))
+                                        k2_bwd_dkdv_f32=cfg.text.layers,
+                                        k3_bwd_dkv_f32=cfg.vision.depth))
     emit({"phase": "train_parity", **res, "out_of_limits": bad})
     if not ok:
         raise AssertionError("train_parity: card step != CPU step")
@@ -1842,7 +1923,8 @@ def phase_train_grad(dev, image, proposals, cfg=None,
                                         k3=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
-                                        k2_bwd_dkdv_f32=cfg.text.layers))
+                                        k2_bwd_dkdv_f32=cfg.text.layers,
+                                        k3_bwd_dkv_f32=cfg.vision.depth))
     emit({"phase": "train_grad", **res})
     if not ok:
         raise AssertionError("train_grad: kernel gradients out of limits")
@@ -1899,7 +1981,8 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
     per_step = expected_counts(k2=cfg.text.layers, k3=cfg.vision.depth,
                                k2_bwd=cfg.text.layers,
                                k3_bwd=cfg.vision.depth,
-                               k2_bwd_dkdv_f32=cfg.text.layers)
+                               k2_bwd_dkdv_f32=cfg.text.layers,
+                               k3_bwd_dkv_f32=cfg.vision.depth)
     ok = (len(losses) == steps and all(np.isfinite(losses)) and vision_same
           and all(changed.values())
           and counts == {k: v * steps for k, v in per_step.items()})
@@ -1953,6 +2036,7 @@ SIMT_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd.cu"
 SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_sm90.cu"
 F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_f32.cu"
 K3_SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
+K3_F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_f32.cu"
 
 
 def main() -> int:
@@ -2044,9 +2128,15 @@ def main() -> int:
         bwd_entry("flash_attention_bwd_dq", SIMT_BWD_SOURCE,
                   f"{STOCK_FA}:1146", k3_train["flash_attention_bwd_dq"],
                   k3_bwd, k3_bwd["dq_float32"]),
+        # K3-bwd-dkv in f32 at D = 64 is the FFMA kernel, and the SIMT
+        # dk/dv kernel (timed at the training shape through its library)
+        # is not launched there
+        bwd_entry("flash_attention_bwd_dkv_f32", K3_F32_BWD_SOURCE,
+                  f"{STOCK_FA}:796", k3_train["flash_attention_bwd_dkv_f32"],
+                  k3_bwd, k3_bwd["dkv_float32"]),
         bwd_entry("flash_attention_bwd_dkv", SIMT_BWD_SOURCE,
                   f"{STOCK_FA}:796", k3_train["flash_attention_bwd_dkv"],
-                  k3_bwd, k3_bwd["dkv_float32"]),
+                  k3_bwd, k3_bwd["dkv_simt_float32"]),
         # K3-bwd in bf16 at D = 64 (wgmma + TMA): launches from the k3_bwd
         # phase's loss.backward() through flash_attention, times at the
         # training shape

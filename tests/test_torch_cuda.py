@@ -317,7 +317,7 @@ def test_flash_attention_head_dims_match_plain(cuda, monkeypatch, dtype, d,
     from wedetect_tpu_torch.ops import flash_attention as fa
 
     others = (fa.flash_attention_fwd_sm90, fa.flash_attention_bwd_dq_sm90,
-              fa.flash_attention_bwd_dkv_sm90)
+              fa.flash_attention_bwd_dkv_sm90, fa.flash_attention_bwd_dkv_f32)
     for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, *others):
         monkeypatch.setattr(fn, "launches", 0)
@@ -967,6 +967,150 @@ def test_gqa_flash_bwd_dkdv_f32_through_autograd(cuda, monkeypatch):
         assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
 
 
+# (B, L, H, causal, segment runs per batch row) of the f32 K3 dk/dv
+# kernel at D = 64, as SM90_K3_BWD_CASES: the training shape (4144 of
+# 4224 tokens), three segments off the 64-grid, causal with and without
+# ids, the tail (L = 200) and pads per batch row
+F32_DKV_CASES = [
+    (1, 4224, 16, False, [((4144, 1),)]),
+    (1, 512, 4, False, [((100, 1), (300, 2), (480, 3))]),
+    (1, 384, 4, True, [((150, 1), (300, 2))]),
+    (1, 320, 2, True, None),
+    (1, 200, 4, False, [((180, 1),)]),
+    (2, 384, 4, False, [((300, 1),), ((350, 1),)]),
+]
+
+
+def _f32_dkv_case(case, dev, seed):
+    b, l, h, causal, runs = case
+    q, k, v = _attn_inputs((b, l, h, 64), (b, l, h, 64), torch.float32,
+                           dev, seed)
+    do = _attn_inputs((b, l, h, 64), (b, l, h, 64), torch.float32, dev,
+                      seed + 1)[0]
+    seg = _k3_seg(b, l, runs, dev)
+    if seg is not None:
+        do[seg == 0] = 0                 # the ViT drops its pad rows
+    kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=causal,
+              sm_scale=0.125)
+    return q, k, v, do, kw
+
+
+def _f32_dkv_counters(fa):
+    return (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+            fa.flash_attention_bwd_dkv_f32, fa.flash_attention_bwd_dkv_sm90)
+
+
+@pytest.mark.parametrize("case", F32_DKV_CASES)
+def test_flash_attention_bwd_dkv_f32_kernel_matches_plain(cuda, monkeypatch,
+                                                          case):
+    """f32 K3-bwd-dkv at D = 64 goes to the FFMA kernel (one launch a
+    call, its own count), agrees with the plain backward (TOL's f32 atol
+    and BWD_TOL) and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _f32_dkv_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _f32_dkv_case(case, cuda, seed=case[1] + 5)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = fa.row_delta(o, do)
+    got = [fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    _, dk, dv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd_dkv_f32.launches == 2
+    assert fa.flash_attention_bwd_dkv.launches == 2
+    assert fa.flash_attention_bwd_dkv_sm90.launches == 0
+    for a, a2, w in zip(got[0], got[1], (dk, dv)):
+        assert a.dtype == torch.float32
+        assert torch.equal(a, a2)                          # deterministic
+        assert _rel_err(a, w) <= BWD_TOL[torch.float32]
+        assert _close(a, w, torch.float32)
+
+
+def test_flash_attention_bwd_dkv_f32_unseen_segment(cuda):
+    """Rows whose segment no key has (lse ~ -1e30: p = 1 on every key
+    below the frontier) keep their tiles, as on the plain version."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _attn_inputs((1, 256, 2, 64), (1, 256, 2, 64), torch.float32,
+                           cuda, seed=9)
+    do = _attn_inputs((1, 256, 2, 64), (1, 256, 2, 64), torch.float32, cuda,
+                      seed=10)[0]
+    ks = torch.ones((1, 256), dtype=torch.int32, device=cuda)
+    qs = ks.clone()
+    qs[:, 100:164] = 9
+    kw = dict(q_segment_ids=qs, kv_segment_ids=ks, causal=False,
+              sm_scale=0.125)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert float(lse.min()) <= -1e29
+    dk, dv = fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse,
+                                            fa.row_delta(o, do), **kw)
+    _, pdk, pdv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for a, w in zip((dk, dv), (pdk, pdv)):
+        assert _rel_err(a, w) <= BWD_TOL[torch.float32]
+
+
+def test_flash_attention_bwd_dkv_f32_rejects_bad_input(cuda, monkeypatch):
+    """The f32 kernel takes f32 at D = 64 only, contiguous and 16-byte
+    aligned; anything else raises before any launch, and nothing falls
+    back. f32 at another head dim goes to the SIMT kernel by route."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _f32_dkv_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _f32_dkv_case((1, 128, 2, False, [((100, 1),)]), cuda,
+                                    seed=1)
+    rows = torch.zeros((1, 2, 128), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention_bwd_dkv_f32(*(t.bfloat16() for t in (q, k, v, do)),
+                                       rows, rows, **kw)
+    x = torch.zeros((1, 128, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        fa.flash_attention_bwd_dkv_f32(x, x, x, x, rows, rows, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd_dkv_f32(q, k, v.transpose(1, 2).contiguous()
+                                       .transpose(1, 2), do, rows, rows,
+                                       **kw)
+    buf = torch.zeros(q.numel() + 8, device=cuda)
+    shifted = buf[1:1 + q.numel()].view(q.shape)         # 4-byte offset
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for args in ((shifted, k, v, do), (q, shifted, v, do),
+                 (q, k, shifted, do), (q, k, v, shifted)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_bwd_dkv_f32(*args, rows, rows, **kw)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_bwd_dkv(*args, rows, rows, **kw)
+    for fn in _f32_dkv_counters(fa):
+        assert fn.launches == 0
+    x = _attn_inputs((1, 128, 2, 128), (1, 128, 2, 128), torch.float32,
+                     cuda, seed=2)[0]
+    assert fa.dkv_route(torch.float32, 128) == "simt"
+    fa.flash_attention_bwd_dkv(x, x, x, x, rows, rows, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dkv.launches == 1
+    assert fa.flash_attention_bwd_dkv_f32.launches == 0
+
+
+def test_flash_attention_bwd_dkv_f32_through_autograd(cuda, monkeypatch):
+    """loss.backward() through flash_attention in f32 at D = 64 reaches
+    the f32 dk/dv kernel once (and dq's SIMT kernel once)."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _f32_dkv_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _f32_dkv_case(F32_DKV_CASES[1], cuda, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, **kw).backward(do)
+    assert fa.flash_attention_bwd_dkv_f32.launches == 1
+    assert fa.flash_attention_bwd_dkv.launches == 1
+    assert fa.flash_attention_bwd_dq.launches == 1
+    assert fa.flash_attention_bwd_dkv_sm90.launches == 0
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
+
+
 def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     """loss.backward() through a miniature RefModules on the card reaches
     every parameter (K2 and K3 carry gradients), equal to the CPU's."""
@@ -979,7 +1123,7 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
 
     for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
                fg.gqa_flash_bwd_dkdv_f32, fa.flash_attention_bwd_dq,
-               fa.flash_attention_bwd_dkv):
+               fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_f32):
         monkeypatch.setattr(fn, "launches", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = RefCfg(
@@ -1019,6 +1163,7 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     assert fg.gqa_flash_bwd_dkdv_f32.launches == cfg.text.layers
     assert fa.flash_attention_bwd_dq.launches == cfg.vision.depth
     assert fa.flash_attention_bwd_dkv.launches == cfg.vision.depth
+    assert fa.flash_attention_bwd_dkv_f32.launches == cfg.vision.depth
     missing = [n for n, g in grads[0].items() if g is None]
     assert not missing, missing
     for n, g in grads[0].items():

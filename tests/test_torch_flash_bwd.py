@@ -405,6 +405,182 @@ def test_k3_backward_on_cpu_loads_no_library(monkeypatch):
         assert torch.equal(g, x)
 
 
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.float32, 64, "f32"), (torch.bfloat16, 64, "sm90"),
+    (torch.float32, 72, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 128, "simt"), (torch.float32, 512, "simt")])
+def test_k3_dkv_route_by_type_and_dim(dtype, d, route):
+    """dk/dv in f32 at D = 64 takes the FFMA kernel; dq keeps bwd_route
+    (the SIMT kernel in f32)."""
+    assert fa.dkv_route(dtype, d) == route
+    assert fa.bwd_route(dtype, d) == ("sm90" if route == "sm90"
+                                      else "simt")
+
+
+def test_k3_dkv_route_rejects_other_types():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.dkv_route(torch.float16, 64)
+
+
+def test_k3_backward_f32_on_cpu_loads_no_library(monkeypatch):
+    """flash_attention_bwd on f32 CPU tensors at D = 64 (the f32 dk/dv
+    kernel's input on the card) runs the plain version and never builds
+    or loads a kernel library."""
+    from wedetect_tpu_torch.ops import _build
+
+    def no_load(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    monkeypatch.setattr(_build, "build", no_load)
+    args, kw = _dkv_walk_inputs(DKV_WALK_CASES[0], seed=1)
+    got = fa.flash_attention_bwd(*args, **kw)
+    want = fa.flash_attention_bwd_plain(*args, **kw)
+    for g, x in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, x)
+
+
+# (B, L, H, row segment runs, key segment runs or "same", causal): the
+# f32 dk/dv kernel's walk cases at D = 64. Runs are (end, id) pairs, each
+# id up to its end, then 0 (pad); None: no segment ids. The training
+# shape's tail at a smaller L (88 pad tokens from off the 64-grid, the
+# last row tile pad only), a tail (L = 200), three segments, causal with
+# and without ids, and rows whose segment no key has (lse ~ -1e30: p = 1
+# on every key below the frontier), with and without causal
+DKV_WALK_CASES = [
+    (1, 768, 2, ((680, 1),), "same", False),
+    (1, 200, 2, ((180, 1),), "same", False),
+    (1, 512, 2, K3_THREE_SEGMENTS, "same", False),
+    (1, 384, 2, ((150, 1), (300, 2)), "same", True),
+    (1, 320, 2, None, None, True),
+    (2, 256, 2, ((100, 1), (164, 9), (256, 1)), ((256, 1),), False),
+    (1, 256, 2, ((100, 1), (164, 9), (256, 1)), ((256, 1),), True),
+]
+DKV_WALK_IDS = ["train_tail", "tail_l200", "three_segments",
+                "causal_segments", "causal_no_ids", "unseen_segment",
+                "unseen_segment_causal"]
+
+
+def _dkv_walk_inputs(case, seed):
+    b, l, h, q_runs, kv_runs, causal = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, l, h, 64))
+                                    .astype(np.float32)) for _ in range(4))
+    qs = ks = None
+    if q_runs is not None:
+        qs = torch.from_numpy(np.broadcast_to(_k3_ids(l, q_runs),
+                                              (b, l)).copy())
+        ks = qs if kv_runs == "same" else torch.from_numpy(
+            np.broadcast_to(_k3_ids(l, kv_runs), (b, l)).copy())
+    kw = dict(q_segment_ids=qs, kv_segment_ids=ks, causal=causal,
+              sm_scale=0.125)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    return (q, k, v, o, lse, do), kw
+
+
+def _dkv_skipped_pairs(walked, l):
+    """(B, H, L, L) bool: the (row, key) pairs of the tiles a walk map
+    (B, H, key blocks, row tiles) skips, in the plain version's layout."""
+    skip = (~walked).permute(0, 1, 3, 2)              # (B, H, NT, NKB)
+    skip = skip.repeat_interleave(fa.DKV_F32_ROWS, 2)[:, :, :l]
+    return skip.repeat_interleave(fa.DKV_F32_KEYS, 3)[..., :l]
+
+
+def _dkv_walk_exact(args, kw, walked):
+    """(p is exactly 0 on every skipped pair, dk and dv unchanged with p
+    and ds zeroed there) for a walk map."""
+    q, k, v, o, lse, do = args
+    skip = _dkv_skipped_pairs(walked, q.shape[1])
+    p, ds = fa.bwd_plain_weights(*args, **kw)
+    _, dk, dv = fa.flash_attention_bwd_plain(*args, **kw)
+    _, dk0, dv0 = fa.bwd_plain_products(q, k, v, do, p.masked_fill(skip, 0),
+                                        ds.masked_fill(skip, 0))
+    return bool((p[skip] == 0).all()), (torch.equal(dk0, dk)
+                                        and torch.equal(dv0, dv))
+
+
+@pytest.mark.parametrize("case", DKV_WALK_CASES, ids=DKV_WALK_IDS)
+def test_dkv_f32_walk_skips_only_zero_tiles(case):
+    """The f32 dk/dv kernel's skip rule (`dkv_tile_walked`) is exact: on
+    every skipped (row tile, key block) p is exactly 0, and the plain dk
+    and dv are bitwise unchanged with p and ds zeroed there. A rule that
+    also skips one contributing tile fails the same check."""
+    b, l, h = case[:3]
+    args, kw = _dkv_walk_inputs(case, seed=l + h)
+    lse = args[4]
+    walked = fa.dkv_walk_map(l, kw["causal"], kw["q_segment_ids"],
+                             kw["kv_segment_ids"], lse)
+    rows, keys = fa.DKV_F32_ROWS, fa.DKV_F32_KEYS
+    nt, nkb = -(-l // rows), -(-l // keys)
+    assert walked.shape == (b, h, nkb, nt)
+    if case[4] not in ("same", None):
+        assert float(lse.max()) > -1e29 > float(lse.min())
+    assert _dkv_walk_exact(args, kw, walked) == (True, True)
+    # the control: drop the walked tile with the largest p
+    p, _ = fa.bwd_plain_weights(*args, **kw)
+    pf = torch.nn.functional.pad(p, (0, nkb * keys - l, 0, nt * rows - l))
+    tile_max = pf.reshape(b, h, nt, rows, nkb, keys).amax((3, 5))
+    tile_max = tile_max.permute(0, 1, 3, 2).masked_fill(~walked, 0)
+    assert float(tile_max.max()) > 0
+    wrong = walked.clone()
+    wrong.view(-1)[int(tile_max.argmax())] = False
+    assert _dkv_walk_exact(args, kw, wrong) == (False, False)
+
+
+def test_dkv_f32_walk_at_the_training_shape():
+    """One head of the SFT step's ViT attention (L = 4224: 4144 real
+    tokens in segment 1, 80 pad tokens in segment 0): the frontier alone
+    scans 33 x 66 = 2178 tiles of 64 rows x 128 keys, the skip rule walks
+    2146. Key blocks 0-31 (real keys only) skip the last row tile (pad
+    rows only); block 32 (keys 4096-4223, real and pad) walks all 66."""
+    l, n_real = 4224, 4144
+    assert (fa.DKV_F32_ROWS, fa.DKV_F32_KEYS) == (64, 128)
+    seg = (torch.arange(l) < n_real).to(torch.int32)[None]
+    lse = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 1, l)).astype(np.float32))
+    walked = fa.dkv_walk_map(l, False, seg, seg, lse)
+    scanned = fa.dkv_walk_map(l, False, seg, seg,
+                              torch.full_like(lse, float("-inf")))
+    assert int(walked.sum()) == 2146 and int(scanned.sum()) == 2178
+    per_block = walked.sum(-1)[0, 0]
+    assert (per_block[:32] == 65).all() and not walked[0, 0, :32, 65].any()
+    assert per_block[32] == 66
+
+
+def test_dkv_tile_walked_keeps_rows_without_a_visible_key():
+    """A row whose lse is ~-1e30 keeps a block whose keys it cannot see
+    (p = 1 there); with a finite lse the same tile is skipped, and under
+    causal a row before the block's first key skips it either way."""
+    qpos = torch.arange(64) + 128
+    qseg = torch.full((64,), 2, dtype=torch.int32)
+    kseg = torch.ones(64, dtype=torch.int32)
+    dead = torch.full((64,), -1e30)
+    assert fa.dkv_tile_walked(qpos, qseg, dead, kseg, 64, 256, False)
+    assert not fa.dkv_tile_walked(qpos, qseg, torch.zeros(64), kseg, 64,
+                                  256, False)
+    assert fa.dkv_tile_walked(qpos, qseg, torch.zeros(64), qseg, 64, 256,
+                              False)
+    assert not fa.dkv_tile_walked(qpos - 128, qseg, dead, kseg, 64, 256,
+                                  True)
+    # a block of 128 keys, as the kernel's: the row's segment in its
+    # second half only
+    wide = torch.cat([kseg, qseg])
+    assert fa.dkv_tile_walked(qpos, qseg, torch.zeros(64), wide, 0, 256,
+                              False)
+    assert not fa.dkv_tile_walked(qpos - 128, qseg, torch.zeros(64), wide,
+                                  0, 256, True)
+    # causal: the row's segment starts in the block only after the row
+    late = torch.cat([torch.ones(32), torch.full((32,), 2)]).int()
+    assert not fa.dkv_tile_walked(torch.arange(32) + 128, qseg[:32],
+                                  torch.zeros(32), late, 128, 256, True)
+    assert fa.dkv_tile_walked(torch.arange(32) + 160, qseg[:32],
+                              torch.zeros(32), late, 128, 256, True)
+    # rows and keys past L count for nothing
+    assert not fa.dkv_tile_walked(qpos + 64, qseg, dead, qseg, 64, 192,
+                                  False)
+
+
 def test_k3_plain_backward_matches_einsum_on_real_rows():
     """With dO zero on pad rows (the ViT drops them), the gradients equal
     those of the einsum reference, which masks pad keys for every row."""

@@ -1,0 +1,40 @@
+// The cp.async ring the FFMA backward kernels share
+// (csrc/flash_gqa_bwd_f32.cu, csrc/flash_attn_bwd_f32.cu): asynchronous
+// copies from global into shared memory, each either a 16-byte or a
+// 4-byte piece, zero-filled when its predicate is false; and the walk
+// over the row tiles a block keeps.
+
+#pragma once
+
+// One 16-byte copy (both addresses 16-byte aligned); 16 zero bytes when
+// !pred.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool pred) {
+  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+// One 4-byte copy; a zero word when !pred.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool pred) {
+  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The first walked tile at or after t (n if none); walk[i] != 0 marks a
+// walked tile.
+__device__ __forceinline__ int next_walked(const unsigned char* walk, int t,
+                                           int n) {
+  while (t < n && !walk[t]) ++t;
+  return t;
+}

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -101,28 +102,6 @@ struct Args {
   int causal, off, bq, bk;
   float sm_scale;
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool pred) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool pred) {
-  unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ int frontier(const Args& a, int qi) {
   return a.causal ? gqa_frontier(qi, a.lk, a.off, a.bq, a.bk) : a.lk;
@@ -172,13 +151,6 @@ __device__ __forceinline__ void load_tile(const Args& a, int bi, int hk,
     m[r] = in ? frontier(a, qi) : 0;
     m[kBR + r] = a.off + qi;
   }
-}
-
-// The first walked tile at or after t (n if none).
-__device__ __forceinline__ int next_walked(const unsigned char* walk, int t,
-                                           int n) {
-  while (t < n && !walk[t]) ++t;
-  return t;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

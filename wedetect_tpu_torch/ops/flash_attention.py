@@ -30,10 +30,13 @@ K3-bwd-dkv (the stock `_flash_attention_bwd_dq` and
 `flash_attention_bwd_plain` on CPU tensors. The backward kernels go by
 `bwd_route`: bf16 at D = 64 (the ViT's) takes the wgmma + TMA pair of
 `csrc/flash_attn_bwd_sm90.cu`, f32 and the other bf16 head dims the SIMT
-pair of `csrc/flash_attn_bwd.cu`; a CUDA input that its kernel cannot
-take raises. p is recomputed as exp(s - lse) from the saved logsumexp
-(the stock kernels keep m and l apart: the same p up to rounding);
-di = rowsum(dO * O) is plain torch, as in the stock VJP.
+pair of `csrc/flash_attn_bwd.cu`; dk/dv goes by `dkv_route`, which also
+sends f32 at D = 64 to the FFMA kernel of `csrc/flash_attn_bwd_f32.cu`
+(register tiles fed by a cp.async ring, walking only the row tiles that
+can change dk or dv: `dkv_tile_walked`). A CUDA input that its kernel
+cannot take raises. p is recomputed as exp(s - lse) from the saved
+logsumexp (the stock kernels keep m and l apart: the same p up to
+rounding); di = rowsum(dO * O) is plain torch, as in the stock VJP.
 
 Head dims on the card. The SIMT kernels are built for D = 64, 128, 256,
 384 and 512 (`SIMT_HEAD_DIMS`); any other D up to 512 is zero-padded to
@@ -133,16 +136,35 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, q_segment_ids=None,
     `_flash_attention_dkv_kernel`) with p = exp(s - lse): ds = (dO.V^T -
     di) * p * sm_scale, dv = p^T.dO with p cast to dO's dtype, dk =
     ds^T.Q and dq = ds.K with ds cast to the input dtype; f32 sums."""
+    p, ds = bwd_plain_weights(q, k, v, o, lse, do,
+                              q_segment_ids=q_segment_ids,
+                              kv_segment_ids=kv_segment_ids, causal=causal,
+                              sm_scale=sm_scale)
+    return bwd_plain_products(q, k, v, do, p, ds)
+
+
+def bwd_plain_weights(q, k, v, o, lse, do, *, q_segment_ids=None,
+                      kv_segment_ids=None, causal=False, sm_scale=1.0):
+    """p and ds of the plain backward, each (B, H, L, L) in the
+    accumulation type: p = exp(s - lse) (0 past the causal frontier),
+    ds = p * (dO.V^T - di) * sm_scale."""
     acc = _acc_dtype(q)
     _check(q, k, v, q_segment_ids, kv_segment_ids)
     logits = _masked_logits(q, k, q_segment_ids, kv_segment_ids, causal,
                             sm_scale)
     p = torch.exp(logits - lse[..., None])            # (B, H, L, L)
     delta = row_delta(o, do)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
+    return p, p * (dp - delta) * sm_scale
+
+
+def bwd_plain_products(q, k, v, do, p, ds):
+    """(dq, dk, dv) of the plain backward from its p and ds: dv = p^T.dO
+    with p cast to dO's dtype, dk = ds^T.Q and dq = ds.K with ds cast to
+    the input dtype; f32 sums."""
+    acc = _acc_dtype(q)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(acc),
                       do.to(acc))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), v.to(acc))
-    ds = p * (dp - delta) * sm_scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(acc),
                       q.to(acc))
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(acc),
@@ -167,6 +189,70 @@ def pad_head_dim(width: int, *tensors: torch.Tensor):
     return [t if t.shape[-1] == width
             else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
             for t in tensors]
+
+
+# the f32 dk/dv kernel's tiles (csrc/flash_attn_bwd_f32.cu, its
+# DKV_F32_KEYS): a block owns DKV_F32_KEYS keys and walks the rows
+# DKV_F32_ROWS at a time
+DKV_F32_ROWS = 64
+DKV_F32_KEYS = 128
+# lse above it: p = exp(-1e30 - lse) is exactly +0 in f32
+_LSE_NONE = -1e29
+
+
+def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
+    """Whether the f32 dk/dv kernel walks a row tile for a key block: the
+    kernel's rule, batched over any leading dims (broadcast).
+
+    qpos, qseg, lse (..., R): the tile's rows (position, segment id,
+    lse); kseg (..., BK): the block's keys' segment ids, the first key
+    at k0 (int or (...)); positions at or past l do not exist. A row
+    keeps the tile when it exists, lies at or after k0 under `causal`,
+    and shares its segment with a key of the block (under `causal` one
+    at or before it) or has lse <= -1e29 (p = exp(-1e30 - lse) may be
+    nonzero on every key below its frontier). Any other row's pairs in
+    the block have p = 0 (past its frontier) or exp(-1e30 - lse) = +0, so
+    a tile without a keeping row adds nothing to dk or dv."""
+    k0 = torch.as_tensor(k0, device=qpos.device)
+    keys = k0[..., None] + torch.arange(kseg.shape[-1], device=qpos.device)
+    match = (kseg[..., None, :] == qseg[..., :, None]) \
+        & (keys < l)[..., None, :]
+    if causal:
+        match = match & (keys[..., None, :] <= qpos[..., :, None])
+    reach = qpos < l
+    if causal:
+        reach = reach & (qpos >= k0[..., None])
+    keep = reach & (match.any(-1) | (lse <= _LSE_NONE))
+    return keep.any(-1)
+
+
+def dkv_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
+                 lse: torch.Tensor) -> torch.Tensor:
+    """(B, H, ceil(L / DKV_F32_KEYS), ceil(L / DKV_F32_ROWS)) bool: the
+    row tiles each key block of the f32 dk/dv kernel walks
+    (`dkv_tile_walked`), for lse (B, H, L) and segment ids (B, L) or
+    None."""
+    b, h, _ = lse.shape
+    dev = lse.device
+    nt, nkb = -(-l // DKV_F32_ROWS), -(-l // DKV_F32_KEYS)
+
+    def tiles(x, n, size, fill):
+        """(B, L) -> (B, n, size), padded past L with `fill`."""
+        pad = torch.full(x.shape[:-1] + (n * size - l,), fill,
+                         dtype=x.dtype, device=dev)
+        return torch.cat([x, pad], -1).reshape(*x.shape[:-1], n, size)
+
+    if q_segment_ids is None:
+        q_segment_ids = kv_segment_ids = torch.zeros(
+            (b, l), dtype=torch.int32, device=dev)
+    qseg = tiles(q_segment_ids.to(dev, torch.int32), nt, DKV_F32_ROWS, 0)
+    kseg = tiles(kv_segment_ids.to(dev, torch.int32), nkb, DKV_F32_KEYS, 0)
+    qpos = torch.arange(nt * DKV_F32_ROWS, device=dev).reshape(
+        nt, DKV_F32_ROWS)
+    k0 = (torch.arange(nkb, device=dev) * DKV_F32_KEYS)[:, None]
+    return dkv_tile_walked(qpos, qseg[:, None, None], tiles(
+        lse, nt, DKV_F32_ROWS, 0.0)[:, :, None], kseg[:, None, :, None],
+        k0, l, causal)
 
 
 def _lib():
@@ -209,6 +295,19 @@ def _bwd_lib():
     return lib
 
 
+def _bwd_f32_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_bwd_f32")
+    if not getattr(lib, "_typed_fa", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_dkv_f32.argtypes = [p] * 10 + [i] * 5 + [f,
+                                                                         p]
+        lib.flash_attention_bwd_dkv_f32.restype = ctypes.c_int
+        lib._typed_fa = True
+    return lib
+
+
 def _bwd_sm90_lib():
     from wedetect_tpu_torch.ops import _build
 
@@ -247,6 +346,19 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     "simt" (csrc/flash_attn_bwd.cu) for f32 and for bf16 at any other
     head dim. Raises for other types."""
     return _route("flash_attention_bwd", dtype, d)
+
+
+def dkv_route(dtype: torch.dtype, d: int) -> str:
+    """The K3-bwd-dkv kernel a CUDA input takes: "f32"
+    (csrc/flash_attn_bwd_f32.cu, FFMA register tiles fed by cp.async) for
+    f32 at D = 64; "sm90" (csrc/flash_attn_bwd_sm90.cu) for bf16 at
+    D = 64, as `bwd_route`; "simt" (csrc/flash_attn_bwd.cu) for every
+    other head dim, padded to the next of SIMT_HEAD_DIMS. K3-bwd-dq keeps
+    `bwd_route` (f32 on the SIMT kernel). Raises TypeError for other
+    types."""
+    if dtype == torch.float32 and d == 64:
+        return "f32"
+    return bwd_route(dtype, d)
 
 
 def _check_cuda(name, q, *others):
@@ -374,6 +486,14 @@ def _launch_bwd(name, fn, q, k, v, do, lse, delta, outs, dims, kw, *tail):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def _check_aligned(name, why, **tensors):
+    """Each tensor 16-byte aligned: the kernel copies 16-byte pieces."""
+    for tname, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} must be 16-byte aligned "
+                             f"({why})")
+
+
 def _check_sm90(name, **tensors):
     """The wgmma kernels take bf16 at D = 64 only, and read their
     tensors (q, k, v and dO) through TMA, which needs each 16-byte
@@ -382,10 +502,7 @@ def _check_sm90(name, **tensors):
     if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
         raise ValueError(f"{name}: bf16 at head dim 64 only, got "
                          f"{q.dtype} at {q.shape[-1]}")
-    for tname, t in tensors.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {tname} must be 16-byte aligned "
-                             "(TMA)")
+    _check_aligned(name, "TMA", **tensors)
 
 
 def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, *,
@@ -423,8 +540,34 @@ def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, *,
     return dk, dv
 
 
+def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, *,
+                                q_segment_ids=None, kv_segment_ids=None,
+                                causal=False, sm_scale=1.0):
+    """One launch of K3-bwd-dkv's f32 kernel (FFMA register tiles fed by
+    cp.async, D = 64) on CUDA tensors: (dk, dv), each (B, L, H, 64).
+    Raises for another type or head dim, and for a q, k, v or dO that is
+    not 16-byte aligned (cp.async copies 16 bytes)."""
+    name = "flash_attention_bwd_dkv_f32"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    _check_bwd(name, q, k, v, do, lse, delta, kw)
+    if q.dtype != torch.float32:
+        raise TypeError(f"{name}: the f32 kernel takes float32, got "
+                        f"{q.dtype}")
+    if q.shape[-1] != 64:
+        raise ValueError(f"{name}: the f32 kernel takes head dim 64, got "
+                         f"{q.shape[-1]}")
+    _check_aligned(name, "cp.async", q=q, k=k, v=v, do=do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd(name, _bwd_f32_lib().flash_attention_bwd_dkv_f32, q, k, v,
+                do, lse, delta, (dk, dv), q.shape, kw)
+    flash_attention_bwd_dkv_f32.launches += 1
+    return dk, dv
+
+
 flash_attention_bwd_dq_sm90.launches = 0
 flash_attention_bwd_dkv_sm90.launches = 0
+flash_attention_bwd_dkv_f32.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, q_segment_ids=None,
@@ -455,11 +598,16 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, q_segment_ids=None,
                             kv_segment_ids=None, causal=False,
                             sm_scale=1.0):
     """One launch of K3-bwd-dkv on CUDA tensors: (dk, dv), each
-    (B, L, H, D); routed and counted as `flash_attention_bwd_dq`."""
+    (B, L, H, D). The kernel goes by `dkv_route`; every launch is counted
+    here, the f32 kernel's also in `flash_attention_bwd_dkv_f32.launches`,
+    the bf16 wgmma kernel's in `flash_attention_bwd_dkv_sm90.launches`."""
     name = "flash_attention_bwd_dkv"
     kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               causal=causal, sm_scale=sm_scale)
-    if bwd_route(q.dtype, q.shape[-1]) == "sm90":
+    route = dkv_route(q.dtype, q.shape[-1])
+    if route == "f32":
+        dk, dv = flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, **kw)
+    elif route == "sm90":
         dk, dv = flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, **kw)
     else:
         _check_bwd(name, q, k, v, do, lse, delta, kw)
