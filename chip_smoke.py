@@ -12,8 +12,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             four wgmma libraries (K2's and K3's bf16 forward and
             backward) must show HGMMA (wgmma) and UTMALDG (TMA load)
             instructions in `cuobjdump -sass`; the two FFMA libraries
-            (K2-bwd dk/dv in f32 at D = 128, K3-bwd dk/dv in f32 at
-            D = 64) their count of FFMA, LDS.128 and all LDS, whole and
+            (K2-bwd dk/dv and dq in f32 at D = 128, K3-bwd dk/dv in f32
+            at D = 64) their count of FFMA, LDS.128 and all LDS, whole and
             in each innermost loop, where every shared-memory load must
             feed at least 8 FFMA, and their registers; none of the six
             may spill.
@@ -91,22 +91,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (TRAIN_BWD_TOL); a control through the plain backward with
             one 64-key tile dropped must miss it; the two kernels run
             twice and agree bitwise. bf16 at D = 128 runs the wgmma +
-            TMA kernels (csrc/flash_gqa_bwd_sm90.cu); f32 dk/dv at
-            D = 128 the FFMA kernel (csrc/flash_gqa_bwd_f32.cu); f32 dq
-            and D = 256 the SIMT ones; each kernel's launches counted on
-            its own route (dq by bwd_route, dk/dv by dkdv_route), its
-            worst errors kept by kernel. Then the bf16 path a user
+            TMA kernels (csrc/flash_gqa_bwd_sm90.cu); f32 at D = 128 the
+            FFMA kernels (csrc/flash_gqa_bwd_f32.cu); D = 256 and 384 the
+            SIMT ones; each kernel's launches counted on its own route
+            (dq by dq_route, dk/dv by dkdv_route), its worst errors kept
+            by kernel. Then the bf16 path a user
             calls: loss.backward() through gqa_flash_attention at the
             training shape, the wgmma kernels' launches counted around
             it (the f32 path is the train phases'). Times each kernel
             and SDPA's backward as device time (graph_ms; SDPA's:
             autograd.grad through scaled_dot_product_attention minus
             its forward, a yardstick), the eager calls beside them, and
-            the plain backward; at f32 also the SIMT dk/dv kernel the
-            FFMA one replaced (called through its library and held to
-            the plain version), the two timed in turns (SIMT, f32, f32,
-            SIMT), and the 32-row x 64-key tiles the FFMA kernel walks
-            against those the frontier alone scans.
+            the plain backward; at f32 also the SIMT dq and dk/dv
+            kernels the FFMA ones replaced (called through their library
+            and held to the plain version, the dq one also against the
+            dropped-tile control), each pair timed in turns (SIMT, f32,
+            f32, SIMT), the 32-row x 64-key tiles the FFMA dk/dv kernel
+            walks against those the frontier alone scans, and the key
+            tiles the FFMA dq kernel walked, read back from it and held
+            to the skip rule's map.
 13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
             segment 0, square causal, D = 128, three segments with
@@ -127,7 +130,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
-            K2-bwd-dkdv = layers (all dk/dv on the FFMA kernel) and
+            K2-bwd-dkdv = layers (all dq and dk/dv on the FFMA kernels) and
             K3 = K3-bwd-dq = K3-bwd-dkv = depth (all dk/dv on the FFMA
             kernel).
 15. train_grad  one stage-3 loss and gradient at ref_2b's full width
@@ -145,9 +148,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the Uni proposals -> soft labels -> 3 SFT steps. Finite
             losses, the vision tower bitwise unchanged, out_proj and the
             decoder changed, launches per step as in train_parity (28
-            of K2-bwd's FFMA dk/dv kernel and 24 of K3-bwd's a step,
-            none of the SIMT dk/dv kernels); ms per step (steps 2-3)
-            and peak card memory.
+            each of K2-bwd's FFMA dq and dk/dv kernels and 24 of K3-bwd's
+            FFMA dk/dv a step, none of the SIMT K2-bwd kernels or the
+            SIMT K3-bwd dk/dv); ms per step (steps 2-3) and peak card
+            memory.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -263,8 +267,8 @@ def phase_device():
 # the wgmma + TMA libraries: K2's and K3's bf16 forward and backward
 SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
              "flash_attn_bwd_sm90")
-# the FFMA libraries: K2-bwd-dkdv in f32 at D = 128, K3-bwd-dkv in f32 at
-# D = 64
+# the FFMA libraries: K2-bwd-dkdv and K2-bwd-dq in f32 at D = 128,
+# K3-bwd-dkv in f32 at D = 64
 F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32")
 
 
@@ -339,18 +343,24 @@ def sass_mix(sass: str) -> dict:
     """FFMA and shared-memory load instructions in a `cuobjdump -sass`
     listing (LDS.128 and every LDS of any width): in the whole listing,
     and in each innermost loop that holds FFMA (a backward BRA's range
-    holding no other backward BRA), in address order."""
-    lines = [(int(a, 16), op, rest) for a, op, rest in SASS_LINE.findall(sass)]
-    loops = []
-    for addr, op, rest in lines:
-        target = re.match(r"\s*0x([0-9a-f]+)", rest)
-        if op.startswith("BRA") and target and int(target.group(1), 16) < addr:
-            loops.append((int(target.group(1), 16), addr))
-    inner = [(lo, hi) for lo, hi in loops
-             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
-                        for a, b in loops)]
-    body = [_mix([op for a, op, _ in lines if lo <= a <= hi])
-            for lo, hi in sorted(inner)]
+    holding no other backward BRA), kernel by kernel (each kernel's
+    addresses start at 0) and in address order."""
+    lines, body = [], []
+    for func in re.split(r"^\s+Function : ", sass, flags=re.M):
+        code = [(int(a, 16), op, rest)
+                for a, op, rest in SASS_LINE.findall(func)]
+        lines += code
+        loops = []
+        for addr, op, rest in code:
+            target = re.match(r"\s*0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and target \
+                    and int(target.group(1), 16) < addr:
+                loops.append((int(target.group(1), 16), addr))
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in loops)]
+        body += [_mix([op for a, op, _ in code if lo <= a <= hi])
+                 for lo, hi in sorted(inner)]
     return {**_mix([op for _, op, _ in lines]),
             "loops": [m for m in body if m["FFMA"]]}
 
@@ -1037,6 +1047,7 @@ def _flash_counters():
             "k2_bwd_dq_sm90": fg.gqa_flash_bwd_dq_sm90,
             "k2_bwd_dkdv_sm90": fg.gqa_flash_bwd_dkdv_sm90,
             "k2_bwd_dkdv_f32": fg.gqa_flash_bwd_dkdv_f32,
+            "k2_bwd_dq_f32": fg.gqa_flash_bwd_dq_f32,
             "k3": fa.flash_attention,
             "k3_sm90": fa.flash_attention_fwd_sm90,
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
@@ -1050,8 +1061,8 @@ def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
     `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
     wgmma one's alone; likewise "k3" and "k3_sm90", "k2_bwd_*" and
-    "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32"
-    and "k3_bwd_dkv_f32" the f32 dk/dv kernels' alone."""
+    "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32",
+    "k2_bwd_dq_f32" and "k3_bwd_dkv_f32" the FFMA kernels' alone."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -1061,11 +1072,12 @@ def launch_counts(reset: bool = False):
 
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
                     k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0,
-                    k2_bwd_dkdv_f32=0, k3_bwd_dkv_f32=0):
+                    k2_bwd_dkdv_f32=0, k2_bwd_dq_f32=0, k3_bwd_dkv_f32=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_sm90": k2_bwd_sm90,
-            "k2_bwd_dkdv_f32": k2_bwd_dkdv_f32, "k3": k3, "k3_sm90": k3_sm90,
+            "k2_bwd_dkdv_f32": k2_bwd_dkdv_f32,
+            "k2_bwd_dq_f32": k2_bwd_dq_f32, "k3": k3, "k3_sm90": k3_sm90,
             "k3_bwd_dq": k3_bwd,
             "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
             "k3_bwd_dkv_sm90": k3_bwd_sm90,
@@ -1336,10 +1348,11 @@ def k2_control_drop(valid):
     return slice(lo, lo + 64)
 
 
-# K2-bwd's kernels by (product, route): dq goes by bwd_route, dk/dv by
+# K2-bwd's kernels by (product, route): dq goes by dq_route, dk/dv by
 # dkdv_route
 K2_BWD_KERNELS = {("dq", "simt"): "gqa_flash_bwd_dq",
                   ("dq", "sm90"): "gqa_flash_bwd_dq_sm90",
+                  ("dq", "f32"): "gqa_flash_bwd_dq_f32",
                   ("dkdv", "simt"): "gqa_flash_bwd_dkdv",
                   ("dkdv", "sm90"): "gqa_flash_bwd_dkdv_sm90",
                   ("dkdv", "f32"): "gqa_flash_bwd_dkdv_f32"}
@@ -1350,8 +1363,9 @@ def k2_bwd_launches(counts):
     of two readings): "k2_bwd_dq" and "k2_bwd_dkdv" count every route, so
     a SIMT kernel's share is its counter's less the other routes'."""
     return {"gqa_flash_bwd_dq": counts["k2_bwd_dq"]
-            - counts["k2_bwd_dq_sm90"],
+            - counts["k2_bwd_dq_sm90"] - counts["k2_bwd_dq_f32"],
             "gqa_flash_bwd_dq_sm90": counts["k2_bwd_dq_sm90"],
+            "gqa_flash_bwd_dq_f32": counts["k2_bwd_dq_f32"],
             "gqa_flash_bwd_dkdv": counts["k2_bwd_dkdv"]
             - counts["k2_bwd_dkdv_sm90"] - counts["k2_bwd_dkdv_f32"],
             "gqa_flash_bwd_dkdv_sm90": counts["k2_bwd_dkdv_sm90"],
@@ -1365,7 +1379,7 @@ def count_delta(before, after):
 def k2_bwd_routes(dtype, d, g):
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
-    return {"dq": fg.bwd_route(dtype, d, g),
+    return {"dq": fg.dq_route(dtype, d, g),
             "dkdv": fg.dkdv_route(dtype, d, g)}
 
 
@@ -1376,6 +1390,19 @@ def keep_worst(errors, name, dtype, rel, abs_):
                           {"max_rel_err": 0.0, "max_abs_err": 0.0})
     e["max_rel_err"] = max(e["max_rel_err"], rel)
     e["max_abs_err"] = max(e["max_abs_err"], abs_)
+
+
+def simt_dq(q, k, v, valid, do, lse, delta, *, causal, sm_scale):
+    """The SIMT dq kernel (csrc/flash_attn_bwd.cu) called through its
+    library: the kernel f32 at D = 128 ran before gqa_flash_bwd_dq_f32 of
+    csrc/flash_gqa_bwd_f32.cu (no launch counted)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    dq = torch.empty_like(q)
+    fg._launch_bwd("gqa_flash_bwd_dq", fg._bwd_lib().gqa_flash_bwd_dq, q, k,
+                   v, valid, do, lse, delta, (dq,), causal, sm_scale,
+                   int(q.dtype == torch.bfloat16))
+    return dq
 
 
 def simt_dkdv(q, k, v, valid, do, lse, delta, *, causal, sm_scale):
@@ -1474,21 +1501,38 @@ def phase_k2_bwd(dev, timing: bool = True):
             lib_call_ms = sdpa_bwd_ms(q, k, v, mask, do, iters=5)
             kernels = [("dq", fg.gqa_flash_bwd_dq, routes["dq"]),
                        ("dkdv", fg.gqa_flash_bwd_dkdv, routes["dkdv"])]
-            if routes["dkdv"] == "f32":
-                # the SIMT kernel it replaced, held to the plain version
-                _, pdk, pdv = fg.gqa_flash_attention_bwd_plain(
+            # the SIMT kernels the FFMA ones replaced, held to the plain
+            # version (dq also against the dropped-tile control)
+            pdq = pdk = pdv = None
+            if "f32" in routes.values():
+                pdq, pdk, pdv = fg.gqa_flash_attention_bwd_plain(
                     *args, causal, kw["sm_scale"])
+            if routes["dq"] == "f32":
+                got = simt_dq(q, k, v, valid, do, lse, delta, **kw)
+                cdq, _, _ = fg.gqa_flash_attention_bwd_plain(
+                    q, k, v, _dropped_valid(k, valid, k2_control_drop(valid)),
+                    o, lse, do, causal, kw["sm_scale"])
+                e, ctrl = rel_err(got, pdq), rel_err(cdq, pdq)
+                assert e <= TRAIN_BWD_TOL[dtype] < ctrl, ("simt dq", e, ctrl)
+                keep_worst(errors, "gqa_flash_bwd_dq", dtype, e,
+                           float((got - pdq).abs().max()))
+                res["dq_simt_control_rel_err"] = ctrl
+                del got, cdq
+                kernels.append(("dq_simt", simt_dq, "simt"))
+            if routes["dkdv"] == "f32":
                 got = simt_dkdv(q, k, v, valid, do, lse, delta, **kw)
                 for w, g_ in zip((pdk, pdv), got):
                     e = rel_err(g_, w)
                     assert e <= TRAIN_BWD_TOL[dtype], ("simt dkdv", e)
                     keep_worst(errors, "gqa_flash_bwd_dkdv", dtype, e,
                                float((g_ - w).abs().max()))
-                del pdk, pdv, got
+                del got
                 kernels.append(("dkdv_simt", simt_dkdv, "simt"))
+            del pdq, pdk, pdv
             for kind, fn, route in kernels:
+                product = kind.split("_")[0]
                 r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
-                                   b * s * h, dtype, kind[:4])
+                                   b * s * h, dtype, product)
                 call = lambda: fn(q, k, v, valid, do, lse, delta,  # noqa
                                   **kw)
                 r["route"] = route
@@ -1499,25 +1543,39 @@ def phase_k2_bwd(dev, timing: bool = True):
                 r["library_call_ms"] = lib_call_ms
                 r["visible_pairs"] = pairs
                 if route == "f32":
-                    # 32-row x 64-key tiles as the skip rule counts them
-                    # (ops.flash_gqa.dkdv_walk_map; not read back from
-                    # the kernel): walked, and scanned by the frontier
-                    # alone (every row as if it saw no valid key)
-                    r["rule_tiles_walked"] = int(fg.dkdv_walk_map(
-                        s, lk, h // kvh, causal, valid, lse).sum())
-                    r["rule_tiles_scanned"] = int(fg.dkdv_walk_map(
+                    # the kernel's tiles as the skip rule counts them
+                    # (dk/dv 32 rows x 64 keys, dq 64 x 32): walked, and
+                    # scanned by the frontier alone
+                    # (every row as if it saw no valid key); the dq
+                    # kernel's walk also read back from the kernel
+                    walk_map = (fg.dkdv_walk_map if product == "dkdv"
+                                else fg.dq_walk_map)
+                    rule = walk_map(s, lk, h // kvh, causal, valid, lse)
+                    r["rule_tiles_walked"] = int(rule.sum())
+                    r["rule_tiles_scanned"] = int(walk_map(
                         s, lk, h // kvh, causal, valid,
                         torch.full_like(lse, float("-inf"))).sum())
+                if route == "f32" and product == "dq":
+                    walked = torch.zeros(rule.shape[:3], dtype=torch.int32,
+                                         device=dev)
+                    fg.gqa_flash_bwd_dq_f32(
+                        q, k, v, valid, do, lse, delta, torch.empty_like(q),
+                        walked=walked, **kw)
+                    r["tiles_walked"] = int(walked.sum())
+                    assert torch.equal(walked, rule.sum(-1).int()), (
+                        "dq walk != rule", r["tiles_walked"],
+                        r["rule_tiles_walked"])
                 res[f"{kind}_{str(dtype)[6:]}"] = r
-            if routes["dkdv"] == "f32":
-                # before and after in turns: SIMT, f32, f32, SIMT
-                new = lambda: fg.gqa_flash_bwd_dkdv(  # noqa: E731
-                    q, k, v, valid, do, lse, delta, **kw)
-                old = lambda: simt_dkdv(  # noqa: E731
-                    q, k, v, valid, do, lse, delta, **kw)
-                turns = [graph_ms(fn) for fn in (old, new, new, old)]
-                res["dkdv_turns_float32"] = {"simt_ms": turns[::3],
-                                             "f32_ms": turns[1:3]}
+            # before and after in turns: SIMT, f32, f32, SIMT
+            for product, simt in (("dq", simt_dq), ("dkdv", simt_dkdv)):
+                if routes[product] != "f32":
+                    continue
+                new = getattr(fg, f"gqa_flash_bwd_{product}")
+                turns = [graph_ms(lambda fn=fn: fn(  # noqa: E731
+                    q, k, v, valid, do, lse, delta, **kw))
+                    for fn in (simt, new, new, simt)]
+                res[f"{product}_turns_float32"] = {"simt_ms": turns[::3],
+                                                   "f32_ms": turns[1:3]}
     emit({"phase": "k2_bwd", **res})
     return res
 
@@ -1818,6 +1876,7 @@ def phase_train_parity(dev):
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
                                         k2_bwd_dkdv_f32=cfg.text.layers,
+                                        k2_bwd_dq_f32=cfg.text.layers,
                                         k3_bwd_dkv_f32=cfg.vision.depth))
     emit({"phase": "train_parity", **res, "out_of_limits": bad})
     if not ok:
@@ -1924,6 +1983,7 @@ def phase_train_grad(dev, image, proposals, cfg=None,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
                                         k2_bwd_dkdv_f32=cfg.text.layers,
+                                        k2_bwd_dq_f32=cfg.text.layers,
                                         k3_bwd_dkv_f32=cfg.vision.depth))
     emit({"phase": "train_grad", **res})
     if not ok:
@@ -1982,6 +2042,7 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
                                k2_bwd=cfg.text.layers,
                                k3_bwd=cfg.vision.depth,
                                k2_bwd_dkdv_f32=cfg.text.layers,
+                               k2_bwd_dq_f32=cfg.text.layers,
                                k3_bwd_dkv_f32=cfg.vision.depth)
     ok = (len(losses) == steps and all(np.isfinite(losses)) and vision_same
           and all(changed.values())
@@ -2105,11 +2166,16 @@ def main() -> int:
                      launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
                      dtype="bf16"),
         # the backward kernels' launches from the train phase, their
-        # times at its shapes (decoder and ViT), f32; K2-bwd-dkdv in f32
-        # at D = 128 is the FFMA kernel, and the SIMT dk/dv kernel (timed
-        # at the training shape through its library) is not launched there
+        # times at its shapes (decoder and ViT), f32; K2-bwd in f32 at
+        # D = 128 is the FFMA pair, and the SIMT dq and dk/dv kernels
+        # (timed at the training shape through their library) are not
+        # launched there
+        bwd_entry("gqa_flash_bwd_dq_f32", F32_BWD_SOURCE, f"{K2_BWD}:169",
+                  k2_train["gqa_flash_bwd_dq_f32"], k2_bwd,
+                  k2_bwd["dq_float32"]),
         bwd_entry("gqa_flash_bwd_dq", SIMT_BWD_SOURCE, f"{K2_BWD}:169",
-                  k2_train["gqa_flash_bwd_dq"], k2_bwd, k2_bwd["dq_float32"]),
+                  k2_train["gqa_flash_bwd_dq"], k2_bwd,
+                  k2_bwd["dq_simt_float32"]),
         bwd_entry("gqa_flash_bwd_dkdv_f32", F32_BWD_SOURCE, f"{K2_BWD}:212",
                   k2_train["gqa_flash_bwd_dkdv_f32"], k2_bwd,
                   k2_bwd["dkdv_float32"]),

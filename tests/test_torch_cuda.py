@@ -850,7 +850,8 @@ F32_DKDV_CASES = [
 
 def _f32_bwd_counters(fg):
     return (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
-            fg.gqa_flash_bwd_dkdv_f32, fg.gqa_flash_bwd_dkdv_sm90)
+            fg.gqa_flash_bwd_dkdv_f32, fg.gqa_flash_bwd_dkdv_sm90,
+            fg.gqa_flash_bwd_dq_f32, fg.gqa_flash_bwd_dq_sm90)
 
 
 @pytest.mark.parametrize("case", F32_DKDV_CASES)
@@ -946,7 +947,7 @@ def test_gqa_flash_bwd_dkdv_f32_rejects_bad_input(cuda, monkeypatch):
 
 def test_gqa_flash_bwd_dkdv_f32_through_autograd(cuda, monkeypatch):
     """loss.backward() through gqa_flash_attention in f32 reaches the f32
-    dk/dv kernel once (and dq's SIMT kernel once)."""
+    dk/dv kernel once (and dq's f32 kernel once)."""
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
     for fn in _f32_bwd_counters(fg):
@@ -959,6 +960,150 @@ def test_gqa_flash_bwd_dkdv_f32_through_autograd(cuda, monkeypatch):
     assert fg.gqa_flash_bwd_dkdv_f32.launches == 1
     assert fg.gqa_flash_bwd_dkdv.launches == 1
     assert fg.gqa_flash_bwd_dq.launches == 1
+    po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                            kv_valid=valid, return_lse=True)
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, po, plse, do,
+                                            True, 128 ** -0.5)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("case", F32_DKDV_CASES)
+def test_gqa_flash_bwd_dq_f32_kernel_matches_plain(cuda, monkeypatch,
+                                                   case):
+    """f32 K2-bwd-dq at D = 128 goes to the FFMA kernel (one launch a
+    call, its own count), agrees with the plain dq (TOL's f32 atol and
+    BWD_TOL) and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _f32_bwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    causal = case[6]
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda,
+                                   seed=sum(case[:3]) + 7)
+    scale = case[5] ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    delta = fg.row_delta(o, do, k.shape[2])
+    kw = dict(causal=causal, sm_scale=scale)
+    got = [fg.gqa_flash_bwd_dq(q, k, v, valid, do, lse, delta, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    dq, _, _ = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, o, lse, do,
+                                                causal, scale)
+    assert fg.gqa_flash_bwd_dq_f32.launches == 2
+    assert fg.gqa_flash_bwd_dq.launches == 2
+    assert fg.gqa_flash_bwd_dq_sm90.launches == 0
+    assert got[0].dtype == torch.float32
+    assert torch.equal(got[0], got[1])                     # deterministic
+    assert _rel_err(got[0], dq) <= BWD_TOL[torch.float32]
+    assert _close(got[0], dq, torch.float32)
+
+
+@pytest.mark.parametrize("case", F32_DKDV_CASES)
+def test_gqa_flash_bwd_dq_f32_walk_matches_rule(cuda, case):
+    """The key tiles each row block of the f32 dq kernel walked, read back
+    from the kernel, are the skip rule's (ops/flash_gqa.dq_walk_map); the
+    dq of that launch is the route's, bit for bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    b, s, lk, h, kvh, d, causal, holes = case
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda,
+                                   seed=sum(case[:3]) + 8)
+    scale = d ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    delta = fg.row_delta(o, do, kvh)
+    kw = dict(causal=causal, sm_scale=scale)
+    rule = fg.dq_walk_map(s, lk, h // kvh, causal, valid, lse)
+    walked = torch.full(rule.shape[:3], -1, dtype=torch.int32, device=cuda)
+    dq = torch.empty_like(q)
+    fg.gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, delta, dq,
+                            walked=walked, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(walked, rule.sum(-1).int())
+    assert torch.equal(dq, fg.gqa_flash_bwd_dq(q, k, v, valid, do, lse,
+                                               delta, **kw))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_gqa_flash_bwd_dq_f32_only_at_d128(cuda, monkeypatch, d):
+    """f32 at D = 64 or 256 keeps the SIMT dq kernel: no launch of the f32
+    kernel."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _f32_bwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, valid = _bwd_case((1, 128, 256, 4, 2, d, True, ()),
+                                   torch.float32, cuda, seed=d + 1)
+    lse = torch.zeros((1, 2, 256), device=cuda)
+    assert fg.dq_route(torch.float32, d, 2) == "simt"
+    fg.gqa_flash_bwd_dq(q, k, v, valid, do, lse, lse, causal=True,
+                        sm_scale=0.1)
+    torch.cuda.synchronize()
+    assert fg.gqa_flash_bwd_dq.launches == 1
+    assert fg.gqa_flash_bwd_dq_f32.launches == 0
+
+
+def test_gqa_flash_bwd_dq_f32_rejects_bad_input(cuda, monkeypatch):
+    """An unaligned q, k, v, dO or dq, a wrong type, a wrong head dim or a
+    wrong `walked` raises before any launch; nothing falls back."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    monkeypatch.setattr(fg.gqa_flash_bwd_dq_f32, "launches", 0)
+    q, k, v, do, valid = _bwd_case((1, 128, 128, 4, 2, 128, True, ()),
+                                   torch.float32, cuda, seed=1)
+    lse = torch.zeros((1, 2, 256), device=cuda)
+    kw = dict(causal=True, sm_scale=0.1)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 8, device=cuda, dtype=t.dtype)
+        x = buf[1:1 + t.numel()].view(t.shape)           # 4-byte offset
+        assert x.is_contiguous() and x.data_ptr() % 16
+        return x
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dq(q, k, v, valid, shifted(do), lse, lse, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dq(q, shifted(k), v, valid, do, lse, lse, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fg.gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, lse, shifted(q),
+                                **kw)
+    with pytest.raises(TypeError, match="float32"):
+        fg.gqa_flash_bwd_dq_f32(*(t.bfloat16() for t in (q, k, v)), valid,
+                                do.bfloat16(), lse, lse,
+                                torch.empty_like(q).bfloat16(), **kw)
+    q2, k2, v2, do2, valid2 = _bwd_case((1, 128, 128, 4, 2, 256, True, ()),
+                                        torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError, match="head dim 128"):
+        fg.gqa_flash_bwd_dq_f32(q2, k2, v2, valid2, do2, lse, lse,
+                                torch.empty_like(q2), **kw)
+    for bad in (torch.zeros((1, 2, 7), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 2, 8), dtype=torch.int64, device=cuda)):
+        with pytest.raises(ValueError, match="walked"):
+            fg.gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, lse,
+                                    torch.empty_like(q), walked=bad, **kw)
+    assert fg.gqa_flash_bwd_dq_f32.launches == 0
+
+
+def test_gqa_flash_bwd_dq_f32_through_autograd(cuda, monkeypatch):
+    """loss.backward() through gqa_flash_attention in f32 reaches the f32
+    dq kernel once, and no other dq kernel; the gradients agree with the
+    plain backward."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _f32_bwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    case = (1, 336, 384, 4, 2, 128, True, ((100, 110),))
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda, seed=4)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fg.gqa_flash_attention(*leaves, causal=True, kv_valid=valid)
+    o.backward(do)
+    assert fg.gqa_flash_bwd_dq_f32.launches == 1
+    assert fg.gqa_flash_bwd_dq.launches == 1
+    assert fg.gqa_flash_bwd_dq_sm90.launches == 0
     po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
                                             kv_valid=valid, return_lse=True)
     want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, po, plse, do,
@@ -1122,7 +1267,8 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     from wedetect_tpu_torch.ops import flash_gqa as fg
 
     for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
-               fg.gqa_flash_bwd_dkdv_f32, fa.flash_attention_bwd_dq,
+               fg.gqa_flash_bwd_dkdv_f32, fg.gqa_flash_bwd_dq_f32,
+               fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_f32):
         monkeypatch.setattr(fn, "launches", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1161,6 +1307,7 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     assert fg.gqa_flash_bwd_dq.launches == cfg.text.layers
     assert fg.gqa_flash_bwd_dkdv.launches == cfg.text.layers
     assert fg.gqa_flash_bwd_dkdv_f32.launches == cfg.text.layers
+    assert fg.gqa_flash_bwd_dq_f32.launches == cfg.text.layers
     assert fa.flash_attention_bwd_dq.launches == cfg.vision.depth
     assert fa.flash_attention_bwd_dkv.launches == cfg.vision.depth
     assert fa.flash_attention_bwd_dkv_f32.launches == cfg.vision.depth

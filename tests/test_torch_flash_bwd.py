@@ -161,30 +161,51 @@ def _walk_inputs(case, seed):
     return (q, k, v, valid, o, lse, do), d ** -0.5
 
 
-def _skipped_pairs(walked, b, kvh, g, s, lk):
+def _skipped_pairs(walked, b, kvh, g, s, lk, rows=fg.DKDV_F32_ROWS,
+                   keys=fg.DKDV_F32_KEYS):
     """(B, KVH, G, S, Lk) bool: the (row, key) pairs of the tiles that a
-    walk map (B, KVH, Lk / 64, tiles) skips, in the plain version's
-    layout (folded row r = position r // G, head r % G)."""
-    rows = s * g
-    skip = (~walked).permute(0, 1, 3, 2)                 # (B, KVH, NT, NKB)
-    skip = skip.repeat_interleave(fg.DKDV_F32_ROWS, 2)[:, :, :rows]
-    skip = skip.repeat_interleave(fg.DKDV_F32_KEYS, 3)   # (B, KVH, rows, Lk)
+    walk map (B, KVH, row tiles, key tiles) of `rows` x `keys` tiles
+    skips, in the plain version's layout (folded row r = position r // G,
+    head r % G)."""
+    skip = (~walked).repeat_interleave(rows, 2)[:, :, :s * g]
+    skip = skip.repeat_interleave(keys, 3)               # (B, KVH, rows, Lk)
     return skip.reshape(b, kvh, s, g, lk).permute(0, 1, 3, 2, 4)
 
 
-def _walk_exact(args, scale, causal, walked):
-    """(p is exactly 0 on every skipped pair, dk and dv unchanged with p
-    and ds zeroed there) for a walk map."""
+def _walk_exact(args, scale, causal, walked, grads=(1, 2),
+                rows=fg.DKDV_F32_ROWS, keys=fg.DKDV_F32_KEYS):
+    """(p is exactly 0 on every skipped pair, the gradients `grads` of
+    (dq, dk, dv) unchanged with p and ds zeroed there) for a walk map
+    (B, KVH, row tiles, key tiles)."""
     q, k, v, valid, o, lse, do = args
     b, s, h, _ = q.shape
     lk, kvh = k.shape[1], k.shape[2]
-    skip = _skipped_pairs(walked, b, kvh, h // kvh, s, lk)
+    skip = _skipped_pairs(walked, b, kvh, h // kvh, s, lk, rows, keys)
     p, ds = fg.bwd_plain_weights(*args, causal, scale)
-    _, dk, dv = fg.gqa_flash_attention_bwd_plain(*args, causal, scale)
-    _, dk0, dv0 = fg.bwd_plain_products(q, k, v, do, p.masked_fill(skip, 0),
-                                        ds.masked_fill(skip, 0))
-    return bool((p[skip] == 0).all()), (torch.equal(dk0, dk)
-                                        and torch.equal(dv0, dv))
+    want = fg.gqa_flash_attention_bwd_plain(*args, causal, scale)
+    got = fg.bwd_plain_products(q, k, v, do, p.masked_fill(skip, 0),
+                                ds.masked_fill(skip, 0))
+    return bool((p[skip] == 0).all()), all(torch.equal(got[i], want[i])
+                                           for i in grads)
+
+
+def _drop_largest_walked_tile(args, scale, causal, walked, rows, keys):
+    """A copy of a walk map (B, KVH, row tiles, key tiles) without the
+    walked tile holding the largest p: the controls' wrong rule."""
+    q, k = args[0], args[1]
+    b, s, h, _ = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    p, _ = fg.bwd_plain_weights(*args, causal, scale)
+    pf = p.permute(0, 1, 3, 2, 4).reshape(b, kvh, s * g, lk)
+    nt, nk = walked.shape[-2:]
+    pf = torch.cat([pf, pf.new_zeros(b, kvh, nt * rows - s * g, lk)], 2)
+    tile_max = pf.reshape(b, kvh, nt, rows, nk, keys).amax((3, 5))
+    tile_max = tile_max.masked_fill(~walked, 0)
+    assert float(tile_max.max()) > 0
+    wrong = walked.clone(memory_format=torch.contiguous_format)
+    wrong.view(-1)[int(tile_max.argmax())] = False
+    return wrong
 
 
 @pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
@@ -197,19 +218,30 @@ def test_dkdv_f32_walk_skips_only_zero_tiles(case):
     args, scale = _walk_inputs(case, seed=s + lk + h)
     walked = fg.dkdv_walk_map(s, lk, h // kvh, causal, args[3], args[5])
     assert walked.shape == (b, kvh, lk // 64, -(-s * h // kvh // 32))
+    walked = walked.transpose(-1, -2).contiguous()  # row, key tiles
     assert _walk_exact(args, scale, causal, walked) == (True, True)
     # the control: drop the walked tile with the largest p
-    p, _ = fg.bwd_plain_weights(*args, causal, scale)
-    g = h // kvh
-    pf = p.permute(0, 1, 3, 2, 4).reshape(b, kvh, s * g, lk)
-    nt = walked.shape[-1]
-    pf = torch.cat([pf, pf.new_zeros(b, kvh, nt * 32 - s * g, lk)], 2)
-    tile_max = pf.reshape(b, kvh, nt, 32, lk // 64, 64).amax((3, 5))
-    tile_max = tile_max.permute(0, 1, 3, 2).masked_fill(~walked, 0)
-    assert float(tile_max.max()) > 0
-    wrong = walked.clone()
-    wrong.view(-1)[int(tile_max.argmax())] = False
+    wrong = _drop_largest_walked_tile(args, scale, causal, walked, 32, 64)
     assert _walk_exact(args, scale, causal, wrong) == (False, False)
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=WALK_IDS)
+def test_dq_f32_walk_skips_only_zero_tiles(case):
+    """The f32 dq kernel's walk (`dq_walk_map`: the same rule over its
+    64-row x 32-key tiles) is exact: on every (row block, key tile) it
+    skips p is exactly 0, and the plain dq is bitwise unchanged with p
+    and ds zeroed there. Dropping the walked tile with the largest p
+    fails the same check."""
+    b, s, lk, h, kvh, d, causal, holes = case
+    args, scale = _walk_inputs(case, seed=s + lk + h + 1)
+    walked = fg.dq_walk_map(s, lk, h // kvh, causal, args[3], args[5])
+    rows, keys = fg.DQ_F32_ROWS, fg.DQ_F32_KEYS
+    assert walked.shape == (b, kvh, -(-s * h // kvh // rows), lk // keys)
+    kw = dict(grads=(0,), rows=rows, keys=keys)
+    assert _walk_exact(args, scale, causal, walked, **kw) == (True, True)
+    wrong = _drop_largest_walked_tile(args, scale, causal, walked, rows,
+                                      keys)
+    assert _walk_exact(args, scale, causal, wrong, **kw) == (False, False)
 
 
 def test_dkdv_f32_walk_at_the_training_shape():
@@ -228,6 +260,53 @@ def test_dkdv_f32_walk_at_the_training_shape():
     per_block = walked.sum(-1)[0, 0]
     assert per_block[0] == 128 and per_block[19] == 128 - 4 * 19
     assert not per_block[20:].any()
+
+
+def test_dq_f32_walk_at_the_training_shape():
+    """One kv head of the SFT step's decoder attention (S = Lk = 2048,
+    G = 2, 1253 valid keys) in the dq kernel's 64-row x 32-key tiles: the
+    frontier alone scans 2560 tiles, the skip rule walks 1780 (30%
+    fewer); row block t (positions 32 t to 32 t + 31) walks
+    min(t + 1, 40) key tiles, and no row block walks the 24 key tiles
+    past the last valid key."""
+    case = (1, 2048, 2048, 2, 1, 128, True, ((1253, 2048),))
+    args, _ = _walk_inputs(case, seed=0)
+    valid, lse = args[3], args[5]
+    walked = fg.dq_walk_map(2048, 2048, 2, True, valid, lse)
+    scanned = fg.dq_walk_map(2048, 2048, 2, True, valid,
+                             torch.full_like(lse, float("-inf")))
+    assert walked.shape == (1, 1, 64, 64)
+    assert int(walked.sum()) == 1780 and int(scanned.sum()) == 2560
+    per_block = walked.sum(-1)[0, 0]
+    assert torch.equal(per_block, torch.clamp(torch.arange(64) + 1, max=40))
+    assert not walked[..., 40:].any()
+    # the rule over the dk/dv kernel's 32 x 64 tiles, seen from the rows,
+    # keeps every tile that overlaps one this map keeps
+    coarse = fg.dkdv_walk_map(2048, 2048, 2, True, valid, lse)
+    coarse = coarse.transpose(-1, -2).repeat_interleave(2, -1)
+    fine = walked.repeat_interleave(2, -2)
+    assert not (fine & ~coarse).any()
+
+
+@pytest.mark.parametrize("dtype,d,g,route", [
+    (torch.float32, 128, 2, "f32"), (torch.float32, 128, 3, "f32"),
+    (torch.float32, 64, 2, "simt"), (torch.float32, 256, 2, "simt"),
+    (torch.float32, 512, 2, "simt"), (torch.bfloat16, 128, 2, "sm90"),
+    (torch.bfloat16, 128, 3, "simt"), (torch.bfloat16, 256, 2, "simt")])
+def test_dq_route_by_type_and_dim(dtype, d, g, route):
+    """K2-bwd-dq in f32 at D = 128 takes the FFMA kernel, as dk/dv does;
+    every other input keeps bwd_route's kernel."""
+    assert fg.dq_route(dtype, d, g) == route
+    assert fg.dq_route(dtype, d, g) == fg.dkdv_route(dtype, d, g)
+    if route != "f32":
+        assert route == fg.bwd_route(dtype, d, g)
+
+
+def test_dq_route_rejects_other_types():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fg.dq_route(torch.float16, 128, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fg.dq_route(torch.float64, 128, 2)
 
 
 def test_dkdv_tile_walked_keeps_rows_without_a_valid_key():
@@ -267,6 +346,37 @@ def test_k2_backward_f32_on_cpu_loads_no_library(monkeypatch):
     want = fg.gqa_flash_attention_bwd_plain(*args, True, scale)
     for g, x in zip(got, want):
         assert torch.equal(g, x)
+
+
+def test_k2_f32_autograd_on_cpu_loads_no_library(monkeypatch):
+    """loss.backward() through gqa_flash_attention on f32 CPU tensors at
+    D = 128 (the f32 dq and dk/dv kernels' input on the card) runs the
+    plain backward, launches nothing and never builds or loads a kernel
+    library."""
+    from wedetect_tpu_torch.ops import _build
+
+    def no_load(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    monkeypatch.setattr(_build, "build", no_load)
+    for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dq_f32,
+               fg.gqa_flash_bwd_dkdv, fg.gqa_flash_bwd_dkdv_f32):
+        monkeypatch.setattr(fn, "launches", 0)
+    (q, k, v, valid, _, _, do), scale = _walk_inputs(WALK_CASES[6], seed=2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fg.gqa_flash_attention(*leaves, causal=True, kv_valid=valid,
+                               sm_scale=scale)
+    o.backward(do)
+    o2, lse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                           kv_valid=valid, sm_scale=scale,
+                                           return_lse=True)
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, o2, lse, do,
+                                            True, scale)
+    for t, x in zip(leaves, want):
+        assert torch.equal(t.grad, x)
+    assert fg.gqa_flash_bwd_dq.launches == 0
+    assert fg.gqa_flash_bwd_dq_f32.launches == 0
 
 
 # three segments with boundaries off the 64-grid, then pad (segment 0):

@@ -28,9 +28,9 @@ JSON line, then the nvidia-smi line. Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import torch
@@ -38,42 +38,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-
-def build_variant(spec):
-    """The variant `spec` (nvcc flags, and optionally a .cu source in
-    place of csrc/flash_attn_bwd_f32.cu) built into build/kernels/ and
-    loaded with ctypes; and its library path."""
-    import ctypes
-
-    from wedetect_tpu_torch.ops import _build
-
-    srcs = [a for a in spec if a.endswith(".cu")]
-    flags = [a for a in spec if not a.endswith(".cu")]
-    src = srcs[0] if srcs else str(_build.CSRC / "flash_attn_bwd_f32.cu")
-    out = _build.BUILD_DIR / "flash_attn_bwd_f32-variant.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(
-        [_build.cuda_tool(), *_build.NVCC_FLAGS, *flags, "-I",
-         str(_build.CSRC), "-o", str(out), src],
-        capture_output=True, text=True, check=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(out))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_bwd_dkv_f32.argtypes = [p] * 10 + [i] * 5 + [f, p]
-    lib.flash_attention_bwd_dkv_f32.restype = ctypes.c_int
-    return lib, out
-
-
-def sass_report(C, lib_path):
-    from wedetect_tpu_torch.ops import _build
-
-    log = lib_path.with_suffix(".log").read_text()
-    print(log.strip(), flush=True)
-    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
-                           str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
-    return {"sass": C.sass_mix(sass), "registers": C.ptxas_registers(lib_path),
-            "spills": [ln for ln in log.splitlines() if "spill" in ln]}
+from kernel_probe import build_variant, sass_report  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -95,7 +60,12 @@ def main(argv=None) -> int:
     _build.build("flash_attn_bwd")
     variant = None
     if args.variant:
-        vlib, vpath = build_variant(args.variant.split())
+        vlib, vpath = build_variant(args.variant.split(),
+                                    "flash_attn_bwd_f32")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vlib.flash_attention_bwd_dkv_f32.argtypes = ([p] * 10 + [i] * 5
+                                                     + [f, p])
+        vlib.flash_attention_bwd_dkv_f32.restype = ctypes.c_int
         res["variant"] = {"spec": args.variant, **sass_report(C, vpath)}
 
     dev = torch.device("cuda")

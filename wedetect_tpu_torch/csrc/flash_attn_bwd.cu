@@ -12,15 +12,15 @@
 // keys. The split is JAX's: each block owns its output rows, so there
 // are no atomics and the gradients are the same bit for bit from run to
 // run. K2-bwd in bf16 at D = 128 with G dividing 64 is
-// csrc/flash_gqa_bwd_sm90.cu (wgmma and TMA), and its f32 dk/dv at
-// D = 128 csrc/flash_gqa_bwd_f32.cu; K3-bwd in bf16 at D = 64 is
+// csrc/flash_gqa_bwd_sm90.cu (wgmma and TMA), and in f32 at D = 128
+// (dq and dk/dv) csrc/flash_gqa_bwd_f32.cu; K3-bwd in bf16 at D = 64 is
 // csrc/flash_attn_bwd_sm90.cu, and its f32 dk/dv at D = 64
-// csrc/flash_attn_bwd_f32.cu. These kernels take the rest: K2-bwd dq in
-// f32 and the other bf16 shapes (ops/flash_gqa.py:bwd_route, e.g.
-// D = 256), K3-bwd dq in f32 and every other head dim. Head dims 64,
-// 128, 256, 384 and 512 are built; ops/flash_attention.py pads any other
-// K3 width up to 512 with zero columns, and both wrappers refuse a wider
-// one.
+// csrc/flash_attn_bwd_f32.cu. These kernels take the rest: K2-bwd at
+// D = 64, 256, 384 and 512 and the other bf16 group sizes
+// (ops/flash_gqa.py:dq_route, :dkdv_route), K3-bwd dq in f32 and every
+// other K3 head dim. Head dims 64, 128, 256, 384 and 512 are built;
+// ops/flash_attention.py pads any other K3 width up to 512 with zero
+// columns, and both wrappers refuse a wider one.
 //
 // Layouts are the JAX package's public ones, read in place: q, o, dO, dq
 // (B, S, H, D); k, v, dk, dv (B, Lk, KVH, D); the G = H / KVH query heads

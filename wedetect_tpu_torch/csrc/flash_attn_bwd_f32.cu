@@ -37,12 +37,12 @@
 //   shared memory ([row][key], pitch 144: the two rows a warp writes are
 //   16 banks apart), and all 256 threads then turn 32 elements each into
 //   p and ds in place (eight rows, four consecutive keys), the
-//   exponential on the MUFU unit alone (exp2_approx). dV += P^T.dO runs
-//   on warps 0-3 and dK += dS^T.Q on warps 4-7, a thread 8 consecutive
-//   keys x 8 of D (two runs of 4, 32 apart), kept in registers for the
-//   whole walk: per row, 4 LDS.128 for 64 FFMA. The S / dP loop is
-//   unrolled by 8 of its 16 steps, the dV / dK loop by 16 of its 64 rows;
-//   254 registers, no spills.
+//   exponential on the MUFU unit alone (flash_common.cuh:exp2_approx).
+//   dV += P^T.dO runs on warps 0-3 and dK += dS^T.Q on warps 4-7, a
+//   thread 8 consecutive keys x 8 of D (two runs of 4, 32 apart), kept
+//   in registers for the whole walk: per row, 4 LDS.128 for 64 FFMA. The
+//   S / dP loop is unrolled by 8 of its 16 steps, the dV / dK loop by 16
+//   of its 64 rows; 254 registers, no spills.
 // - Ring. While a tile's products run, cp.async copies the next walked
 //   tile's Q and dO (256-byte rows in 16-byte chunks, rows past L
 //   zero-filled) and its lse, delta and segment ids (4-byte copies) into
@@ -72,6 +72,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
@@ -94,7 +95,6 @@ constexpr int kSmemFloats = kKVFloats + 2 * kStageFloats + 2 * kBR * kPP
                             + 2 * kRowMeta;
 constexpr size_t kSmemFixed = kSmemFloats * sizeof(float);
 constexpr size_t kSmemMax = 232448 - 1024;  // an H100 block's, less static
-constexpr float kNeg = -1e30f;             // logit of another segment's key
 constexpr float kLseNone = -1e29f;         // lse above it: p = +0 at kNeg
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -151,15 +151,6 @@ __device__ __forceinline__ void load_tile(const Args& a, int bi, int hi,
       reinterpret_cast<int*>(meta)[tid] = 0;
     }
   }
-}
-
-// 2^x on the MUFU unit alone (ex2.approx.ftz: about 2^-22 relative
-// error; a result below 2^-126 flushes to 0, far under the f32 limits).
-// exp2f's handling of subnormal results took 7% of the kernel.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)

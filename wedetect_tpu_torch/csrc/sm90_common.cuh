@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"  // exp2_approx
+
 namespace {
 
 constexpr int kD = 128;    // K2's head dim
@@ -185,13 +187,6 @@ __device__ __forceinline__ void wgmma_pv64(float (&d)[32], uint32_t a0,
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -32,12 +32,14 @@ TMA); f32, and bf16 at other shapes (D = 256, 384, 512), the SIMT
 forward saves q, k, v, kv_valid, O and lse, and the backward
 (`gqa_flash_attention_bwd`) launches kernels K2-bwd-dq and K2-bwd-dkdv
 on CUDA tensors and runs `gqa_flash_attention_bwd_plain` on CPU
-tensors. Those go by type and shape too: bf16 at D = 128 with G
-dividing 64 to `csrc/flash_gqa_bwd_sm90.cu` (wgmma + TMA, `bwd_route`);
-dk/dv in f32 at D = 128 to `csrc/flash_gqa_bwd_f32.cu` (FFMA register
-tiles fed by cp.async, `dkdv_route`); f32 dq and the other shapes to
-the SIMT `csrc/flash_attn_bwd.cu`. delta = rowsum(dO * O) is plain
-torch in both, as in JAX (`_bwd_grouped`).
+tensors. Those go by type and shape too (`dq_route`, `dkdv_route`): f32
+at D = 128 to `csrc/flash_gqa_bwd_f32.cu` (FFMA register tiles fed by
+cp.async, walking only the tiles the skip rule `dkdv_tile_walked`
+keeps); bf16 at D = 128 with G dividing 64 to
+`csrc/flash_gqa_bwd_sm90.cu` (wgmma + TMA, `bwd_route`); the other
+shapes (D = 64, 256, 384, 512; other bf16 group sizes) to the SIMT
+`csrc/flash_attn_bwd.cu`. delta = rowsum(dO * O) is plain torch in both,
+as in JAX (`_bwd_grouped`).
 
 Head dims on the card. `supports` is JAX's rule (any D % 128 == 0), and
 the SIMT kernels are built for every such D up to 512 (128, 256, 384
@@ -227,17 +229,22 @@ def bwd_plain_products(q, k, v, do, p, ds):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# the f32 dk/dv kernel's tiles (csrc/flash_gqa_bwd_f32.cu): a block owns
-# DKDV_F32_KEYS keys and walks the folded rows DKDV_F32_ROWS at a time
+# the f32 kernels' tiles (csrc/flash_gqa_bwd_f32.cu): a dk/dv block owns
+# DKDV_F32_KEYS keys and walks the folded rows DKDV_F32_ROWS at a time; a
+# dq block owns DQ_F32_ROWS folded rows and walks the keys DQ_F32_KEYS at
+# a time
 DKDV_F32_ROWS = 32
 DKDV_F32_KEYS = 64
+DQ_F32_ROWS = 64
+DQ_F32_KEYS = 32
 # lse above it: p = exp(-1e30 - lse) is exactly +0 in f32
 _LSE_NONE = -1e29
 
 
 def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
-    """Whether the f32 dk/dv kernel walks a row tile for a key block: the
-    kernel's rule, batched over any leading dims.
+    """Whether the f32 kernels walk a (row tile, key tile) pair: the skip
+    rule of both (dk/dv walks a key block's row tiles, dq a row block's
+    key tiles), batched over any leading dims.
 
     frontier, qpos, lse (..., R): the tile's rows (F, key position, lse;
     F = 0 for rows past S * G); key_valid (..., BK) bool: the block's
@@ -246,7 +253,7 @@ def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
     one at or before qpos) or has lse <= -1e29 (no visible valid key
     anywhere: p = 1 on its scanned keys). Any other row's pairs in the
     block have p = 0 (past F) or exp(-1e30 - lse) = +0, so a tile
-    without a keeping row adds nothing to dk or dv."""
+    without a keeping row adds nothing to dk, dv or dq."""
     k0 = torch.as_tensor(k0, device=frontier.device)
     if causal:
         keys = k0[..., None] + torch.arange(key_valid.shape[-1],
@@ -260,31 +267,42 @@ def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
 
 
 def dkdv_walk_map(s: int, lk: int, g: int, causal: bool,
-                  kv_valid: Optional[torch.Tensor],
-                  lse: torch.Tensor) -> torch.Tensor:
-    """(B, KVH, Lk / DKDV_F32_KEYS, ceil(S * G / DKDV_F32_ROWS)) bool: the
-    row tiles each key block of the f32 dk/dv kernel walks
-    (`dkdv_tile_walked`), for lse (B, KVH, S * G)."""
-    b, kvh, rows = lse.shape
+                  kv_valid: Optional[torch.Tensor], lse: torch.Tensor, *,
+                  rows: int = DKDV_F32_ROWS,
+                  keys: int = DKDV_F32_KEYS) -> torch.Tensor:
+    """(B, KVH, Lk / keys, ceil(S * G / rows)) bool: the pairs of a
+    `rows`-row tile and a `keys`-key tile that the skip rule keeps
+    (`dkdv_tile_walked`), for lse (B, KVH, S * G); by default in the f32
+    dk/dv kernel's tiles, the row tiles each key block walks."""
+    b, kvh, nrows = lse.shape
     dev = lse.device
-    nt = -(-rows // DKDV_F32_ROWS)
-    r = torch.arange(nt * DKDV_F32_ROWS, device=dev)
+    nt = -(-nrows // rows)
+    r = torch.arange(nt * rows, device=dev)
     qi = torch.clamp(r // g, max=s - 1)
-    live = r < rows
+    live = r < nrows
     f = torch.where(live, row_frontier(s, lk, g, causal, dev)[qi], 0)
     qpos = (lk - s if causal else 0) + qi
-    pad = torch.zeros((b, kvh, nt * DKDV_F32_ROWS - rows), dtype=lse.dtype,
+    pad = torch.zeros((b, kvh, nt * rows - nrows), dtype=lse.dtype,
                       device=dev)
-    lse_t = torch.cat([lse, pad], -1).reshape(b, kvh, 1, nt, DKDV_F32_ROWS)
+    lse_t = torch.cat([lse, pad], -1).reshape(b, kvh, 1, nt, rows)
     if kv_valid is None:
         kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
-    nkb = lk // DKDV_F32_KEYS
+    nkb = lk // keys
     valid = kv_valid.to(device=dev, dtype=torch.bool).reshape(
-        b, 1, nkb, 1, DKDV_F32_KEYS)
-    k0 = (torch.arange(nkb, device=dev) * DKDV_F32_KEYS)[:, None]
-    return dkdv_tile_walked(f.reshape(nt, DKDV_F32_ROWS),
-                            qpos.reshape(nt, DKDV_F32_ROWS), lse_t, valid,
-                            k0, causal)
+        b, 1, nkb, 1, keys)
+    k0 = (torch.arange(nkb, device=dev) * keys)[:, None]
+    return dkdv_tile_walked(f.reshape(nt, rows), qpos.reshape(nt, rows),
+                            lse_t, valid, k0, causal)
+
+
+def dq_walk_map(s: int, lk: int, g: int, causal: bool,
+                kv_valid: Optional[torch.Tensor],
+                lse: torch.Tensor) -> torch.Tensor:
+    """(B, KVH, ceil(S * G / DQ_F32_ROWS), Lk / DQ_F32_KEYS) bool: the key
+    tiles each row block of the f32 dq kernel walks, by the same rule
+    (`dkdv_tile_walked`) in its tiles."""
+    return dkdv_walk_map(s, lk, g, causal, kv_valid, lse, rows=DQ_F32_ROWS,
+                         keys=DQ_F32_KEYS).transpose(-1, -2).contiguous()
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
@@ -341,16 +359,23 @@ def _bwd_sm90_lib():
     return lib
 
 
+def type_bwd_f32(lib):
+    """Set the C signatures of csrc/flash_gqa_bwd_f32.cu's entries on a
+    loaded library (also a variant build's); returns it."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gqa_flash_bwd_dkdv_f32.argtypes = [p] * 9 + [i] * 9 + [f, p]
+    lib.gqa_flash_bwd_dq_f32.argtypes = [p] * 8 + [i] * 9 + [f, p, p]
+    lib.gqa_flash_bwd_dkdv_f32.restype = ctypes.c_int
+    lib.gqa_flash_bwd_dq_f32.restype = ctypes.c_int
+    lib._typed = True
+    return lib
+
+
 def _bwd_f32_lib():
     from wedetect_tpu_torch.ops import _build
 
     lib = _build.load("flash_gqa_bwd_f32")
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gqa_flash_bwd_dkdv_f32.argtypes = [p] * 9 + [i] * 9 + [f, p]
-        lib.gqa_flash_bwd_dkdv_f32.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+    return lib if getattr(lib, "_typed", False) else type_bwd_f32(lib)
 
 
 def _check_cuda(name, q, k, v, others=()):
@@ -405,11 +430,11 @@ def fwd_route(dtype: torch.dtype, d: int, g: int) -> str:
 
 
 def bwd_route(dtype: torch.dtype, d: int, g: int) -> str:
-    """The K2 backward kernels a CUDA input takes: "sm90"
-    (csrc/flash_gqa_bwd_sm90.cu, wgmma + TMA) for bf16 at D = 128 with G
-    dividing 64 (the dk/dv kernel's 64-row Q and dO boxes); "simt"
-    (csrc/flash_attn_bwd.cu) for f32 and for any other bf16 shape
-    (D = 256). Raises for other types."""
+    """The K2 backward kernels' route outside f32 at D = 128 (`dq_route`,
+    `dkdv_route`): "sm90" (csrc/flash_gqa_bwd_sm90.cu, wgmma + TMA) for
+    bf16 at D = 128 with G dividing 64 (the dk/dv kernel's 64-row Q and
+    dO boxes); "simt" (csrc/flash_attn_bwd.cu) for f32 and for any other
+    bf16 shape (D = 256). Raises for other types."""
     return _route("gqa_flash_attention_bwd", dtype, d, 64, g)
 
 
@@ -419,11 +444,20 @@ def dkdv_route(dtype: torch.dtype, d: int, g: int) -> str:
     f32 at D = 128; "sm90" (csrc/flash_gqa_bwd_sm90.cu) for bf16 at
     D = 128 with G dividing 64, as `bwd_route`; "simt"
     (csrc/flash_attn_bwd.cu) for everything else (f32 or bf16 at D = 64
-    or 256, other bf16 group sizes). K2-bwd-dq keeps `bwd_route` (f32 on
-    the SIMT kernel). Raises TypeError for other types."""
+    or 256, other bf16 group sizes). K2-bwd-dq goes the same way
+    (`dq_route`). Raises TypeError for other types."""
     if dtype == torch.float32 and d == 128:
         return "f32"
     return bwd_route(dtype, d, g)
+
+
+def dq_route(dtype: torch.dtype, d: int, g: int) -> str:
+    """The K2-bwd-dq kernel a CUDA input takes: "f32"
+    (csrc/flash_gqa_bwd_f32.cu:gqa_flash_bwd_dq_f32, FFMA register tiles
+    fed by cp.async) for f32 at D = 128; `bwd_route`'s answer otherwise
+    ("sm90" for bf16 at D = 128 with G dividing 64, else "simt"). Raises
+    TypeError for other types."""
+    return dkdv_route(dtype, d, g)
 
 
 def _launch_fwd(name, fn, q, k, v, kv_valid, causal, sm_scale, *tail):
@@ -571,23 +605,59 @@ def gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv, *,
     gqa_flash_bwd_dkdv_f32.launches += 1
 
 
+def gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, delta, dq, *, causal,
+                         sm_scale, walked=None):
+    """One launch of K2-bwd-dq's f32 kernel (FFMA register tiles fed by
+    cp.async, D = 128) into dq, on inputs that `_check_bwd` passed.
+    `walked`: None, or a contiguous int32 CUDA tensor
+    (B, KVH, ceil(S * G / DQ_F32_ROWS)) that gets each row block's count
+    of walked key tiles (`dq_walk_map` counts the same). Raises for
+    another type or head dim, and for a q, k, v, dO or dq that is not
+    16-byte aligned (cp.async copies 16 bytes)."""
+    name = "gqa_flash_bwd_dq"
+    if q.dtype != torch.float32 or dq.dtype != torch.float32:
+        raise TypeError(f"{name}: the f32 kernel takes float32, got "
+                        f"{q.dtype}")
+    if q.shape[3] != 128:
+        raise ValueError(f"{name}: the f32 kernel takes head dim 128, got "
+                         f"{q.shape[3]}")
+    _check_aligned(name, ("q", q), ("k", k), ("v", v), ("do", do),
+                   ("dq", dq))
+    if walked is not None:
+        b, s, h, _ = q.shape
+        kvh = k.shape[2]
+        want = (b, kvh, -(-s * (h // kvh) // DQ_F32_ROWS))
+        if walked.dtype != torch.int32 or tuple(walked.shape) != want \
+                or walked.device != q.device or not walked.is_contiguous():
+            raise ValueError(f"{name}: walked must be contiguous int32 "
+                             f"{want} on q's device")
+    _launch_bwd(name, _bwd_f32_lib().gqa_flash_bwd_dq_f32, q, k, v, valid,
+                do, lse, delta, (dq,), causal, sm_scale,
+                None if walked is None else walked.data_ptr())
+    gqa_flash_bwd_dq_f32.launches += 1
+
+
 gqa_flash_bwd_dq_sm90.launches = 0
 gqa_flash_bwd_dkdv_sm90.launches = 0
 gqa_flash_bwd_dkdv_f32.launches = 0
+gqa_flash_bwd_dq_f32.launches = 0
 
 
 def gqa_flash_bwd_dq(q, k, v, kv_valid, do, lse, delta, *, causal,
                      sm_scale):
     """One launch of K2-bwd-dq on CUDA tensors: dq (B, S, H, D). lse and
     delta (B, KVH, S * G) f32 (`row_delta`). The kernel goes by
-    `bwd_route`; every launch is counted here, the bf16 wgmma kernel's
-    also in `gqa_flash_bwd_dq_sm90.launches`."""
+    `dq_route`; every launch is counted here, the f32 kernel's also in
+    `gqa_flash_bwd_dq_f32.launches`, the bf16 wgmma kernel's in
+    `gqa_flash_bwd_dq_sm90.launches`."""
     name = "gqa_flash_bwd_dq"
     valid = _check_bwd(name, q, k, v, kv_valid, do, lse, delta)
     dq = torch.empty_like(q)
-    if _bwd_sm90(name, q, k, v, do):
-        gqa_flash_bwd_dq_sm90(q, k, v, valid, do, lse, delta, dq,
-                              causal=causal, sm_scale=sm_scale)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    if dq_route(q.dtype, q.shape[3], q.shape[2] // k.shape[2]) == "f32":
+        gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, delta, dq, **kw)
+    elif _bwd_sm90(name, q, k, v, do):
+        gqa_flash_bwd_dq_sm90(q, k, v, valid, do, lse, delta, dq, **kw)
     else:
         _launch_bwd(name, _bwd_lib().gqa_flash_bwd_dq, q, k, v, valid, do,
                     lse, delta, (dq,), causal, sm_scale,
