@@ -30,6 +30,42 @@ def _rows(kind, r, k, seed):
     return x
 
 
+def _nan(bits):
+    return np.array([bits], np.uint32).view(np.float32)[0]
+
+
+PNAN, MNAN = _nan(0x7FC00000), _nan(0xFFC00000)
+
+
+def _nan_rows(kind, k, seed):
+    """Rows of 8 that hold NaNs among finite values, +-inf and +-0."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (8, k)).astype(np.float32)
+    x[:, 1::3] = -np.inf
+    x[1::2, 4] = np.inf
+    x[::3, 5], x[1::3, 6] = 0.0, -0.0
+    if kind == "plus":            # one +nan
+        x[:, 7] = PNAN
+    elif kind == "minus":         # one -nan (0xffc00000): its bits kept
+        x[:, 7] = MNAN
+    elif kind == "beside_inf_zero":
+        x[:, :4] = [np.inf, -np.inf, 0.0, -0.0]
+        x[:, 4] = PNAN
+        x[1::2, 4] = MNAN
+    elif kind == "last_lane":
+        x[:, -1] = MNAN
+        x[::2, -1] = PNAN
+    elif kind == "payloads":      # several NaNs of either sign per row
+        bits = x.view(np.uint32)
+        for i in range(8):
+            pos = rng.choice(k, 1 + i % 5, replace=False)
+            sign = rng.integers(0, 2, len(pos)).astype(np.uint32) << 31
+            bits[i, pos] = sign | 0x7F800000 | rng.integers(
+                1, 1 << 23, len(pos)).astype(np.uint32)
+    x[7] = rng.uniform(0, 1, k)   # one row without a NaN
+    return x
+
+
 def _assert_bitwise(x, t, row_block):
     want_v, want_c = jax_row_topk(jnp.asarray(x), t, row_block=row_block,
                                   interpret=True)
@@ -51,6 +87,20 @@ def _assert_bitwise(x, t, row_block):
 def test_plain_matches_pallas_bitwise(kind, r, k, t):
     _assert_bitwise(_rows(kind, r, k, seed=r + k + t), t,
                     row_block=16 if r % 16 == 0 else 8)
+
+
+@pytest.mark.parametrize("kind,k,t", [
+    ("plus", 40, 8), ("minus", 40, 40), ("beside_inf_zero", 33, 5),
+    ("last_lane", 37, 37), ("last_lane", 96, 1), ("payloads", 130, 64),
+])
+def test_plain_nan_rows_match_pallas_bitwise(kind, k, t):
+    """A row with a NaN: every slot (that NaN, K), the NaN's bits kept;
+    of several NaNs, the lowest-index negative one, else the last."""
+    x = _nan_rows(kind, k, seed=k + t)
+    _assert_bitwise(x, t, row_block=8)
+    vals, cls = row_topk_plain(torch.from_numpy(x), t)
+    assert (cls[:7] == k).all() and torch.isnan(vals[:7]).all()
+    assert not torch.isnan(vals[7]).any()
 
 
 def test_empty_slots_pick_lowest_neg_inf_index():

@@ -10,7 +10,9 @@
 // lane to -inf. Ties therefore come out in ascending class order, and
 // once the finite values are exhausted a round picks the lowest index
 // whose value is -inf -- the Pallas kernel's `x == m` matches -inf lanes
-// too -- so the empty slots agree as well.
+// too -- so the empty slots agree as well. A row that holds a NaN gives
+// (that NaN, K) in every slot, its bits kept; of several NaNs, the
+// lowest-index one with its sign bit set, else the highest-index one.
 //
 // Design: one warp per row. Lane l holds the row's elements
 // l, l + 32, l + 64, ... (coalesced loads); the register path keeps them

@@ -13,7 +13,11 @@ in ascending class order; once the finite values run out, each further
 slot holds -inf and the lowest class index whose current value is -inf
 (the Pallas kernel's `x == m` matches -inf lanes too). Signed zeros
 follow XLA's max: the value is +0.0 while any +0.0 remains, the class
-the lowest index equal to zero.
+the lowest index equal to zero. A row that holds a NaN gives (that NaN,
+K) in every slot, the NaN's bits kept (`jnp.max` propagates it, and
+`x == m` then matches no lane); where the row holds several NaNs, the
+Pallas interpreter reports the lowest-index NaN whose sign bit is set,
+else the highest-index NaN.
 
 `row_topk` launches the CUDA kernel (`csrc/row_topk.cu`) on a CUDA
 tensor and runs `row_topk_plain` on a CPU tensor. There is no fallback:
@@ -28,13 +32,30 @@ from typing import Tuple
 import torch
 
 
+def nan_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R,) bool: the rows of x (R, K) f32 that hold a NaN; (R,) int32:
+    the bits of the NaN each such row reports (the lowest-index NaN with
+    its sign bit set, else the highest-index NaN; 0 for other rows)."""
+    k = x.shape[1]
+    bits = x.view(torch.int32)
+    nan = torch.isnan(x)
+    iota = torch.arange(k, device=x.device)
+    first_neg = torch.where(nan & (bits < 0), iota, k).min(dim=1).values
+    last = torch.where(nan, iota, -1).max(dim=1).values
+    pick = torch.where(first_neg < k, first_neg, last.clamp(min=0))
+    has = nan.any(dim=1)
+    return has, torch.where(has, bits.gather(1, pick[:, None])[:, 0], 0)
+
+
 def row_topk_plain(scores: torch.Tensor, t: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch: t rounds of iterative max
     with the kernel's tie rule. scores (R, K) f32 -> (vals (R, t) f32,
     cls (R, t) int32)."""
     r, k = scores.shape
-    x = scores.to(torch.float32).clone()
+    x = scores.to(torch.float32).contiguous()
+    has_nan, nan_bits = nan_rows(x)
+    x = torch.where(torch.isnan(x), float("-inf"), x)
     iota = torch.arange(k, dtype=torch.int32, device=x.device)
     vals = torch.empty((r, t), dtype=torch.float32, device=x.device)
     cls = torch.empty((r, t), dtype=torch.int32, device=x.device)
@@ -48,6 +69,10 @@ def row_topk_plain(scores: torch.Tensor, t: int
         vals[:, i:i + 1] = m
         cls[:, i:i + 1] = am
         x.scatter_(1, am.long(), float("-inf"))
+    # a NaN row: every slot (that NaN, K), as the Pallas kernel gives
+    vals = torch.where(has_nan[:, None], nan_bits[:, None],
+                       vals.view(torch.int32)).view(torch.float32)
+    cls = torch.where(has_nan[:, None], k, cls)
     return vals, cls
 
 
