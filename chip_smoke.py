@@ -17,12 +17,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             in each innermost loop, where every shared-memory load must
             feed at least 8 FFMA, and their registers; none of the six
             may spill.
-3. k1       the row top-k kernel against its plain PyTorch version at
-            the detect path's shape (B*8400, 1203), t = 64, on rows
-            with -inf masks, ties and full masks, plus edge shapes
-            (both kernel paths, K not a multiple of 32); vals and cls
-            must agree bitwise. Times the kernel, the plain version
-            and torch.topk (a yardstick only).
+3. k1       the row top-k kernel (selection by key) against its plain
+            PyTorch version (t rounds of iterative max) and against its
+            own rule (row_topk_by_key), vals and cls bitwise, at the
+            detect path's shape (B*8400, 1203), t = 64, on k1_inputs
+            (masks, ties, full masks: mostly dense rows) and
+            k1_sparse_inputs (the path's regime: at most 63 candidates
+            a row, most rows none), NaN rows, rows of exactly t and
+            t + 1 candidates, t = 7, t = 200 (slots in chunks), and
+            edge shapes (register and shared-memory paths up to
+            row_topk_max_k, K not a multiple of 32, t = 1, t = K); the
+            rows the kernel counts in each branch (no candidate, at most
+            t, more than t, a NaN) must equal the input's, and both
+            branches must run at full size. Times the kernel and
+            torch.topk (a yardstick only) as device time in turns on
+            both inputs, and the plain version.
 4. k2       the grouped-KV flash kernels against gqa_flash_attention_plain
             at the Ref path's prefix (1, 384, 16, 128 | 384, 8) and
             suffix (8, 256, 16, 128 | 640, 8) shapes with kv_valid
@@ -56,9 +65,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             init, biases calibrated as a trained checkpoint's are (at
             most 63 candidates per anchor above score_thr), B = 8
             images through Detector.__call__, with K1's launch count
-            read around that call; the sparse selection from the kernel
-            against the plain version on the same scores; f32 and bf16
-            step times.
+            read around that call (one); the sparse selection from the
+            kernel against the plain version on the same scores, K1 on
+            the call's own thresholded scores held to both plain rules
+            with its branch counts and timed beside torch.topk (the
+            kernels line's path_ms); f32 and bf16 step times.
 8. parity   a miniature detector on the card against the same weights
             on the CPU (forward to 1e-3; NMS slots exact on the same
             scores, through the kernel on the card).
@@ -368,7 +379,8 @@ def sass_mix(sass: str) -> dict:
 def k1_inputs(rows: int, k: int, dev, seed: int = 0) -> torch.Tensor:
     """Thresholded-score-like rows: a per-row share of lanes masked to
     -inf (from none to all), every 5th row quantized to 4 levels (ties),
-    every 97th row fully masked."""
+    every 97th row fully masked. Most rows hold more than T_ROW
+    candidates: the dense branch, which the detect path never takes."""
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.rand((rows, k), generator=g, device=dev)
     keep = torch.rand((rows, 1), generator=g, device=dev)
@@ -380,42 +392,166 @@ def k1_inputs(rows: int, k: int, dev, seed: int = 0) -> torch.Tensor:
     return x.contiguous()
 
 
-def phase_k1(dev, rows: int, k: int, timing: bool = True):
-    from wedetect_tpu_torch.ops.row_topk import row_topk, row_topk_plain
+def _first_lanes(n: torch.Tensor, k: int, g, dev) -> torch.Tensor:
+    """(rows, k) bool: n[i] lanes of row i, at random classes."""
+    r = torch.rand((n.shape[0], k), generator=g, device=dev)
+    return r.argsort(dim=1).argsort(dim=1) < n[:, None]
 
+
+def k1_sparse_inputs(rows: int, k: int, dev, seed: int = 0,
+                     t: int = T_ROW) -> torch.Tensor:
+    """The detect path's regime (at most t - 1 candidates a row, most
+    rows none): one row in 8 holds 1 .. t - 1 values in (0.3, 1) at
+    random classes, every third of those quantized to 8 levels (ties)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = torch.randint(1, t, (rows,), generator=g, device=dev)
+    n = torch.where(torch.rand((rows,), generator=g, device=dev) < 0.125,
+                    n, 0)
+    x = 0.3 + 0.7 * torch.rand((rows, k), generator=g, device=dev)
+    ties = torch.arange(rows, device=dev)[:, None] % 3 == 0
+    x = torch.where(ties, torch.floor(x * 8) / 8, x)
+    return torch.where(_first_lanes(n, k, g, dev), x,
+                       float("-inf")).contiguous()
+
+
+def k1_boundary_inputs(rows: int, k: int, dev, seed: int = 0,
+                       t: int = T_ROW) -> torch.Tensor:
+    """Rows of exactly t and t + 1 candidates in turns (the branch
+    boundary), on 3 levels: ties across the cut."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = t + torch.arange(rows, device=dev) % 2
+    x = torch.floor(torch.rand((rows, k), generator=g, device=dev) * 3) / 3
+    return torch.where(_first_lanes(n, k, g, dev), x,
+                       float("-inf")).contiguous()
+
+
+def k1_nan_inputs(rows: int, k: int, dev, seed: int = 0) -> torch.Tensor:
+    """k1_inputs with NaNs: +nan, -nan, a NaN in the last lane, several
+    payloads of either sign, each in one row of 5 (the fifth row none)."""
+    x = k1_inputs(rows, k, dev, seed)
+    bits = x.view(torch.int32)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def nan(b):
+        return b - 2 ** 32 if b >= 2 ** 31 else b
+
+    bits[0::5, 7] = nan(0x7FC00000)
+    bits[1::5, 3] = nan(0xFFC00000)
+    bits[2::5, -1] = nan(0x7FC00001)
+    rows3 = bits[3::5]
+    pos = torch.randint(0, k, (rows3.shape[0], 4), generator=g, device=dev)
+    payload = torch.randint(1, 2 ** 23, pos.shape, generator=g, device=dev)
+    sign = torch.randint(0, 2, pos.shape, generator=g, device=dev)
+    rows3.scatter_(1, pos, ((0x7F800000 | payload) - sign * 2 ** 31)
+                   .to(torch.int32))
+    return x
+
+
+def k1_branches(x: torch.Tensor, t: int) -> list:
+    """Rows by K1's branch, from the input: no candidate, at most t,
+    more than t, a NaN (the order of row_topk's `branches`)."""
+    nan = torch.isnan(x).any(dim=1)
+    n = (x > float("-inf")).sum(dim=1)
+    return [int(((n == 0) & ~nan).sum()),
+            int(((n > 0) & (n <= t) & ~nan).sum()),
+            int(((n > t) & ~nan).sum()), int(nan.sum())]
+
+
+def k1_check(x: torch.Tensor, t: int) -> dict:
+    """One K1 case: the kernel against row_topk_plain and row_topk_by_key
+    (bitwise, vals and cls), and the rows it counted in each branch
+    against the input's."""
+    from wedetect_tpu_torch.ops.row_topk import (row_topk, row_topk_by_key,
+                                                 row_topk_plain)
+
+    branches = torch.zeros(4, dtype=torch.int32, device=x.device)
+    kv, kc = row_topk(x, t, branches=branches)
+    pv, pc = row_topk_plain(x, t)
+    bv, bc = row_topk_by_key(x, t)
+    return {"rows": x.shape[0], "k": x.shape[1], "t": t,
+            "match_plain": bitwise_equal(kv, pv) and bitwise_equal(kc, pc),
+            "match_by_key": bitwise_equal(kv, bv) and bitwise_equal(kc, bc),
+            "branches": branches.tolist(),
+            "branches_match": branches.tolist() == k1_branches(x, t)}
+
+
+def k1_timing(x: torch.Tensor, t: int, rounds: int = 2) -> dict:
+    """Device time (graph_ms) of the kernel and of torch.topk (a
+    yardstick the port never calls) on x, in turns: kernel, topk, topk,
+    kernel per round."""
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    kern = lambda: row_topk(x, t)  # noqa: E731
+    topk = lambda: torch.topk(x, t, dim=1)  # noqa: E731
+    turns = [[graph_ms(fn) for fn in (kern, topk, topk, kern)]
+             for _ in range(rounds)]
+    ms = [v for r in turns for v in (r[0], r[3])]
+    lib = [v for r in turns for v in (r[1], r[2])]
+    return {"ms": sum(ms) / len(ms), "library_ms": sum(lib) / len(lib),
+            "ms_turns": ms, "library_ms_turns": lib}
+
+
+def k1_bound(rows: int, k: int, t: int, branches: list) -> dict:
+    """The least time the card could take: each input byte read once,
+    each output byte written once; operations from this input's
+    branches (a key and a compare an element, a 64-wide bitonic network
+    of 672 compare-exchanges a row with candidates, 4 histogram passes
+    over K a row with more than t) at the f32 rate."""
+    nbytes = rows * k * 4 + rows * t * 8
+    ops = rows * k * 2 + (branches[1] + branches[2]) * 672 * (
+        (t + 63) // 64) + branches[2] * 4 * k * 2 * ((t + 63) // 64)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def phase_k1(dev, rows: int, k: int, timing: bool = True):
+    from wedetect_tpu_torch.ops.row_topk import (row_topk, row_topk_max_k,
+                                                 row_topk_plain)
+
+    max_k = row_topk_max_k()
+    dense = k1_inputs(rows, k, dev)
+    sparse = k1_sparse_inputs(rows, k, dev, seed=1)
+    cases = [("dense", dense, T_ROW), ("sparse", sparse, T_ROW),
+             ("nan", k1_nan_inputs(1000, k, dev, seed=2), T_ROW),
+             ("boundary", k1_boundary_inputs(1000, k, dev, seed=3), T_ROW),
+             ("boundary", k1_boundary_inputs(200, 2000, dev, seed=4), T_ROW),
+             ("boundary", k1_boundary_inputs(300, 100, dev, seed=5, t=7), 7),
+             ("nan", k1_nan_inputs(100, 2000, dev, seed=6), T_ROW),
+             ("dense", k1_inputs(256, 300, dev, seed=7), 200)]  # t > 64
+    cases += [("dense", k1_inputs(r, kk, dev, seed=kk), t)
+              for r, kk, t in ((333, 37, 37), (256, 80, 64), (256, 1280, 64),
+                               (200, 2000, 64), (64, 33, 1), (64, max_k, 64))]
     checks = []
-    for r, kk, t in ((rows, k, T_ROW), (333, 37, 37), (256, 80, 64),
-                     (256, 1280, 64), (200, 2000, 64), (64, 33, 1)):
-        x = k1_inputs(r, kk, dev, seed=kk)
-        kv, kc = row_topk(x, t)
-        pv, pc = row_topk_plain(x, t)
-        same = bitwise_equal(kv, pv) and bitwise_equal(kc, pc)
-        checks.append({"rows": r, "k": kk, "t": t, "match": same})
-        if not same:
+    for name, x, t in cases:
+        checks.append({"input": name, **k1_check(x, t)})
+        c = checks[-1]
+        if not (c["match_plain"] and c["match_by_key"]
+                and c["branches_match"]):
             emit({"phase": "k1", "checks": checks})
-            raise AssertionError(f"row_topk disagrees at {(r, kk, t)}")
-    x = k1_inputs(rows, k, dev)
-    kv, _ = row_topk(x, T_ROW)
-    pv, _ = row_topk_plain(x, T_ROW)
+            raise AssertionError(f"row_topk disagrees on {name} "
+                                 f"{(c['rows'], c['k'], t)}")
+    # both branches of the selection ran on the card
+    assert checks[0]["branches"][2] > 0 and checks[1]["branches"][1] > 0
+    kv, _ = row_topk(dense, T_ROW)
+    pv, _ = row_topk_plain(dense, T_ROW)
     fin = torch.isfinite(pv)
     max_abs_err = float((kv[fin] - pv[fin]).abs().max()) if fin.any() else 0.0
     res = {"rows": rows, "k": k, "t": T_ROW, "max_abs_err": max_abs_err,
-           "checks": checks}
-    # the least time the card could take: each input byte read once,
-    # each output byte written once; t*K compare-selects per row
-    nbytes = rows * k * 4 + rows * T_ROW * 8
-    ops = rows * k * T_ROW
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / F32_OPS_PER_S * 1e3
-    res.update(bound_ms=max(bytes_ms, ops_ms),
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=nbytes, compare_selects=ops)
+           "max_k": max_k, "checks": checks,
+           "dense_branches": checks[0]["branches"],
+           "sparse_branches": checks[1]["branches"],
+           **k1_bound(rows, k, T_ROW, checks[0]["branches"])}
+    res["sparse_bound_ms"] = k1_bound(rows, k, T_ROW,
+                                      checks[1]["branches"])["bound_ms"]
     if timing:
-        res["ms"] = cuda_ms(lambda: row_topk(x, T_ROW), iters=20)
-        res["plain_ms"] = cuda_ms(lambda: row_topk_plain(x, T_ROW), iters=3,
-                                  warmup=1)
-        res["library_ms"] = cuda_ms(lambda: torch.topk(x, T_ROW, dim=1),
-                                    iters=20)
+        res.update(k1_timing(dense, T_ROW))
+        sp = k1_timing(sparse, T_ROW)
+        res.update({f"sparse_{key}": v for key, v in sp.items()})
+        res["plain_ms"] = cuda_ms(lambda: row_topk_plain(dense, T_ROW),
+                                  iters=3, warmup=1)
     emit({"phase": "k1", **res})
     return res
 
@@ -533,13 +669,25 @@ def phase_detect(dev, size: str, k: int, batch: int, text_embeds,
     sel_match = all(bitwise_equal(a, b) for a, b in zip(got, want))
     assert sel_match, "sparse selection: kernel != plain"
     n_cand = int((dec.scores > thr).sum())
+    # K1 on the path's own input: the thresholded (B*A, K) scores
+    path = torch.where(dec.scores.float() > thr, dec.scores.float(),
+                       float("-inf")).reshape(-1, k).contiguous()
     del dec, got, want
+    path_check = k1_check(path, T_ROW)
+    assert path_check["match_plain"] and path_check["match_by_key"] \
+        and path_check["branches_match"], path_check
+    assert path_check["branches"][2] == path_check["branches"][3] == 0
+    path_res = {"branches": path_check["branches"],
+                **k1_bound(*path.shape, T_ROW, path_check["branches"])}
+    if timing:
+        path_res.update(k1_timing(path, T_ROW))
+    del path
 
     # the main path: Detector.__call__, K1's count read around it
     row_topk.launches = 0
     results = det(list(images), score_thr=thr)
     launches = row_topk.launches
-    assert launches > 0, "the detect path did not launch row_topk"
+    assert launches == 1, f"the detect call launched row_topk {launches}x"
     n_det = check_detections(results, max(h, w), k, thr, cfg.embed_dims)
     slots = W.detect_step(cfg, det.model, images, det._text_embeds,
                           np.ones((batch, 2), np.float32),
@@ -552,6 +700,7 @@ def phase_detect(dev, size: str, k: int, batch: int, text_embeds,
            "logit_scale_shift": scale, "bias_shift": shift,
            "max_candidates_per_anchor": per_anchor,
            "candidates": n_cand, "sparse_selection_match": sel_match,
+           "k1_path": path_res,
            "row_topk_launches": launches, "detections": n_det,
            "valid_slots": int(slots.valid.sum())}
     if timing:
@@ -2140,9 +2289,21 @@ def main() -> int:
          "launches": detect["row_topk_launches"],
          "max_abs_err": k1["max_abs_err"], "max_abs_err_bf16": None,
          "tolerance": 0.0, "match": True,
+         # ms / library_ms on k1_inputs (dense rows); path_ms on the
+         # detect call's own thresholded scores, sparse_ms on
+         # k1_sparse_inputs; rows by branch (no candidate, at most t,
+         # more than t, a NaN) as the kernel counted them
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"]},
+         "library_ms": k1["library_ms"],
+         "path_ms": detect["k1_path"]["ms"],
+         "path_library_ms": detect["k1_path"]["library_ms"],
+         "path_bound_ms": detect["k1_path"]["bound_ms"],
+         "path_branches": detect["k1_path"]["branches"],
+         "sparse_ms": k1["sparse_ms"],
+         "sparse_library_ms": k1["sparse_library_ms"],
+         "sparse_branches": k1["sparse_branches"],
+         "dense_branches": k1["dense_branches"]},
         # K2 timed at the suffix shape, K3 at the ViT shape (the f32 SIMT
         # route and the bf16 wgmma route, each with its launches in the
         # score call of its type)

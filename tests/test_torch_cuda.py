@@ -19,31 +19,96 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rows(r, k, seed, dev):
+def _rows(r, k, seed, dev, kind="mixed", t=64):
+    """K1's inputs by kind: "mixed" (masks, ties, full masks, signed
+    zeros), "sparse" (the detect path: most rows empty, the rest 1-63
+    candidates), "nan" (NaN rows among mixed ones), "boundary" (exactly
+    t and t + 1 candidates), "cut_tie" (more than t, the t-th value tied
+    across the cut), "inf" (+-inf among values)."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(0, 1, (r, k)).astype(np.float32)
-    x[::3] = np.floor(x[::3] * 4) / 4                     # ties
-    x[rng.uniform(0, 1, (r, k)) > rng.uniform(0, 1, (r, 1))] = -np.inf
-    x[::11] = -np.inf                                     # fully masked
-    x[1::13] = rng.choice(np.array([0.0, -0.0, -np.inf], np.float32),
-                          (len(x[1::13]), k))             # signed zeros
-    return torch.from_numpy(x).to(dev)
+    if kind in ("mixed", "nan"):
+        x[::3] = np.floor(x[::3] * 4) / 4                 # ties
+        x[rng.uniform(0, 1, (r, k)) > rng.uniform(0, 1, (r, 1))] = -np.inf
+        x[::11] = -np.inf                                 # fully masked
+        x[1::13] = rng.choice(np.array([0.0, -0.0, -np.inf], np.float32),
+                              (len(x[1::13]), k))         # signed zeros
+    if kind == "nan":
+        bits = x.view(np.uint32)
+        bits[::5, 7] = 0x7FC00000                         # +nan
+        bits[1::5, 3] = 0xFFC00000                        # -nan
+        bits[2::5, -1] = 0x7FC00001                       # the last lane
+        for i in range(3, r, 5):                          # several payloads
+            pos = rng.choice(k, 4, replace=False)
+            bits[i, pos] = (rng.integers(0, 2, 4).astype(np.uint32) << 31
+                            | 0x7F800000
+                            | rng.integers(1, 1 << 23, 4).astype(np.uint32))
+    elif kind == "sparse":
+        n = np.where(rng.uniform(0, 1, r) < 0.25, rng.integers(1, 64, r), 0)
+        rank = rng.uniform(0, 1, (r, k)).argsort(1).argsort(1)
+        x = np.where(rank < n[:, None], 0.3 + 0.7 * x, -np.inf)
+        x[::4] = np.floor(x[::4] * 8) / 8
+    elif kind == "boundary":
+        n = t + np.arange(r) % 2
+        rank = rng.uniform(0, 1, (r, k)).argsort(1).argsort(1)
+        x = np.where(rank < n[:, None], np.floor(x * 3) / 3, -np.inf)
+    elif kind == "cut_tie":
+        rank = rng.uniform(0, 1, (r, k)).argsort(1).argsort(1)
+        x = np.where(rank < t // 2, 0.5 + x / 2,
+                     np.where(rank < t // 2 + t, 0.25, x / 5))
+        x[:, ::7] = -np.inf
+    elif kind == "inf":
+        x = rng.choice(np.array([np.inf, -np.inf, 0.5, 0.25, -1.0],
+                                np.float32), (r, k))
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("r,k,t", [(1000, 1203, 64), (999, 37, 37),
-                                   (512, 80, 64), (300, 1280, 64),
-                                   (200, 2000, 64), (64, 33, 1)])
-def test_row_topk_kernel_bitwise(cuda, monkeypatch, r, k, t):
-    from wedetect_tpu_torch.ops.row_topk import row_topk, row_topk_plain
+def _branches(x, t):
+    """Rows by branch, as the kernel counts them: no candidate, at most
+    t, more than t, a NaN."""
+    nan = torch.isnan(x).any(1)
+    n = (x > float("-inf")).sum(1)
+    return [int(((n == 0) & ~nan).sum()), int(((n > 0) & (n <= t) & ~nan)
+                                              .sum()),
+            int(((n > t) & ~nan).sum()), int(nan.sum())]
 
+
+MAX_K = -1   # row_topk_max_k(), read on the card
+
+
+@pytest.mark.parametrize("kind,r,k,t", [
+    ("mixed", 1000, 1203, 64), ("mixed", 999, 37, 37), ("mixed", 512, 80, 64),
+    ("mixed", 300, 1280, 64), ("mixed", 200, 2000, 64), ("mixed", 64, 33, 1),
+    ("sparse", 67200, 1203, 64),         # the detect path's shape
+    ("nan", 999, 1203, 64), ("nan", 100, 2000, 64),
+    ("boundary", 1000, 1203, 64), ("boundary", 200, 2000, 64),
+    ("boundary", 300, 100, 7),
+    ("cut_tie", 500, 1203, 64), ("cut_tie", 100, 2000, 64),
+    ("cut_tie", 256, 300, 130),          # t > 64: slots in chunks
+    ("inf", 256, 200, 20), ("mixed", 128, 150, 150),
+    ("mixed", 64, MAX_K, 64), ("sparse", 256, MAX_K, 64),
+    ("cut_tie", 32, MAX_K, 100),
+])
+def test_row_topk_kernel_bitwise(cuda, monkeypatch, kind, r, k, t):
+    """The kernel against t rounds of iterative max (row_topk_plain) and
+    against its own rule (row_topk_by_key), bitwise, on both the
+    register (K <= 1280) and the shared-memory path; the rows it counts
+    in each branch equal the input's."""
+    from wedetect_tpu_torch.ops.row_topk import (row_topk, row_topk_by_key,
+                                                 row_topk_max_k,
+                                                 row_topk_plain)
+
+    k = row_topk_max_k() if k == MAX_K else k
     monkeypatch.setattr(row_topk, "launches", 0)
-    x = _rows(r, k, seed=r + k, dev=cuda)
-    kv, kc = row_topk(x, t)
+    x = _rows(r, k, seed=r + k, dev=cuda, kind=kind, t=t)
+    branches = torch.zeros(4, dtype=torch.int32, device=cuda)
+    kv, kc = row_topk(x, t, branches=branches)
     torch.cuda.synchronize()
-    pv, pc = row_topk_plain(x, t)
     assert row_topk.launches == 1
-    assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
-    assert torch.equal(kc, pc)
+    for pv, pc in (row_topk_plain(x, t), row_topk_by_key(x, t)):
+        assert torch.equal(kv.view(torch.int32), pv.view(torch.int32))
+        assert torch.equal(kc, pc)
+    assert branches.tolist() == _branches(x, t)
 
 
 def test_row_topk_rejects_bad_input(cuda):
@@ -56,6 +121,10 @@ def test_row_topk_rejects_bad_input(cuda):
         row_topk(x[:, ::2], 2)           # not contiguous
     with pytest.raises(ValueError):
         row_topk(x, 9)                   # t > K
+    with pytest.raises(ValueError):      # branch counts: int32, 4 of them
+        row_topk(x, 2, branches=torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError):
+        row_topk(torch.zeros((4, 8000), device=cuda), 2)   # K > max
 
 
 def test_detect_step_card_matches_cpu(cuda, monkeypatch):
