@@ -279,8 +279,8 @@ def phase_device():
 SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
              "flash_attn_bwd_sm90")
 # the FFMA libraries: K2-bwd-dkdv and K2-bwd-dq in f32 at D = 128,
-# K3-bwd-dkv in f32 at D = 64
-F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32")
+# K3-bwd-dkv in f32 at D = 64, K2's forward in f32 at D = 128
+F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32", "flash_gqa_f32")
 
 
 def phase_build():
@@ -868,23 +868,50 @@ def sdpa_gqa(q, k, v, mask):
         attn_mask=mask, enable_gqa=True).transpose(1, 2)
 
 
+# a forward phase's worst max_abs_err by (type, route): f32 on the FFMA
+# kernel (K2 at D = 128) and on the SIMT one, bf16 on the wgmma kernel
+# and on the SIMT one
+ROUTE_ERRORS = {(torch.float32, "f32"): "max_abs_err_f32",
+                (torch.float32, "simt"): "max_abs_err_f32_simt",
+                (torch.bfloat16, "sm90"): "max_abs_err_bf16",
+                (torch.bfloat16, "simt"): "max_abs_err_bf16_simt"}
+
+
 def route_errors(worst):
-    """A forward phase's worst max_abs_err by (type, route): f32 (SIMT),
-    bf16 on the wgmma kernel, bf16 on the SIMT one."""
-    return {"max_abs_err_f32": worst[(torch.float32, "simt")],
-            "max_abs_err_bf16": worst[(torch.bfloat16, "sm90")],
-            "max_abs_err_bf16_simt": worst[(torch.bfloat16, "simt")]}
+    return {ROUTE_ERRORS[key]: err for key, err in worst.items()}
+
+
+def simt_fwd(q, k, v, valid, causal, sm_scale):
+    """The SIMT forward (csrc/flash_attn.cu) called through its library:
+    the kernel f32 at D = 128 ran before gqa_flash_fwd_f32 of
+    csrc/flash_gqa_f32.cu (no launch counted): (O, lse)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    return fg._launch_fwd("gqa_flash_attention", fg._lib().gqa_flash_fwd,
+                          q, k, v, valid, causal, sm_scale,
+                          int(q.dtype == torch.bfloat16))
+
+
+def k2_mask(valid, s, lk):
+    """SDPA's boolean mask for a causal K2 case: valid keys at or before
+    each query's position."""
+    qpos = lk - s + torch.arange(s, device=valid.device)
+    return (valid.bool()[:, None, None, :]
+            & (torch.arange(lk, device=valid.device)[None, :]
+               <= qpos[:, None])[None, None])
 
 
 def phase_k2(dev, timing: bool = True):
     from wedetect_tpu_torch.ops.flash_gqa import (fwd_route,
                                                   gqa_flash_attention,
                                                   gqa_flash_attention_plain,
+                                                  gqa_flash_fwd_f32,
                                                   gqa_flash_fwd_sm90)
 
     checks, worst = [], {}
-    cases = [K2_PREFIX, K2_SUFFIX, *K2_GRID, *K2_D256, K2_D384]
-    gqa_flash_fwd_sm90.launches = 0
+    cases = [K2_PREFIX, K2_SUFFIX, K2_TRAIN, *K2_GRID, *K2_D256, K2_D384]
+    gqa_flash_fwd_sm90.launches = gqa_flash_fwd_f32.launches = 0
+    routed = {"sm90": 0, "f32": 0, "simt": 0}
     for dtype in (torch.float32, torch.bfloat16):
         for i, case in enumerate(cases):
             b, s, lk, h, kvh, d, causal, holes = case
@@ -896,31 +923,35 @@ def phase_k2(dev, timing: bool = True):
                 q, k, v, causal=causal, kv_valid=valid, return_lse=True)
             err = float((o.float() - po.float()).abs().max())
             lse_err = float((lse - plse).abs().max())
-            ok = kernel_close(o, po, dtype) and lse_err <= 1e-3
+            # rows without a visible valid key keep lse <= -1e29 (K2-bwd's
+            # skip rule reads it)
+            ok = (kernel_close(o, po, dtype) and lse_err <= 1e-3
+                  and torch.equal(lse <= -1e29, plse <= -1e29))
+            route = fwd_route(dtype, d, h // kvh)
             checks.append({"shape": [b, s, lk, h, kvh, d], "causal": causal,
-                           "dtype": str(dtype)[6:], "max_abs_err": err,
-                           "lse_err": lse_err, "match": ok})
+                           "dtype": str(dtype)[6:], "route": route,
+                           "max_abs_err": err, "lse_err": lse_err,
+                           "match": ok})
             if not ok:
                 emit({"phase": "k2", "checks": checks})
                 raise AssertionError(f"K2 disagrees at {case} {dtype}")
-            key = (dtype, fwd_route(dtype, d, h // kvh))
-            worst[key] = max(worst.get(key, 0.0), err)
-    # every bf16 check at D = 128 ran the wgmma kernel; no f32 one and
-    # no D = 256 or 384 one did
-    assert gqa_flash_fwd_sm90.launches == len(cases) - len(K2_D256) - 1, \
-        gqa_flash_fwd_sm90.launches
+            worst[(dtype, route)] = max(worst.get((dtype, route), 0.0), err)
+            routed[route] += 1
+            del q, k, v, o, lse, po, plse
+    # every check at D = 128 ran its type's kernel (bf16 the wgmma one,
+    # f32 the FFMA one); D = 256 and 384 the SIMT one
+    assert (gqa_flash_fwd_sm90.launches, gqa_flash_fwd_f32.launches) == (
+        routed["sm90"], routed["f32"]), (routed, gqa_flash_fwd_sm90.launches,
+                                         gqa_flash_fwd_f32.launches)
     res = {"checks": checks, **route_errors(worst)}
     if timing:
         for name, case in (("prefix", K2_PREFIX), ("suffix", K2_SUFFIX),
-                           ("d256", K2_D256[0])):
+                           ("train", K2_TRAIN), ("d256", K2_D256[0])):
             b, s, lk, h, kvh, d, causal, holes = case
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v, valid = k2_case(dev, *case, dtype=dtype, seed=0)
                 pairs = k2_visible_pairs(s, lk, causal, valid)
-                qpos = lk - s + torch.arange(s, device=dev)
-                mask = (valid.bool()[:, None, None, :]
-                        & (torch.arange(lk, device=dev)[None, :]
-                           <= qpos[:, None])[None, None])
+                mask = k2_mask(valid, s, lk)
                 r = attn_bound(h, d, pairs, q.numel() + 2 * k.numel(),
                                q.numel(), b * s * h, dtype)
                 # ms and library_ms: device time (graph_ms), the same
@@ -939,7 +970,62 @@ def phase_k2(dev, timing: bool = True):
                 r["library_call_ms"] = cuda_ms(lib, iters=10)
                 r["visible_pairs"] = pairs
                 res[f"{name}_{str(dtype)[6:]}"] = r
+                if fwd_route(dtype, d, h // kvh) == "f32":
+                    res[f"{name}_simt_float32"] = k2_simt_turns(
+                        q, k, v, valid, r, call)
+                if name == "train" and dtype == torch.float32:
+                    r.update(k2_walk(q, k, v, valid))
+                del q, k, v, valid, mask
     emit({"phase": "k2", **res})
+    return res
+
+
+def k2_simt_turns(q, k, v, valid, route_timing, call):
+    """The SIMT forward the f32 kernel replaced, at a timed f32 shape
+    (causal): held to the plain version (K_TOL, lse 1e-3), and timed in
+    turns with the route as device time (SIMT, f32, f32, SIMT). Returns
+    its timing entry (the route's bound, plain and library times)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = simt_fwd(q, k, v, valid, True, scale)
+    po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                            kv_valid=valid, sm_scale=scale,
+                                            return_lse=True)
+    err = float((o - po).abs().max())
+    assert kernel_close(o, po, torch.float32) and float(
+        (lse - plse).abs().max()) <= 1e-3, ("simt K2", err)
+    del o, lse, po, plse
+    simt = lambda: simt_fwd(q, k, v, valid, True, scale)  # noqa: E731
+    turns = [graph_ms(fn) for fn in (simt, call, call, simt)]
+    route_timing["turns_ms"] = {"simt": turns[::3], "f32": turns[1:3]}
+    keep = ("bound_ms", "bound_by", "flops", "bytes", "plain_ms",
+            "library_ms", "visible_pairs")
+    return {**{key: route_timing[key] for key in keep}, "ms": turns[0],
+            "turns_ms": turns[::3], "max_abs_err": err}
+
+
+def k2_walk(q, k, v, valid):
+    """The f32 forward's walk at a causal shape, read back from the kernel
+    and counted by the skip rule (fwd_walk_map), and the tiles the
+    frontier alone scans (the SIMT kernel's walk)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    b, s, h, d = q.shape
+    lk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows, _ = fg.fwd_f32_tile(b, s, g, kvh, sms)
+    rule = fg.fwd_walk_map(s, lk, g, kvh, True, valid, rows=rows)
+    walked = torch.zeros(rule.shape[:3], dtype=torch.int32, device=q.device)
+    fg.gqa_flash_fwd_f32(q, k, v, valid, True, 1.0 / math.sqrt(d),
+                         walked=walked)
+    scanned = fg.fwd_walk_map(s, lk, g, kvh, True, torch.zeros_like(valid),
+                              rows=rows)
+    res = {"tile_rows": rows, "tiles_walked": int(walked.sum()),
+           "rule_tiles_walked": int(rule.sum()),
+           "rule_tiles_scanned": int(scanned.sum())}
+    assert torch.equal(walked, rule.sum(-1).int()), ("K2 walk != rule", res)
     return res
 
 
@@ -1191,6 +1277,7 @@ def _flash_counters():
 
     return {"k2": fg.gqa_flash_attention,
             "k2_sm90": fg.gqa_flash_fwd_sm90,
+            "k2_f32": fg.gqa_flash_fwd_f32,
             "k2_bwd_dq": fg.gqa_flash_bwd_dq,
             "k2_bwd_dkdv": fg.gqa_flash_bwd_dkdv,
             "k2_bwd_dq_sm90": fg.gqa_flash_bwd_dq_sm90,
@@ -1208,8 +1295,8 @@ def _flash_counters():
 
 def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
-    `reset`): "k2" counts both K2 forward routes, "k2_sm90" the bf16
-    wgmma one's alone; likewise "k3" and "k3_sm90", "k2_bwd_*" and
+    `reset`): "k2" counts every K2 forward route, "k2_sm90" the bf16
+    wgmma one's alone, "k2_f32" the f32 FFMA one's; likewise "k3" and "k3_sm90", "k2_bwd_*" and
     "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32",
     "k2_bwd_dq_f32" and "k3_bwd_dkv_f32" the FFMA kernels' alone."""
     counters = _flash_counters()
@@ -1221,8 +1308,10 @@ def launch_counts(reset: bool = False):
 
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
                     k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0,
-                    k2_bwd_dkdv_f32=0, k2_bwd_dq_f32=0, k3_bwd_dkv_f32=0):
-    return {"k2": k2, "k2_sm90": k2_sm90, "k2_bwd_dq": k2_bwd,
+                    k2_bwd_dkdv_f32=0, k2_bwd_dq_f32=0, k3_bwd_dkv_f32=0,
+                    k2_f32=0):
+    return {"k2": k2, "k2_sm90": k2_sm90, "k2_f32": k2_f32,
+            "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_f32": k2_bwd_dkdv_f32,
@@ -1273,12 +1362,13 @@ def phase_ref(dev, inputs, cfg=None, timing: bool = True):
         assert scores.shape == (len(REF_QUERIES), n), scores.shape
         assert np.isfinite(scores).all()
         assert ((scores > 0) & (scores < 1)).all()
-        # bf16: every K2 and K3 launch is a wgmma kernel; f32: none is
+        # bf16: every K2 and K3 launch is a wgmma kernel; f32: every K2
+        # launch the FFMA kernel, every K3 launch the SIMT one
         k2, k3 = 2 * cfg.text.layers, cfg.vision.depth
         bf16 = name == "bfloat16"
         assert counts == expected_counts(
-            k2=k2, k2_sm90=k2 if bf16 else 0, k3=k3,
-            k3_sm90=k3 if bf16 else 0), counts
+            k2=k2, k2_sm90=k2 if bf16 else 0, k2_f32=0 if bf16 else k2,
+            k3=k3, k3_sm90=k3 if bf16 else 0), counts
         logits = scorer.logits(image, boxes, REF_QUERIES)
         with plain_attention():
             plain = scorer.logits(image, boxes, REF_QUERIES)
@@ -1382,7 +1472,7 @@ def phase_ref_parity(dev):
     counts = launch_counts()
     want = ref_score_step(cpu, gh, gw, *args)
     err = float((got.cpu() - want).abs().max())
-    assert counts == expected_counts(k2=2, k3=2), counts
+    assert counts == expected_counts(k2=2, k2_f32=2, k3=2), counts
     assert err < 1e-5, err
     emit({"phase": "ref_parity", "logits_max_abs_err": err,
           "launches": counts})
@@ -1638,10 +1728,7 @@ def phase_k2_bwd(dev, timing: bool = True):
             routes = k2_bwd_routes(dtype, d, h // kvh)
             pairs = k2_visible_pairs(s, lk, causal, valid)
             delta = fg.row_delta(o, do, kvh)
-            qpos = lk - s + torch.arange(s, device=dev)
-            mask = (valid.bool()[:, None, None, :]
-                    & (torch.arange(lk, device=dev)[None, :]
-                       <= qpos[:, None])[None, None])
+            mask = k2_mask(valid, s, lk)
             plain_ms = cuda_ms(lambda: fg.gqa_flash_attention_bwd_plain(
                 *args, causal, kw["sm_scale"]), iters=2, warmup=1)
             # ms and library_ms: device time (graph_ms), one method for
@@ -2021,6 +2108,7 @@ def phase_train_parity(dev):
           and res["grad_norm_rel_err"] <= 1e-5
           and res["step2_loss_rel_err"] <= 1e-5
           and counts == expected_counts(k2=cfg.text.layers,
+                                        k2_f32=cfg.text.layers,
                                         k3=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
@@ -2128,6 +2216,7 @@ def phase_train_grad(dev, image, proposals, cfg=None,
            "tolerance": TRAIN_GRAD_TOL}
     ok = (max(errs.values()) <= TRAIN_GRAD_TOL < max(ctrl.values())
           and counts == expected_counts(k2=cfg.text.layers,
+                                        k2_f32=cfg.text.layers,
                                         k3=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
@@ -2188,6 +2277,7 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "optimizer_count": state.tx.count}
     per_step = expected_counts(k2=cfg.text.layers, k3=cfg.vision.depth,
+                               k2_f32=cfg.text.layers,
                                k2_bwd=cfg.text.layers,
                                k3_bwd=cfg.vision.depth,
                                k2_bwd_dkdv_f32=cfg.text.layers,
@@ -2204,15 +2294,23 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
     return res, counts
 
 
+# a forward kernel's errors by its route: (f32, bf16) keys of its phase
+ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
+                "f32": ("max_abs_err_f32", None),
+                "sm90": ("max_abs_err_bf16", "max_abs_err_bf16")}
+
+
 def kernel_entry(name, source, replaces, launches, k, timing,
-                 dtype="f32"):
-    """A forward kernel's entry: dtype "f32" is the SIMT route's (its
-    bf16 error that of the bf16 cases it ran), "bf16" the wgmma one's."""
-    bf16 = "max_abs_err_bf16" if dtype == "bf16" else "max_abs_err_bf16_simt"
+                 route="simt"):
+    """A forward kernel's entry by its route (fwd_route): "simt" (its f32
+    and bf16 errors those of the cases it ran), "f32" the FFMA one's,
+    "sm90" the wgmma one's (bf16)."""
+    f32, bf16 = ENTRY_ERRORS[route]
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "dtype": dtype,
-            "max_abs_err": k[f"max_abs_err_{dtype}"],
-            "max_abs_err_bf16": k[bf16],
+            "replaces": replaces, "launches": launches,
+            "dtype": "bf16" if route == "sm90" else "f32",
+            "max_abs_err": k[bf16 if route == "sm90" else f32],
+            "max_abs_err_bf16": k[bf16] if bf16 else None,
             "tolerance": {str(t)[6:]: {"atol": a, "rtol": r}
                           for t, (a, r) in K_TOL.items()},
             "match": True, "ms": timing["ms"],
@@ -2247,6 +2345,7 @@ SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_sm90.cu"
 F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_f32.cu"
 K3_SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
 K3_F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_f32.cu"
+F32_FWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_f32.cu"
 
 
 def main() -> int:
@@ -2277,7 +2376,7 @@ def main() -> int:
     k3_bwd = phase_k3_bwd(dev)
     phase_train_parity(dev)
     phase_train_grad(dev, image, proposals)
-    _, train_counts = phase_train(dev, image, proposals)
+    train, train_counts = phase_train(dev, image, proposals)
     k2_train, k3_train = (k2_bwd_launches(train_counts),
                           k3_bwd_launches(train_counts))
     k2_bf16 = k2_bwd_launches(k2_bwd["autograd_bf16"]["launches"])
@@ -2304,18 +2403,36 @@ def main() -> int:
          "sparse_library_ms": k1["sparse_library_ms"],
          "sparse_branches": k1["sparse_branches"],
          "dense_branches": k1["dense_branches"]},
-        # K2 timed at the suffix shape, K3 at the ViT shape (the f32 SIMT
-        # route and the bf16 wgmma route, each with its launches in the
-        # score call of its type)
-        kernel_entry("gqa_flash_fwd", "wedetect_tpu_torch/csrc/flash_attn.cu",
-                     "wedetect_tpu/ops/flash_gqa.py:86",
-                     launches["k2"] - launches["k2_sm90"], k2,
-                     k2["suffix_float32"]),
+        # K2 timed at the suffix shape, K3 at the ViT shape, each route
+        # with its launches in the score call of its type: K2 f32 at
+        # D = 128 on the FFMA kernel (also its launches a SFT step, and
+        # its times at the prefix and at K2_TRAIN), bf16 on the wgmma
+        # kernels; the SIMT K2 forward (0 launches on the f32 path; timed
+        # at the suffix through its library) and K3 f32
+        {**kernel_entry("gqa_flash_fwd_f32", F32_FWD_SOURCE,
+                        "wedetect_tpu/ops/flash_gqa.py:86",
+                        launches["k2_f32"], k2, k2["suffix_float32"],
+                        route="f32"),
+         "launches_sft_step": train["launches_per_step"]["k2_f32"],
+         **{f"{shape}_{key}": k2[f"{shape}_float32"][key]
+            for shape in ("prefix", "train")
+            for key in ("ms", "bound_ms", "library_ms")},
+         "turns_ms": {shape: k2[f"{shape}_float32"]["turns_ms"]
+                      for shape in ("prefix", "suffix", "train")},
+         "train_tiles_walked": k2["train_float32"]["tiles_walked"],
+         "train_tiles_scanned": k2["train_float32"]["rule_tiles_scanned"]},
+        {**kernel_entry("gqa_flash_fwd",
+                        "wedetect_tpu_torch/csrc/flash_attn.cu",
+                        "wedetect_tpu/ops/flash_gqa.py:86",
+                        launches["k2"] - launches["k2_sm90"]
+                        - launches["k2_f32"], k2, k2["suffix_simt_float32"]),
+         **{f"{shape}_ms": k2[f"{shape}_simt_float32"]["ms"]
+            for shape in ("prefix", "train")}},
         kernel_entry("gqa_flash_fwd_sm90",
                      "wedetect_tpu_torch/csrc/flash_gqa_sm90.cu",
                      "wedetect_tpu/ops/flash_gqa.py:86",
                      launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
-                     dtype="bf16"),
+                     route="sm90"),
         kernel_entry("flash_attention_fwd",
                      "wedetect_tpu_torch/csrc/flash_attn.cu",
                      "wedetect_tpu/ops/attention.py:126",
@@ -2325,7 +2442,7 @@ def main() -> int:
                      "wedetect_tpu_torch/csrc/flash_attn_sm90.cu",
                      "wedetect_tpu/ops/attention.py:126",
                      launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
-                     dtype="bf16"),
+                     route="sm90"),
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32; K2-bwd in f32 at
         # D = 128 is the FFMA pair, and the SIMT dq and dk/dv kernels

@@ -802,6 +802,15 @@ SM90_BWD_CASES = [
 ]
 
 
+def _shifted(t):
+    """A contiguous copy of t's shape on its device, 4 bytes past a 16-byte
+    boundary (what cp.async and TMA refuse)."""
+    buf = torch.zeros(t.numel() + 8, device=t.device, dtype=t.dtype)
+    x = buf[1:1 + t.numel()].view(t.shape)               # 4-byte offset
+    assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
 def _bwd_case(case, dtype, dev, seed):
     b, s, lk, h, kvh, d, causal, holes = case
     q, k, v = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, dev, seed)
@@ -987,20 +996,14 @@ def test_gqa_flash_bwd_dkdv_f32_rejects_bad_input(cuda, monkeypatch):
     lse = torch.zeros((1, 2, 256), device=cuda)
     kw = dict(causal=True, sm_scale=0.1)
 
-    def shifted(t):
-        buf = torch.zeros(t.numel() + 8, device=cuda, dtype=t.dtype)
-        x = buf[1:1 + t.numel()].view(t.shape)           # 4-byte offset
-        assert x.is_contiguous() and x.data_ptr() % 16
-        return x
-
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fg.gqa_flash_bwd_dkdv(q, k, v, valid, shifted(do), lse, lse, **kw)
+        fg.gqa_flash_bwd_dkdv(q, k, v, valid, _shifted(do), lse, lse, **kw)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fg.gqa_flash_bwd_dkdv(shifted(q), k, v, valid, do, lse, lse, **kw)
+        fg.gqa_flash_bwd_dkdv(_shifted(q), k, v, valid, do, lse, lse, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fg.gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, lse, dk,
-                                  shifted(v), **kw)
+                                  _shifted(v), **kw)
     with pytest.raises(TypeError, match="float32"):
         fg.gqa_flash_bwd_dkdv_f32(*(t.bfloat16() for t in (q, k, v)),
                                   valid, do.bfloat16(), lse, lse,
@@ -1127,18 +1130,12 @@ def test_gqa_flash_bwd_dq_f32_rejects_bad_input(cuda, monkeypatch):
     lse = torch.zeros((1, 2, 256), device=cuda)
     kw = dict(causal=True, sm_scale=0.1)
 
-    def shifted(t):
-        buf = torch.zeros(t.numel() + 8, device=cuda, dtype=t.dtype)
-        x = buf[1:1 + t.numel()].view(t.shape)           # 4-byte offset
-        assert x.is_contiguous() and x.data_ptr() % 16
-        return x
-
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fg.gqa_flash_bwd_dq(q, k, v, valid, shifted(do), lse, lse, **kw)
+        fg.gqa_flash_bwd_dq(q, k, v, valid, _shifted(do), lse, lse, **kw)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fg.gqa_flash_bwd_dq(q, shifted(k), v, valid, do, lse, lse, **kw)
+        fg.gqa_flash_bwd_dq(q, _shifted(k), v, valid, do, lse, lse, **kw)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fg.gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, lse, shifted(q),
+        fg.gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, lse, _shifted(q),
                                 **kw)
     with pytest.raises(TypeError, match="float32"):
         fg.gqa_flash_bwd_dq_f32(*(t.bfloat16() for t in (q, k, v)), valid,
@@ -1177,6 +1174,185 @@ def test_gqa_flash_bwd_dq_f32_through_autograd(cuda, monkeypatch):
                                             kv_valid=valid, return_lse=True)
     want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, po, plse, do,
                                             True, 128 ** -0.5)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
+
+
+# (B, S, Lk, H, KVH, D, causal, invalid key ranges): the f32 forward
+# kernel's cases: chip_smoke.py's K2_PREFIX, K2_SUFFIX, K2_TRAIN and
+# K2_GRID, S = 336 (F moves every 32 folded rows), a last row block past
+# S * G (S = 40), G = 3 (not a power of two) and a non-causal batch
+# without a valid key
+F32_FWD_CASES = [
+    (1, 384, 384, 16, 8, 128, True, ((332, 384),)),             # prefix
+    (8, 256, 640, 16, 8, 128, True, ((332, 384), (600, 640))),  # suffix
+    (1, 2048, 2048, 16, 8, 128, True, ((1253, 2048),)),         # K2_TRAIN
+    (2, 128, 384, 4, 2, 128, True, ()),
+    (1, 128, 128, 4, 1, 128, True, ()),
+    (2, 128, 640, 8, 2, 128, True, ((312, 320), (635, 640))),
+    (1, 256, 256, 8, 8, 128, False, ((120, 128), (251, 256))),
+    (1, 128, 512, 16, 8, 128, True, ((248, 256), (507, 512))),
+    (1, 128, 256, 4, 2, 128, True, ((0, 132),)),           # rows all masked
+    (2, 96, 384, 4, 2, 128, True, ((200, 216),)),          # S*G = 192
+    (1, 336, 384, 4, 2, 128, True, ((100, 110),)),
+    (1, 40, 128, 2, 2, 128, True, ((20, 30),)),
+    (1, 128, 256, 6, 2, 128, True, ((30, 40),)),           # G = 3
+    (1, 128, 256, 2, 1, 128, False, ((0, 256),)),
+]
+
+
+def _fwd_counters(fg):
+    return (fg.gqa_flash_attention, fg.gqa_flash_fwd_f32,
+            fg.gqa_flash_fwd_sm90)
+
+
+@pytest.mark.parametrize("case", F32_FWD_CASES)
+def test_gqa_flash_fwd_f32_kernel_matches_plain(cuda, monkeypatch, case):
+    """f32 K2 at D = 128 goes to the FFMA kernel (one launch a call, its
+    own count), agrees with the plain forward (TOL's f32 atol for O, 1e-3
+    for lse), keeps lse <= -1e29 exactly on the rows without a visible
+    valid key, and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _fwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    causal = case[6]
+    q, k, v, _, valid = _bwd_case(case, torch.float32, cuda,
+                                  seed=sum(case[:3]) + 9)
+    got = [fg.gqa_flash_attention(q, k, v, causal=causal, kv_valid=valid,
+                                  return_lse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    want, wlse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                              kv_valid=valid,
+                                              return_lse=True)
+    assert fg.gqa_flash_fwd_f32.launches == 2
+    assert fg.gqa_flash_attention.launches == 2
+    assert fg.gqa_flash_fwd_sm90.launches == 0
+    (o, lse), (o2, lse2) = got
+    assert o.dtype == torch.float32
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)   # deterministic
+    assert _close(o, want, torch.float32)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+    assert torch.equal(lse <= -1e29, wlse <= -1e29)
+
+
+@pytest.mark.parametrize("rows", [64, 32], ids=["wide", "narrow"])
+@pytest.mark.parametrize("case", F32_FWD_CASES)
+def test_gqa_flash_fwd_f32_walk_matches_rule(cuda, case, rows):
+    """Each of the f32 forward's tiles, forced: agrees with the plain
+    forward, and the key tiles each row block walked, read back from the
+    kernel, are the skip rule's in that tile (ops/flash_gqa.fwd_walk_map).
+    In the tile the route takes (`fwd_f32_tile`), O and lse are the
+    route's, bit for bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    b, s, lk, h, kvh, d, causal, holes = case
+    q, k, v, _, valid = _bwd_case(case, torch.float32, cuda,
+                                  seed=sum(case[:3]) + 10)
+    scale = d ** -0.5
+    rule = fg.fwd_walk_map(s, lk, h // kvh, kvh, causal, valid, rows=rows)
+    walked = torch.full(rule.shape[:3], -1, dtype=torch.int32, device=cuda)
+    o, lse = fg.gqa_flash_fwd_f32(q, k, v, valid, causal, scale,
+                                  walked=walked, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(walked, rule.sum(-1).int())
+    want, wlse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                              kv_valid=valid, sm_scale=scale,
+                                              return_lse=True)
+    assert _close(o, want, torch.float32)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if fg.fwd_f32_tile(b, s, h // kvh, kvh, sms)[0] == rows:
+        ro, rlse = fg.gqa_flash_attention(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+        assert torch.equal(o, ro) and torch.equal(lse, rlse)
+
+
+def test_gqa_flash_fwd_f32_tiles_match_the_wrapper(cuda):
+    """The kernel's tiles (its C entry) are the ones the wrapper and the
+    skip rule's map assume; another row count is refused."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    lib = fg._fwd_f32_lib()
+    for rows, keys in fg.FWD_F32_TILES.items():
+        assert lib.gqa_flash_fwd_f32_keys(rows) == keys
+    assert lib.gqa_flash_fwd_f32_keys(48) == 0
+    q, k, v, _, valid = _bwd_case((1, 128, 128, 4, 2, 128, True, ()),
+                                  torch.float32, cuda, seed=3)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fg.gqa_flash_fwd_f32(q, k, v, valid, True, 0.1, rows=48)
+
+
+@pytest.mark.parametrize("d", [256, 384])
+def test_gqa_flash_fwd_f32_only_at_d128(cuda, monkeypatch, d):
+    """f32 at D = 256 or 384 keeps the SIMT forward: no launch of the
+    f32 kernel, and the plain version's answer."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _fwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, _, valid = _bwd_case((1, 128, 256, 4, 2, d, True, ((10, 20),)),
+                                  torch.float32, cuda, seed=d + 2)
+    assert fg.fwd_route(torch.float32, d, 2) == "simt"
+    got = fg.gqa_flash_attention(q, k, v, kv_valid=valid)
+    torch.cuda.synchronize()
+    assert fg.gqa_flash_attention.launches == 1
+    assert fg.gqa_flash_fwd_f32.launches == 0
+    assert _close(got, fg.gqa_flash_attention_plain(q, k, v, kv_valid=valid),
+                  torch.float32)
+
+
+def test_gqa_flash_fwd_f32_rejects_bad_input(cuda, monkeypatch):
+    """An unaligned q, k or v, a wrong type, a wrong head dim or a wrong
+    `walked` raises before any launch; nothing falls back."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in _fwd_counters(fg):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, _, valid = _bwd_case((1, 128, 128, 4, 2, 128, True, ()),
+                                  torch.float32, cuda, seed=1)
+
+    for args in ((_shifted(q), k, v), (q, _shifted(k), v), (q, k, _shifted(v))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fg.gqa_flash_attention(*args, kv_valid=valid)
+    with pytest.raises(TypeError, match="float32"):
+        fg.gqa_flash_fwd_f32(q.bfloat16(), k.bfloat16(), v.bfloat16(), valid,
+                             True, 0.1)
+    q2, k2, v2, _, valid2 = _bwd_case((1, 128, 128, 4, 2, 256, True, ()),
+                                      torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError, match="head dim 128"):
+        fg.gqa_flash_fwd_f32(q2, k2, v2, valid2, True, 0.1)
+    for bad in (torch.zeros((1, 2, 7), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 2, 4), dtype=torch.int64, device=cuda)):
+        with pytest.raises(ValueError, match="walked"):
+            fg.gqa_flash_fwd_f32(q, k, v, valid, True, 0.1, walked=bad)
+    assert fg.gqa_flash_fwd_f32.launches == 0
+    assert fg.gqa_flash_attention.launches == 0
+
+
+def test_gqa_flash_fwd_f32_through_autograd(cuda, monkeypatch):
+    """loss.backward() through gqa_flash_attention in f32 runs the f32
+    forward once and the f32 dq and dk/dv kernels on its lse; the
+    gradients agree with the plain backward (BWD_TOL)."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    for fn in (*_fwd_counters(fg), *_f32_bwd_counters(fg)):
+        monkeypatch.setattr(fn, "launches", 0)
+    case = (1, 256, 384, 8, 4, 128, True, ((0, 140), (300, 384)))
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda, seed=5)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = fg.gqa_flash_attention(*leaves, causal=True, kv_valid=valid)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert fg.gqa_flash_fwd_f32.launches == 1
+    assert fg.gqa_flash_bwd_dq_f32.launches == 1
+    assert fg.gqa_flash_bwd_dkdv_f32.launches == 1
+    po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
+                                            kv_valid=valid, return_lse=True)
+    want = fg.gqa_flash_attention_bwd_plain(q, k, v, valid, po, plse, do,
+                                            True, 128 ** -0.5)
+    assert _close(o.detach(), po, torch.float32)
     for t, w in zip(leaves, want):
         assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
 

@@ -99,18 +99,19 @@ def test_plain_matches_pallas_kernel_bf16(b, s, lk, h, kvh, d, causal,
 
 
 def test_fwd_route_by_type():
-    """bf16 at D = 128 with G dividing 128 takes the wgmma kernel; f32,
-    and bf16 at any other shape (D = 256, G = 3), the SIMT one; other
-    types raise."""
+    """bf16 at D = 128 with G dividing 128 takes the wgmma kernel; f32 at
+    D = 128 the FFMA one; f32 at D = 256, and bf16 at any other shape
+    (D = 256, G = 3), the SIMT one; other types raise."""
     assert T.fwd_route(torch.bfloat16, 128, 2) == "sm90"
     assert T.fwd_route(torch.bfloat16, 128, 1) == "sm90"
     assert T.fwd_route(torch.bfloat16, 128, 128) == "sm90"
-    assert T.fwd_route(torch.float32, 128, 2) == "simt"
+    assert T.fwd_route(torch.float32, 128, 2) == "f32"
     assert T.fwd_route(torch.float32, 256, 2) == "simt"
     assert T.fwd_route(torch.bfloat16, 256, 2) == "simt"
     assert T.fwd_route(torch.bfloat16, 128, 3) == "simt"
-    with pytest.raises(TypeError):
-        T.fwd_route(torch.float16, 128, 2)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            T.fwd_route(dtype, 128, 2)
 
 
 def test_bwd_route_by_type():

@@ -131,10 +131,7 @@ def main(argv=None) -> int:
     res["f32_ms"] = [t for r in turns for t in (r[1], r[n - 2])]
     if variant is not None:
         res["variant"]["ms"] = [t for r in turns for t in r[2:4]]
-    qpos = lk - s + torch.arange(s, device=dev)
-    mask = (valid.bool()[:, None, None, :]
-            & (torch.arange(lk, device=dev)[None, :]
-               <= qpos[:, None])[None, None])
+    mask = C.k2_mask(valid, s, lk)
     res["sdpa_bwd_ms"] = C.sdpa_bwd_ms(q, k, v, mask, do, iters=5,
                                        timer=C.graph_ms)
     res["ok"] = ok

@@ -31,6 +31,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The first walked tile at or after t (n if none); walk[i] != 0 marks a
 // walked tile.
 __device__ __forceinline__ int next_walked(const unsigned char* walk, int t,

@@ -26,8 +26,11 @@ them, not 0; for every row with a valid key, F changes nothing.
 the plain version on CPU tensors; there is no fallback. The kernel goes
 by type and shape (`fwd_route`): bf16 at D = 128 with G dividing 128
 launches `csrc/flash_gqa_sm90.cu:gqa_flash_fwd_sm90` (wgmma tiles fed by
-TMA); f32, and bf16 at other shapes (D = 256, 384, 512), the SIMT
-`csrc/flash_attn.cu:gqa_flash_fwd`. It is differentiable in q, k and v
+TMA); f32 at D = 128 `csrc/flash_gqa_f32.cu:gqa_flash_fwd_f32` (FFMA
+register tiles fed by cp.async, walking only the key tiles the skip rule
+`fwd_tile_walked` keeps); f32 and bf16 at other shapes (D = 256, 384,
+512) the SIMT `csrc/flash_attn.cu:gqa_flash_fwd`. It is differentiable
+in q, k and v
 (a `torch.autograd.Function`, the JAX package's custom VJP): the
 forward saves q, k, v, kv_valid, O and lse, and the backward
 (`gqa_flash_attention_bwd`) launches kernels K2-bwd-dq and K2-bwd-dkdv
@@ -52,6 +55,7 @@ takes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -144,23 +148,29 @@ def gqa_flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                               sm_scale: Optional[float] = None,
                               return_lse: bool = False):
     """The kernel's function in plain PyTorch (module docstring)."""
-    acc = _acc_dtype(q)
     _check(q, k, v, causal)
-    b, s, h, d = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _masked_logits(q, k, kv_valid, causal, sm_scale)
+    o, lse = fwd_plain_from_logits(logits, v, q.dtype)
+    return (o, lse) if return_lse else o
+
+
+def fwd_plain_from_logits(logits: torch.Tensor, v: torch.Tensor,
+                          dtype: torch.dtype):
+    """(O (B, S, H, D) in `dtype`, lse (B, KVH, S * G)) of the plain
+    forward from its logits (B, KVH, G, S, Lk): -1e30 where masked, -inf
+    where absent (`_masked_logits`)."""
+    acc = torch.float64 if logits.dtype == torch.float64 else torch.float32
+    b, kvh, g, s, _ = logits.shape
+    d = v.shape[-1]
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     l = p.sum(-1, keepdim=True)                       # (B, KVH, G, S, 1)
     # the kernel casts p to V's dtype before the p.V product
     o = torch.einsum("bkgsl,blkd->bkgsd", p.to(v.dtype).to(acc),
                      v.to(acc))
-    o = (o / l).permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
-    if not return_lse:
-        return o
+    o = (o / l).permute(0, 3, 1, 2, 4).reshape(b, s, kvh * g, d).to(dtype)
     lse = (m + torch.log(l))[..., 0].permute(0, 1, 3, 2).reshape(
         b, kvh, s * g)
     return o, lse
@@ -229,31 +239,40 @@ def bwd_plain_products(q, k, v, do, p, ds):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# the f32 kernels' tiles (csrc/flash_gqa_bwd_f32.cu): a dk/dv block owns
-# DKDV_F32_KEYS keys and walks the folded rows DKDV_F32_ROWS at a time; a
-# dq block owns DQ_F32_ROWS folded rows and walks the keys DQ_F32_KEYS at
-# a time
+# the f32 kernels' tiles (csrc/flash_gqa_bwd_f32.cu, csrc/flash_gqa_f32.cu):
+# a dk/dv block owns DKDV_F32_KEYS keys and walks the folded rows
+# DKDV_F32_ROWS at a time; a dq block owns DQ_F32_ROWS folded rows and
+# walks the keys DQ_F32_KEYS at a time, and so does a forward block, in
+# one of two tiles (rows: keys, `fwd_f32_tile`), the wide one
+# (FWD_F32_ROWS x FWD_F32_KEYS) by default
 DKDV_F32_ROWS = 32
 DKDV_F32_KEYS = 64
 DQ_F32_ROWS = 64
 DQ_F32_KEYS = 32
+FWD_F32_TILES = {64: 32, 32: 64}
+FWD_F32_ROWS = 64
+FWD_F32_KEYS = FWD_F32_TILES[FWD_F32_ROWS]
 # lse above it: p = exp(-1e30 - lse) is exactly +0 in f32
 _LSE_NONE = -1e29
 
 
-def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
+def fwd_tile_walked(frontier, qpos, none, key_valid, k0, causal: bool):
     """Whether the f32 kernels walk a (row tile, key tile) pair: the skip
-    rule of both (dk/dv walks a key block's row tiles, dq a row block's
-    key tiles), batched over any leading dims.
+    rule of the forward (`none`: the rows without a visible valid key)
+    and, through `dkdv_tile_walked`, of the backward, batched over any
+    leading dims.
 
-    frontier, qpos, lse (..., R): the tile's rows (F, key position, lse;
-    F = 0 for rows past S * G); key_valid (..., BK) bool: the block's
-    keys, the first of them at k0 (int or (...)). A row keeps the tile
-    when its F passes k0 and it sees a valid key of the block (causal:
-    one at or before qpos) or has lse <= -1e29 (no visible valid key
-    anywhere: p = 1 on its scanned keys). Any other row's pairs in the
-    block have p = 0 (past F) or exp(-1e30 - lse) = +0, so a tile
-    without a keeping row adds nothing to dk, dv or dq."""
+    frontier, qpos, none (..., R): the tile's rows (F, key position, and
+    whether the row has no visible valid key at all; F = 0 for rows past
+    S * G); key_valid (..., BK) bool: the block's keys, the first of them
+    at k0 (int or (...)). A row keeps the tile when its F passes k0 and
+    it sees a valid key of the block (causal: one at or before qpos) or
+    has no visible valid key (then every key below F has logit -1e30 and
+    weight 1: O is the mean of V over them). Any other row's pairs in
+    the block have logit -1e30 or lie past F: before the row's first
+    visible valid key, alpha = exp(-1e30 - m) = 0 erases them, after it
+    they add exp(-1e30 - m) = +0; so a tile without a keeping row changes
+    neither O nor lse."""
     k0 = torch.as_tensor(k0, device=frontier.device)
     if causal:
         keys = k0[..., None] + torch.arange(key_valid.shape[-1],
@@ -262,8 +281,59 @@ def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
         sees = first.amin(-1)[..., None] <= qpos
     else:
         sees = key_valid.any(-1)[..., None]
-    keep = (frontier > k0[..., None]) & (sees | (lse <= _LSE_NONE))
+    keep = (frontier > k0[..., None]) & (sees | none)
     return keep.any(-1)
+
+
+def dkdv_tile_walked(frontier, qpos, lse, key_valid, k0, causal: bool):
+    """Whether the f32 backward kernels walk a (row tile, key tile) pair
+    (dk/dv walks a key block's row tiles, dq a row block's key tiles):
+    `fwd_tile_walked` with lse <= -1e29 marking the rows without a
+    visible valid key (p = 1 on their scanned keys). Any other row's
+    pairs in a skipped tile have p = 0 (past F) or exp(-1e30 - lse) = +0,
+    so such a tile adds nothing to dk, dv or dq."""
+    return fwd_tile_walked(frontier, qpos, lse <= _LSE_NONE, key_valid, k0,
+                           causal)
+
+
+def no_visible_key(s: int, lk: int, causal: bool,
+                   kv_valid: torch.Tensor) -> torch.Tensor:
+    """(B, S) bool: the query positions that see no valid key of
+    kv_valid (B, Lk), whose rows return the mean of V over their scanned
+    keys (lse ~ -1e30): causal, the batch's first valid key lies past the
+    position; not causal, the batch has no valid key."""
+    valid = kv_valid.to(torch.bool)
+    dev = valid.device
+    first = torch.where(valid.any(-1), valid.to(torch.int32).argmax(-1), lk)
+    qpos = ((lk - s) + torch.arange(s, device=dev) if causal
+            else torch.full((s,), lk - 1, device=dev))
+    return first[:, None] > qpos[None, :]
+
+
+def _walk_map(s, lk, g, causal, kv_valid, none, rows, keys):
+    """(B, KVH, Lk / keys, ceil(S * G / rows)) bool: the pairs of a
+    `rows`-row tile and a `keys`-key tile that `fwd_tile_walked` keeps,
+    for none (B, KVH, S * G) bool (the rows without a visible valid
+    key)."""
+    b, kvh, nrows = none.shape
+    dev = none.device
+    nt = -(-nrows // rows)
+    r = torch.arange(nt * rows, device=dev)
+    qi = torch.clamp(r // g, max=s - 1)
+    live = r < nrows
+    f = torch.where(live, row_frontier(s, lk, g, causal, dev)[qi], 0)
+    qpos = (lk - s if causal else 0) + qi
+    pad = torch.zeros((b, kvh, nt * rows - nrows), dtype=torch.bool,
+                      device=dev)
+    none_t = torch.cat([none, pad], -1).reshape(b, kvh, 1, nt, rows)
+    if kv_valid is None:
+        kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
+    nkb = lk // keys
+    valid = kv_valid.to(device=dev, dtype=torch.bool).reshape(
+        b, 1, nkb, 1, keys)
+    k0 = (torch.arange(nkb, device=dev) * keys)[:, None]
+    return fwd_tile_walked(f.reshape(nt, rows), qpos.reshape(nt, rows),
+                           none_t, valid, k0, causal)
 
 
 def dkdv_walk_map(s: int, lk: int, g: int, causal: bool,
@@ -274,25 +344,8 @@ def dkdv_walk_map(s: int, lk: int, g: int, causal: bool,
     `rows`-row tile and a `keys`-key tile that the skip rule keeps
     (`dkdv_tile_walked`), for lse (B, KVH, S * G); by default in the f32
     dk/dv kernel's tiles, the row tiles each key block walks."""
-    b, kvh, nrows = lse.shape
-    dev = lse.device
-    nt = -(-nrows // rows)
-    r = torch.arange(nt * rows, device=dev)
-    qi = torch.clamp(r // g, max=s - 1)
-    live = r < nrows
-    f = torch.where(live, row_frontier(s, lk, g, causal, dev)[qi], 0)
-    qpos = (lk - s if causal else 0) + qi
-    pad = torch.zeros((b, kvh, nt * rows - nrows), dtype=lse.dtype,
-                      device=dev)
-    lse_t = torch.cat([lse, pad], -1).reshape(b, kvh, 1, nt, rows)
-    if kv_valid is None:
-        kv_valid = torch.ones((b, lk), dtype=torch.bool, device=dev)
-    nkb = lk // keys
-    valid = kv_valid.to(device=dev, dtype=torch.bool).reshape(
-        b, 1, nkb, 1, keys)
-    k0 = (torch.arange(nkb, device=dev) * keys)[:, None]
-    return dkdv_tile_walked(f.reshape(nt, rows), qpos.reshape(nt, rows),
-                            lse_t, valid, k0, causal)
+    return _walk_map(s, lk, g, causal, kv_valid, lse <= _LSE_NONE, rows,
+                     keys)
 
 
 def dq_walk_map(s: int, lk: int, g: int, causal: bool,
@@ -303,6 +356,23 @@ def dq_walk_map(s: int, lk: int, g: int, causal: bool,
     (`dkdv_tile_walked`) in its tiles."""
     return dkdv_walk_map(s, lk, g, causal, kv_valid, lse, rows=DQ_F32_ROWS,
                          keys=DQ_F32_KEYS).transpose(-1, -2).contiguous()
+
+
+def fwd_walk_map(s: int, lk: int, g: int, kvh: int, causal: bool,
+                 kv_valid: torch.Tensor, *, rows: int = FWD_F32_ROWS,
+                 keys: Optional[int] = None) -> torch.Tensor:
+    """(B, KVH, ceil(S * G / rows), Lk / keys) bool: the key tiles each
+    row block of the f32 forward walks for kv_valid (B, Lk)
+    (`fwd_tile_walked`, the rows without a visible valid key from
+    `no_visible_key`) in tiles of `rows` folded rows (keys:
+    FWD_F32_TILES[rows] by default). With the forward's lse it is the
+    backward's map in the same tiles."""
+    keys = keys or FWD_F32_TILES[rows]
+    b = kv_valid.shape[0]
+    none = no_visible_key(s, lk, causal, kv_valid)              # (B, S)
+    none = none.repeat_interleave(g, -1)[:, None].expand(b, kvh, s * g)
+    return _walk_map(s, lk, g, causal, kv_valid, none, rows,
+                     keys).transpose(-1, -2).contiguous()
 
 
 _FWD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
@@ -421,11 +491,14 @@ def _route(name, dtype, d, rows, g):
 
 
 def fwd_route(dtype: torch.dtype, d: int, g: int) -> str:
-    """The K2 forward kernel a CUDA input takes: "sm90"
-    (csrc/flash_gqa_sm90.cu, wgmma + TMA) for bf16 at D = 128 with G
-    dividing 128 (its 128-row Q box); "simt" (csrc/flash_attn.cu) for
-    f32 and for any other bf16 shape (D = 256). Raises for other
-    types."""
+    """The K2 forward kernel a CUDA input takes: "f32"
+    (csrc/flash_gqa_f32.cu, FFMA register tiles fed by cp.async) for f32
+    at D = 128; "sm90" (csrc/flash_gqa_sm90.cu, wgmma + TMA) for bf16 at
+    D = 128 with G dividing 128 (its 128-row Q box); "simt"
+    (csrc/flash_attn.cu) for f32 at D = 256, 384 or 512 and for any other
+    bf16 shape. Raises TypeError for other types."""
+    if dtype == torch.float32 and d == 128:
+        return "f32"
     return _route("gqa_flash_attention", dtype, d, 128, g)
 
 
@@ -501,12 +574,90 @@ def gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale):
 gqa_flash_fwd_sm90.launches = 0
 
 
+def type_fwd_f32(lib):
+    """Set the C signatures of csrc/flash_gqa_f32.cu's entries on a loaded
+    library (also a variant build's); returns it."""
+    lib.gqa_flash_fwd_f32.argtypes = _FWD_ARGS + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.gqa_flash_fwd_f32.restype = ctypes.c_int
+    lib.gqa_flash_fwd_f32_keys.argtypes = [ctypes.c_int]
+    lib.gqa_flash_fwd_f32_keys.restype = ctypes.c_int
+    lib._typed = True
+    return lib
+
+
+def fwd_f32_tile(b: int, s: int, g: int, kvh: int, sms: int):
+    """(rows, keys): the f32 forward's tile for B x KVH x S * G folded
+    rows on a card of `sms` SMs (one block an SM): the wide tile, 64
+    rows x 32 keys, when its grid fills the card, else the narrow one,
+    32 x 64 (twice the blocks). At the Ref prefix (96 wide blocks on 132
+    SMs) the narrow tile took 0.032 ms against the wide one's 0.050, and
+    24-25% longer than it on the full grids of the suffix and K2_TRAIN
+    (PERF.md §6, tools/time_k2.py --variant)."""
+    rows = 64 if b * kvh * -(-s * g // 64) >= sms else 32
+    return rows, FWD_F32_TILES[rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd_f32_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_gqa_f32")
+    return lib if getattr(lib, "_typed", False) else type_fwd_f32(lib)
+
+
+def gqa_flash_fwd_f32(q, k, v, kv_valid, causal, sm_scale, walked=None,
+                      rows=None):
+    """One launch of K2's f32 kernel (FFMA register tiles fed by cp.async,
+    D = 128): (O, lse), on inputs that `_check_cuda` passed. `rows`: the
+    tile's folded rows (64 or 32); by default `fwd_f32_tile`'s for the
+    card. `walked`: None, or a contiguous int32 CUDA tensor
+    (B, KVH, ceil(S * G / rows)) that gets each row block's count of
+    walked key tiles (`fwd_walk_map` counts the same). Raises for
+    another type or head dim, and for a q, k or v that is not 16-byte
+    aligned (cp.async copies 16 bytes)."""
+    name = "gqa_flash_attention"
+    b, s, h, _ = q.shape
+    kvh = k.shape[2]
+    if rows is None:
+        rows, _ = fwd_f32_tile(b, s, h // kvh, kvh,
+                               _sm_count(q.device.index or 0))
+    if q.dtype != torch.float32:
+        raise TypeError(f"{name}: the f32 kernel takes float32, got "
+                        f"{q.dtype}")
+    if q.shape[3] != 128:
+        raise ValueError(f"{name}: the f32 kernel takes head dim 128, got "
+                         f"{q.shape[3]}")
+    _check_aligned(name, ("q", q), ("k", k), ("v", v))
+    if walked is not None:
+        want = (b, kvh, -(-s * (h // kvh) // rows))
+        if walked.dtype != torch.int32 or tuple(walked.shape) != want \
+                or walked.device != q.device or not walked.is_contiguous():
+            raise ValueError(f"{name}: walked must be contiguous int32 "
+                             f"{want} on q's device")
+    out = _launch_fwd(name, _fwd_f32_lib().gqa_flash_fwd_f32, q, k, v,
+                      kv_valid, causal, sm_scale, rows,
+                      None if walked is None else walked.data_ptr())
+    gqa_flash_fwd_f32.launches += 1
+    return out
+
+
+gqa_flash_fwd_f32.launches = 0
+
+
 def _fwd_kernel(q, k, v, kv_valid, causal, sm_scale):
-    """One launch of K2, by type (`fwd_route`): (O, lse)."""
+    """One launch of K2, by type and shape (`fwd_route`): (O, lse)."""
     name = "gqa_flash_attention"
     _check_cuda(name, q, k, v)
-    if fwd_route(q.dtype, q.shape[3], q.shape[2] // k.shape[2]) == "sm90":
+    route = fwd_route(q.dtype, q.shape[3], q.shape[2] // k.shape[2])
+    if route == "sm90":
         out = gqa_flash_fwd_sm90(q, k, v, kv_valid, causal, sm_scale)
+    elif route == "f32":
+        out = gqa_flash_fwd_f32(q, k, v, kv_valid, causal, sm_scale)
     else:
         out = _launch_fwd(name, _lib().gqa_flash_fwd, q, k, v, kv_valid,
                           causal, sm_scale, int(q.dtype == torch.bfloat16))
@@ -743,7 +894,8 @@ def gqa_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors: one launch of a CUDA kernel (`fwd_route`), counted in
     `gqa_flash_attention.launches` (the wgmma kernel's also in
-    `gqa_flash_fwd_sm90.launches`). CPU tensors: the plain version.
+    `gqa_flash_fwd_sm90.launches`, the f32 FFMA kernel's in
+    `gqa_flash_fwd_f32.launches`). CPU tensors: the plain version.
     Differentiable in q, k and v (module docstring).
     """
     _check(q, k, v, causal)
