@@ -11,12 +11,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             sources at once, into build/kernels/; ptxas's report. The
             four wgmma libraries (K2's and K3's bf16 forward and
             backward) must show HGMMA (wgmma) and UTMALDG (TMA load)
-            instructions in `cuobjdump -sass`; the two FFMA libraries
-            (K2-bwd dk/dv and dq in f32 at D = 128, K3-bwd dk/dv in f32
-            at D = 64) their count of FFMA, LDS.128 and all LDS, whole and
-            in each innermost loop, where every shared-memory load must
-            feed at least 8 FFMA, and their registers; none of the six
-            may spill.
+            instructions in `cuobjdump -sass`; the three FFMA libraries
+            (K2-bwd dk/dv and dq and K2's forward in f32 at D = 128,
+            K3-bwd dk/dv and dq in f32 at D = 64) their count of FFMA,
+            LDS.128 and all LDS, whole and in each innermost loop, where
+            every shared-memory load must feed at least 8 FFMA, and
+            their registers; none of the seven may spill.
 3. k1       the row top-k kernel (selection by key) against its plain
             PyTorch version (t rounds of iterative max) and against its
             own rule (row_topk_by_key), vals and cls bitwise, at the
@@ -126,24 +126,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             segment 0, square causal, D = 128, three segments with
             boundaries off the 64-grid, a tail (L = 200) and D = 72:
             bf16 at D = 64 runs the wgmma + TMA kernels
-            (csrc/flash_attn_bwd_sm90.cu); f32 dk/dv at D = 64 the FFMA
-            kernel (csrc/flash_attn_bwd_f32.cu, `dkv_route`); f32 dq and
-            the other head dims the SIMT ones; launches counted per case
-            and route; loss.backward() through flash_attention in bf16
-            at the training shape, its launches counted; device and
-            eager times beside SDPA's backward; at f32 also the SIMT
-            dk/dv kernel the FFMA one replaced (through its library,
-            held to the plain version), the two timed in turns (SIMT,
-            f32, f32, SIMT), and the 64 x 128 tiles the FFMA kernel's
-            skip rule walks against those it scans.
+            (csrc/flash_attn_bwd_sm90.cu); f32 dq and dk/dv at D = 64
+            the FFMA kernels (csrc/flash_attn_bwd_f32.cu, `dq_route`,
+            `dkv_route`); the other head dims the SIMT ones; launches
+            counted per case and route; loss.backward() through
+            flash_attention in bf16 at the training shape, its launches
+            counted; device and eager times beside SDPA's backward; at
+            f32 also the SIMT dq and dk/dv kernels the FFMA ones
+            replaced (through their library, held to the plain version,
+            the dq one also against the dropped-tile control), each pair
+            timed in turns (SIMT, f32, f32, SIMT), the f32 pair's time
+            against SDPA's backward, and the tiles each FFMA kernel
+            walked (dq: 128-row x 64-key, dk/dv: 64 x 128), read back
+            from it and held to its skip rule's map, against those the
+            frontier alone scans.
 14. train_parity  a miniature Ref (head_dim 128) takes one stage-3
             ref_sft_step on the card and one on the CPU from the same
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
             K2-bwd-dkdv = layers (all dq and dk/dv on the FFMA kernels) and
-            K3 = K3-bwd-dq = K3-bwd-dkv = depth (all dk/dv on the FFMA
-            kernel).
+            K3 = K3-bwd-dq = K3-bwd-dkv = depth (all dq and dk/dv on the
+            FFMA kernels).
 15. train_grad  one stage-3 loss and gradient at ref_2b's full width
             (random weights) at the --grid-tokens 256 bucket (ViT and
             decoder L = 1024), through the kernels and through the plain
@@ -159,9 +163,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the Uni proposals -> soft labels -> 3 SFT steps. Finite
             losses, the vision tower bitwise unchanged, out_proj and the
             decoder changed, launches per step as in train_parity (28
-            each of K2-bwd's FFMA dq and dk/dv kernels and 24 of K3-bwd's
-            FFMA dk/dv a step, none of the SIMT K2-bwd kernels or the
-            SIMT K3-bwd dk/dv); ms per step (steps 2-3) and peak card
+            each of K2-bwd's FFMA dq and dk/dv kernels and 24 each of
+            K3-bwd's a step, none of the SIMT K2-bwd or K3-bwd
+            kernels); ms per step (steps 2-3) and peak card
             memory.
 
 Then the kernels line, the nvidia-smi line, and as the last line
@@ -279,7 +283,8 @@ def phase_device():
 SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
              "flash_attn_bwd_sm90")
 # the FFMA libraries: K2-bwd-dkdv and K2-bwd-dq in f32 at D = 128,
-# K3-bwd-dkv in f32 at D = 64, K2's forward in f32 at D = 128
+# K3-bwd-dkv and K3-bwd-dq in f32 at D = 64, K2's forward in f32 at
+# D = 128
 F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32", "flash_gqa_f32")
 
 
@@ -1290,15 +1295,17 @@ def _flash_counters():
             "k3_bwd_dkv": fa.flash_attention_bwd_dkv,
             "k3_bwd_dq_sm90": fa.flash_attention_bwd_dq_sm90,
             "k3_bwd_dkv_sm90": fa.flash_attention_bwd_dkv_sm90,
-            "k3_bwd_dkv_f32": fa.flash_attention_bwd_dkv_f32}
+            "k3_bwd_dkv_f32": fa.flash_attention_bwd_dkv_f32,
+            "k3_bwd_dq_f32": fa.flash_attention_bwd_dq_f32}
 
 
 def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
     `reset`): "k2" counts every K2 forward route, "k2_sm90" the bf16
-    wgmma one's alone, "k2_f32" the f32 FFMA one's; likewise "k3" and "k3_sm90", "k2_bwd_*" and
-    "k2_bwd_*_sm90", "k3_bwd_*" and "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32",
-    "k2_bwd_dq_f32" and "k3_bwd_dkv_f32" the FFMA kernels' alone."""
+    wgmma one's alone, "k2_f32" the f32 FFMA one's; likewise "k3" and
+    "k3_sm90", "k2_bwd_*" and "k2_bwd_*_sm90", "k3_bwd_*" and
+    "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32", "k2_bwd_dq_f32", "k3_bwd_dkv_f32"
+    and "k3_bwd_dq_f32" the FFMA kernels' alone."""
     counters = _flash_counters()
     if reset:
         for fn in counters.values():
@@ -1309,7 +1316,7 @@ def launch_counts(reset: bool = False):
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
                     k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0,
                     k2_bwd_dkdv_f32=0, k2_bwd_dq_f32=0, k3_bwd_dkv_f32=0,
-                    k2_f32=0):
+                    k3_bwd_dq_f32=0, k2_f32=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_f32": k2_f32,
             "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
@@ -1319,7 +1326,8 @@ def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
             "k3_bwd_dq": k3_bwd,
             "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
             "k3_bwd_dkv_sm90": k3_bwd_sm90,
-            "k3_bwd_dkv_f32": k3_bwd_dkv_f32}
+            "k3_bwd_dkv_f32": k3_bwd_dkv_f32,
+            "k3_bwd_dq_f32": k3_bwd_dq_f32}
 
 
 def ref_inputs(dev):
@@ -1835,10 +1843,11 @@ K3_BWD_MORE = [(1, 1280, 16, 64, 1280, True), (2, 256, 4, 128, 200, False),
                K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False), K3_D72]
 
 
-# K3-bwd's kernels by (product, route): dq goes by fa.bwd_route, dk/dv by
+# K3-bwd's kernels by (product, route): dq goes by fa.dq_route, dk/dv by
 # fa.dkv_route
 K3_BWD_KERNELS = {("dq", "simt"): "flash_attention_bwd_dq",
                   ("dq", "sm90"): "flash_attention_bwd_dq_sm90",
+                  ("dq", "f32"): "flash_attention_bwd_dq_f32",
                   ("dkv", "simt"): "flash_attention_bwd_dkv",
                   ("dkv", "sm90"): "flash_attention_bwd_dkv_sm90",
                   ("dkv", "f32"): "flash_attention_bwd_dkv_f32"}
@@ -1847,8 +1856,9 @@ K3_BWD_KERNELS = {("dq", "simt"): "flash_attention_bwd_dq",
 def k3_bwd_launches(counts):
     """K3-bwd's launches by kernel, as k2_bwd_launches."""
     return {"flash_attention_bwd_dq": counts["k3_bwd_dq"]
-            - counts["k3_bwd_dq_sm90"],
+            - counts["k3_bwd_dq_sm90"] - counts["k3_bwd_dq_f32"],
             "flash_attention_bwd_dq_sm90": counts["k3_bwd_dq_sm90"],
+            "flash_attention_bwd_dq_f32": counts["k3_bwd_dq_f32"],
             "flash_attention_bwd_dkv": counts["k3_bwd_dkv"]
             - counts["k3_bwd_dkv_sm90"] - counts["k3_bwd_dkv_f32"],
             "flash_attention_bwd_dkv_sm90": counts["k3_bwd_dkv_sm90"],
@@ -1858,7 +1868,21 @@ def k3_bwd_launches(counts):
 def k3_bwd_routes(dtype, d):
     from wedetect_tpu_torch.ops import flash_attention as fa
 
-    return {"dq": fa.bwd_route(dtype, d), "dkv": fa.dkv_route(dtype, d)}
+    return {"dq": fa.dq_route(dtype, d), "dkv": fa.dkv_route(dtype, d)}
+
+
+def simt_k3_dq(q, k, v, do, lse, delta, **kw):
+    """The SIMT dq kernel (csrc/flash_attn_bwd.cu) called through its
+    library: the kernel f32 at D = 64 ran before
+    flash_attention_bwd_dq_f32 of csrc/flash_attn_bwd_f32.cu (no launch
+    counted)."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    dq = torch.empty_like(q)
+    fa._launch_bwd("flash_attention_bwd_dq",
+                   fa._bwd_lib().flash_attention_bwd_dq, q, k, v, do, lse,
+                   delta, (dq,), q.shape, kw, int(q.dtype == torch.bfloat16))
+    return dq
 
 
 def simt_dkv(q, k, v, do, lse, delta, **kw):
@@ -1895,8 +1919,8 @@ def phase_k3_bwd(dev, timing: bool = True):
             control = fa.flash_attention_bwd_plain(*args, **ckw)
             r = check_bwd("k3_bwd", got, again, plain, control, dtype)
             # each product's kernel on its route launched twice (bf16 at
-            # D = 64: the wgmma pair; f32 at D = 64: SIMT dq and the FFMA
-            # dk/dv), the others never
+            # D = 64: the wgmma pair; f32 at D = 64: the FFMA pair), the
+            # others never
             launched = k3_bwd_launches(count_delta(before, after))
             want = dict.fromkeys(launched, 0)
             for kind in ("dq", "dkv"):
@@ -1950,21 +1974,38 @@ def phase_k3_bwd(dev, timing: bool = True):
             routes = k3_bwd_routes(dtype, d)
             kernels = [("dq", fa.flash_attention_bwd_dq, routes["dq"]),
                        ("dkv", fa.flash_attention_bwd_dkv, routes["dkv"])]
+            # the SIMT kernels the FFMA ones replaced, held to the plain
+            # version (dq also against the dropped-tile control)
+            plain = None
+            if "f32" in routes.values():
+                plain = fa.flash_attention_bwd_plain(*args, **kw)
+            if routes["dq"] == "f32":
+                got = simt_k3_dq(q, k, v, do, lse, delta, **kw)
+                cdq, _, _ = fa.flash_attention_bwd_plain(*args, **dict(
+                    kw, kv_segment_ids=_dropped_segs(q, seg,
+                                                     BWD_CONTROL_DROP)))
+                e, ctrl = rel_err(got, plain[0]), rel_err(cdq, plain[0])
+                assert e <= TRAIN_BWD_TOL[dtype] < ctrl, ("simt dq", e, ctrl)
+                keep_worst(errors, "flash_attention_bwd_dq", dtype, e,
+                           float((got - plain[0]).abs().max()))
+                res["dq_simt_control_rel_err"] = ctrl
+                del got, cdq
+                kernels.append(("dq_simt", simt_k3_dq, "simt"))
             if routes["dkv"] == "f32":
-                # the SIMT kernel it replaced, held to the plain version
-                _, pdk, pdv = fa.flash_attention_bwd_plain(*args, **kw)
                 got = simt_dkv(q, k, v, do, lse, delta, **kw)
-                for w, g_ in zip((pdk, pdv), got):
+                for w, g_ in zip(plain[1:], got):
                     e = rel_err(g_, w)
                     assert e <= TRAIN_BWD_TOL[dtype], ("simt dkv", e)
                     keep_worst(errors, "flash_attention_bwd_dkv", dtype, e,
                                float((g_ - w).abs().max()))
-                del pdk, pdv, got
+                del got
                 kernels.append(("dkv_simt", simt_dkv, "simt"))
+            del plain
             for kind, fn, route in kernels:
+                product = kind.split("_")[0]
                 r = attn_bwd_bound(h, d, pairs, q.numel(), k.numel(),
                                    b * l * h, dtype,
-                                   "dq" if kind == "dq" else "dkdv")
+                                   "dq" if product == "dq" else "dkdv")
                 call = lambda: fn(q, k, v, do, lse, delta, **kw)  # noqa
                 r["route"] = route
                 r["ms"] = graph_ms(call)
@@ -1974,25 +2015,42 @@ def phase_k3_bwd(dev, timing: bool = True):
                 r["library_call_ms"] = lib_call_ms
                 r["visible_pairs"] = pairs
                 if route == "f32":
-                    # 64-row x 128-key tiles as the skip rule counts them
-                    # (ops.flash_attention.dkv_walk_map; not read back
-                    # from the kernel): walked, and scanned with no skip
-                    # (every row as if it saw no key)
-                    r["rule_tiles_walked"] = int(fa.dkv_walk_map(
-                        l, causal, seg, seg, lse).sum())
-                    r["rule_tiles_scanned"] = int(fa.dkv_walk_map(
+                    # the kernel's tiles (dq 128 rows x 64 keys, dk/dv 64 x
+                    # 128) as the skip rule counts them: walked, and
+                    # scanned with no skip (every row as if it saw no
+                    # key); and the walk read back from the kernel
+                    walk_map = (fa.dq_walk_map if product == "dq"
+                                else fa.dkv_walk_map)
+                    rule = walk_map(l, causal, seg, seg, lse)
+                    r["rule_tiles_walked"] = int(rule.sum())
+                    r["rule_tiles_scanned"] = int(walk_map(
                         l, causal, seg, seg,
                         torch.full_like(lse, float("-inf"))).sum())
+                    walked = torch.zeros(rule.shape[:3], dtype=torch.int32,
+                                         device=dev)
+                    f32 = getattr(fa, f"flash_attention_bwd_{product}_f32")
+                    f32(q, k, v, do, lse, delta, walked=walked, **kw)
+                    r["tiles_walked"] = int(walked.sum())
+                    assert torch.equal(walked, rule.sum(-1).int()), (
+                        f"{product} walk != rule", r["tiles_walked"],
+                        r["rule_tiles_walked"])
                 res[f"{kind}_{str(dtype)[6:]}"] = r
-            if routes["dkv"] == "f32":
-                # before and after in turns: SIMT, f32, f32, SIMT
-                new = lambda: fa.flash_attention_bwd_dkv(  # noqa: E731
-                    q, k, v, do, lse, delta, **kw)
-                old = lambda: simt_dkv(  # noqa: E731
-                    q, k, v, do, lse, delta, **kw)
-                turns = [graph_ms(fn) for fn in (old, new, new, old)]
-                res["dkv_turns_float32"] = {"simt_ms": turns[::3],
-                                            "f32_ms": turns[1:3]}
+            # before and after in turns: SIMT, f32, f32, SIMT
+            for product, simt in (("dq", simt_k3_dq), ("dkv", simt_dkv)):
+                if routes[product] != "f32":
+                    continue
+                new = getattr(fa, f"flash_attention_bwd_{product}")
+                turns = [graph_ms(lambda fn=fn: fn(  # noqa: E731
+                    q, k, v, do, lse, delta, **kw))
+                    for fn in (simt, new, new, simt)]
+                res[f"{product}_turns_{str(dtype)[6:]}"] = {
+                    "simt_ms": turns[::3], "f32_ms": turns[1:3]}
+            # the pair (dq and dk/dv on their routes) against SDPA's
+            # whole backward
+            pair = (res[f"dq_{str(dtype)[6:]}"]["ms"]
+                    + res[f"dkv_{str(dtype)[6:]}"]["ms"])
+            res[f"pair_{str(dtype)[6:]}"] = {"ms": pair, "library_ms": lib_ms,
+                                             "over_library": pair / lib_ms}
     emit({"phase": "k3_bwd", **res})
     return res
 
@@ -2114,7 +2172,8 @@ def phase_train_parity(dev):
                                         k3_bwd=cfg.vision.depth,
                                         k2_bwd_dkdv_f32=cfg.text.layers,
                                         k2_bwd_dq_f32=cfg.text.layers,
-                                        k3_bwd_dkv_f32=cfg.vision.depth))
+                                        k3_bwd_dkv_f32=cfg.vision.depth,
+                                        k3_bwd_dq_f32=cfg.vision.depth))
     emit({"phase": "train_parity", **res, "out_of_limits": bad})
     if not ok:
         raise AssertionError("train_parity: card step != CPU step")
@@ -2222,7 +2281,8 @@ def phase_train_grad(dev, image, proposals, cfg=None,
                                         k3_bwd=cfg.vision.depth,
                                         k2_bwd_dkdv_f32=cfg.text.layers,
                                         k2_bwd_dq_f32=cfg.text.layers,
-                                        k3_bwd_dkv_f32=cfg.vision.depth))
+                                        k3_bwd_dkv_f32=cfg.vision.depth,
+                                        k3_bwd_dq_f32=cfg.vision.depth))
     emit({"phase": "train_grad", **res})
     if not ok:
         raise AssertionError("train_grad: kernel gradients out of limits")
@@ -2282,7 +2342,8 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
                                k3_bwd=cfg.vision.depth,
                                k2_bwd_dkdv_f32=cfg.text.layers,
                                k2_bwd_dq_f32=cfg.text.layers,
-                               k3_bwd_dkv_f32=cfg.vision.depth)
+                               k3_bwd_dkv_f32=cfg.vision.depth,
+                               k3_bwd_dq_f32=cfg.vision.depth)
     ok = (len(losses) == steps and all(np.isfinite(losses)) and vision_same
           and all(changed.values())
           and counts == {k: v * steps for k, v in per_step.items()})
@@ -2469,12 +2530,21 @@ def main() -> int:
         bwd_entry("gqa_flash_bwd_dkdv_sm90", SM90_BWD_SOURCE,
                   f"{K2_BWD}:212", k2_bf16["gqa_flash_bwd_dkdv_sm90"],
                   k2_bwd, k2_bwd["dkdv_bfloat16"], dtype="bfloat16"),
+        # K3-bwd in f32 at D = 64 is the FFMA pair, and the SIMT dq and
+        # dk/dv kernels (timed at the training shape through their
+        # library) are not launched there
+        {**bwd_entry("flash_attention_bwd_dq_f32", K3_F32_BWD_SOURCE,
+                     f"{STOCK_FA}:1146",
+                     k3_train["flash_attention_bwd_dq_f32"], k3_bwd,
+                     k3_bwd["dq_float32"]),
+         "turns_ms": k3_bwd["dq_turns_float32"],
+         "train_tiles_walked": k3_bwd["dq_float32"]["tiles_walked"],
+         "train_tiles_scanned": k3_bwd["dq_float32"]["rule_tiles_scanned"],
+         "pair_ms": k3_bwd["pair_float32"]["ms"],
+         "pair_over_library": k3_bwd["pair_float32"]["over_library"]},
         bwd_entry("flash_attention_bwd_dq", SIMT_BWD_SOURCE,
                   f"{STOCK_FA}:1146", k3_train["flash_attention_bwd_dq"],
-                  k3_bwd, k3_bwd["dq_float32"]),
-        # K3-bwd-dkv in f32 at D = 64 is the FFMA kernel, and the SIMT
-        # dk/dv kernel (timed at the training shape through its library)
-        # is not launched there
+                  k3_bwd, k3_bwd["dq_simt_float32"]),
         bwd_entry("flash_attention_bwd_dkv_f32", K3_F32_BWD_SOURCE,
                   f"{STOCK_FA}:796", k3_train["flash_attention_bwd_dkv_f32"],
                   k3_bwd, k3_bwd["dkv_float32"]),

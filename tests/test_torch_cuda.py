@@ -386,7 +386,8 @@ def test_flash_attention_head_dims_match_plain(cuda, monkeypatch, dtype, d,
     from wedetect_tpu_torch.ops import flash_attention as fa
 
     others = (fa.flash_attention_fwd_sm90, fa.flash_attention_bwd_dq_sm90,
-              fa.flash_attention_bwd_dkv_sm90, fa.flash_attention_bwd_dkv_f32)
+              fa.flash_attention_bwd_dkv_sm90, fa.flash_attention_bwd_dkv_f32,
+              fa.flash_attention_bwd_dq_f32)
     for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv, *others):
         monkeypatch.setattr(fn, "launches", 0)
@@ -1483,7 +1484,7 @@ def test_flash_attention_bwd_dkv_f32_rejects_bad_input(cuda, monkeypatch):
 
 def test_flash_attention_bwd_dkv_f32_through_autograd(cuda, monkeypatch):
     """loss.backward() through flash_attention in f32 at D = 64 reaches
-    the f32 dk/dv kernel once (and dq's SIMT kernel once)."""
+    the f32 dk/dv kernel once (and the dq route once)."""
     from wedetect_tpu_torch.ops import flash_attention as fa
 
     for fn in _f32_dkv_counters(fa):
@@ -1495,6 +1496,183 @@ def test_flash_attention_bwd_dkv_f32_through_autograd(cuda, monkeypatch):
     assert fa.flash_attention_bwd_dkv.launches == 1
     assert fa.flash_attention_bwd_dq.launches == 1
     assert fa.flash_attention_bwd_dkv_sm90.launches == 0
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
+
+
+# the f32 dq kernel's cases: F32_DKV_CASES and the ViT at a 480x640
+# image; and rows whose segment no key has (lse ~ -1e30), with and
+# without causal: (B, L, H, causal, row runs, key runs)
+F32_DQ_CASES = F32_DKV_CASES + [(1, 1280, 16, False, [((1200, 1),)])]
+UNSEEN_SEGMENT_CASES = [
+    (1, 256, 2, False, [((100, 1), (164, 9), (256, 1))], [((256, 1),)]),
+    (1, 256, 2, True, [((100, 1), (164, 9), (256, 1))], [((256, 1),)]),
+]
+
+
+def _f32_unseen_case(case, dev, seed):
+    b, l, h, causal, q_runs, kv_runs = case
+    q, k, v, do, kw = _f32_dkv_case((b, l, h, causal, q_runs), dev, seed)
+    kw["kv_segment_ids"] = _k3_seg(b, l, kv_runs, dev)
+    return q, k, v, do, kw
+
+
+def _f32_dq_counters(fa):
+    return (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+            fa.flash_attention_bwd_dq_f32, fa.flash_attention_bwd_dkv_f32,
+            fa.flash_attention_bwd_dq_sm90, fa.flash_attention_bwd_dkv_sm90)
+
+
+@pytest.mark.parametrize("case", F32_DQ_CASES)
+def test_flash_attention_bwd_dq_f32_kernel_matches_plain(cuda, monkeypatch,
+                                                         case):
+    """f32 K3-bwd-dq at D = 64 goes to the FFMA kernel (one launch a
+    call, its own count), agrees with the plain dq (TOL's f32 atol and
+    BWD_TOL) and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _f32_dq_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _f32_dkv_case(case, cuda, seed=case[1] + 6)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = fa.row_delta(o, do)
+    got = [fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    dq, _, _ = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert fa.flash_attention_bwd_dq_f32.launches == 2
+    assert fa.flash_attention_bwd_dq.launches == 2
+    assert fa.flash_attention_bwd_dq_sm90.launches == 0
+    assert got[0].dtype == torch.float32 and got[0].shape == q.shape
+    assert torch.equal(got[0], got[1])                     # deterministic
+    assert _rel_err(got[0], dq) <= BWD_TOL[torch.float32]
+    assert _close(got[0], dq, torch.float32)
+
+
+@pytest.mark.parametrize("case", UNSEEN_SEGMENT_CASES,
+                         ids=["unseen_segment", "unseen_segment_causal"])
+def test_flash_attention_bwd_dq_f32_unseen_segment(cuda, case):
+    """Rows whose segment no key has (lse ~ -1e30: p = 1 on every key
+    below the frontier) keep their key tiles, as on the plain version."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, kw = _f32_unseen_case(case, cuda, seed=11)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert float(lse.min()) <= -1e29
+    dq = fa.flash_attention_bwd_dq_f32(q, k, v, do, lse,
+                                       fa.row_delta(o, do), **kw)
+    pdq, _, _ = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    assert _rel_err(dq, pdq) <= BWD_TOL[torch.float32]
+    assert _close(dq, pdq, torch.float32)
+
+
+@pytest.mark.parametrize("case", F32_DQ_CASES + UNSEEN_SEGMENT_CASES)
+def test_flash_attention_bwd_dq_f32_walk_matches_rule(cuda, case):
+    """The key tiles each row block of the f32 dq kernel walked, read
+    back from the kernel, are the skip rule's (dq_walk_map); the dq of
+    that launch is the route's, bit for bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    make = _f32_unseen_case if len(case) == 6 else _f32_dkv_case
+    q, k, v, do, kw = make(case, cuda, seed=case[1] + 7)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = fa.row_delta(o, do)
+    rule = fa.dq_walk_map(q.shape[1], kw["causal"], kw["q_segment_ids"],
+                          kw["kv_segment_ids"], lse)
+    walked = torch.full(rule.shape[:3], -1, dtype=torch.int32, device=cuda)
+    dq = fa.flash_attention_bwd_dq_f32(q, k, v, do, lse, delta,
+                                       walked=walked, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(walked, rule.sum(-1).int())
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                     delta, **kw))
+
+
+@pytest.mark.parametrize("case", F32_DKV_CASES + UNSEEN_SEGMENT_CASES)
+def test_flash_attention_bwd_dkv_f32_walk_matches_rule(cuda, case):
+    """The row tiles each key block of the f32 dk/dv kernel walked, read
+    back from the kernel, are the skip rule's (dkv_walk_map); dk and dv
+    of that launch are the route's, bit for bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    make = _f32_unseen_case if len(case) == 6 else _f32_dkv_case
+    q, k, v, do, kw = make(case, cuda, seed=case[1] + 8)
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    delta = fa.row_delta(o, do)
+    rule = fa.dkv_walk_map(q.shape[1], kw["causal"], kw["q_segment_ids"],
+                           kw["kv_segment_ids"], lse)
+    walked = torch.full(rule.shape[:3], -1, dtype=torch.int32, device=cuda)
+    got = fa.flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta,
+                                         walked=walked, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(walked, rule.sum(-1).int())
+    for a, w in zip(got, fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    **kw)):
+        assert torch.equal(a, w)
+
+
+def test_flash_attention_bwd_dq_f32_rejects_bad_input(cuda, monkeypatch):
+    """The f32 dq kernel takes f32 at D = 64 only, contiguous and 16-byte
+    aligned, with a `walked` of its shape; anything else raises before
+    any launch, and nothing falls back. f32 at another head dim goes to
+    the SIMT kernel by route."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _f32_dq_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _f32_dkv_case((1, 128, 2, False, [((100, 1),)]), cuda,
+                                    seed=1)
+    rows = torch.zeros((1, 2, 128), device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention_bwd_dq_f32(*(t.bfloat16() for t in (q, k, v, do)),
+                                      rows, rows, **kw)
+    x = torch.zeros((1, 128, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        fa.flash_attention_bwd_dq_f32(x, x, x, x, rows, rows, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd_dq_f32(q, k, v.transpose(1, 2).contiguous()
+                                      .transpose(1, 2), do, rows, rows, **kw)
+    for i in range(4):
+        args = [q, k, v, do]
+        args[i] = _shifted(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_bwd_dq_f32(*args, rows, rows, **kw)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_bwd_dq(*args, rows, rows, **kw)
+    for bad in (torch.zeros((1, 2, 2), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 2, 1), dtype=torch.int64, device=cuda),
+                torch.zeros((1, 2, 1), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="walked"):
+            fa.flash_attention_bwd_dq_f32(q, k, v, do, rows, rows,
+                                          walked=bad, **kw)
+        with pytest.raises(ValueError, match="walked"):
+            fa.flash_attention_bwd_dkv_f32(q, k, v, do, rows, rows,
+                                           walked=bad, **kw)
+    for fn in _f32_dq_counters(fa):
+        assert fn.launches == 0
+    x = _attn_inputs((1, 128, 2, 128), (1, 128, 2, 128), torch.float32,
+                     cuda, seed=2)[0]
+    assert fa.dq_route(torch.float32, 128) == "simt"
+    fa.flash_attention_bwd_dq(x, x, x, x, rows, rows, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dq.launches == 1
+    assert fa.flash_attention_bwd_dq_f32.launches == 0
+
+
+def test_flash_attention_bwd_dq_f32_through_autograd(cuda, monkeypatch):
+    """loss.backward() through flash_attention in f32 at D = 64 reaches
+    the f32 dq and dk/dv kernels once each and no other K3-bwd kernel;
+    the q, k and v gradients agree with the plain backward."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _f32_dq_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, do, kw = _f32_dkv_case(F32_DKV_CASES[2], cuda, seed=13)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, **kw).backward(do)
+    assert [fn.launches for fn in _f32_dq_counters(fa)] == [1, 1, 1, 1, 0, 0]
     o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for t, w in zip(leaves, want):
@@ -1513,7 +1691,7 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
 
     for fn in (fg.gqa_flash_bwd_dq, fg.gqa_flash_bwd_dkdv,
                fg.gqa_flash_bwd_dkdv_f32, fg.gqa_flash_bwd_dq_f32,
-               fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dq_f32,
                fa.flash_attention_bwd_dkv, fa.flash_attention_bwd_dkv_f32):
         monkeypatch.setattr(fn, "launches", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1556,6 +1734,7 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
     assert fa.flash_attention_bwd_dq.launches == cfg.vision.depth
     assert fa.flash_attention_bwd_dkv.launches == cfg.vision.depth
     assert fa.flash_attention_bwd_dkv_f32.launches == cfg.vision.depth
+    assert fa.flash_attention_bwd_dq_f32.launches == cfg.vision.depth
     missing = [n for n, g in grads[0].items() if g is None]
     assert not missing, missing
     for n, g in grads[0].items():

@@ -520,8 +520,8 @@ def test_k3_backward_on_cpu_loads_no_library(monkeypatch):
     (torch.float32, 72, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 128, "simt"), (torch.float32, 512, "simt")])
 def test_k3_dkv_route_by_type_and_dim(dtype, d, route):
-    """dk/dv in f32 at D = 64 takes the FFMA kernel; dq keeps bwd_route
-    (the SIMT kernel in f32)."""
+    """dk/dv in f32 at D = 64 takes the FFMA kernel; bwd_route keeps the
+    wgmma / SIMT split that dkv_route and dq_route refine."""
     assert fa.dkv_route(dtype, d) == route
     assert fa.bwd_route(dtype, d) == ("sm90" if route == "sm90"
                                       else "simt")
@@ -689,6 +689,143 @@ def test_dkv_tile_walked_keeps_rows_without_a_visible_key():
     # rows and keys past L count for nothing
     assert not fa.dkv_tile_walked(qpos + 64, qseg, dead, qseg, 64, 192,
                                   False)
+
+
+def _dq_skipped_pairs(walked, l):
+    """(B, H, L, L) bool: the (row, key) pairs of the tiles a dq walk map
+    (B, H, row blocks, key tiles) skips, in the plain version's layout."""
+    skip = (~walked).repeat_interleave(fa.DQ_F32_ROWS, 2)[:, :, :l]
+    return skip.repeat_interleave(fa.DQ_F32_KEYS, 3)[..., :l]
+
+
+def _dq_walk_exact(args, kw, walked):
+    """(p is exactly 0 on every skipped pair, dq unchanged with p and ds
+    zeroed there) for a dq walk map."""
+    q, k, v, o, lse, do = args
+    skip = _dq_skipped_pairs(walked, q.shape[1])
+    p, ds = fa.bwd_plain_weights(*args, **kw)
+    dq, _, _ = fa.flash_attention_bwd_plain(*args, **kw)
+    dq0, _, _ = fa.bwd_plain_products(q, k, v, do, p.masked_fill(skip, 0),
+                                      ds.masked_fill(skip, 0))
+    return bool((p[skip] == 0).all()), torch.equal(dq0, dq)
+
+
+@pytest.mark.parametrize("case", DKV_WALK_CASES, ids=DKV_WALK_IDS)
+def test_dq_f32_walk_skips_only_zero_tiles(case):
+    """The f32 dq kernel's skip rule (`dkv_tile_walked` in its tiles,
+    `dq_walk_map`) is exact: on every skipped (row block, key tile) p is
+    exactly 0, and the plain dq is bitwise unchanged with p and ds zeroed
+    there. A rule that also skips the walked tile with the largest p
+    fails the same check."""
+    b, l, h = case[:3]
+    args, kw = _dkv_walk_inputs(case, seed=l + h + 1)
+    lse = args[4]
+    walked = fa.dq_walk_map(l, kw["causal"], kw["q_segment_ids"],
+                            kw["kv_segment_ids"], lse)
+    rows, keys = fa.DQ_F32_ROWS, fa.DQ_F32_KEYS
+    nrb, nkt = -(-l // rows), -(-l // keys)
+    assert walked.shape == (b, h, nrb, nkt)
+    assert _dq_walk_exact(args, kw, walked) == (True, True)
+    # the control: drop the walked tile with the largest p
+    p, _ = fa.bwd_plain_weights(*args, **kw)
+    pf = torch.nn.functional.pad(p, (0, nkt * keys - l, 0, nrb * rows - l))
+    tile_max = pf.reshape(b, h, nrb, rows, nkt, keys).amax((3, 5))
+    tile_max = tile_max.masked_fill(~walked, 0)
+    assert float(tile_max.max()) > 0
+    wrong = walked.clone()
+    wrong.view(-1)[int(tile_max.argmax())] = False
+    assert _dq_walk_exact(args, kw, wrong) == (False, False)
+
+
+@pytest.mark.parametrize("case", DKV_WALK_CASES, ids=DKV_WALK_IDS)
+def test_dq_walk_map_tests_each_tile_by_the_rule(case):
+    """Each entry of `dq_walk_map` is `dkv_tile_walked` of that row
+    block's rows (position, segment id, lse) and that key tile's keys,
+    called tile by tile: the map's layout is (row block, key tile)."""
+    b, l, h, *_ = case
+    args, kw = _dkv_walk_inputs(case, seed=l)
+    lse = args[4]
+    qs, ks = kw["q_segment_ids"], kw["kv_segment_ids"]
+    if qs is None:
+        qs = ks = torch.zeros((b, l), dtype=torch.int32)
+    walked = fa.dq_walk_map(l, kw["causal"], kw["q_segment_ids"],
+                            kw["kv_segment_ids"], lse)
+    rows, keys = fa.DQ_F32_ROWS, fa.DQ_F32_KEYS
+    for rb in range(walked.shape[2]):
+        r = torch.arange(rb * rows, (rb + 1) * rows)
+        rin = r.clamp(max=l - 1)
+        for kt in range(walked.shape[3]):
+            kk = torch.arange(kt * keys, (kt + 1) * keys).clamp(max=l - 1)
+            want = fa.dkv_tile_walked(r, qs[:, None, rin], lse[..., rin],
+                                      ks[:, None, kk], kt * keys, l,
+                                      kw["causal"])
+            assert torch.equal(walked[:, :, rb, kt], want), (rb, kt)
+
+
+def test_dq_f32_walk_at_the_training_shape():
+    """One head of the SFT step's ViT attention (L = 4224: 4144 real
+    tokens in segment 1, 80 pad tokens in segment 0): the frontier alone
+    scans 33 x 66 = 2178 tiles of 128 rows x 64 keys, the skip rule walks
+    2146. Row blocks 0-31 (real rows only) skip the last key tile (pad
+    keys only); block 32 (rows 4096-4223, real and pad) walks all 66."""
+    l, n_real = 4224, 4144
+    assert (fa.DQ_F32_ROWS, fa.DQ_F32_KEYS) == (128, 64)
+    seg = (torch.arange(l) < n_real).to(torch.int32)[None]
+    lse = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (1, 1, l)).astype(np.float32))
+    walked = fa.dq_walk_map(l, False, seg, seg, lse)
+    scanned = fa.dq_walk_map(l, False, seg, seg,
+                             torch.full_like(lse, float("-inf")))
+    assert walked.shape == (1, 1, 33, 66)
+    assert int(walked.sum()) == 2146 and int(scanned.sum()) == 2178
+    per_block = walked.sum(-1)[0, 0]
+    assert (per_block[:32] == 65).all() and not walked[0, 0, :32, 65].any()
+    assert per_block[32] == 66
+    # under causal a row block walks the key tiles up to its last row
+    causal = fa.dq_walk_map(l, True, seg, seg, lse)[0, 0]
+    assert causal.sum(-1).tolist() == [2 * (rb + 1) for rb in range(32)] + [
+        66]
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.float32, 64, "f32"), (torch.bfloat16, 64, "sm90"),
+    (torch.float32, 72, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 128, "simt"), (torch.float32, 512, "simt")])
+def test_k3_dq_route_by_type_and_dim(dtype, d, route):
+    """dq in f32 at D = 64 takes the FFMA kernel, as dk/dv does; every
+    other input keeps bwd_route's kernel."""
+    assert fa.dq_route(dtype, d) == route
+    assert fa.dq_route(dtype, d) == fa.dkv_route(dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_k3_dq_route_rejects_other_types(dtype):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.dq_route(dtype, 64)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k3_backward_f32_through_autograd_on_cpu_loads_no_library(
+        monkeypatch, causal):
+    """loss.backward() through flash_attention on f32 CPU tensors at
+    D = 64 (the f32 dq and dk/dv kernels' input on the card) runs the
+    plain backward and never builds or loads a kernel library."""
+    from wedetect_tpu_torch.ops import _build
+
+    def no_load(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+
+    monkeypatch.setattr(_build, "load", no_load)
+    monkeypatch.setattr(_build, "build", no_load)
+    case = DKV_WALK_CASES[3 if causal else 2]
+    args, kw = _dkv_walk_inputs(case, seed=5)
+    q, k, v, o, lse, do = args
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, **kw).backward(do)
+    want = fa.flash_attention_bwd_plain(*args, **kw)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.float32
+        assert torch.equal(t.grad, w)
 
 
 def test_k3_plain_backward_matches_einsum_on_real_rows():

@@ -30,11 +30,12 @@ K3-bwd-dkv (the stock `_flash_attention_bwd_dq` and
 `flash_attention_bwd_plain` on CPU tensors. The backward kernels go by
 `bwd_route`: bf16 at D = 64 (the ViT's) takes the wgmma + TMA pair of
 `csrc/flash_attn_bwd_sm90.cu`, f32 and the other bf16 head dims the SIMT
-pair of `csrc/flash_attn_bwd.cu`; dk/dv goes by `dkv_route`, which also
-sends f32 at D = 64 to the FFMA kernel of `csrc/flash_attn_bwd_f32.cu`
-(register tiles fed by a cp.async ring, walking only the row tiles that
-can change dk or dv: `dkv_tile_walked`). A CUDA input that its kernel
-cannot take raises. p is recomputed as exp(s - lse) from the saved
+pair of `csrc/flash_attn_bwd.cu`; dk/dv goes by `dkv_route` and dq by
+`dq_route`, which also send f32 at D = 64 to the FFMA kernels of
+`csrc/flash_attn_bwd_f32.cu` (register tiles fed by a cp.async ring,
+each walking only the tiles that can change its gradient:
+`dkv_tile_walked`, `dkv_walk_map`, `dq_walk_map`). A CUDA input that its
+kernel cannot take raises. p is recomputed as exp(s - lse) from the saved
 logsumexp (the stock kernels keep m and l apart: the same p up to
 rounding); di = rowsum(dO * O) is plain torch, as in the stock VJP.
 
@@ -191,18 +192,22 @@ def pad_head_dim(width: int, *tensors: torch.Tensor):
             for t in tensors]
 
 
-# the f32 dk/dv kernel's tiles (csrc/flash_attn_bwd_f32.cu, its
-# DKV_F32_KEYS): a block owns DKV_F32_KEYS keys and walks the rows
-# DKV_F32_ROWS at a time
+# the f32 kernels' tiles (csrc/flash_attn_bwd_f32.cu): a dk/dv block
+# owns DKV_F32_KEYS keys and walks the rows DKV_F32_ROWS at a time; a dq
+# block owns DQ_F32_ROWS rows and walks the keys DQ_F32_KEYS at a time
 DKV_F32_ROWS = 64
 DKV_F32_KEYS = 128
+DQ_F32_ROWS = 128
+DQ_F32_KEYS = 64
 # lse above it: p = exp(-1e30 - lse) is exactly +0 in f32
 _LSE_NONE = -1e29
 
 
 def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
-    """Whether the f32 dk/dv kernel walks a row tile for a key block: the
-    kernel's rule, batched over any leading dims (broadcast).
+    """Whether the f32 kernels walk a (row tile, key tile) pair: the
+    kernels' rule, batched over any leading dims (broadcast). The dk/dv
+    kernel tests a row tile against its key block, the dq kernel a key
+    tile against its row block.
 
     qpos, qseg, lse (..., R): the tile's rows (position, segment id,
     lse); kseg (..., BK): the block's keys' segment ids, the first key
@@ -212,7 +217,7 @@ def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
     at or before it) or has lse <= -1e29 (p = exp(-1e30 - lse) may be
     nonzero on every key below its frontier). Any other row's pairs in
     the block have p = 0 (past its frontier) or exp(-1e30 - lse) = +0, so
-    a tile without a keeping row adds nothing to dk or dv."""
+    a tile without a keeping row adds nothing to dq, dk or dv."""
     k0 = torch.as_tensor(k0, device=qpos.device)
     keys = k0[..., None] + torch.arange(kseg.shape[-1], device=qpos.device)
     match = (kseg[..., None, :] == qseg[..., :, None]) \
@@ -227,14 +232,15 @@ def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
 
 
 def dkv_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
-                 lse: torch.Tensor) -> torch.Tensor:
-    """(B, H, ceil(L / DKV_F32_KEYS), ceil(L / DKV_F32_ROWS)) bool: the
-    row tiles each key block of the f32 dk/dv kernel walks
-    (`dkv_tile_walked`), for lse (B, H, L) and segment ids (B, L) or
-    None."""
+                 lse: torch.Tensor, rows: int = DKV_F32_ROWS,
+                 keys: int = DKV_F32_KEYS) -> torch.Tensor:
+    """(B, H, ceil(L / keys), ceil(L / rows)) bool: the row tiles each
+    key block of the f32 dk/dv kernel walks (`dkv_tile_walked`), for lse
+    (B, H, L) and segment ids (B, L) or None; by default in the dk/dv
+    kernel's tiles."""
     b, h, _ = lse.shape
     dev = lse.device
-    nt, nkb = -(-l // DKV_F32_ROWS), -(-l // DKV_F32_KEYS)
+    nt, nkb = -(-l // rows), -(-l // keys)
 
     def tiles(x, n, size, fill):
         """(B, L) -> (B, n, size), padded past L with `fill`."""
@@ -245,14 +251,23 @@ def dkv_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
     if q_segment_ids is None:
         q_segment_ids = kv_segment_ids = torch.zeros(
             (b, l), dtype=torch.int32, device=dev)
-    qseg = tiles(q_segment_ids.to(dev, torch.int32), nt, DKV_F32_ROWS, 0)
-    kseg = tiles(kv_segment_ids.to(dev, torch.int32), nkb, DKV_F32_KEYS, 0)
-    qpos = torch.arange(nt * DKV_F32_ROWS, device=dev).reshape(
-        nt, DKV_F32_ROWS)
-    k0 = (torch.arange(nkb, device=dev) * DKV_F32_KEYS)[:, None]
+    qseg = tiles(q_segment_ids.to(dev, torch.int32), nt, rows, 0)
+    kseg = tiles(kv_segment_ids.to(dev, torch.int32), nkb, keys, 0)
+    qpos = torch.arange(nt * rows, device=dev).reshape(nt, rows)
+    k0 = (torch.arange(nkb, device=dev) * keys)[:, None]
     return dkv_tile_walked(qpos, qseg[:, None, None], tiles(
-        lse, nt, DKV_F32_ROWS, 0.0)[:, :, None], kseg[:, None, :, None],
+        lse, nt, rows, 0.0)[:, :, None], kseg[:, None, :, None],
         k0, l, causal)
+
+
+def dq_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
+                lse: torch.Tensor) -> torch.Tensor:
+    """(B, H, ceil(L / DQ_F32_ROWS), ceil(L / DQ_F32_KEYS)) bool: the key
+    tiles each row block of the f32 dq kernel walks (`dkv_tile_walked` in
+    its tiles)."""
+    return dkv_walk_map(l, causal, q_segment_ids, kv_segment_ids, lse,
+                        rows=DQ_F32_ROWS, keys=DQ_F32_KEYS).transpose(
+                            -1, -2).contiguous()
 
 
 def _lib():
@@ -301,9 +316,12 @@ def _bwd_f32_lib():
     lib = _build.load("flash_attn_bwd_f32")
     if not getattr(lib, "_typed_fa", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_bwd_dkv_f32.argtypes = [p] * 10 + [i] * 5 + [f,
-                                                                         p]
+        lib.flash_attention_bwd_dkv_f32.argtypes = [p] * 10 + [i] * 5 + [
+            f, p, p]
+        lib.flash_attention_bwd_dq_f32.argtypes = [p] * 9 + [i] * 5 + [
+            f, p, p]
         lib.flash_attention_bwd_dkv_f32.restype = ctypes.c_int
+        lib.flash_attention_bwd_dq_f32.restype = ctypes.c_int
         lib._typed_fa = True
     return lib
 
@@ -344,7 +362,8 @@ def bwd_route(dtype: torch.dtype, d: int) -> str:
     """The K3 backward kernels a CUDA input takes: "sm90"
     (csrc/flash_attn_bwd_sm90.cu, wgmma + TMA) for bf16 at D = 64;
     "simt" (csrc/flash_attn_bwd.cu) for f32 and for bf16 at any other
-    head dim. Raises for other types."""
+    head dim. `dkv_route` and `dq_route` refine it: f32 at D = 64 takes
+    the FFMA kernels. Raises for other types."""
     return _route("flash_attention_bwd", dtype, d)
 
 
@@ -353,12 +372,20 @@ def dkv_route(dtype: torch.dtype, d: int) -> str:
     (csrc/flash_attn_bwd_f32.cu, FFMA register tiles fed by cp.async) for
     f32 at D = 64; "sm90" (csrc/flash_attn_bwd_sm90.cu) for bf16 at
     D = 64, as `bwd_route`; "simt" (csrc/flash_attn_bwd.cu) for every
-    other head dim, padded to the next of SIMT_HEAD_DIMS. K3-bwd-dq keeps
-    `bwd_route` (f32 on the SIMT kernel). Raises TypeError for other
-    types."""
+    other head dim, padded to the next of SIMT_HEAD_DIMS. Raises
+    TypeError for other types."""
     if dtype == torch.float32 and d == 64:
         return "f32"
     return bwd_route(dtype, d)
+
+
+def dq_route(dtype: torch.dtype, d: int) -> str:
+    """The K3-bwd-dq kernel a CUDA input takes: "f32"
+    (csrc/flash_attn_bwd_f32.cu:flash_attention_bwd_dq_f32, FFMA register
+    tiles fed by cp.async) for f32 at D = 64; `bwd_route`'s answer
+    otherwise ("sm90" for bf16 at D = 64, else "simt"). Raises TypeError
+    for other types."""
+    return dkv_route(dtype, d)
 
 
 def _check_cuda(name, q, *others):
@@ -540,16 +567,11 @@ def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, *,
     return dk, dv
 
 
-def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, *,
-                                q_segment_ids=None, kv_segment_ids=None,
-                                causal=False, sm_scale=1.0):
-    """One launch of K3-bwd-dkv's f32 kernel (FFMA register tiles fed by
-    cp.async, D = 64) on CUDA tensors: (dk, dv), each (B, L, H, 64).
-    Raises for another type or head dim, and for a q, k, v or dO that is
-    not 16-byte aligned (cp.async copies 16 bytes)."""
-    name = "flash_attention_bwd_dkv_f32"
-    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-              causal=causal, sm_scale=sm_scale)
+def _check_f32(name, q, k, v, do, lse, delta, kw, walked, block):
+    """The f32 kernels' input rules: float32 at D = 64, q, k, v and dO
+    16-byte aligned (cp.async copies 16 bytes), and `walked` None or a
+    contiguous int32 tensor (B, H, ceil(L / block)) on q's device.
+    Returns walked's pointer (None for None)."""
     _check_bwd(name, q, k, v, do, lse, delta, kw)
     if q.dtype != torch.float32:
         raise TypeError(f"{name}: the f32 kernel takes float32, got "
@@ -558,28 +580,81 @@ def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, *,
         raise ValueError(f"{name}: the f32 kernel takes head dim 64, got "
                          f"{q.shape[-1]}")
     _check_aligned(name, "cp.async", q=q, k=k, v=v, do=do)
+    if walked is None:
+        return None
+    b, l, h, _ = q.shape
+    want = (b, h, -(-l // block))
+    if walked.dtype != torch.int32 or tuple(walked.shape) != want \
+            or walked.device != q.device or not walked.is_contiguous():
+        raise ValueError(f"{name}: walked must be contiguous int32 {want} "
+                         "on q's device")
+    return walked.data_ptr()
+
+
+def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, *,
+                                q_segment_ids=None, kv_segment_ids=None,
+                                causal=False, sm_scale=1.0, walked=None):
+    """One launch of K3-bwd-dkv's f32 kernel (FFMA register tiles fed by
+    cp.async, D = 64) on CUDA tensors: (dk, dv), each (B, L, H, 64).
+    `walked`: None, or a contiguous int32 CUDA tensor
+    (B, H, ceil(L / DKV_F32_KEYS)) that gets each key block's count of
+    walked row tiles (`dkv_walk_map` counts the same). Raises for another
+    type or head dim, for a q, k, v or dO that is not 16-byte aligned
+    (cp.async copies 16 bytes), and for a wrong `walked`."""
+    name = "flash_attention_bwd_dkv_f32"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    walked_ptr = _check_f32(name, q, k, v, do, lse, delta, kw, walked,
+                            DKV_F32_KEYS)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd(name, _bwd_f32_lib().flash_attention_bwd_dkv_f32, q, k, v,
-                do, lse, delta, (dk, dv), q.shape, kw)
+                do, lse, delta, (dk, dv), q.shape, kw, walked_ptr)
     flash_attention_bwd_dkv_f32.launches += 1
     return dk, dv
+
+
+def flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, *,
+                               q_segment_ids=None, kv_segment_ids=None,
+                               causal=False, sm_scale=1.0, walked=None):
+    """One launch of K3-bwd-dq's f32 kernel (FFMA register tiles fed by
+    cp.async, D = 64) on CUDA tensors: dq (B, L, H, 64). `walked`: None,
+    or a contiguous int32 CUDA tensor (B, H, ceil(L / DQ_F32_ROWS)) that
+    gets each row block's count of walked key tiles (`dq_walk_map` counts
+    the same). Raises for another type or head dim, for a q, k, v or dO
+    that is not 16-byte aligned (cp.async copies 16 bytes), and for a
+    wrong `walked`."""
+    name = "flash_attention_bwd_dq_f32"
+    kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              causal=causal, sm_scale=sm_scale)
+    walked_ptr = _check_f32(name, q, k, v, do, lse, delta, kw, walked,
+                            DQ_F32_ROWS)
+    dq = torch.empty_like(q)
+    _launch_bwd(name, _bwd_f32_lib().flash_attention_bwd_dq_f32, q, k, v,
+                do, lse, delta, (dq,), q.shape, kw, walked_ptr)
+    flash_attention_bwd_dq_f32.launches += 1
+    return dq
 
 
 flash_attention_bwd_dq_sm90.launches = 0
 flash_attention_bwd_dkv_sm90.launches = 0
 flash_attention_bwd_dkv_f32.launches = 0
+flash_attention_bwd_dq_f32.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, q_segment_ids=None,
                            kv_segment_ids=None, causal=False, sm_scale=1.0):
     """One launch of K3-bwd-dq on CUDA tensors: dq (B, L, H, D). lse and
-    delta (B, H, L) f32 (`row_delta`). The kernel goes by `bwd_route`;
-    every launch is counted here, the bf16 wgmma kernel's also in
+    delta (B, H, L) f32 (`row_delta`). The kernel goes by `dq_route`;
+    every launch is counted here, the f32 kernel's also in
+    `flash_attention_bwd_dq_f32.launches`, the bf16 wgmma kernel's in
     `flash_attention_bwd_dq_sm90.launches`."""
     name = "flash_attention_bwd_dq"
     kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               causal=causal, sm_scale=sm_scale)
-    if bwd_route(q.dtype, q.shape[-1]) == "sm90":
+    route = dq_route(q.dtype, q.shape[-1])
+    if route == "f32":
+        dq = flash_attention_bwd_dq_f32(q, k, v, do, lse, delta, **kw)
+    elif route == "sm90":
         dq = flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, **kw)
     else:
         _check_bwd(name, q, k, v, do, lse, delta, kw)
@@ -629,8 +704,8 @@ flash_attention_bwd_dkv.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, *, q_segment_ids=None,
                         kv_segment_ids=None, causal=False, sm_scale=1.0):
     """(dq, dk, dv) of flash_attention from the saved O and lse. CUDA
-    tensors: K3-bwd-dq and K3-bwd-dkv, one launch each (`bwd_route`);
-    CPU tensors: the plain version."""
+    tensors: K3-bwd-dq and K3-bwd-dkv, one launch each (`dq_route`,
+    `dkv_route`); CPU tensors: the plain version."""
     kw = dict(q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               causal=causal, sm_scale=sm_scale)
     if q.device.type == "cpu":
