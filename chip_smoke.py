@@ -11,12 +11,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             sources at once, into build/kernels/; ptxas's report. The
             four wgmma libraries (K2's and K3's bf16 forward and
             backward) must show HGMMA (wgmma) and UTMALDG (TMA load)
-            instructions in `cuobjdump -sass`; the three FFMA libraries
+            instructions in `cuobjdump -sass`; the four FFMA libraries
             (K2-bwd dk/dv and dq and K2's forward in f32 at D = 128,
-            K3-bwd dk/dv and dq in f32 at D = 64) their count of FFMA,
-            LDS.128 and all LDS, whole and in each innermost loop, where
-            every shared-memory load must feed at least 8 FFMA, and
-            their registers; none of the seven may spill.
+            K3-bwd dk/dv and dq and K3's forward in f32 at D = 64) their
+            count of FFMA, LDS.128 and all LDS, whole and in each
+            innermost loop, where every shared-memory load must feed at
+            least 8 FFMA, and their registers; none of the eight may
+            spill.
 3. k1       the row top-k kernel (selection by key) against its plain
             PyTorch version (t rounds of iterative max) and against its
             own rule (row_topk_by_key), vals and cls bitwise, at the
@@ -36,8 +37,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             at the Ref path's prefix (1, 384, 16, 128 | 384, 8) and
             suffix (8, 256, 16, 128 | 640, 8) shapes with kv_valid
             holes, on the JAX test grid, a partial last block and fully
-            masked rows, f32 through the SIMT kernel (atol 1e-4) and
-            bf16 through the wgmma + TMA kernel, its launches counted
+            masked rows, f32 through the FFMA kernel at D = 128 (atol
+            1e-4; in turns with the SIMT one it replaced, its walk read
+            back at K2_TRAIN) and bf16 through the wgmma + TMA kernel,
+            their launches counted
             (atol 2e-3 + rtol 1e-2: one bf16 ulp of |O| at every
             magnitude), O and lse; D = 256 and 384 in both types through
             the SIMT kernel; times the kernels, the plain version
@@ -50,13 +53,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (1, 4224, 16, 64; 80 pad), square causal, causal with
             segment ids, three segments off the 64-grid, a tail
             (L = 200), D = 128, D = 256 and D = 72 (zero-padded to 128
-            for the SIMT kernel): bf16 at D = 64 runs the
-            wgmma + TMA kernel (csrc/flash_attn_sm90.cu), its launches
-            counted per case, f32 and the other head dims the SIMT one;
-            a control through the plain version with one 64-key tile
-            dropped must miss the limit in every case. Kernel and SDPA
-            timed alike, as device time (graph_ms) and as eager calls,
-            at the ViT's two shapes and at D = 256.
+            for the SIMT kernel): at D = 64 bf16 runs the wgmma + TMA
+            kernel (csrc/flash_attn_sm90.cu) and f32 the FFMA kernel
+            (csrc/flash_attn_f32.cu), their launches counted per case,
+            the other head dims the SIMT one; a control through the
+            plain version with one 64-key tile dropped must miss the
+            limit in every case. Kernel and SDPA timed alike, as device
+            time (graph_ms) and as eager calls, at the ViT's two shapes
+            and at D = 256; the f32 kernel also in turns with the SIMT
+            one it replaced (SIMT, f32, f32, SIMT), its walk read back
+            in the tile the route takes (fwd_f32_tile) and held to
+            fwd_walk_map, the other tile timed beside it.
 6. text     the full XLM-R base text tower, random init, on 1203 random
             token-id prompts -> (1203, 768) unit vectors; 8 prompts
             checked against the same tower on the CPU.
@@ -83,7 +90,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             character-level stub tokenizer, RefScorer.score with prefix
             sharing. Scores (8, 100) finite in (0, 1); K2 = 56 and
             K3 = 24 launches counted around the call, in bf16 all of
-            them on the wgmma kernels, in f32 none; the pre-sigmoid
+            them on the wgmma kernels, in f32 all on the FFMA kernels;
+            the pre-sigmoid
             logits agree with the same call through the kernels' plain
             versions (REF_LOGIT_TOL), while a control through the plain
             versions with one key tile masked in every attention call
@@ -145,9 +153,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
-            K2-bwd-dkdv = layers (all dq and dk/dv on the FFMA kernels) and
-            K3 = K3-bwd-dq = K3-bwd-dkv = depth (all dq and dk/dv on the
-            FFMA kernels).
+            K2-bwd-dkdv = layers and K3 = K3-bwd-dq = K3-bwd-dkv = depth
+            (every forward, dq and dk/dv on the FFMA kernels).
 15. train_grad  one stage-3 loss and gradient at ref_2b's full width
             (random weights) at the --grid-tokens 256 bucket (ViT and
             decoder L = 1024), through the kernels and through the plain
@@ -163,10 +170,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the Uni proposals -> soft labels -> 3 SFT steps. Finite
             losses, the vision tower bitwise unchanged, out_proj and the
             decoder changed, launches per step as in train_parity (28
-            each of K2-bwd's FFMA dq and dk/dv kernels and 24 each of
-            K3-bwd's a step, none of the SIMT K2-bwd or K3-bwd
-            kernels); ms per step (steps 2-3) and peak card
-            memory.
+            each of K2's FFMA forward, dq and dk/dv kernels and 24 each
+            of K3's a step, none of the SIMT ones); ms per step (steps
+            2-3) and peak card memory.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -284,8 +290,9 @@ SM90_LIBS = ("flash_gqa_sm90", "flash_gqa_bwd_sm90", "flash_attn_sm90",
              "flash_attn_bwd_sm90")
 # the FFMA libraries: K2-bwd-dkdv and K2-bwd-dq in f32 at D = 128,
 # K3-bwd-dkv and K3-bwd-dq in f32 at D = 64, K2's forward in f32 at
-# D = 128
-F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32", "flash_gqa_f32")
+# D = 128, K3's forward in f32 at D = 64
+F32_LIBS = ("flash_gqa_bwd_f32", "flash_attn_bwd_f32", "flash_gqa_f32",
+            "flash_attn_f32")
 
 
 def phase_build():
@@ -976,8 +983,12 @@ def phase_k2(dev, timing: bool = True):
                 r["visible_pairs"] = pairs
                 res[f"{name}_{str(dtype)[6:]}"] = r
                 if fwd_route(dtype, d, h // kvh) == "f32":
-                    res[f"{name}_simt_float32"] = k2_simt_turns(
-                        q, k, v, valid, r, call)
+                    scale = 1.0 / math.sqrt(d)
+                    res[f"{name}_simt_float32"] = simt_turns(
+                        "K2", lambda: simt_fwd(q, k, v, valid, True, scale),
+                        lambda: gqa_flash_attention_plain(
+                            q, k, v, causal=True, kv_valid=valid,
+                            sm_scale=scale, return_lse=True), r, call)
                 if name == "train" and dtype == torch.float32:
                     r.update(k2_walk(q, k, v, valid))
                 del q, k, v, valid, mask
@@ -985,23 +996,18 @@ def phase_k2(dev, timing: bool = True):
     return res
 
 
-def k2_simt_turns(q, k, v, valid, route_timing, call):
-    """The SIMT forward the f32 kernel replaced, at a timed f32 shape
-    (causal): held to the plain version (K_TOL, lse 1e-3), and timed in
-    turns with the route as device time (SIMT, f32, f32, SIMT). Returns
-    its timing entry (the route's bound, plain and library times)."""
-    from wedetect_tpu_torch.ops import flash_gqa as fg
-
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    o, lse = simt_fwd(q, k, v, valid, True, scale)
-    po, plse = fg.gqa_flash_attention_plain(q, k, v, causal=True,
-                                            kv_valid=valid, sm_scale=scale,
-                                            return_lse=True)
+def simt_turns(kernel, simt, plain, route_timing, call):
+    """The SIMT forward an f32 kernel replaced (`simt`, through its
+    library), at a timed f32 shape: held to the plain version (`plain`;
+    K_TOL, lse 1e-3), and timed in turns with the route (`call`) as
+    device time (SIMT, f32, f32, SIMT). Returns its timing entry (the
+    route's bound, plain and library times)."""
+    o, lse = simt()
+    po, plse = plain()
     err = float((o - po).abs().max())
     assert kernel_close(o, po, torch.float32) and float(
-        (lse - plse).abs().max()) <= 1e-3, ("simt K2", err)
+        (lse - plse).abs().max()) <= 1e-3, (f"simt {kernel}", err)
     del o, lse, po, plse
-    simt = lambda: simt_fwd(q, k, v, valid, True, scale)  # noqa: E731
     turns = [graph_ms(fn) for fn in (simt, call, call, simt)]
     route_timing["turns_ms"] = {"simt": turns[::3], "f32": turns[1:3]}
     keep = ("bound_ms", "bound_by", "flops", "bytes", "plain_ms",
@@ -1101,9 +1107,12 @@ def phase_k3(dev, timing: bool = True):
             pad_err = float((o.float() - po.float()).abs().max())
             lse_err = float((lse - plse).abs().max())
             control_err = float((co.float() - po.float()).abs().max())
-            # bf16 at D = 64 ran the wgmma kernel, the rest the SIMT one
-            launches = {n: after[n] - before[n] for n in ("k3", "k3_sm90")}
-            want = {"k3": 1, "k3_sm90": 1 if route == "sm90" else 0}
+            # at D = 64 bf16 ran the wgmma kernel and f32 the FFMA one,
+            # the rest the SIMT one
+            launches = {n: after[n] - before[n]
+                        for n in ("k3", "k3_sm90", "k3_f32")}
+            want = {"k3": 1, "k3_sm90": int(route == "sm90"),
+                    "k3_f32": int(route == "f32")}
             ok = (kernel_close(o, po, dtype) and lse_err <= 1e-3
                   and not kernel_close(co, po, dtype) and launches == want)
             checks.append({"shape": [b, l, h, d], "real": n_real,
@@ -1144,7 +1153,54 @@ def phase_k3(dev, timing: bool = True):
                 r["library_call_ms"] = cuda_ms(lib, iters=10)
                 r["visible_pairs"] = pairs
                 res[f"{name}_{str(dtype)[6:]}"] = r
+                if r["route"] == "f32":
+                    res[f"{name}_simt_float32"] = simt_turns(
+                        "K3", lambda: simt_k3_fwd(q, k, v, seg, causal,
+                                                  d ** -0.5),
+                        lambda: fa.flash_attention_plain(
+                            q, k, v, return_lse=True, **kw), r, call)
+                    r.update(k3_walk(q, k, v, seg))
+                del q, k, v, seg, mask
     emit({"phase": "k3", **res})
+    return res
+
+
+def simt_k3_fwd(q, k, v, seg, causal, sm_scale):
+    """The SIMT K3 forward (csrc/flash_attn.cu) called through its library:
+    the kernel f32 at D = 64 ran before flash_attention_fwd_f32 of
+    csrc/flash_attn_f32.cu (no launch counted): (O, lse)."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    return fa._launch_fwd("flash_attention", fa._lib().flash_attention_fwd,
+                          q, k, v, seg, seg, causal, sm_scale,
+                          int(q.dtype == torch.bfloat16))
+
+
+def k3_walk(q, k, v, seg):
+    """The f32 forward's walk at a ViT shape (not causal) in the tile the
+    route takes there (fwd_f32_tile), read back from the kernel and
+    counted by the skip rule (fwd_walk_map, the same for every head), the
+    tiles the frontier alone scans (the SIMT kernel's walk), and the
+    other tile's device time."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    b, l, h, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows, _ = fa.fwd_f32_tile(b, l, h, sms)
+    rule = fa.fwd_walk_map(l, False, seg, seg, rows=rows).to(q.device)
+    walked = torch.zeros((b, h, rule.shape[2]), dtype=torch.int32,
+                         device=q.device)
+    fa.flash_attention_fwd_f32(q, k, v, seg, seg, False, d ** -0.5,
+                               walked=walked)
+    res = {"tile_rows": rows, "tiles_walked": int(walked.sum()),
+           "rule_tiles_walked": h * int(rule.sum()),
+           "rule_tiles_scanned": b * h * rule.shape[2] * rule.shape[3]}
+    assert torch.equal(walked, rule.sum(-1).int().expand(b, h, -1)), (
+        "K3 walk != rule", res)
+    other = next(n for n in fa.FWD_F32_TILES if n != rows)
+    res["other_tile"] = {"rows": other, "ms": graph_ms(
+        lambda: fa.flash_attention_fwd_f32(q, k, v, seg, seg, False,
+                                           d ** -0.5, rows=other))}
     return res
 
 
@@ -1291,6 +1347,7 @@ def _flash_counters():
             "k2_bwd_dq_f32": fg.gqa_flash_bwd_dq_f32,
             "k3": fa.flash_attention,
             "k3_sm90": fa.flash_attention_fwd_sm90,
+            "k3_f32": fa.flash_attention_fwd_f32,
             "k3_bwd_dq": fa.flash_attention_bwd_dq,
             "k3_bwd_dkv": fa.flash_attention_bwd_dkv,
             "k3_bwd_dq_sm90": fa.flash_attention_bwd_dq_sm90,
@@ -1302,8 +1359,8 @@ def _flash_counters():
 def launch_counts(reset: bool = False):
     """The launch counts of the attention kernels (set to 0 first with
     `reset`): "k2" counts every K2 forward route, "k2_sm90" the bf16
-    wgmma one's alone, "k2_f32" the f32 FFMA one's; likewise "k3" and
-    "k3_sm90", "k2_bwd_*" and "k2_bwd_*_sm90", "k3_bwd_*" and
+    wgmma one's alone, "k2_f32" the f32 FFMA one's; likewise "k3",
+    "k3_sm90" and "k3_f32", "k2_bwd_*" and "k2_bwd_*_sm90", "k3_bwd_*" and
     "k3_bwd_*_sm90"; "k2_bwd_dkdv_f32", "k2_bwd_dq_f32", "k3_bwd_dkv_f32"
     and "k3_bwd_dq_f32" the FFMA kernels' alone."""
     counters = _flash_counters()
@@ -1316,13 +1373,14 @@ def launch_counts(reset: bool = False):
 def expected_counts(k2=0, k3=0, k2_bwd=0, k3_bwd=0, k2_sm90=0,
                     k2_bwd_sm90=0, k3_sm90=0, k3_bwd_sm90=0,
                     k2_bwd_dkdv_f32=0, k2_bwd_dq_f32=0, k3_bwd_dkv_f32=0,
-                    k3_bwd_dq_f32=0, k2_f32=0):
+                    k3_bwd_dq_f32=0, k2_f32=0, k3_f32=0):
     return {"k2": k2, "k2_sm90": k2_sm90, "k2_f32": k2_f32,
             "k2_bwd_dq": k2_bwd,
             "k2_bwd_dkdv": k2_bwd, "k2_bwd_dq_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_sm90": k2_bwd_sm90,
             "k2_bwd_dkdv_f32": k2_bwd_dkdv_f32,
             "k2_bwd_dq_f32": k2_bwd_dq_f32, "k3": k3, "k3_sm90": k3_sm90,
+            "k3_f32": k3_f32,
             "k3_bwd_dq": k3_bwd,
             "k3_bwd_dkv": k3_bwd, "k3_bwd_dq_sm90": k3_bwd_sm90,
             "k3_bwd_dkv_sm90": k3_bwd_sm90,
@@ -1371,12 +1429,13 @@ def phase_ref(dev, inputs, cfg=None, timing: bool = True):
         assert np.isfinite(scores).all()
         assert ((scores > 0) & (scores < 1)).all()
         # bf16: every K2 and K3 launch is a wgmma kernel; f32: every K2
-        # launch the FFMA kernel, every K3 launch the SIMT one
+        # and K3 launch an FFMA kernel
         k2, k3 = 2 * cfg.text.layers, cfg.vision.depth
         bf16 = name == "bfloat16"
         assert counts == expected_counts(
             k2=k2, k2_sm90=k2 if bf16 else 0, k2_f32=0 if bf16 else k2,
-            k3=k3, k3_sm90=k3 if bf16 else 0), counts
+            k3=k3, k3_sm90=k3 if bf16 else 0,
+            k3_f32=0 if bf16 else k3), counts
         logits = scorer.logits(image, boxes, REF_QUERIES)
         with plain_attention():
             plain = scorer.logits(image, boxes, REF_QUERIES)
@@ -1480,7 +1539,7 @@ def phase_ref_parity(dev):
     counts = launch_counts()
     want = ref_score_step(cpu, gh, gw, *args)
     err = float((got.cpu() - want).abs().max())
-    assert counts == expected_counts(k2=2, k2_f32=2, k3=2), counts
+    assert counts == expected_counts(k2=2, k2_f32=2, k3=2, k3_f32=2), counts
     assert err < 1e-5, err
     emit({"phase": "ref_parity", "logits_max_abs_err": err,
           "launches": counts})
@@ -2168,6 +2227,7 @@ def phase_train_parity(dev):
           and counts == expected_counts(k2=cfg.text.layers,
                                         k2_f32=cfg.text.layers,
                                         k3=cfg.vision.depth,
+                                        k3_f32=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
                                         k2_bwd_dkdv_f32=cfg.text.layers,
@@ -2277,6 +2337,7 @@ def phase_train_grad(dev, image, proposals, cfg=None,
           and counts == expected_counts(k2=cfg.text.layers,
                                         k2_f32=cfg.text.layers,
                                         k3=cfg.vision.depth,
+                                        k3_f32=cfg.vision.depth,
                                         k2_bwd=cfg.text.layers,
                                         k3_bwd=cfg.vision.depth,
                                         k2_bwd_dkdv_f32=cfg.text.layers,
@@ -2338,6 +2399,7 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
            "optimizer_count": state.tx.count}
     per_step = expected_counts(k2=cfg.text.layers, k3=cfg.vision.depth,
                                k2_f32=cfg.text.layers,
+                               k3_f32=cfg.vision.depth,
                                k2_bwd=cfg.text.layers,
                                k3_bwd=cfg.vision.depth,
                                k2_bwd_dkdv_f32=cfg.text.layers,
@@ -2407,6 +2469,8 @@ F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_bwd_f32.cu"
 K3_SM90_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_sm90.cu"
 K3_F32_BWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_bwd_f32.cu"
 F32_FWD_SOURCE = "wedetect_tpu_torch/csrc/flash_gqa_f32.cu"
+K3_F32_FWD_SOURCE = "wedetect_tpu_torch/csrc/flash_attn_f32.cu"
+K3_FWD = "wedetect_tpu/ops/attention.py:126"
 
 
 def main() -> int:
@@ -2466,10 +2530,11 @@ def main() -> int:
          "dense_branches": k1["dense_branches"]},
         # K2 timed at the suffix shape, K3 at the ViT shape, each route
         # with its launches in the score call of its type: K2 f32 at
-        # D = 128 on the FFMA kernel (also its launches a SFT step, and
-        # its times at the prefix and at K2_TRAIN), bf16 on the wgmma
-        # kernels; the SIMT K2 forward (0 launches on the f32 path; timed
-        # at the suffix through its library) and K3 f32
+        # D = 128 and K3 f32 at D = 64 on the FFMA kernels (also their
+        # launches a SFT step, and their times at the other shapes), bf16
+        # on the wgmma kernels; the SIMT K2 and K3 forwards (0 launches on
+        # the f32 path; timed through their library at the suffix and at
+        # the ViT shape)
         {**kernel_entry("gqa_flash_fwd_f32", F32_FWD_SOURCE,
                         "wedetect_tpu/ops/flash_gqa.py:86",
                         launches["k2_f32"], k2, k2["suffix_float32"],
@@ -2494,14 +2559,25 @@ def main() -> int:
                      "wedetect_tpu/ops/flash_gqa.py:86",
                      launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
                      route="sm90"),
-        kernel_entry("flash_attention_fwd",
-                     "wedetect_tpu_torch/csrc/flash_attn.cu",
-                     "wedetect_tpu/ops/attention.py:126",
-                     launches["k3"] - launches["k3_sm90"], k3,
-                     k3["vit_float32"]),
+        {**kernel_entry("flash_attention_fwd_f32", K3_F32_FWD_SOURCE, K3_FWD,
+                        launches["k3_f32"], k3, k3["vit_float32"],
+                        route="f32"),
+         "launches_sft_step": train["launches_per_step"]["k3_f32"],
+         **{f"train_{key}": k3["train_float32"][key]
+            for key in ("ms", "bound_ms", "library_ms")},
+         "turns_ms": {shape: k3[f"{shape}_float32"]["turns_ms"]
+                      for shape in ("vit", "train")},
+         **{f"{shape}_tiles_{n}": k3[f"{shape}_float32"][key]
+            for shape in ("vit", "train")
+            for n, key in (("walked", "tiles_walked"),
+                           ("scanned", "rule_tiles_scanned"))}},
+        {**kernel_entry("flash_attention_fwd",
+                        "wedetect_tpu_torch/csrc/flash_attn.cu", K3_FWD,
+                        launches["k3"] - launches["k3_sm90"]
+                        - launches["k3_f32"], k3, k3["vit_simt_float32"]),
+         "train_ms": k3["train_simt_float32"]["ms"]},
         kernel_entry("flash_attention_fwd_sm90",
-                     "wedetect_tpu_torch/csrc/flash_attn_sm90.cu",
-                     "wedetect_tpu/ops/attention.py:126",
+                     "wedetect_tpu_torch/csrc/flash_attn_sm90.cu", K3_FWD,
                      launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
                      route="sm90"),
         # the backward kernels' launches from the train phase, their

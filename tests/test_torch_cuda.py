@@ -333,6 +333,7 @@ def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, l,
 
     monkeypatch.setattr(flash_attention, "launches", 0)
     monkeypatch.setattr(fa.flash_attention_fwd_sm90, "launches", 0)
+    monkeypatch.setattr(fa.flash_attention_fwd_f32, "launches", 0)
     q, k, v = _attn_inputs((b, l, h, d), (b, l, h, d), dtype, cuda, seed=l)
     seg = (torch.arange(l, device=cuda) < n_real).to(torch.int32)
     seg = seg[None].expand(b, l).contiguous()
@@ -342,9 +343,13 @@ def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, l,
     torch.cuda.synchronize()
     want, wlse = flash_attention_plain(q, k, v, **kw)
     assert flash_attention.launches == 1
-    # bf16 at D = 64 ran the wgmma kernel, the rest the SIMT one
-    assert fa.flash_attention_fwd_sm90.launches == (
-        1 if fa.fwd_route(dtype, d) == "sm90" else 0)
+    # at D = 64 bf16 ran the wgmma kernel and f32 the FFMA one, the rest
+    # the SIMT one
+    route = fa.fwd_route(dtype, d)
+    assert route == ("simt" if d != 64 else
+                     "f32" if dtype == torch.float32 else "sm90")
+    assert fa.flash_attention_fwd_sm90.launches == int(route == "sm90")
+    assert fa.flash_attention_fwd_f32.launches == int(route == "f32")
     assert _close(got, want, dtype)
     assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
 
@@ -385,7 +390,8 @@ def test_flash_attention_head_dims_match_plain(cuda, monkeypatch, dtype, d,
     versions (TOL, BWD_TOL), the backward bitwise over two runs."""
     from wedetect_tpu_torch.ops import flash_attention as fa
 
-    others = (fa.flash_attention_fwd_sm90, fa.flash_attention_bwd_dq_sm90,
+    others = (fa.flash_attention_fwd_sm90, fa.flash_attention_fwd_f32,
+              fa.flash_attention_bwd_dq_sm90,
               fa.flash_attention_bwd_dkv_sm90, fa.flash_attention_bwd_dkv_f32,
               fa.flash_attention_bwd_dq_f32)
     for fn in (fa.flash_attention, fa.flash_attention_bwd_dq,
@@ -1674,6 +1680,163 @@ def test_flash_attention_bwd_dq_f32_through_autograd(cuda, monkeypatch):
     fa.flash_attention(*leaves, **kw).backward(do)
     assert [fn.launches for fn in _f32_dq_counters(fa)] == [1, 1, 1, 1, 0, 0]
     o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for t, w in zip(leaves, want):
+        assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]
+
+
+# K3's f32 forward at D = 64: the f32 dq kernel's cases (the training
+# shape, three segments off the 64-grid, causal with and without ids, the
+# tail L = 200, pads per batch row, the ViT at a 480x640 image) and square
+# causal at the ViT's width; and the rows whose segment no key has
+F32_K3_FWD_CASES = F32_DQ_CASES + [(1, 1280, 16, True, [((1280, 1),)])]
+
+
+def _k3_fwd_counters(fa):
+    return (fa.flash_attention, fa.flash_attention_fwd_f32,
+            fa.flash_attention_fwd_sm90)
+
+
+def _k3_f32_case(case, dev, seed):
+    """q, k, v and the forward's keywords of a F32_K3_FWD_CASES or
+    UNSEEN_SEGMENT_CASES case."""
+    make = _f32_unseen_case if len(case) == 6 else _f32_dkv_case
+    q, k, v, _, kw = make(case, dev, seed)
+    return q, k, v, kw
+
+
+@pytest.mark.parametrize("case", F32_K3_FWD_CASES + UNSEEN_SEGMENT_CASES)
+def test_flash_attention_fwd_f32_kernel_matches_plain(cuda, monkeypatch,
+                                                      case):
+    """f32 K3 at D = 64 goes to the FFMA kernel (one launch a call, its
+    own count), agrees with the plain forward (TOL's f32 atol for O, 1e-3
+    for lse), keeps lse <= -1e29 exactly on the rows with no key of their
+    segment, and repeats bit for bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _k3_fwd_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, kw = _k3_f32_case(case, cuda, seed=case[1] + 9)
+    got = [fa.flash_attention(q, k, v, return_lse=True, **kw)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    want, wlse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert [fn.launches for fn in _k3_fwd_counters(fa)] == [2, 2, 0]
+    (o, lse), (o2, lse2) = got
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)   # deterministic
+    assert _close(o, want, torch.float32)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+    assert torch.equal(lse <= -1e29, wlse <= -1e29)
+
+
+@pytest.mark.parametrize("rows", [128, 64], ids=["wide", "narrow"])
+@pytest.mark.parametrize("case", F32_K3_FWD_CASES + UNSEEN_SEGMENT_CASES)
+def test_flash_attention_fwd_f32_walk_matches_rule(cuda, case, rows):
+    """Each of the f32 forward's tiles, forced: agrees with the plain
+    forward, and the key tiles each row block walked, read back from the
+    kernel, are the skip rule's in that tile (fwd_walk_map, the same for
+    every head). In the tile the route takes (`fwd_f32_tile`), O and lse
+    are the route's, bit for bit."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, kw = _k3_f32_case(case, cuda, seed=case[1] + 10)
+    b, l, h, _ = q.shape
+    rule = fa.fwd_walk_map(l, kw["causal"], kw["q_segment_ids"],
+                           kw["kv_segment_ids"], rows=rows).to(cuda)
+    walked = torch.full((b, h, rule.shape[2]), -1, dtype=torch.int32,
+                        device=cuda)
+    o, lse = fa.flash_attention_fwd_f32(q, k, v, walked=walked, rows=rows,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(walked, rule.sum(-1).int().expand(b, h, -1))
+    want, wlse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert _close(o, want, torch.float32)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if fa.fwd_f32_tile(b, l, h, sms)[0] == rows:
+        ro, rlse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        assert torch.equal(o, ro) and torch.equal(lse, rlse)
+
+
+def test_flash_attention_fwd_f32_tiles_match_the_wrapper(cuda):
+    """The kernel's tiles (its C entry) are the ones the wrapper and the
+    skip rule's map assume; another row count is refused."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._fwd_f32_lib()
+    for rows, keys in fa.FWD_F32_TILES.items():
+        assert lib.flash_attention_fwd_f32_keys(rows) == keys
+    assert lib.flash_attention_fwd_f32_keys(48) == 0
+    q, k, v, kw = _k3_f32_case((1, 128, 2, False, [((100, 1),)]), cuda,
+                               seed=3)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention_fwd_f32(q, k, v, rows=48, **kw)
+
+
+def test_flash_attention_fwd_f32_rejects_bad_input(cuda, monkeypatch):
+    """The f32 forward takes f32 at D = 64 only, contiguous and 16-byte
+    aligned, with a `walked` of its shape; anything else raises before any
+    launch, and nothing falls back."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    for fn in _k3_fwd_counters(fa):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v, kw = _k3_f32_case((1, 128, 2, False, [((100, 1),)]), cuda,
+                               seed=1)
+    with pytest.raises(TypeError, match="float32"):
+        fa.flash_attention_fwd_f32(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                   **kw)
+    x = torch.zeros((1, 128, 2, 128), device=cuda)
+    with pytest.raises(ValueError, match="head dim 64"):
+        fa.flash_attention_fwd_f32(x, x, x, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_fwd_f32(q, k, v.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), **kw)
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = _shifted(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention_fwd_f32(*args, **kw)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa.flash_attention(*args, **kw)
+    # the tile at this shape (1, 128, 2) is the narrow one: 2 row blocks
+    for bad in (torch.zeros((1, 2, 3), dtype=torch.int32, device=cuda),
+                torch.zeros((1, 2, 2), dtype=torch.int64, device=cuda),
+                torch.zeros((1, 2, 2), dtype=torch.int32),
+                torch.zeros((1, 2, 2), dtype=torch.int32, device=cuda)[
+                    ..., :1]):
+        with pytest.raises(ValueError, match="walked"):
+            fa.flash_attention_fwd_f32(q, k, v, walked=bad, **kw)
+    with pytest.raises(ValueError, match="walked"):           # wide: 1 block
+        fa.flash_attention_fwd_f32(q, k, v, rows=128, walked=torch.zeros(
+            (1, 2, 2), dtype=torch.int32, device=cuda), **kw)
+    for fn in _k3_fwd_counters(fa):
+        assert fn.launches == 0
+
+
+@pytest.mark.parametrize("case", [F32_DKV_CASES[1], F32_DKV_CASES[2],
+                                  UNSEEN_SEGMENT_CASES[0]],
+                         ids=["three_segments", "causal_segments",
+                              "unseen_segment"])
+def test_flash_attention_fwd_f32_through_autograd(cuda, monkeypatch, case):
+    """loss.backward() through flash_attention in f32 at D = 64 runs the
+    f32 forward once and the f32 dq and dk/dv kernels on its lse; the q,
+    k and v gradients agree with the plain backward (BWD_TOL)."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+
+    counters = (*_k3_fwd_counters(fa), *_f32_dq_counters(fa))
+    for fn in counters:
+        monkeypatch.setattr(fn, "launches", 0)
+    make = _f32_unseen_case if len(case) == 6 else _f32_dkv_case
+    q, k, v, do, kw = make(case, cuda, seed=17)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [1, 1, 0, 1, 1, 1, 1, 0, 0]
+    o, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert _close(out.detach(), o, torch.float32)
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for t, w in zip(leaves, want):
         assert _rel_err(t.grad, w) <= BWD_TOL[torch.float32]

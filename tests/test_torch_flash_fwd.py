@@ -117,10 +117,18 @@ def test_k3_plain_forward_bf16_matches_stock_reference(case):
 
 
 @pytest.mark.parametrize("dtype,d,route", [
-    (torch.bfloat16, 64, "sm90"), (torch.float32, 64, "simt"),
-    (torch.bfloat16, 128, "simt"), (torch.bfloat16, 256, "simt")])
+    (torch.bfloat16, 64, "sm90"), (torch.float32, 64, "f32"),
+    (torch.bfloat16, 128, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.float32, 128, "simt"), (torch.float32, 72, "simt"),
+    (torch.float32, 512, "simt"), (torch.bfloat16, 72, "simt")])
 def test_k3_fwd_route_by_type(dtype, d, route):
+    """The forward by type and head dim: at D = 64 f32 takes the FFMA
+    kernel and bf16 the wgmma one, every other head dim the SIMT kernel.
+    The backward's route (`bwd_route`) keeps its answers: f32 "simt",
+    bf16 "sm90" at D = 64 (`dq_route` and `dkv_route` refine it)."""
     assert fa.fwd_route(dtype, d) == route
+    assert fa.bwd_route(dtype, d) == (
+        "sm90" if (dtype, d) == (torch.bfloat16, 64) else "simt")
 
 
 def test_k3_fwd_route_rejects_other_types():

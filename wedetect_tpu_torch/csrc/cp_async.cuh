@@ -1,10 +1,12 @@
-// The cp.async ring the FFMA backward kernels share
-// (csrc/flash_gqa_bwd_f32.cu, csrc/flash_attn_bwd_f32.cu): asynchronous
-// copies from global into shared memory, each either a 16-byte or a
-// 4-byte piece, zero-filled when its predicate is false; and the walk
-// over the row tiles a block keeps.
+// The cp.async ring the FFMA kernels share (csrc/flash_gqa_bwd_f32.cu,
+// csrc/flash_attn_bwd_f32.cu, csrc/flash_gqa_f32.cu,
+// csrc/flash_attn_f32.cu): asynchronous copies from global into shared
+// memory, each either a 16-byte or a 4-byte piece, zero-filled when its
+// predicate is false; and the walk over the tiles a block keeps.
 
 #pragma once
+
+#include <stdint.h>
 
 // One 16-byte copy (both addresses 16-byte aligned); 16 zero bytes when
 // !pred.
@@ -43,4 +45,17 @@ __device__ __forceinline__ int next_walked(const unsigned char* walk, int t,
                                            int n) {
   while (t < n && !walk[t]) ++t;
   return t;
+}
+
+// walked[block] = the number of set bytes of walk[0, n), with a non-null
+// walked. Every thread of the block calls it.
+__device__ __forceinline__ void count_walked(int* walked, int64_t block,
+                                             const unsigned char* walk,
+                                             int n) {
+  if (!walked) return;
+  const int tid = threadIdx.x;
+  int c = 0;
+  for (int i = 0; i < n; i += blockDim.x)
+    c += __syncthreads_count(i + tid < n && walk[i + tid]);
+  if (tid == 0) walked[block] = c;
 }

@@ -1,9 +1,14 @@
-// Flash attention forward for Hopper: kernels K2 (f32) and K3 of the
-// port. K2 in bf16 at D = 128 with G dividing 128 is
-// csrc/flash_gqa_sm90.cu (wgmma and TMA); other bf16 K2 shapes (D = 256,
-// 384 or 512) run here. Head dims 64, 128, 256, 384 and 512 are built;
-// ops/flash_attention.py pads any other K3 width up to 512 with zero
-// columns, and both wrappers refuse a wider one.
+// Flash attention forward for Hopper, the SIMT template: kernels K2 and
+// K3 of the port at the shapes their faster kernels do not take. K2 at
+// D = 128 runs on csrc/flash_gqa_f32.cu (f32, FFMA) and, with G dividing
+// 128, csrc/flash_gqa_sm90.cu (bf16, wgmma and TMA); every other K2
+// shape runs here (ops/flash_gqa.py:fwd_route). K3 at
+// D = 64 runs on csrc/flash_attn_f32.cu (f32, FFMA) and
+// csrc/flash_attn_sm90.cu (bf16, wgmma and TMA); K3 at every other head
+// dim in either type runs here (ops/flash_attention.py:fwd_route). Head
+// dims 64, 128, 256, 384 and 512 are built; ops/flash_attention.py pads
+// any other K3 width up to 512 with zero columns, and both wrappers
+// refuse a wider one.
 //
 // K2 replaces wedetect_tpu/ops/flash_gqa.py:_fwd_kernel (the Pallas TPU
 // kernel behind gqa_flash_attention): native grouped KV, end-aligned
@@ -363,9 +368,9 @@ int dispatch(const Args& a, int d, int bf16, cudaStream_t stream) {
 
 }  // namespace
 
-// K2 in f32, and in bf16 at the shapes csrc/flash_gqa_sm90.cu does not
-// take (ops/flash_gqa.py:fwd_route: D = 256, 384 or 512, or G not
-// dividing 128).
+// K2 at the shapes csrc/flash_gqa_f32.cu and csrc/flash_gqa_sm90.cu do
+// not take (ops/flash_gqa.py:fwd_route: D = 64, 256, 384 or 512, or bf16
+// with G not dividing 128).
 // q, o (B, S, H, D); k, v (B, Lk, KVH, D); kv_valid (B, Lk) int32; lse
 // (B, KVH, S * H / KVH) f32. bq, bk: the Pallas kernel's query and key
 // blocks (flash_gqa._pick_bq / _pick_bk), which fix each row's
@@ -383,7 +388,9 @@ extern "C" int gqa_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch<false>(a, d, bf16, static_cast<cudaStream_t>(stream));
 }
 
-// K3. q, k, v, o (B, L, H, D), D one of 64, 128, 256, 384, 512; q_seg,
+// K3 at the head dims csrc/flash_attn_f32.cu and csrc/flash_attn_sm90.cu
+// do not take (ops/flash_attention.py:fwd_route: f32 or bf16 off D = 64).
+// q, k, v, o (B, L, H, D), D one of 64, 128, 256, 384, 512; q_seg,
 // kv_seg (B, L) int32 or both null; lse (B, H, L) f32. Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const int* q_seg,

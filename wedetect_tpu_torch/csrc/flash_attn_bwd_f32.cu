@@ -37,7 +37,8 @@
 // changes no gradient; a row with lse <= -1e29 (no key of its segment:
 // p = 1 on every key below F_r) keeps its tiles. The kernel reads the
 // resident side (dk/dv: the block's keys; dq: the block's rows) once as
-// runs of one segment id (`segment_runs`), and one warp tests each tile
+// runs of one segment id (segments.cuh:segment_runs, shared with K3's
+// f32 forward), and one warp tests each tile
 // of the other side against them with a ballot before the walk. With a
 // non-null `walked`, each block also writes how many tiles it walked (a
 // check of the rule; null on the main path).
@@ -121,6 +122,7 @@
 
 #include "cp_async.cuh"
 #include "flash_common.cuh"
+#include "segments.cuh"
 
 namespace {
 
@@ -192,59 +194,6 @@ struct Args {
 __device__ __forceinline__ int64_t row_offset(const Args& a, int bi, int hi,
                                               int r) {
   return ((static_cast<int64_t>(bi) * a.l + r) * a.h + hi) * kD;
-}
-
-// The N positions p0, p0 + 1, ... below L (threads 0 to N - 1, N / 32
-// whole warps) as runs of one segment id: a position starts a run when it
-// is the first or its id differs from the one before it. Writes each
-// position's id to ids[0, N) (0 past L, and without ids), each run's id
-// and first position to run_id and run_first in order, and returns the
-// number of runs. Every thread of the block calls it (two barriers).
-template <int N>
-__device__ __forceinline__ int segment_runs(const int* seg, int64_t seg_base,
-                                            int p0, int l, int* ids,
-                                            int* run_id, int* run_first,
-                                            unsigned* starts) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  bool start = false;
-  int id = 0;
-  if (warp < N / 32) {
-    const int p = p0 + tid;
-    if (p < l) {
-      id = seg ? seg[seg_base + p] : 0;
-      start = tid == 0 || (seg && id != seg[seg_base + p - 1]);
-    }
-    ids[tid] = id;
-    unsigned m = __ballot_sync(0xffffffffu, start);
-    if (lane == 0) starts[warp] = m;
-  }
-  __syncthreads();
-  int n_runs = 0, i_run = 0;
-#pragma unroll
-  for (int w = 0; w < N / 32; ++w) {
-    if (w == warp) i_run = n_runs + __popc(starts[w] & ((1u << lane) - 1u));
-    n_runs += __popc(starts[w]);
-  }
-  if (start) {
-    run_id[i_run] = id;
-    run_first[i_run] = p0 + tid;
-  }
-  __syncthreads();
-  return n_runs;
-}
-
-// walked[block] = the number of set bytes of walk[0, n), with a non-null
-// walked. Every thread of the block calls it.
-__device__ __forceinline__ void count_walked(int* walked, int64_t block,
-                                             const unsigned char* walk,
-                                             int n) {
-  if (!walked) return;
-  const int tid = threadIdx.x;
-  int c = 0;
-  for (int i = 0; i < n; i += kThreads)
-    c += __syncthreads_count(i + tid < n && walk[i + tid]);
-  if (tid == 0) walked[block] = c;
 }
 
 // Copy row tile t's Q, dO, lse, delta and segment ids into one stage

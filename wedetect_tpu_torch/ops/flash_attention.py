@@ -19,9 +19,12 @@ and agrees on real rows; callers discard pad rows.
 
 `flash_attention` launches K3 on CUDA tensors and runs the plain version
 on CPU tensors; there is no fallback. The kernel goes by `fwd_route`:
-bf16 at D = 64 (the ViT's) takes the wgmma + TMA kernel of
-`csrc/flash_attn_sm90.cu`, f32 and the other bf16 head dims the SIMT
-template of `csrc/flash_attn.cu:flash_attention_fwd`. It is differentiable
+at D = 64 (the ViT's) bf16 takes the wgmma + TMA kernel of
+`csrc/flash_attn_sm90.cu` and f32 the FFMA kernel of
+`csrc/flash_attn_f32.cu` (register tiles fed by a cp.async ring, walking
+only the key tiles that can change O: `fwd_tile_walked`,
+`fwd_walk_map`); every other head dim takes the SIMT template of
+`csrc/flash_attn.cu:flash_attention_fwd`. It is differentiable
 in q, k and v (a `torch.autograd.Function`, the stock kernel's custom
 VJP): the forward saves q, k, v, the segment ids, O and lse, and the
 backward (`flash_attention_bwd`) launches kernels K3-bwd-dq and
@@ -51,6 +54,7 @@ which takes any D. CPU tensors take any D.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -106,20 +110,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False, sm_scale: float = 1.0,
                           return_lse: bool = False):
     """The kernel's function in plain PyTorch (module docstring)."""
-    acc = _acc_dtype(q)
     _check(q, k, v, q_segment_ids, kv_segment_ids)
     logits = _masked_logits(q, k, q_segment_ids, kv_segment_ids, causal,
                             sm_scale)
+    o, lse = fwd_plain_from_logits(logits, v, q.dtype)
+    return (o, lse) if return_lse else o
+
+
+def fwd_plain_from_logits(logits: torch.Tensor, v: torch.Tensor,
+                          dtype: torch.dtype):
+    """The plain forward from its masked logits (B, H, L, L) in the
+    accumulation type: (O (B, L, H, D) in `dtype`, lse (B, H, L))."""
+    acc = logits.dtype
     m = logits.amax(-1, keepdim=True)
     p = torch.exp(logits - m)
     s = p.sum(-1, keepdim=True)                       # (B, H, L, 1)
     # the kernel casts p to V's dtype before the p.V product
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(acc),
                      v.to(acc))
-    o = (o / s).transpose(1, 2).to(q.dtype)
-    if not return_lse:
-        return o
-    return o, (m + torch.log(s))[..., 0]
+    return (o / s).transpose(1, 2).to(dtype), (m + torch.log(s))[..., 0]
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -192,32 +201,46 @@ def pad_head_dim(width: int, *tensors: torch.Tensor):
             for t in tensors]
 
 
-# the f32 kernels' tiles (csrc/flash_attn_bwd_f32.cu): a dk/dv block
-# owns DKV_F32_KEYS keys and walks the rows DKV_F32_ROWS at a time; a dq
-# block owns DQ_F32_ROWS rows and walks the keys DQ_F32_KEYS at a time
+# the f32 kernels' tiles (csrc/flash_attn_bwd_f32.cu, csrc/flash_attn_f32.cu):
+# a dk/dv block owns DKV_F32_KEYS keys and walks the rows DKV_F32_ROWS at
+# a time; a dq block owns DQ_F32_ROWS rows and walks the keys DQ_F32_KEYS
+# at a time, and so does a forward block, in one of two tiles (rows: keys,
+# `fwd_f32_tile`), the wide one (FWD_F32_ROWS x FWD_F32_KEYS, the dq
+# kernel's) by default
 DKV_F32_ROWS = 64
 DKV_F32_KEYS = 128
 DQ_F32_ROWS = 128
 DQ_F32_KEYS = 64
+FWD_F32_TILES = {128: 64, 64: 64}
+FWD_F32_ROWS = 128
+FWD_F32_KEYS = FWD_F32_TILES[FWD_F32_ROWS]
+# a narrow (64-row) forward block's time over a wide one's: 2.43 / 2.01 / 2
+# at the ViT's training shape (PERF.md §6, tools/time_k3.py --variant)
+_NARROW_BLOCK_COST = 0.6
 # lse above it: p = exp(-1e30 - lse) is exactly +0 in f32
 _LSE_NONE = -1e29
 
 
-def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
-    """Whether the f32 kernels walk a (row tile, key tile) pair: the
-    kernels' rule, batched over any leading dims (broadcast). The dk/dv
-    kernel tests a row tile against its key block, the dq kernel a key
-    tile against its row block.
+def fwd_tile_walked(qpos, qseg, none, kseg, k0, l: int, causal: bool):
+    """Whether the f32 kernels walk a (row tile, key tile) pair: the skip
+    rule of the forward (`none`: the rows with no key of their segment
+    below their frontier) and, through `dkv_tile_walked`, of the
+    backward, batched over any leading dims (broadcast). The forward and
+    the dq kernel test a key tile against their row block, the dk/dv
+    kernel a row tile against its key block.
 
-    qpos, qseg, lse (..., R): the tile's rows (position, segment id,
-    lse); kseg (..., BK): the block's keys' segment ids, the first key
-    at k0 (int or (...)); positions at or past l do not exist. A row
-    keeps the tile when it exists, lies at or after k0 under `causal`,
-    and shares its segment with a key of the block (under `causal` one
-    at or before it) or has lse <= -1e29 (p = exp(-1e30 - lse) may be
-    nonzero on every key below its frontier). Any other row's pairs in
-    the block have p = 0 (past its frontier) or exp(-1e30 - lse) = +0, so
-    a tile without a keeping row adds nothing to dq, dk or dv."""
+    qpos, qseg, none (..., R): the tile's rows (position, segment id, and
+    whether the row sees no key of its segment at all); kseg (..., BK):
+    the block's keys' segment ids, the first key at k0 (int or (...));
+    positions at or past l do not exist. A row keeps the tile when it
+    exists, lies at or after k0 under `causal`, and shares its segment
+    with a key of the block (under `causal` one at or before it) or is
+    `none` (then every key below its frontier has logit -1e30 and weight
+    1: O is the mean of V over them). Any other row's pairs in the block
+    have logit -1e30 or lie past its frontier: before the row's first
+    key of its segment alpha = exp(-1e30 - m) = 0 erases them, after it
+    they add exp(-1e30 - m) = +0; so a tile without a keeping row changes
+    neither O nor lse."""
     k0 = torch.as_tensor(k0, device=qpos.device)
     keys = k0[..., None] + torch.arange(kseg.shape[-1], device=qpos.device)
     match = (kseg[..., None, :] == qseg[..., :, None]) \
@@ -227,8 +250,46 @@ def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
     reach = qpos < l
     if causal:
         reach = reach & (qpos >= k0[..., None])
-    keep = reach & (match.any(-1) | (lse <= _LSE_NONE))
+    keep = reach & (match.any(-1) | none)
     return keep.any(-1)
+
+
+def dkv_tile_walked(qpos, qseg, lse, kseg, k0, l: int, causal: bool):
+    """Whether the f32 backward kernels walk a (row tile, key tile) pair
+    (the dk/dv kernel tests a row tile against its key block, the dq
+    kernel a key tile against its row block): `fwd_tile_walked` with
+    lse <= -1e29 marking the rows with no key of their segment below
+    their frontier (p = exp(-1e30 - lse) may be nonzero on every such
+    key). Any other row's pairs in a skipped tile have p = 0 (past its
+    frontier) or exp(-1e30 - lse) = +0, so such a tile adds nothing to
+    dq, dk or dv."""
+    return fwd_tile_walked(qpos, qseg, lse <= _LSE_NONE, kseg, k0, l,
+                           causal)
+
+
+def _walk_map(l, causal, q_segment_ids, kv_segment_ids, none, rows, keys):
+    """(B', H', ceil(L / keys), ceil(L / rows)) bool: the pairs of a
+    `rows`-row tile and a `keys`-key tile that `fwd_tile_walked` keeps,
+    for none (B', H', L) bool and segment ids (B, L) or None."""
+    dev = none.device
+    nt, nkb = -(-l // rows), -(-l // keys)
+
+    def tiles(x, n, size, fill):
+        """(..., L) -> (..., n, size), padded past L with `fill`."""
+        pad = torch.full(x.shape[:-1] + (n * size - l,), fill,
+                         dtype=x.dtype, device=dev)
+        return torch.cat([x, pad], -1).reshape(*x.shape[:-1], n, size)
+
+    if q_segment_ids is None:
+        q_segment_ids = kv_segment_ids = torch.zeros(
+            (none.shape[0], l), dtype=torch.int32, device=dev)
+    qseg = tiles(q_segment_ids.to(dev, torch.int32), nt, rows, 0)
+    kseg = tiles(kv_segment_ids.to(dev, torch.int32), nkb, keys, 0)
+    qpos = torch.arange(nt * rows, device=dev).reshape(nt, rows)
+    k0 = (torch.arange(nkb, device=dev) * keys)[:, None]
+    return fwd_tile_walked(qpos, qseg[:, None, None], tiles(
+        none, nt, rows, False)[:, :, None], kseg[:, None, :, None],
+        k0, l, causal)
 
 
 def dkv_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
@@ -238,26 +299,8 @@ def dkv_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
     key block of the f32 dk/dv kernel walks (`dkv_tile_walked`), for lse
     (B, H, L) and segment ids (B, L) or None; by default in the dk/dv
     kernel's tiles."""
-    b, h, _ = lse.shape
-    dev = lse.device
-    nt, nkb = -(-l // rows), -(-l // keys)
-
-    def tiles(x, n, size, fill):
-        """(B, L) -> (B, n, size), padded past L with `fill`."""
-        pad = torch.full(x.shape[:-1] + (n * size - l,), fill,
-                         dtype=x.dtype, device=dev)
-        return torch.cat([x, pad], -1).reshape(*x.shape[:-1], n, size)
-
-    if q_segment_ids is None:
-        q_segment_ids = kv_segment_ids = torch.zeros(
-            (b, l), dtype=torch.int32, device=dev)
-    qseg = tiles(q_segment_ids.to(dev, torch.int32), nt, rows, 0)
-    kseg = tiles(kv_segment_ids.to(dev, torch.int32), nkb, keys, 0)
-    qpos = torch.arange(nt * rows, device=dev).reshape(nt, rows)
-    k0 = (torch.arange(nkb, device=dev) * keys)[:, None]
-    return dkv_tile_walked(qpos, qseg[:, None, None], tiles(
-        lse, nt, rows, 0.0)[:, :, None], kseg[:, None, :, None],
-        k0, l, causal)
+    return _walk_map(l, causal, q_segment_ids, kv_segment_ids,
+                     lse <= _LSE_NONE, rows, keys)
 
 
 def dq_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
@@ -268,6 +311,39 @@ def dq_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids,
     return dkv_walk_map(l, causal, q_segment_ids, kv_segment_ids, lse,
                         rows=DQ_F32_ROWS, keys=DQ_F32_KEYS).transpose(
                             -1, -2).contiguous()
+
+
+def no_visible_key(l: int, causal: bool, q_segment_ids,
+                   kv_segment_ids) -> torch.Tensor:
+    """(B, L) bool: the rows with no key of their segment below their
+    frontier (F_r = r + 1 under `causal`, else L), for segment ids (B, L)
+    or None (one segment: no such row; then (1, L)). Such a row returns
+    the mean of V over [0, F_r) with lse = -1e30 + log F_r <= -1e29."""
+    if q_segment_ids is None:
+        return torch.zeros((1, l), dtype=torch.bool)
+    qs = q_segment_ids.to(torch.int32)
+    ks = kv_segment_ids.to(device=qs.device, dtype=torch.int32)
+    same = qs[:, :, None] == ks[:, None, :]                 # (B, L, L)
+    if causal:
+        same = same & torch.ones((l, l), dtype=torch.bool,
+                                 device=qs.device).tril()
+    return ~same.any(-1)
+
+
+def fwd_walk_map(l: int, causal: bool, q_segment_ids, kv_segment_ids, *,
+                 rows: int = FWD_F32_ROWS,
+                 keys: Optional[int] = None) -> torch.Tensor:
+    """(B, 1, ceil(L / rows), ceil(L / keys)) bool: the key tiles each row
+    block of the f32 forward walks (`fwd_tile_walked`, the rows that see
+    no key of their segment from `no_visible_key`), in tiles of `rows`
+    rows and `keys` keys (by default FWD_F32_TILES[rows]). The same for
+    every head (B is 1 without segment ids); with the forward's lse it is
+    the dq kernel's map in the same tiles (`dq_walk_map`)."""
+    keys = keys or FWD_F32_TILES[rows]
+    none = no_visible_key(l, causal, q_segment_ids, kv_segment_ids)
+    return _walk_map(l, causal, q_segment_ids, kv_segment_ids,
+                     none[:, None], rows, keys).transpose(-1,
+                                                          -2).contiguous()
 
 
 def _lib():
@@ -294,6 +370,46 @@ def _sm90_lib():
         lib.flash_attention_fwd_sm90.restype = ctypes.c_int
         lib._typed_fa = True
     return lib
+
+
+def type_fwd_f32(lib):
+    """Set the C signatures of csrc/flash_attn_f32.cu's entries on a loaded
+    library (also a variant build's); returns it."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd_f32.argtypes = [p] * 7 + [i] * 5 + [
+        ctypes.c_float, i, p, p]
+    lib.flash_attention_fwd_f32.restype = ctypes.c_int
+    lib.flash_attention_fwd_f32_keys.argtypes = [i]
+    lib.flash_attention_fwd_f32_keys.restype = ctypes.c_int
+    lib._typed_fa = True
+    return lib
+
+
+def fwd_f32_tile(b: int, l: int, h: int, sms: int):
+    """(rows, keys): the f32 forward's tile for B x H x L rows on a card
+    of `sms` SMs (one block an SM): the narrow tile, 64 rows, when its
+    waves of half-size blocks (each `_NARROW_BLOCK_COST` of a wide
+    block's time) end before the wide tile's waves; else the wide one,
+    128 rows. At the ViT's 480x640 image (1, 1280, 16) the wide tile's 160
+    blocks leave a second wave on 28 of 132 SMs, and the narrow one took
+    9% less; at its training shape (1, 4224, 16: four full waves) the
+    wide one took 17% less (PERF.md §6, tools/time_k3.py --variant)."""
+    wide = -(-b * h * -(-l // 128) // sms)
+    narrow = -(-b * h * -(-l // 64) // sms)
+    rows = 64 if _NARROW_BLOCK_COST * narrow < wide else 128
+    return rows, FWD_F32_TILES[rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _fwd_f32_lib():
+    from wedetect_tpu_torch.ops import _build
+
+    lib = _build.load("flash_attn_f32")
+    return lib if getattr(lib, "_typed_fa", False) else type_fwd_f32(lib)
 
 
 def _bwd_lib():
@@ -351,10 +467,13 @@ def _route(name: str, dtype: torch.dtype, d: int) -> str:
 
 
 def fwd_route(dtype: torch.dtype, d: int) -> str:
-    """The K3 forward kernel a CUDA input takes: "sm90"
-    (csrc/flash_attn_sm90.cu, wgmma + TMA) for bf16 at D = 64; "simt"
-    (csrc/flash_attn.cu) for f32 and for bf16 at any other head dim.
-    Raises for other types."""
+    """The K3 forward kernel a CUDA input takes: "f32"
+    (csrc/flash_attn_f32.cu, FFMA register tiles fed by cp.async) for f32
+    at D = 64; "sm90" (csrc/flash_attn_sm90.cu, wgmma + TMA) for bf16 at
+    D = 64; "simt" (csrc/flash_attn.cu) for every other head dim, padded
+    to the next of SIMT_HEAD_DIMS. Raises TypeError for other types."""
+    if dtype == torch.float32 and d == 64:
+        return "f32"
     return _route("flash_attention", dtype, d)
 
 
@@ -447,13 +566,66 @@ def flash_attention_fwd_sm90(q, k, v, q_segment_ids=None,
 flash_attention_fwd_sm90.launches = 0
 
 
+def _walked_ptr(name, walked, q, block):
+    """`walked`'s pointer (None for None), after checking that it is a
+    contiguous int32 tensor (B, H, ceil(L / block)) on q's device."""
+    if walked is None:
+        return None
+    b, l, h, _ = q.shape
+    want = (b, h, -(-l // block))
+    if walked.dtype != torch.int32 or tuple(walked.shape) != want \
+            or walked.device != q.device or not walked.is_contiguous():
+        raise ValueError(f"{name}: walked must be contiguous int32 {want} "
+                         "on q's device")
+    return walked.data_ptr()
+
+
+def flash_attention_fwd_f32(q, k, v, q_segment_ids=None, kv_segment_ids=None,
+                            causal=False, sm_scale=1.0, walked=None,
+                            rows=None):
+    """One launch of K3's f32 kernel (FFMA register tiles fed by cp.async,
+    D = 64) on CUDA tensors: (O (B, L, H, 64), lse (B, H, L) f32). `rows`:
+    the tile's rows (128 or 64); by default `fwd_f32_tile`'s for the card.
+    `walked`: None, or a contiguous int32 CUDA tensor
+    (B, H, ceil(L / rows)) that gets each row block's count of walked key
+    tiles (`fwd_walk_map` in that tile counts the same). Raises for
+    another type or head dim, for a q, k or v that is not 16-byte aligned
+    (cp.async copies 16 bytes), and for a wrong `walked`."""
+    name = "flash_attention_fwd_f32"
+    _check(q, k, v, q_segment_ids, kv_segment_ids)
+    _check_cuda(name, q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"{name}: the f32 kernel takes float32, got "
+                        f"{q.dtype}")
+    if q.shape[-1] != 64:
+        raise ValueError(f"{name}: the f32 kernel takes head dim 64, got "
+                         f"{q.shape[-1]}")
+    _check_aligned(name, "cp.async", q=q, k=k, v=v)
+    if rows is None:
+        b, l, h, _ = q.shape
+        rows, _ = fwd_f32_tile(b, l, h, _sm_count(q.device.index or 0))
+    walked_ptr = _walked_ptr(name, walked, q, rows)
+    o, lse = _launch_fwd(name, _fwd_f32_lib().flash_attention_fwd_f32, q, k,
+                         v, q_segment_ids, kv_segment_ids, causal, sm_scale,
+                         rows, walked_ptr)
+    flash_attention_fwd_f32.launches += 1
+    return o, lse
+
+
+flash_attention_fwd_f32.launches = 0
+
+
 def _fwd_kernel(q, k, v, q_segment_ids, kv_segment_ids, causal, sm_scale):
     """One launch of K3: (O, lse). The kernel goes by `fwd_route`; every
     launch is counted in `flash_attention.launches`, the bf16 wgmma
-    kernel's also in `flash_attention_fwd_sm90.launches`."""
+    kernel's also in `flash_attention_fwd_sm90.launches`, the f32 FFMA
+    kernel's in `flash_attention_fwd_f32.launches`."""
     args = (q_segment_ids, kv_segment_ids, causal, sm_scale)
-    if fwd_route(q.dtype, q.shape[-1]) == "sm90":
+    route = fwd_route(q.dtype, q.shape[-1])
+    if route == "sm90":
         o, lse = flash_attention_fwd_sm90(q, k, v, *args)
+    elif route == "f32":
+        o, lse = flash_attention_fwd_f32(q, k, v, *args)
     else:
         _check_cuda("flash_attention", q, k, v)
         d = q.shape[-1]
@@ -580,15 +752,7 @@ def _check_f32(name, q, k, v, do, lse, delta, kw, walked, block):
         raise ValueError(f"{name}: the f32 kernel takes head dim 64, got "
                          f"{q.shape[-1]}")
     _check_aligned(name, "cp.async", q=q, k=k, v=v, do=do)
-    if walked is None:
-        return None
-    b, l, h, _ = q.shape
-    want = (b, h, -(-l // block))
-    if walked.dtype != torch.int32 or tuple(walked.shape) != want \
-            or walked.device != q.device or not walked.is_contiguous():
-        raise ValueError(f"{name}: walked must be contiguous int32 {want} "
-                         "on q's device")
-    return walked.data_ptr()
+    return _walked_ptr(name, walked, q, block)
 
 
 def flash_attention_bwd_dkv_f32(q, k, v, do, lse, delta, *,
