@@ -173,6 +173,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             each of K2's FFMA forward, dq and dk/dv kernels and 24 each
             of K3's a step, none of the SIMT ones); ms per step (steps
             2-3) and peak card memory.
+17. det_train_parity  a miniature detector (mini_cfg's widths at
+            128x128) takes one f32 train_step (B = 2, five gts, drop path
+            0) on the card and one on the CPU from the same weights: the
+            loss and its parts, every gradient and the BN running
+            statistics within DET_TRAIN_TOL / DET_STATS_TOL; a control
+            step with one gt removed must miss; the card's step run
+            twice (its run-to-run drift reported); no kernel of the port
+            launches (K1 nor the attention kernels).
+18. det_train  cli/train's own builders (build_config, build_state,
+            make_sample_fn) at WeDetect-Base, not cut, 640x640, the CLI
+            defaults (B = 16, K = 80, lr 5e-4 constant, weight decay
+            0.025, drop path 0, no mosaic or mixup, bf16), random init and
+            the random text bank: seeded in-memory 640x640 images with
+            1-20 gt boxes each, the class texts sampled per image
+            (RandomLoadText), 3 steps through train/loop.run_training.
+            Finite losses, num_pos > 0, a backbone tensor, a head tensor
+            and a BN running mean changed, K1 launched 0 times; ms a
+            step (steps 2-3, the loop's own clock), img/s and peak card
+            memory.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -2417,6 +2436,221 @@ def phase_train(dev, image, proposals, cfg=None, grid_tokens: int = 1024,
     return res, counts
 
 
+# ------------------------------------------------------ detector training
+# one f32 detector train_step, card vs CPU (det_train_parity): the loss
+# and its parts within DET_TRAIN_TOL relative; each gradient within
+# DET_TRAIN_TOL of its tensor's largest entry, or within one f32 ulp
+# (2^-23) of the model's largest entry (a bias ahead of a train-mode BN
+# has gradient 0 in exact arithmetic and holds only rounding noise); the
+# BN running statistics within DET_STATS_TOL. TF32 is off (phase_device),
+# so both sides sum in f32 and differ in order only. cuDNN may pick a
+# nondeterministic weight-gradient algorithm (atomic adds): that too
+# only reorders f32 sums, a few ulps of the summands. Train-mode BN over
+# small maps amplifies such rounding into the gradients (2e-7 relative
+# on the input images moves them by 3.9e-5 of a tensor's largest entry
+# at 64x64 on the CPU, tests/test_torch_train_det.py); the phase reruns
+# the card's step and reports that drift as rerun_errors (0.04-0.05 of
+# the limit on an H100, PERF.md §6).
+DET_TRAIN_TOL = 1e-4
+DET_STATS_TOL = 1e-5
+# the card tensors det_train watches move
+DET_WATCH = ("backbone.stages.2.0.pwconv1.weight",
+             "bbox_head.cls_preds.0.0.weight",
+             "neck.Rep_p3.cv1.block.bn.running_mean")
+
+
+def det_mini_cfg():
+    """mini_cfg's widths (tests/test_detector.py:14) at 128x128: at 64x64
+    train-mode BN normalizes 8 values a channel at P5, which amplifies
+    rounding into the gradients (a BottleRep alpha, one scalar summed
+    over the map, came near DET_TRAIN_TOL on an H100); at 128x128, 32
+    values, the card stays near 0.2 of it (PERF.md §6)."""
+    from wedetect_tpu_torch.configs import ModelCfg
+
+    return ModelCfg(name="mini", depths=(1, 1, 2, 1), dims=(32, 64, 128, 256),
+                    neck_scale=0.25, neck_repeats=2,
+                    head_in_channels=(32, 64, 128), embed_dims=32,
+                    img_size=(128, 128), text=None, num_classes=4)
+
+
+def det_mini_batch(cfg, drop_gt: bool = False):
+    """B = 2 seeded images and text banks, five gts (one removed with
+    `drop_gt`), padded to cfg.train.max_gt_per_image."""
+    from wedetect_tpu_torch.train.train_step import Batch
+
+    g = cfg.train.max_gt_per_image
+    h, w = cfg.img_size
+    rng = np.random.default_rng(6)
+    gts = [(0, [8, 8, 60, 80], 1), (0, [40, 20, 120, 100], 3),
+           (0, [80, 80, 94, 92], 2), (1, [20, 20, 40, 36], 0),
+           (1, [60, 12, 124, 72], 2)][:4 if drop_gt else 5]
+    gtb = np.zeros((2, g, 4), np.float32)
+    gtl = np.zeros((2, g), np.int32)
+    gtm = np.zeros((2, g), bool)
+    for row, box, label in gts:
+        i = int(gtm[row].sum())
+        gtb[row, i], gtl[row, i], gtm[row, i] = box, label, True
+    return Batch(images=rng.integers(0, 256, (2, h, w, 3), np.uint8),
+                 texts=rng.standard_normal((2, 4, 32)).astype(np.float32),
+                 gt_bboxes=gtb, gt_labels=gtl, gt_mask=gtm)
+
+
+def det_step(cfg, model, batch):
+    """One train_step: its metrics, gradients and BN statistics (CPU)."""
+    from wedetect_tpu_torch.train.train_step import (TrainState,
+                                                     det_optimizer,
+                                                     train_step)
+
+    state = TrainState.create(model, det_optimizer(model, base_lr=5e-4))
+    _, metrics = train_step(cfg, state, batch)
+    grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad).cpu()
+             for n, p in model.named_parameters()}
+    stats = {n: t.detach().cpu() for n, t in model.state_dict().items()
+             if n.endswith(("running_mean", "running_var"))}
+    return {k: float(v) for k, v in metrics.items()}, grads, stats
+
+
+def det_step_errors(got, want):
+    """The largest relative loss error, the worst gradient error against
+    its limit (<= 1 passes) and the largest statistics error."""
+    (gm, gg, gs), (wm, wg, ws) = got, want
+    loss = max(abs(gm[k] - wm[k]) / abs(wm[k])
+               for k in ("loss", "loss_cls", "loss_bbox", "loss_dfl"))
+    top = max(float(w.abs().max()) for w in wg.values())
+    grad = max(float((gg[n] - w).abs().max())
+               / max(DET_TRAIN_TOL * float(w.abs().max()), 2.0 ** -23 * top)
+               for n, w in wg.items())
+    stats = max(float((gs[n] - w).abs().max()) for n, w in ws.items())
+    return {"loss_rel_err": loss, "grad_err_over_limit": grad,
+            "stats_max_abs_err": stats, "num_pos": [gm["num_pos"],
+                                                    wm["num_pos"]]}
+
+
+def det_errors_ok(e) -> bool:
+    return (e["loss_rel_err"] <= DET_TRAIN_TOL
+            and e["grad_err_over_limit"] <= 1.0
+            and e["stats_max_abs_err"] <= DET_STATS_TOL
+            and e["num_pos"][0] == e["num_pos"][1])
+
+
+def det_launches(reset: bool = False):
+    """K1's launch count and the attention kernels' (reset with
+    `reset`)."""
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    if reset:
+        row_topk.launches = 0
+    return {"row_topk": row_topk.launches, **launch_counts(reset)}
+
+
+def phase_det_train_parity(dev):
+    from wedetect_tpu_torch.models import wedetect as W
+
+    cfg = det_mini_cfg()
+    cpu = W.init_variables(cfg, seed=5, device="cpu")
+    init = {k: v.clone() for k, v in cpu.state_dict().items()}
+    want = det_step(cfg, cpu, det_mini_batch(cfg))
+    card = W.init_variables(cfg, seed=5, device=dev)
+    card.load_state_dict(init)
+    det_launches(reset=True)
+    got = det_step(cfg, card, det_mini_batch(cfg))
+    launches = det_launches()
+    card.load_state_dict(init)
+    again = det_step(cfg, card, det_mini_batch(cfg))
+    card.load_state_dict(init)
+    control = det_step(cfg, card, det_mini_batch(cfg, drop_gt=True))
+    errs, ctrl = det_step_errors(got, want), det_step_errors(control, want)
+    res = {"errors": errs, "control_errors": ctrl,
+           # the card against itself: cuDNN's run-to-run reordering
+           "rerun_errors": det_step_errors(again, got), "launches": launches,
+           "tolerance": {"loss_rel": DET_TRAIN_TOL, "grad": DET_TRAIN_TOL,
+                         "stats_abs": DET_STATS_TOL},
+           "losses": {k: got[0][k] for k in ("loss", "loss_cls",
+                                             "loss_bbox", "loss_dfl")}}
+    ok = (det_errors_ok(errs) and not det_errors_ok(ctrl)
+          and not any(launches.values()))
+    emit({"phase": "det_train_parity", **res})
+    if not ok:
+        raise AssertionError("det_train_parity: card step != CPU step, "
+                             "or the control did not miss")
+
+
+def det_raw_sample(rng, size: int = 640, n_classes: int = 80):
+    """A seeded in-memory sample: a size x size uint8 image and 1-20 gt
+    boxes (8-320 px a side) with labels in [0, n_classes)."""
+    n = int(rng.integers(1, 21))
+    wh = rng.uniform(8, size / 2, (n, 2))
+    xy = rng.uniform(0, 1, (n, 2)) * (size - wh)
+    return {"image": rng.integers(0, 256, (size, size, 3), np.uint8),
+            "gt_bboxes": np.concatenate([xy, xy + wh], -1).astype(
+                np.float32),
+            "gt_labels": rng.integers(0, n_classes, n)}
+
+
+def phase_det_train(dev, argv=None, steps: int = 3):
+    """cli/train's builders at WeDetect-Base with the CLI defaults; 3 steps
+    of train/loop.run_training."""
+    from wedetect_tpu_torch.cli import train as CLI
+    from wedetect_tpu_torch.train.loop import (TrainLoopCfg,
+                                               make_batch_iterator,
+                                               run_training)
+
+    args = CLI.parse_args(argv or ["--size", "base", "--steps", str(steps),
+                                   "--device", str(dev)])
+    cfg = CLI.build_config(args)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    state, text_encode = CLI.build_state(args, cfg)
+    class_texts = [[f"class {i}"] for i in range(args.num_classes)]
+    sample_fn = CLI.make_sample_fn(
+        args, cfg, lambda rng: det_raw_sample(rng, cfg.img_size[0],
+                                              args.num_classes),
+        class_texts)
+    loop_cfg = TrainLoopCfg(steps=steps, batch_size=args.batch_size,
+                            log_every=1)
+    batches = make_batch_iterator(cfg, loop_cfg, sample_fn, text_encode,
+                                  seed=args.seed)
+    sd = state.model.state_dict()
+    watch = {n: sd[n].detach().clone() for n in DET_WATCH}
+    logs = []
+    det_launches(reset=True)
+    state = run_training(cfg, state, batches, loop_cfg,
+                         log_fn=lambda s, m: logs.append(m))
+    torch.cuda.synchronize()
+    launches = det_launches()
+    sd = state.model.state_dict()
+    changed = {n: not torch.equal(sd[n], w) for n, w in watch.items()}
+    step_ms = [1e3 * args.batch_size / m["img_per_s"] for m in logs]
+    ms = float(np.mean(step_ms[1:]))
+    keys = ("loss", "loss_cls", "loss_bbox", "loss_dfl", "num_pos",
+            "grad_norm")
+    res = {"config": {"size": args.size, "img_size": list(cfg.img_size),
+                      "batch_size": args.batch_size,
+                      "num_classes": cfg.num_classes, "lr": args.lr,
+                      "lr_schedule": args.lr_schedule,
+                      "weight_decay": args.weight_decay,
+                      "drop_path": args.drop_path,
+                      "compute_dtype": cfg.compute_dtype},
+           "steps": steps, "losses": [{k: m[k] for k in keys} for m in logs],
+           "step_ms": step_ms, "ms_per_step": ms,
+           "img_per_s": 1e3 * args.batch_size / ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "allocated_at_start_gb": start_gb, "changed": changed,
+           "launches": launches, "optimizer_count": state.tx.count}
+    finite = all(np.isfinite(m[k]) for m in logs for k in keys)
+    ok = (len(logs) == steps and finite
+          and all(m["num_pos"] > 0 for m in logs) and all(changed.values())
+          and launches["row_topk"] == 0 and not any(launches.values()))
+    emit({"phase": "det_train", **res})
+    if not ok:
+        raise AssertionError("det_train: the detector training run broke "
+                             "its checks")
+    del state, batches
+    torch.cuda.empty_cache()
+    return res
+
+
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
@@ -2502,6 +2736,8 @@ def main() -> int:
     phase_train_parity(dev)
     phase_train_grad(dev, image, proposals)
     train, train_counts = phase_train(dev, image, proposals)
+    phase_det_train_parity(dev)
+    phase_det_train(dev)
     k2_train, k3_train = (k2_bwd_launches(train_counts),
                           k3_bwd_launches(train_counts))
     k2_bf16 = k2_bwd_launches(k2_bwd["autograd_bf16"]["launches"])

@@ -1904,3 +1904,93 @@ def test_ref_modules_backward_on_the_card(cuda, monkeypatch):
         want = grads[1][n]
         err = float((g.cpu() - want).abs().max())
         assert err <= 1e-5 * max(float(want.abs().max()), 1e-3), (n, err)
+
+
+# ------------------------------------------------------ detector training
+def _det_mini_cfg(**kw):
+    from wedetect_tpu_torch.configs import ModelCfg
+
+    return ModelCfg(name="mini", depths=(1, 1, 2, 1), dims=(32, 64, 128, 256),
+                    neck_scale=0.25, neck_repeats=2,
+                    head_in_channels=(32, 64, 128), embed_dims=32,
+                    img_size=(128, 128), text=None, num_classes=4, **kw)
+
+
+def _det_step(cfg, model, seed=0):
+    from wedetect_tpu_torch.train.train_step import (Batch, TrainState,
+                                                     det_optimizer,
+                                                     train_step)
+
+    rng = np.random.default_rng(seed)
+    g = cfg.train.max_gt_per_image
+    gtb = np.zeros((2, g, 4), np.float32)
+    gtl = np.zeros((2, g), np.int32)
+    gtm = np.zeros((2, g), bool)
+    gtb[0, :3] = [[8, 8, 60, 80], [40, 20, 120, 100], [80, 80, 94, 92]]
+    gtl[0, :3] = [1, 3, 2]
+    gtb[1, :1] = [[20, 20, 40, 36]]
+    gtm[0, :3] = gtm[1, :1] = True
+    batch = Batch(rng.integers(0, 256, (2, 128, 128, 3), np.uint8),
+                  rng.standard_normal((2, 4, 32)).astype(np.float32),
+                  gtb, gtl, gtm)
+    state = TrainState.create(model, det_optimizer(model, base_lr=5e-4))
+    _, m = train_step(cfg, state, batch)
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: t.cpu() for n, t in model.state_dict().items()})
+
+
+def test_det_train_step_card_matches_cpu(cuda):
+    """One f32 train_step of a miniature detector (mini_cfg's widths at
+    128x128, chip_smoke.det_mini_cfg says why) on the card and on the
+    CPU from the same weights: losses to 1e-4 relative, each gradient to
+    1e-4 of its tensor's largest entry or one f32 ulp of the model's
+    largest (tests/test_torch_train_det.py), BN statistics and the
+    updated parameters (lr 5e-4, Adam: +-2 lr) likewise; K1 never
+    launches."""
+    from wedetect_tpu_torch.models import wedetect as W
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _det_mini_cfg()
+    cpu = W.init_variables(cfg, seed=5, device="cpu")
+    card = W.init_variables(cfg, seed=5, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    before = row_topk.launches
+    got, want = _det_step(cfg, card), _det_step(cfg, cpu)
+    assert row_topk.launches == before
+    for k in ("loss", "loss_cls", "loss_bbox", "loss_dfl", "grad_norm"):
+        assert abs(got[0][k] - want[0][k]) <= 1e-4 * abs(want[0][k]), k
+    assert got[0]["num_pos"] == want[0]["num_pos"] > 0
+    top = max(float(w.abs().max()) for w in want[1].values())
+    for n, w in want[1].items():
+        err = float((got[1][n] - w).abs().max())
+        assert err <= max(1e-4 * float(w.abs().max()), 2.0 ** -23 * top), n
+    for n, w in want[2].items():
+        err = float((got[2][n].float() - w.float()).abs().max())
+        bound = 1e-5 if n.endswith(("running_mean", "running_var")) \
+            else 2 * 5e-4 + 1e-6
+        assert err <= bound, (n, err)
+
+
+def test_drop_path_generator_on_the_card(cuda):
+    """Drop path on CUDA tensors draws from a CUDA generator: the same
+    seed gives the same masks, whole samples are dropped or kept scaled
+    by 1 / keep, and the train step's generator lives on the card."""
+    from wedetect_tpu_torch.nn.convnext import drop_path
+    from wedetect_tpu_torch.train.train_step import drop_path_generator
+
+    y = torch.randn(256, 8, 4, 4, device=cuda)
+    gen = drop_path_generator(_det_mini_cfg(drop_path_rate=0.3), 7, cuda)
+    assert gen.device.type == "cuda"
+    a = drop_path(y, 0.3, gen)
+    b = drop_path(y, 0.3, drop_path_generator(
+        _det_mini_cfg(drop_path_rate=0.3), 7, cuda))
+    assert torch.equal(a, b)
+    kept = (a != 0).flatten(1).any(1)
+    assert torch.equal(a[~kept], torch.zeros_like(a[~kept]))
+    assert torch.allclose(a[kept], y[kept] / 0.7)
+    assert 0.5 < float(kept.float().mean()) < 0.9
+    with pytest.raises(RuntimeError):
+        drop_path(y, 0.3, torch.Generator())       # a CPU generator

@@ -2,8 +2,9 @@
 """Where the port's detect step, its Ref scoring, or its Ref SFT step
 spends its time on the card.
 
-    python3 tools/profile_detect_torch.py [--ref | --train] [--batch 8]
-                                          [--bf16] [--iters 3] [--table F]
+    python3 tools/profile_detect_torch.py [--ref | --train | --det-train]
+                                          [--batch N] [--bf16] [--iters 3]
+                                          [--table F]
 
 Detect (the default): full-width WeDetect-Base (640x640, K = 1203,
 random weights and random class embeddings, the head calibrated to a
@@ -16,6 +17,11 @@ tokenizer. --train: one stage-3 SFT step (train/ref_sft.ref_sft_step,
 f32, ref_optimizer) at ref_2b's full width on chip_smoke.py's training
 sample with the train_ref CLI defaults (--grid-tokens 1024: ViT
 L = 4224; decoder L = 2048; 100 proposals); --bf16 does not apply.
+--det-train: one detector train_step as chip_smoke.py's det_train
+phase builds it (cli/train's builders: WeDetect-Base, 640x640, K = 80,
+bf16, random init and text bank; --batch images, default 16, of its
+seeded in-memory samples), the batch built beforehand, so the time is
+the step's alone (upload, forward, assigner, losses, backward, AdamW).
 The call runs under torch.profiler; the script prints one
 JSON line: wall time per call, device busy time per call (the union of
 kernel intervals on the card) and so the device's idle share, and the
@@ -67,12 +73,13 @@ def detect_call(args, C, dev):
                     device=dev)
     det.reparameterize([str(i) for i in range(C.N_CLASSES)], embeds=w)
     h, wd = det.cfg.img_size
+    b = args.batch or 8
     images = list(torch.randint(
-        0, 256, (args.batch, h, wd, 3), dtype=torch.uint8,
+        0, 256, (b, h, wd, 3), dtype=torch.uint8,
         generator=torch.Generator().manual_seed(2)).numpy())
     C.calibrate_head(det, np.stack(images), det._text_embeds,
                      det.cfg.test.score_thr)
-    return lambda: det(images), {"batch": args.batch}
+    return lambda: det(images), {"batch": b}
 
 
 def ref_call(args, C, dev):
@@ -113,13 +120,36 @@ def train_call(args, C, dev):
             {"vit_tokens": gh * gw, "seq_len": int(b["input_ids"].shape[1])})
 
 
+def det_train_call(args, C, dev):
+    from wedetect_tpu_torch.cli import train as CLI
+    from wedetect_tpu_torch.train.loop import (TrainLoopCfg,
+                                               make_batch_iterator)
+    from wedetect_tpu_torch.train.train_step import train_step
+
+    b = args.batch or 16
+    cli = CLI.parse_args(["--size", "base", "--batch-size", str(b),
+                          "--device", str(dev)])
+    cfg = CLI.build_config(cli)
+    state, text_encode = CLI.build_state(cli, cfg)
+    sample_fn = CLI.make_sample_fn(
+        cli, cfg, lambda rng: C.det_raw_sample(rng, cfg.img_size[0]),
+        [[f"class {i}"] for i in range(cli.num_classes)])
+    batch = next(make_batch_iterator(cfg, TrainLoopCfg(batch_size=b),
+                                     sample_fn, text_encode))
+    return (lambda: train_step(cfg, state, batch),
+            {"batch": b, "num_classes": cfg.num_classes})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref", action="store_true",
                    help="profile RefScorer.score instead of the detector")
     p.add_argument("--train", action="store_true",
                    help="profile one Ref stage-3 SFT step")
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--det-train", action="store_true",
+                   help="profile one detector train step (bf16)")
+    p.add_argument("--batch", type=int, default=0,
+                   help="images a call (default 8; --det-train 16)")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--table", default="",
@@ -134,8 +164,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    make = train_call if args.train else ref_call if args.ref \
-        else detect_call
+    make = (det_train_call if args.det_train else train_call if args.train
+            else ref_call if args.ref else detect_call)
     call, info = make(args, C, dev)
     call()
     torch.cuda.synchronize()
@@ -151,8 +181,10 @@ def main(argv=None) -> int:
         with open(args.table, "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=50))
-    dtype = "bf16" if args.bf16 and not args.train else "f32"
-    name = ("train_" if args.train else "ref_" if args.ref else "") + dtype
+    dtype = ("bf16" if args.det_train or args.bf16 and not args.train
+             else "f32")
+    name = ("det_train_" if args.det_train else "train_" if args.train
+            else "ref_" if args.ref else "") + dtype
     top = sorted(prof.key_averages(),
                  key=lambda e: e.self_device_time_total, reverse=True)[:14]
     print(json.dumps({

@@ -108,33 +108,51 @@ def _lin(k) -> torch.Tensor:
 
 
 class _Writer:
-    """Accumulates port keys from flax subtrees."""
+    """Accumulates port keys from flax subtrees. The leaf methods (`t`,
+    `conv_w`, `lin_w`, `conv1x1_w`, `scalar`) turn a flax leaf into the port's
+    tensor; `_PathWriter` overrides them to record the leaf's path."""
 
     def __init__(self):
         self.sd: StateDict = {}
+
+    def t(self, x):
+        return _t(x)
+
+    def conv_w(self, x):
+        return _conv(x)
+
+    def lin_w(self, x):
+        return _lin(x)
+
+    def conv1x1_w(self, x):
+        """A Dense kernel (in, out) as a 1x1 conv's (out, in, 1, 1)."""
+        return _lin(x)[:, :, None, None]
+
+    def scalar(self, x):
+        return _t(x).reshape(())
 
     def put(self, key: str, value: torch.Tensor):
         self.sd[key] = value
 
     def bn(self, p: str, params, stats):
-        self.put(p + "weight", _t(params["scale"]))
-        self.put(p + "bias", _t(params["bias"]))
-        self.put(p + "running_mean", _t(stats["mean"]))
-        self.put(p + "running_var", _t(stats["var"]))
+        self.put(p + "weight", self.t(params["scale"]))
+        self.put(p + "bias", self.t(params["bias"]))
+        self.put(p + "running_mean", self.t(stats["mean"]))
+        self.put(p + "running_var", self.t(stats["var"]))
         self.put(p + "num_batches_tracked", torch.tensor(0))
 
     def ln(self, p: str, params):
-        self.put(p + "weight", _t(params["scale"]))
-        self.put(p + "bias", _t(params["bias"]))
+        self.put(p + "weight", self.t(params["scale"]))
+        self.put(p + "bias", self.t(params["bias"]))
 
     def dense(self, p: str, params):
-        self.put(p + "weight", _lin(params["kernel"]))
-        self.put(p + "bias", _t(params["bias"]))
+        self.put(p + "weight", self.lin_w(params["kernel"]))
+        self.put(p + "bias", self.t(params["bias"]))
 
     def conv(self, p: str, params):
-        self.put(p + "weight", _conv(params["kernel"]))
+        self.put(p + "weight", self.conv_w(params["kernel"]))
         if "bias" in params:
-            self.put(p + "bias", _t(params["bias"]))
+            self.put(p + "bias", self.t(params["bias"]))
 
     def convbn(self, p: str, params, stats):
         self.conv(p + "block.conv.", params["conv"])
@@ -143,7 +161,7 @@ class _Writer:
     def bottlerep(self, p: str, params, stats):
         for c in ("conv1", "conv2"):
             self.convbn(f"{p}{c}.", params[c], stats[c])
-        self.put(p + "alpha", _t(params["alpha"]))
+        self.put(p + "alpha", self.t(params["alpha"]))
 
     def bepc3(self, p: str, params, stats, n: int):
         for c in ("cv1", "cv2", "cv3"):
@@ -158,15 +176,61 @@ class _Writer:
         for c in ("cv1", "cv2", "cv3", "downsample"):
             self.convbn(f"{p}{c}.", params[c], stats[c])
         up = params["upsample"]
-        self.put(p + "upsample.upsample_transpose.weight", _t(up["kernel"]))
-        self.put(p + "upsample.upsample_transpose.bias", _t(up["bias"]))
+        self.put(p + "upsample.upsample_transpose.weight", self.t(up["kernel"]))
+        self.put(p + "upsample.upsample_transpose.bias", self.t(up["bias"]))
+
+
+class _PathTree:
+    """A stand-in for a flax tree: indexing extends the path, and every
+    name is present (`jax_param_paths` keeps only the keys the port's
+    module has)."""
+
+    def __init__(self, path=()):
+        self.path = path
+
+    def __getitem__(self, name: str) -> "_PathTree":
+        return _PathTree(self.path + (name,))
+
+    def __contains__(self, name: str) -> bool:
+        return True
+
+
+class _PathWriter(_Writer):
+    """Writes each port key's JAX path ("/"-joined) in place of its
+    tensor."""
+
+    def t(self, x):
+        return "/".join(x.path)
+
+    conv_w = lin_w = conv1x1_w = scalar = t
 
 
 def from_jax_variables(variables: Mapping, cfg: ModelCfg) -> StateDict:
     """JAX detector `variables` ({"params", "batch_stats"} of numpy
     arrays) -> the port's WeDetectModule state dict (canonical keys)."""
-    params, stats = variables["params"], variables["batch_stats"]
     w = _Writer()
+    _write_detector(w, variables["params"], variables["batch_stats"], cfg)
+    return w.sd
+
+
+def jax_param_paths(cfg: ModelCfg) -> Dict[str, str]:
+    """Port key -> the JAX param path of the same tensor, "/"-joined as
+    the JAX optimizer's masks read it ("neck/rep_p4/cv1/conv/kernel"),
+    for every parameter of the port's WeDetectModule."""
+    from wedetect_tpu_torch.models.wedetect import WeDetectModule
+
+    w = _PathWriter()
+    _write_detector(w, _PathTree(), _PathTree(("batch_stats",)), cfg)
+    with torch.device("meta"):
+        names = [n for n, _ in WeDetectModule(cfg).named_parameters()]
+    missing = [n for n in names if n not in w.sd]
+    if missing:
+        raise KeyError(f"no JAX path for {missing[:5]}")
+    return {n: w.sd[n] for n in names}
+
+
+def _write_detector(w: _Writer, params, stats, cfg: ModelCfg) -> None:
+    """Every entry of the detector, flax subtree -> port key."""
 
     bb = params["backbone"]
     p = "backbone.downsample_layers."
@@ -183,11 +247,11 @@ def from_jax_variables(variables: Mapping, cfg: ModelCfg) -> StateDict:
             w.ln(bp + "norm.", blk["norm"])
             w.dense(bp + "pwconv1.", blk["pwconv1"])
             w.dense(bp + "pwconv2.", blk["pwconv2"])
-            w.put(bp + "gamma", _t(blk["gamma"]))
+            w.put(bp + "gamma", w.t(blk["gamma"]))
     if cfg.backbone_down_proj:
         dm = params["down_mlp"]
-        w.put("down_mlp.weight", _lin(dm["kernel"])[:, :, None, None])
-        w.put("down_mlp.bias", _t(dm["bias"]))
+        w.put("down_mlp.weight", w.conv1x1_w(dm["kernel"]))
+        w.put("down_mlp.bias", w.t(dm["bias"]))
 
     nk, ns = params["neck"], stats["neck"]
     for ours, theirs in (("reduce0", "reduce_layer0"),
@@ -214,15 +278,14 @@ def from_jax_variables(variables: Mapping, cfg: ModelCfg) -> StateDict:
         c, cp = hd[f"contrast{i}"], f"bbox_head.cls_contrasts.{i}."
         if "norm" in c:
             w.bn(cp + "norm.", c["norm"], hs[f"contrast{i}"]["norm"])
-        w.put(cp + "bias", _t(c["bias"]).reshape(()))
-        w.put(cp + "logit_scale", _t(c["logit_scale"]).reshape(()))
+        w.put(cp + "bias", w.scalar(c["bias"]))
+        w.put(cp + "logit_scale", w.scalar(c["logit_scale"]))
 
     if cfg.num_prompts:
-        w.put("embeddings", _t(params["embeddings"]))
+        w.put("embeddings", w.t(params["embeddings"]))
         if cfg.use_mlp_adapter:
             w.dense("adapter.0.", params["adapter_fc1"])
             w.dense("adapter.2.", params["adapter_fc2"])
-    return w.sd
 
 
 def from_jax_text_params(params: Mapping, cfg: TextCfg) -> StateDict:

@@ -3,8 +3,9 @@
 Port of `wedetect_tpu/ckpt/io.py`'s train-state half, with torch.save in
 place of orbax. A checkpoint is a directory (`<ckpt_dir>/step_<n>`, as
 in the JAX package) holding `train_state.pt`: the step, the model's
-state dict and the optimizer's state (Adam moments, applied-update
-count, accumulation state). It is written to a temporary name and
+state dict (with the detector's BN running statistics, its buffers)
+and the optimizer's state (Adam moments, applied-update count,
+accumulation state). It is written to a temporary name and
 renamed, so a crash never leaves a half-written checkpoint.
 """
 

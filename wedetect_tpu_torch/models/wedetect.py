@@ -68,7 +68,7 @@ class WeDetectModule(nn.Module):
         if cfg.quant_int8:
             raise NotImplementedError("the int8 detect mode is not ported")
         self.cfg = cfg
-        self.backbone = ConvNeXt(cfg.depths, cfg.dims)
+        self.backbone = ConvNeXt(cfg.depths, cfg.dims, cfg.drop_path_rate)
         c4 = cfg.dims[3]
         if cfg.backbone_down_proj:
             # xlarge: 1x1 down-projection of c4 (mm_backbone.py:278-301)
@@ -91,11 +91,15 @@ class WeDetectModule(nn.Module):
                     nn.Linear(2 * cfg.embed_dims, cfg.embed_dims))
 
     def forward(self, images: torch.Tensor,
-                w: Optional[torch.Tensor] = None) -> HeadOutputs:
+                w: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> HeadOutputs:
         """images: (B, 3, H, W) float in [0, 1]; w: (K, C) or (B, K, C).
 
         For Uni, `w` defaults to the prompt bank, used un-normalized
-        unless the adapter is on (generate_proposal.py:1130).
+        unless the adapter is on (generate_proposal.py:1130). In train
+        mode every BN normalizes with its batch statistics and updates
+        its running ones (nn/layers.BatchNorm2d), and the backbone drops
+        paths at cfg.drop_path_rate with masks from `generator`.
         """
         c = self.cfg
         normalize_w = True
@@ -112,7 +116,7 @@ class WeDetectModule(nn.Module):
                     if c.compute_dtype == "bfloat16"
                     else contextlib.nullcontext())
         with autocast:
-            feats = self.backbone(images)
+            feats = self.backbone(images, generator)
             if c.backbone_down_proj:
                 feats = feats[:3] + (self.down_mlp(feats[3]),)
             return self.bbox_head(self.neck(feats), w, normalize_w)

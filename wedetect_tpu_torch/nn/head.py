@@ -10,7 +10,8 @@ Per pyramid level:
                 DFL logits -> expectation -> (l, t, r, b) distances
 The towers are the checkpoint's flat Sequentials (conv 0, bn 1, conv 3,
 bn 4, pred 6). Outputs are flattened over levels to the JAX package's
-anchor-major layout (B, A, ...).
+anchor-major layout (B, A, ...). Every BN of the head (towers and
+contrast norms) has torch momentum 0.03 (flax 0.97).
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ from typing import NamedTuple, Sequence
 import torch
 from torch import nn
 
+from wedetect_tpu_torch.nn.layers import BatchNorm2d
 from wedetect_tpu_torch.ops.dfl import dfl_expectation
+
+# every BN of the head: eps 1e-3, torch momentum 0.03 (flax 0.97)
+HEAD_BN = dict(eps=1e-3, momentum=0.03)
 
 
 class HeadOutputs(NamedTuple):
@@ -52,7 +57,7 @@ class ContrastiveScore(nn.Module):
         super().__init__()
         self.use_bn = use_bn
         if use_bn:
-            self.norm = nn.BatchNorm2d(embed_dims, eps=1e-3)
+            self.norm = BatchNorm2d(embed_dims, **HEAD_BN)
         self.bias = nn.Parameter(torch.zeros(()))
         self.logit_scale = nn.Parameter(torch.full(
             (), -1.0 if use_bn else math.log(1 / 0.07)))
@@ -78,9 +83,9 @@ class ContrastiveScore(nn.Module):
 def _tower(in_ch: int, hidden: int, out_ch: int) -> nn.Sequential:
     return nn.Sequential(
         nn.Conv2d(in_ch, hidden, 3, padding=1, bias=False),
-        nn.BatchNorm2d(hidden, eps=1e-3), nn.SiLU(),
+        BatchNorm2d(hidden, **HEAD_BN), nn.SiLU(),
         nn.Conv2d(hidden, hidden, 3, padding=1, bias=False),
-        nn.BatchNorm2d(hidden, eps=1e-3), nn.SiLU(),
+        BatchNorm2d(hidden, **HEAD_BN), nn.SiLU(),
         nn.Conv2d(hidden, out_ch, 1))
 
 

@@ -6,25 +6,53 @@ Module and parameter names are the reference checkpoint's
 holding `conv` and `bn`; Transpose holds `upsample_transpose`), so a
 torch state dict loads as it is. Padding is the symmetric k//2 of the
 reference. BatchNorm eps is 1e-5 in the neck and 1e-3 in the head.
+
+`BatchNorm2d` is torch's with flax's running-statistics update: in
+train mode the running mean and variance move towards the batch's mean
+and *biased* variance, `ra = (1 - momentum) * ra + momentum * batch`
+(flax momentum 1 - `momentum`: torch 0.1 in the neck, 0.03 in the head).
+In eval mode it is torch's.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 ACTS = {"silu": nn.SiLU, "relu": nn.ReLU}
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose train-mode update of the running statistics
+    is flax's: the biased batch variance (torch's is unbiased,
+    n / (n - 1) larger for n = B * H * W values a channel). The batch
+    statistics are taken in f32; `num_batches_tracked` is not counted
+    (flax has no counter). Eval mode is torch's, unchanged."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
 class ConvModule(nn.Module):
-    """Conv2d(bias=False) + BatchNorm2d + activation."""
+    """Conv2d(bias=False) + BatchNorm2d (torch momentum 0.1) +
+    activation."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, act: str = "silu", bn_eps: float = 1e-5):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2,
                               bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=bn_eps)
+        self.bn = BatchNorm2d(out_ch, eps=bn_eps)
         self.act = ACTS[act]()
 
     def forward(self, x):

@@ -1,19 +1,44 @@
-"""The train state, as far as WeDetect-Ref training needs it.
+"""The train state and the detector's training step.
 
-Port of `wedetect_tpu/train/train_step.TrainState`: the JAX state
-carries the step counter, the params, the batch statistics, the optax
-state and the transformation; here the model holds the params and
-`train/optimizer.Optimizer` its own state, updating the params in
-place. The detector's `loss_fn` and `train_step` are not ported yet.
+Port of `wedetect_tpu/train/train_step.py` (reference
+YOLOWorldDetector.loss, yolo_world.py:26-33 -> YOLOWorldHead.loss_by_feat,
+yolo_world_head.py:436-576). The JAX state carries the step counter,
+the params, the batch statistics, the optax state and the
+transformation; here the model holds the params and the BN running
+statistics (its buffers) and `train/optimizer.Optimizer` its own state,
+updating the params in place.
+
+- gt boxes come padded to cfg.train.max_gt_per_image with a validity
+  mask (`Batch`, built by `train/loop.make_batch_iterator`).
+- text embeddings arrive precomputed, (B, K, C) per row or (K, C); the
+  Uni variant (cfg.num_prompts) scores against its own prompt bank.
+- the loss is scaled by the batch size (the reference's
+  `num_imgs * world_size` on one card).
+- drop path draws its masks from a torch.Generator seeded per step
+  (`drop_path_generator`); at rate 0 none is made.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
+import torch
 from torch import nn
 
-from wedetect_tpu_torch.train.optimizer import Optimizer
+from wedetect_tpu_torch.configs import ModelCfg
+from wedetect_tpu_torch.models.wedetect import _as, _images
+from wedetect_tpu_torch.ops.boxes import distance2bbox
+from wedetect_tpu_torch.ops.priors import flat_priors_and_strides
+from wedetect_tpu_torch.train.assigner import assign
+from wedetect_tpu_torch.train.losses import DetLosses, detection_loss
+from wedetect_tpu_torch.train.optimizer import (Optimizer, global_norm,
+                                                make_optimizer)
+
+# drop path's per-step seed is DROP_PATH_SEED * 2**32 + step (JAX folds
+# the step into PRNGKey(17); the two RNGs draw different masks)
+DROP_PATH_SEED = 17
 
 
 @dataclasses.dataclass
@@ -25,3 +50,94 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, tx: Optimizer) -> "TrainState":
         return cls(step=0, model=model, tx=tx)
+
+
+class Batch(NamedTuple):
+    """Static-shape training batch (collate output); numpy arrays or
+    tensors."""
+
+    images: np.ndarray     # (B, H, W, 3) uint8 RGB (already letterboxed)
+    texts: np.ndarray      # (B, K, C) or (K, C) text embeddings
+    gt_bboxes: np.ndarray  # (B, G, 4) xyxy in input pixels, zero-padded
+    gt_labels: np.ndarray  # (B, G) int32
+    gt_mask: np.ndarray    # (B, G) bool
+
+
+def det_named_params(model: nn.Module):
+    """(JAX param path, tensor) of every parameter of a WeDetectModule,
+    for the optimizer's decay mask and lr multipliers."""
+    from wedetect_tpu_torch.ckpt.convert import jax_param_paths
+
+    paths = jax_param_paths(model.cfg)
+    return [(paths[n], p) for n, p in model.named_parameters()]
+
+
+def det_optimizer(model: nn.Module, **kw) -> Optimizer:
+    """`make_optimizer` over the detector's (JAX path, tensor) pairs."""
+    return make_optimizer(det_named_params(model), **kw)
+
+
+def drop_path_generator(cfg: ModelCfg, step: int,
+                        device) -> Optional[torch.Generator]:
+    """The step's generator for the backbone's drop path masks; None at
+    rate 0 (no mask is drawn)."""
+    if not cfg.drop_path_rate:
+        return None
+    return torch.Generator(device=device).manual_seed(
+        DROP_PATH_SEED * 2 ** 32 + int(step))
+
+
+def loss_fn(cfg: ModelCfg, model: nn.Module, batch: Batch,
+            generator: Optional[torch.Generator] = None
+            ) -> Tuple[torch.Tensor, DetLosses]:
+    """The detector's loss on `batch`, with the model in train mode (BN
+    on batch statistics, its running statistics updated; drop path from
+    `generator`); the model's mode is restored afterwards."""
+    dev = next(model.parameters()).device
+    images = _images(batch.images, dev)
+    texts = None if cfg.num_prompts else _as(batch.texts, dev,
+                                             torch.float32)
+    was_training = model.training
+    model.train()
+    try:
+        out = model(images, texts, generator=generator)
+    finally:
+        model.train(was_training)
+
+    priors, strides = flat_priors_and_strides(
+        cfg.feat_sizes(tuple(images.shape[2:])), cfg.strides)
+    priors = torch.from_numpy(priors).to(dev)
+    strides = torch.from_numpy(strides).to(dev)
+    pred_bboxes = distance2bbox(priors[None],
+                                out.dists.float() * strides[None, :, None])
+    t = cfg.train
+    res = assign(pred_bboxes, torch.sigmoid(out.logits), priors,
+                 _as(batch.gt_labels, dev), _as(batch.gt_bboxes, dev,
+                                                torch.float32),
+                 _as(batch.gt_mask, dev, torch.bool),
+                 num_classes=out.logits.shape[-1], topk=t.tal_topk,
+                 alpha=t.tal_alpha, beta=t.tal_beta, eps=t.tal_eps)
+    losses = detection_loss(cfg, out.logits, pred_bboxes, out.dist_logits,
+                            res.bboxes, res.scores, res.fg_mask, priors,
+                            strides, loss_scale=float(images.shape[0]))
+    return losses.total, losses
+
+
+def train_step(cfg: ModelCfg, state: TrainState, batch: Batch
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One step, updating `state` in place. Metrics stay on the device:
+    loss, loss_cls, loss_bbox, loss_dfl, num_pos and grad_norm (the
+    global norm of the gradients before the update)."""
+    model = state.model
+    dev = next(model.parameters()).device
+    model.zero_grad(set_to_none=True)
+    total, losses = loss_fn(cfg, model, batch,
+                            drop_path_generator(cfg, state.step, dev))
+    total.backward()
+    grad_norm = global_norm(state.tx.grads())
+    state.tx.step()
+    state.step += 1
+    return state, {"loss": total.detach(), "loss_cls": losses.cls.detach(),
+                   "loss_bbox": losses.bbox.detach(),
+                   "loss_dfl": losses.dfl.detach(),
+                   "num_pos": losses.num_pos, "grad_norm": grad_norm}
