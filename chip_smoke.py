@@ -193,6 +193,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             step (steps 2-3, the loop's own clock), img/s and peak card
             memory.
 
+19. gen_parity  the miniature Ref (head_dim 128) on the card against the
+            same weights on the CPU, f32: the prefill's hidden states
+            and KV (every position) within GEN_PREFILL_TOL, with K2 = 2
+            and K3 = 2 launches on the FFMA kernels, and a control (one
+            masked key unmasked) that must miss; greedy ref_generate,
+            ref_generate_spec and a 3-slot GenServer (kv_bits 16 and 8,
+            and piggyback) emit the CPU's tokens under the margin rule
+            (a divergence only where the CPU's teacher-forced top-2
+            margin is within GEN_LOGIT_TOL); the PRNG twin's bits,
+            uniforms, categorical draws and the sampler (top-k, top-p)
+            on the card bitwise equal to the CPU's.
+20. gen     ref_2b at full width, the seeded 480x640 image, one prompt
+            (P = 384), 64 new tokens through RefScorer.generate_text in
+            f32 and in bf16, greedy: K2 = 28 and K3 = 24 launches a call
+            (f32 on the FFMA kernels, bf16 on the wgmma ones), prefill
+            ms, decode ms a token, peak GB; speculative decode in f32
+            gives greedy's tokens (margin rule), its verify steps; int8
+            and int4 decode: the first step's logit cosine against the
+            full-precision tree (GEN_COS_LIMIT), and ms a token.
+21. serve   ref_2b, GenServer with 8 slots, chunk 16, P = 384, G = 64:
+            16 requests with varied prompt tails and caps from 8 to 64.
+            f32: every request completes and equals its own
+            ref_generate stream (margin rule); chunk 4, pipeline off and
+            piggyback emit the same tokens; K2 = 28 and K3 = 24 launches
+            an admission. bf16: tokens/s, ms a chunk at full occupancy,
+            occupancy, pool GB, peak GB, the launches an admission; the
+            int8 KV pool (kv_bits=8) at 0.52x the bf16 pool's bytes,
+            every request complete; sampling (T = 0.8, top-k 50, top-p
+            0.9) unchanged by the chunk size.
+
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
@@ -2651,6 +2681,573 @@ def phase_det_train(dev, argv=None, steps: int = 3):
     return res
 
 
+# ------------------------------------------------------ generation, serving
+GEN_LOGIT_TOL = 1e-3      # two f32 runs of one model through different
+#                           GEMM shapes (or devices) agree to ~1e-5 a logit
+GEN_PREFILL_TOL = 1e-4    # card vs CPU prefill hidden states and KV, f32
+GEN_BF16_LOGIT_ERR = 0.15  # bound on a bf16 logit's error against f32 at
+#                           ref_2b (0.073 on the first step on an H100);
+#                           a bf16 stream may part from the f32 one only at
+#                           an f32 margin within twice it (two logits off)
+GEN_COS_LIMIT = {8: 0.999, 4: 0.98}   # first-step logit cosine, quantized
+#                                       LM head alone (tests/test_quant.py)
+GEN_DECODE_COS_LIMIT = {8: 0.999, 4: 0.9}   # min cosine over a teacher-
+#                           forced block through the quantized layers and
+#                           head; 0.9 the JAX quant gate's int4 envelope
+#                           for random weights (tests/test_quant_gate.py)
+GEN_DECODE_BLOCK = 8      # tokens in that block
+GEN_PROMPT = "Describe."  # one stub token a character: P = 384 at 480x640
+GEN_EOS, GEN_PAD = 151645, 151643
+SERVE_TAILS = "What is in the pict"   # tails of 2-19 stub tokens
+
+
+def teacher_margins(model, gh, gw, patches, ids, mask, pos, nxt, toks,
+                    boxes, ori, vs):
+    """Each emitted token's argmax agreement, top-2 margin and gap (the
+    top logit less the emitted token's; 0 where it is the argmax) under
+    a teacher-forced forward of prompt + tokens (one row, padded to a
+    multiple of 128): (argmax ok, margin, gap), each per step."""
+    n_p = int(mask.sum())
+    toks = [int(t) for t in toks]
+    seq = np.concatenate([ids[:n_p], toks]).astype(np.int32)
+    spos = np.concatenate([pos[:, :n_p], np.broadcast_to(
+        nxt + np.arange(len(toks)), (3, len(toks)))], axis=1)
+    l = -(-len(seq) // 128) * 128
+    sid = np.zeros((1, l), np.int32)
+    sid[0, :len(seq)] = seq
+    smask = (np.arange(l) < len(seq)).astype(np.int32)[None]
+    sp = np.zeros((3, 1, l), np.int32)
+    sp[:, 0, :len(seq)] = spos
+    with torch.inference_mode():
+        h = model.hidden_states(patches, sid, smask, sp, boxes, ori, vs,
+                                np.full((1, 1), -1, np.int32), grid_h=gh,
+                                grid_w=gw)
+        lg = model.lm_logits(h)[0, n_p - 1:n_p - 1 + len(toks)].float()
+        top = torch.topk(lg, 2).values
+        own = lg.gather(1, torch.tensor(toks, device=lg.device)[:, None])
+    return ((lg.argmax(-1).cpu().numpy() == np.array(toks)),
+            (top[:, 0] - top[:, 1]).cpu().numpy(),
+            (top[:, 0] - own[:, 0]).cpu().numpy())
+
+
+def divergence(got, want, margins, tol=GEN_LOGIT_TOL):
+    """The margin rule: `got` must equal `want` (the stream whose
+    teacher-forced margins are `margins`), except that it may part from
+    it at a step whose margin is within `tol`. Returns (ok, tokens
+    agreeing, the margin at the first disagreement or None)."""
+    got, want = [int(t) for t in got], [int(t) for t in want]
+    n = min(len(got), len(want))
+    i = next((k for k in range(n) if got[k] != want[k]), None)
+    if i is None and len(got) == len(want):
+        return True, n, None
+    i = n if i is None else i
+    m = float(margins[i]) if i < len(margins) else None
+    return m is not None and m <= tol, i, m
+
+
+def trim(toks, eos=GEN_EOS, pad=GEN_PAD):
+    out = []
+    for t in np.asarray(toks).ravel():
+        if t in (eos, pad):
+            break
+        out.append(int(t))
+    return out
+
+
+def gen_rows(cfg, rng, tails, gh=8, gw=12, p=128):
+    """Right-padded prompts of the miniature Ref (tokens 120-123 as in
+    phase_ref_parity): (ids (B, P), mask, pos (3, B, P), next_pos (B,))."""
+    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_single_image
+
+    b = len(tails)
+    ids = np.zeros((b, p), np.int32)
+    mask = np.zeros((b, p), np.int32)
+    pos = np.zeros((3, b, p), np.int32)
+    nxt = np.zeros(b, np.int32)
+    for r, tail in enumerate(tails):
+        seq = np.concatenate([[1, 2, 122], np.full(24, 120),
+                              rng.integers(5, 110, tail)]).astype(np.int32)
+        ids[r, :len(seq)] = seq
+        mask[r, :len(seq)] = 1
+        pr = get_rope_index_single_image(seq, 120, gh, gw, 2)
+        pos[:, r, :len(seq)] = pr
+        nxt[r] = pr.max() + 1
+    return ids, mask, pos, nxt
+
+
+def phase_gen_parity(dev):
+    """The miniature Ref's generation and serving on the card against the
+    same weights on the CPU (f32)."""
+    from wedetect_tpu_torch.models import ref_generate as TG
+    from wedetect_tpu_torch.models import ref_speculative as TS
+    from wedetect_tpu_torch.models import serve as TSV
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.ops import prng
+
+    cfg = mini_ref_cfg()
+    cpu = init_ref_variables(cfg, seed=11, device="cpu")
+    card = init_ref_variables(cfg, seed=11, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    gh, gw, g = 8, 12, 12
+    rng = np.random.default_rng(12)
+    patches = rng.standard_normal((gh * gw, 96)).astype(np.float32)
+    ids, mask, pos, nxt = gen_rows(cfg, rng, (10, 4))
+    boxes = np.array([[0, 0, 48, 32]], np.float32)
+    ori = np.array([48.0, 32.0], np.float32)
+    objp = np.full((2, 1), -1, np.int32)
+    eos, pad = 255, 254
+    res = {}
+
+    # the prefill, every position (pad rows included)
+    def prefill(model, m):
+        with torch.inference_mode():
+            h, kvs = TG._prefill_hidden_kvs(model, gh, gw, patches, ids, m,
+                                            pos, boxes, ori, 3, objp)
+        return [h] + [t for kv in kvs for t in kv]
+
+    want = prefill(cpu, mask)
+    launch_counts(reset=True)
+    got = prefill(card, mask)
+    counts = launch_counts()
+    wrong = mask.copy()
+    wrong[1, int(mask[1].sum())] = 1              # one masked key unmasked
+    ctrl = prefill(card, wrong)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
+    cerr = max(float((a.cpu() - b).abs().max()) for a, b in zip(ctrl, want))
+    res["prefill"] = {"max_abs_err": err, "control_max_abs_err": cerr,
+                      "tolerance": GEN_PREFILL_TOL, "launches": counts}
+    ok = (err <= GEN_PREFILL_TOL < cerr and counts == expected_counts(
+        k2=cfg.text.layers, k2_f32=cfg.text.layers, k3=cfg.vision.depth,
+        k3_f32=cfg.vision.depth))
+
+    # greedy and speculative decode: tokens and the margin rule
+    args = (patches, ids, mask, pos, 3, nxt, boxes, ori, g, eos)
+    greedy = [TG.ref_generate(cfg, gh, gw, m, *args, pad_id=pad).cpu()
+              .numpy() for m in (card, cpu)]
+    sp = [TS.ref_generate_spec(cfg, gh, gw, m, *args, pad, spec_k=4)
+          for m in (card, cpu)]
+    rows = []
+    for r in range(2):
+        margins = teacher_margins(cpu, gh, gw, patches, ids[r], mask[r],
+                                  pos[:, r], nxt[r],
+                                  trim(greedy[1][r], eos, pad), boxes, ori,
+                                  3)[1]
+        for name, a in (("greedy", greedy[0][r]),
+                        ("spec", sp[0][0][r].cpu().numpy()),
+                        ("spec_cpu", sp[1][0][r].numpy())):
+            d = divergence(trim(a, eos, pad), trim(greedy[1][r], eos, pad),
+                           margins)
+            rows.append({"row": r, "path": name, "ok": d[0], "agree": d[1],
+                         "margin": d[2], "min_margin": float(margins.min())})
+            ok = ok and d[0]
+    res["decode"] = rows
+    res["spec_steps"] = [int(sp[0][1]), int(sp[1][1])]
+
+    # a 3-slot GenServer: 5 requests, classic, int8 KV, piggyback
+    reqs = []
+    for k in range(5):
+        i1, m1, p1, n1 = gen_rows(cfg, rng, (3 + 2 * k,))
+        reqs.append((rng.standard_normal((gh * gw, 96)).astype(np.float32),
+                     i1[0], m1[0], p1[:, 0], int(n1[0])))
+    servers = {}
+    for kw in ({}, {"kv_bits": 8}, {"piggyback": True}):
+        outs = []
+        for m in (card, cpu):
+            srv = TSV.GenServer(cfg, gh, gw, m, slots=3, prompt_len=128,
+                                max_new=8, chunk=3, eos_id=eos, pad_id=pad,
+                                **kw)
+            rids = [srv.submit(pa, i, ma, po, 3, n0, boxes_xyxy=boxes,
+                               ori_wh=ori) for pa, i, ma, po, n0 in reqs]
+            out = srv.run()
+            outs.append([list(map(int, out[x])) for x in rids])
+        name = "+".join(f"{k}={v}" for k, v in kw.items()) or "classic"
+        servers[name] = {"equal": outs[0] == outs[1],
+                         "tokens": sum(map(len, outs[1]))}
+        if outs[0] != outs[1]:
+            for (pa, i, ma, po, n0), a, b in zip(reqs, *outs):
+                margins = teacher_margins(cpu, gh, gw, pa, i, ma, po, n0,
+                                          b, boxes, ori, 3)[1]
+                d = divergence(a, b, margins)
+                servers[name].setdefault("divergences", []).append(d)
+                ok = ok and d[0]
+    res["servers"] = servers
+
+    # the PRNG twin and the sampler on the card, bitwise with the CPU
+    seeds = torch.tensor([0, 7, -3, 2**31 - 1], dtype=torch.int32)
+    keys = [prng.fold_in(prng.PRNGKey(seeds.to(d)), 5) for d in (dev, "cpu")]
+    bits = [prng.random_bits(k, (151936,)).cpu() for k in keys]
+    uni = [prng.uniform(k, (151936,)).cpu() for k in keys]
+    logits = torch.tensor(rng.standard_normal((4, 151936)).astype(np.float32))
+    cat = [prng.categorical(k, logits.to(k.device)).cpu() for k in keys]
+    smp = [TSV._sample_rows(logits.to(d), (0.8, 50, 0.9), seeds.to(d),
+                            torch.arange(4, device=d)).cpu()
+           for d in (dev, "cpu")]
+    res["prng"] = {"bits": torch.equal(*bits),
+                   "uniform": bitwise_equal(*uni),
+                   "categorical": torch.equal(*cat),
+                   "sample_rows": torch.equal(*smp)}
+    ok = ok and all(res["prng"].values())
+    emit({"phase": "gen_parity", **res})
+    if not ok:
+        raise AssertionError("gen_parity: the card's generation or serving "
+                             "differs from the CPU's")
+
+
+def gen_prompt(scorer, image, prompt, p_pad=0):
+    """RefScorer's generation layout of one request as arrays."""
+    patches, gh, gw, ids, mask, pos, vs, w, h = scorer._build_gen_prompt(
+        image, prompt, GEN_PAD, p_pad)
+    return dict(patches=patches, gh=gh, gw=gw, ids=ids, mask=mask, pos=pos,
+                vs=vs, nxt=int(pos.max()) + 1,
+                boxes=np.array([[0, 0, w, h]], np.float32),
+                ori=np.array([w, h], np.float32))
+
+
+def gen_call(cfg, model, b, new_tokens, **kw):
+    from wedetect_tpu_torch.models.ref_generate import ref_generate
+
+    return ref_generate(cfg, b["gh"], b["gw"], model, b["patches"],
+                        b["ids"][None], b["mask"][None], b["pos"][:, None],
+                        b["vs"], np.array([b["nxt"]], np.int32), b["boxes"],
+                        b["ori"], new_tokens, GEN_EOS, pad_id=GEN_PAD, **kw)
+
+
+def block_logits(cfg, dp, hidden, kvs, mask, nxt, toks):
+    """Teacher-forced logits (K, vocab), f32, of one prompt's first K
+    emitted tokens through the decode tree dp's layers and LM head, from
+    the prompt's prefill KV: the speculative verify block
+    (ref_speculative._decode_layer_block), row j after token j."""
+    from wedetect_tpu_torch.models import ref_generate as TG
+    from wedetect_tpu_torch.models.quant import prepare_decode_params
+    from wedetect_tpu_torch.models.ref_speculative import _decode_layer_block
+    from wedetect_tpu_torch.nn.qwen3vl import interleaved_mrope_cos_sin
+
+    c, dev, k = cfg.text, hidden.device, len(toks)
+    dp = prepare_decode_params(dp)
+    p_len = mask.shape[-1]
+    caches = TG._new_caches(kvs, k)
+    x = dp["embed"][torch.tensor(toks, device=dev)][None].to(hidden.dtype)
+    posk = (nxt + torch.arange(k, device=dev)).reshape(1, 1, k)
+    cos, sin = interleaved_mrope_cos_sin(posk.expand(3, 1, k), c)
+    jk = torch.arange(k, device=dev)
+    att = torch.cat([torch.tensor(mask, device=dev).bool()[None]
+                     .expand(k, p_len), jk[None] <= jk[:, None]], dim=1)
+    with torch.inference_mode():
+        for i in range(c.layers):
+            kc, vc = caches[i]
+            x = _decode_layer_block(dp["text"][f"layer{i}"], c, x, cos, sin,
+                                    kc, vc, (p_len + jk)[None], att[None])
+        return TG._lm_logits(dp, TG._rms(x, dp["text"]["norm"],
+                                         c.rms_eps)[0])
+
+
+def cosines(a, b):
+    """Row-wise cosine of two (K, V) logit blocks, in f64."""
+    a, b = a.double(), b.double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).cpu()
+
+
+def phase_gen(dev, image, cfg=None, new_tokens: int = 64):
+    """ref_2b generation at full width through RefScorer.generate_text:
+    f32 held to a teacher-forced forward, speculative to greedy, int8 and
+    int4 logits to the full tree's, bf16 to the f32 stream."""
+    from wedetect_tpu_torch.models import quant
+    from wedetect_tpu_torch.models import ref_generate as TG
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.models.ref_speculative import ref_generate_spec
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = cfg or ref_2b()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    tok = CharTok()
+    res = {"new_tokens": new_tokens}
+    ok = True
+    for name in ("float32", "bfloat16"):
+        scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok, dtype=name,
+                           device=dev)
+        b = gen_prompt(scorer, image, GEN_PROMPT)
+        launch_counts(reset=True)
+        text = scorer.generate_text(image, GEN_PROMPT,
+                                    max_new_tokens=new_tokens,
+                                    eos_token_id=GEN_EOS,
+                                    pad_token_id=GEN_PAD)
+        counts = launch_counts()
+        toks = trim(gen_call(cfg, model, b, new_tokens)[0].cpu().numpy())
+        bf16 = name == "bfloat16"
+        k2, k3 = cfg.text.layers, cfg.vision.depth
+        want = expected_counts(k2=k2, k2_sm90=k2 if bf16 else 0,
+                               k2_f32=0 if bf16 else k2, k3=k3,
+                               k3_sm90=k3 if bf16 else 0,
+                               k3_f32=0 if bf16 else k3)
+
+        def prefill():
+            with torch.inference_mode():
+                return TG._prefill_hidden_kvs(
+                    model, b["gh"], b["gw"], b["patches"], b["ids"][None],
+                    b["mask"][None], b["pos"][:, None], b["boxes"], b["ori"],
+                    b["vs"], np.full((1, 1), -1, np.int32))
+
+        prefill_ms = host_ms(prefill, 3)
+        call_ms = host_ms(lambda: scorer.generate_text(
+            image, GEN_PROMPT, max_new_tokens=new_tokens,
+            eos_token_id=GEN_EOS, pad_token_id=GEN_PAD), 2)
+        r = res[name] = {
+            "prompt_len": int(b["mask"].sum()), "bucket": len(b["ids"]),
+            "launches": counts, "tokens": len(text),
+            "text_equals_direct_call": list(text) == toks,
+            "prefill_ms": prefill_ms, "call_ms": call_ms,
+            "decode_ms_per_token": (call_ms - prefill_ms) / new_tokens}
+        ok = ok and counts == want and r["text_equals_direct_call"] \
+            and len(text) > 0
+        hidden, kvs = prefill()
+        full = quant.decode_params(model)
+        h = hidden[0, int(b["mask"].sum()) - 1][None]
+        with torch.inference_mode():
+            lf = TG._lm_logits(full, h)[0]
+        if not bf16:
+            # each emitted token the teacher-forced argmax, or short of
+            # it by at most GEN_LOGIT_TOL (the margin rule)
+            acc, margins, gaps = teacher_margins(
+                model, b["gh"], b["gw"], b["patches"], b["ids"], b["mask"],
+                b["pos"], b["nxt"], toks, b["boxes"], b["ori"], b["vs"])
+            r["teacher_argmax_agree"] = int(acc.sum())
+            r["teacher_max_gap"] = float(gaps.max())
+            r["min_margin"] = float(margins.min())
+            ok = ok and r["teacher_max_gap"] <= GEN_LOGIT_TOL
+            spec, steps = ref_generate_spec(
+                cfg, b["gh"], b["gw"], model, b["patches"], b["ids"][None],
+                b["mask"][None], b["pos"][:, None], b["vs"],
+                np.array([b["nxt"]], np.int32), b["boxes"], b["ori"],
+                new_tokens, GEN_EOS, GEN_PAD)
+            d = divergence(trim(spec[0].cpu().numpy()), toks, margins)
+            r["speculative"] = {"ok": d[0], "agree": d[1], "margin": d[2],
+                                "verify_steps": int(steps)}
+            ok = ok and d[0]
+            # the quantized trees: the head alone on the prefill's last
+            # state, and a teacher-forced block of the f32 stream's tokens
+            # through the quantized layers and head from the same KV
+            toks32, margins32, lf32 = toks, margins, lf
+            blk = toks[:GEN_DECODE_BLOCK]
+            nxt = torch.tensor(b["nxt"], device=dev)
+            lb = lb32 = block_logits(cfg, full, hidden, kvs, b["mask"], nxt,
+                                     blk)
+            for bits in (8, 4):
+                q = quant.quantize_decode_params(model, bits=bits)
+                with torch.inference_mode():
+                    lq = TG._lm_logits(q, h)[0]
+                cos = float(cosines(lf[None], lq[None])[0])
+                cos_dec = float(cosines(lb, block_logits(
+                    cfg, q, hidden, kvs, b["mask"], nxt, blk)).min())
+                q_ms = host_ms(lambda: gen_call(cfg, model, b, 16,
+                                                decode_params=q), 1)
+                r[f"int{bits}"] = {"cosine": cos,
+                                   "limit": GEN_COS_LIMIT[bits],
+                                   "decode_cosine_min": cos_dec,
+                                   "decode_limit":
+                                       GEN_DECODE_COS_LIMIT[bits],
+                                   "decode_block": len(blk),
+                                   "bytes": quant.quantized_bytes(q),
+                                   "call_ms_16": q_ms,
+                                   "decode_ms_per_token":
+                                       (q_ms - prefill_ms) / 16}
+                ok = ok and cos > GEN_COS_LIMIT[bits] \
+                    and cos_dec > GEN_DECODE_COS_LIMIT[bits]
+                del q
+        else:
+            # bf16 against f32: the logits of the first step and of the
+            # f32 stream's teacher-forced block within GEN_BF16_LOGIT_ERR,
+            # the stream parting only at an f32 margin within twice it
+            lb = block_logits(cfg, full, hidden, kvs, b["mask"], nxt, blk)
+            err = max(float((lf - lf32).abs().max()),
+                      float((lb - lb32).abs().max()))
+            d = divergence(toks, toks32, margins32, 2 * GEN_BF16_LOGIT_ERR)
+            r["vs_float32"] = {"ok": d[0], "agree": d[1], "margin": d[2],
+                               "logit_max_abs_err": err,
+                               "logit_err_limit": GEN_BF16_LOGIT_ERR,
+                               "margin_limit": 2 * GEN_BF16_LOGIT_ERR}
+            ok = ok and d[0] and err <= GEN_BF16_LOGIT_ERR
+        del hidden, kvs
+        emit({"phase": "gen", "dtype": name, **r})
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "gen_model", "peak_mem_gb": res["peak_mem_gb"]})
+    if not ok:
+        raise AssertionError("gen: generation broke its checks")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_requests(scorer, image, n, p, g):
+    """n requests of varied prompt tails, padded to p, and their caps
+    (8 to g)."""
+    out = []
+    for i in range(n):
+        prompt = SERVE_TAILS[:1 + (5 * i) % 18] + "?"      # P <= 384
+        b = gen_prompt(scorer, image, prompt, p_pad=p)
+        b["cap"] = 8 + (37 * i) % (g - 7)
+        out.append(b)
+    return out
+
+
+def complete(toks, reqs) -> bool:
+    """Every request returned tokens, at most its cap of them."""
+    return len(toks) == len(reqs) and all(
+        0 < len(t) <= b["cap"] for t, b in zip(toks, reqs))
+
+
+def serve_run(cfg, model, reqs, slots, p, g, chunk, pipeline=True, **kw):
+    """One GenServer drained over reqs: (tokens a request, stats, wall
+    ms, pool bytes, launch counts)."""
+    from wedetect_tpu_torch.models.serve import GenServer
+
+    b0 = reqs[0]
+    srv = GenServer(cfg, b0["gh"], b0["gw"], model, slots=slots,
+                    prompt_len=p, max_new=g, chunk=chunk, eos_id=GEN_EOS,
+                    pad_id=GEN_PAD, **kw)
+    rids = [srv.submit(b["patches"], b["ids"], b["mask"], b["pos"], b["vs"],
+                       b["nxt"], boxes_xyxy=b["boxes"], ori_wh=b["ori"],
+                       seed=1000 + k, max_new=b["cap"])
+            for k, b in enumerate(reqs)]
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    out = srv.run(pipeline=pipeline)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    return ([list(map(int, out[r])) for r in rids], dict(srv.stats), ms,
+            srv.pool_bytes(), counts, srv)
+
+
+def phase_serve(dev, image, cfg=None, slots: int = 8, chunk: int = 16,
+                p: int = 384, g: int = 64, n_req: int = 16):
+    """ref_2b continuous batching at full width through GenServer."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = cfg or ref_2b()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    tok = CharTok()
+    k2, k3 = cfg.text.layers, cfg.vision.depth
+    res = {"config": {"slots": slots, "chunk": chunk, "prompt_len": p,
+                      "max_new": g, "requests": n_req}}
+    ok = True
+
+    # f32: every request against its own ref_generate stream
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok, device=dev)
+    reqs = serve_requests(scorer, image, n_req, p, g)
+    base, st, ms, _, counts, _ = serve_run(cfg, model, reqs, slots, p, g,
+                                           chunk)
+    admits = st["admits"]
+    r = res["float32"] = {
+        "stats": st, "wall_ms": ms, "tokens": sum(map(len, base)),
+        "complete": complete(base, reqs),
+        "launches_per_admit": {k: v / admits for k, v in counts.items()
+                               if "bwd" not in k}}
+    ok = ok and r["complete"] and counts == expected_counts(
+        k2=k2 * admits, k2_f32=k2 * admits, k3=k3 * admits,
+        k3_f32=k3 * admits)
+    div, refs = [], []
+    for b, toks in zip(reqs, base):
+        want = trim(gen_call(cfg, model, b, b["cap"])[0].cpu().numpy())
+        margins = teacher_margins(model, b["gh"], b["gw"], b["patches"],
+                                  b["ids"], b["mask"], b["pos"], b["nxt"],
+                                  want, b["boxes"], b["ori"], b["vs"])[1]
+        refs.append((want, margins))
+        d = divergence(toks, want, margins)
+        div.append({"ok": d[0], "agree": d[1], "margin": d[2],
+                    "min_margin": float(margins.min())})
+        ok = ok and d[0]
+    r["vs_ref_generate"] = div
+    for name, kw in (("chunk4", dict(chunk=4)),
+                     ("no_pipeline", dict(pipeline=False)),
+                     ("piggyback", dict(piggyback=True))):
+        kw = {"chunk": chunk, **kw}
+        toks, st2, ms2, _, _, _ = serve_run(cfg, model, reqs, slots, p, g,
+                                            **kw)
+        r[name] = {"equal": toks == base, "wall_ms": ms2, "stats": st2}
+        if toks != base:
+            r[name]["divergences"] = [
+                divergence(a, b_, teacher_margins(
+                    model, q["gh"], q["gw"], q["patches"], q["ids"],
+                    q["mask"], q["pos"], q["nxt"], b_, q["boxes"], q["ori"],
+                    q["vs"])[1])
+                for a, b_, q in zip(toks, base, reqs)]
+            ok = ok and name == "piggyback" and all(
+                d[0] for d in r[name]["divergences"])
+    emit({"phase": "serve", "dtype": "float32", **r})
+
+    # bf16: throughput, the int8 KV pool, sampling's schedule invariance
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                       dtype="bfloat16", device=dev)
+    toks, st, ms, pool, counts, _ = serve_run(cfg, model, reqs, slots, p, g,
+                                              chunk)
+    admits = st["admits"]
+    delivered = sum(map(len, toks))
+    r = res["bfloat16"] = {
+        "stats": st, "wall_ms": ms, "tokens": delivered,
+        "tokens_per_s": delivered / ms * 1e3,
+        "ms_per_chunk_run": ms / st["chunks"],
+        "occupancy": delivered / (st["chunks"] * chunk * slots),
+        "pool_gb": pool / 1e9,
+        "complete": complete(toks, reqs),
+        "launches_per_admit": {k: v / admits for k, v in counts.items()
+                               if "bwd" not in k}}
+    ok = ok and r["complete"] and counts == expected_counts(
+        k2=k2 * admits, k2_sm90=k2 * admits, k3=k3 * admits,
+        k3_sm90=k3 * admits)
+    # each bf16 request against its f32 ref_generate stream: a parting
+    # only at an f32 margin within 2 * GEN_BF16_LOGIT_ERR
+    div = [divergence(t, want, margins, 2 * GEN_BF16_LOGIT_ERR)
+           for t, (want, margins) in zip(toks, refs)]
+    r["vs_float32"] = {"ok": all(d[0] for d in div),
+                       "agree": [d[1] for d in div],
+                       "margin": [d[2] for d in div],
+                       "margin_limit": 2 * GEN_BF16_LOGIT_ERR}
+    ok = ok and r["vs_float32"]["ok"]
+    # ms a chunk at full occupancy: 8 requests of G tokens, all admitted
+    full = [dict(b, cap=g) for b in reqs[:slots]]
+    _, _, _, _, _, srv = serve_run(cfg, model, full[:1], slots, p, g, chunk)
+    for b in full:
+        srv.submit(b["patches"], b["ids"], b["mask"], b["pos"], b["vs"],
+                   b["nxt"], boxes_xyxy=b["boxes"], ori_wh=b["ori"])
+    srv._admit_queued()
+    r["ms_per_chunk_full"] = host_ms(
+        lambda: srv._collect(*srv._dispatch_chunk()), 3, warmup=0)
+    r["ms_per_step_full"] = r["ms_per_chunk_full"] / chunk
+    del srv
+    toks8, st8, ms8, pool8, _, _ = serve_run(cfg, model, reqs, slots, p, g,
+                                             chunk, kv_bits=8)
+    r["kv8"] = {"pool_gb": pool8 / 1e9, "pool_ratio": pool8 / pool,
+                "complete": complete(toks8, reqs),
+                "wall_ms": ms8, "tokens_per_s": sum(map(len, toks8))
+                / ms8 * 1e3, "tokens_equal_bf16": sum(
+                    a == b_ for a, b_ in zip(toks8, toks))}
+    ok = ok and r["kv8"]["complete"] and 0.5 < r["kv8"]["pool_ratio"] < 0.55
+    sampling = dict(temperature=0.8, top_k=50, top_p=0.9)
+    sa = serve_run(cfg, model, reqs, slots, p, g, chunk, **sampling)
+    sb = serve_run(cfg, model, reqs, slots, p, g, 4, **sampling)
+    r["sampled"] = {"equal_chunk16_chunk4": sa[0] == sb[0],
+                    "tokens": sum(map(len, sa[0])),
+                    "distinct": len({t for x in sa[0] for t in x}),
+                    "tokens_per_s": sum(map(len, sa[0])) / sa[2] * 1e3}
+    ok = ok and sa[0] == sb[0]
+    res["peak_mem_gb"] = r["peak_mem_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "serve", "dtype": "bfloat16", **r})
+    if not ok:
+        raise AssertionError("serve: the serving engine broke its checks")
+    del model, scorer
+    torch.cuda.empty_cache()
+    return res
+
+
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
@@ -2738,6 +3335,13 @@ def main() -> int:
     train, train_counts = phase_train(dev, image, proposals)
     phase_det_train_parity(dev)
     phase_det_train(dev)
+    phase_gen_parity(dev)
+    phase_gen(dev, image)
+    serve = phase_serve(dev, image)
+    # K2's and K3's launches an admission prefill by route: f32 on the
+    # FFMA kernels, bf16 on the wgmma ones, the SIMT ones none
+    admit = {t: serve[t]["launches_per_admit"]
+             for t in ("float32", "bfloat16")}
     k2_train, k3_train = (k2_bwd_launches(train_counts),
                           k3_bwd_launches(train_counts))
     k2_bf16 = k2_bwd_launches(k2_bwd["autograd_bf16"]["launches"])
@@ -2776,6 +3380,7 @@ def main() -> int:
                         launches["k2_f32"], k2, k2["suffix_float32"],
                         route="f32"),
          "launches_sft_step": train["launches_per_step"]["k2_f32"],
+         "launches_admit": admit["float32"]["k2_f32"],
          **{f"{shape}_{key}": k2[f"{shape}_float32"][key]
             for shape in ("prefix", "train")
             for key in ("ms", "bound_ms", "library_ms")},
@@ -2788,17 +3393,21 @@ def main() -> int:
                         "wedetect_tpu/ops/flash_gqa.py:86",
                         launches["k2"] - launches["k2_sm90"]
                         - launches["k2_f32"], k2, k2["suffix_simt_float32"]),
+         "launches_admit": {t: a["k2"] - a["k2_sm90"] - a["k2_f32"]
+                            for t, a in admit.items()},
          **{f"{shape}_ms": k2[f"{shape}_simt_float32"]["ms"]
             for shape in ("prefix", "train")}},
-        kernel_entry("gqa_flash_fwd_sm90",
-                     "wedetect_tpu_torch/csrc/flash_gqa_sm90.cu",
-                     "wedetect_tpu/ops/flash_gqa.py:86",
-                     launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
-                     route="sm90"),
+        {**kernel_entry("gqa_flash_fwd_sm90",
+                        "wedetect_tpu_torch/csrc/flash_gqa_sm90.cu",
+                        "wedetect_tpu/ops/flash_gqa.py:86",
+                        launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
+                        route="sm90"),
+         "launches_admit": admit["bfloat16"]["k2_sm90"]},
         {**kernel_entry("flash_attention_fwd_f32", K3_F32_FWD_SOURCE, K3_FWD,
                         launches["k3_f32"], k3, k3["vit_float32"],
                         route="f32"),
          "launches_sft_step": train["launches_per_step"]["k3_f32"],
+         "launches_admit": admit["float32"]["k3_f32"],
          **{f"train_{key}": k3["train_float32"][key]
             for key in ("ms", "bound_ms", "library_ms")},
          "turns_ms": {shape: k3[f"{shape}_float32"]["turns_ms"]
@@ -2811,11 +3420,14 @@ def main() -> int:
                         "wedetect_tpu_torch/csrc/flash_attn.cu", K3_FWD,
                         launches["k3"] - launches["k3_sm90"]
                         - launches["k3_f32"], k3, k3["vit_simt_float32"]),
+         "launches_admit": {t: a["k3"] - a["k3_sm90"] - a["k3_f32"]
+                            for t, a in admit.items()},
          "train_ms": k3["train_simt_float32"]["ms"]},
-        kernel_entry("flash_attention_fwd_sm90",
-                     "wedetect_tpu_torch/csrc/flash_attn_sm90.cu", K3_FWD,
-                     launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
-                     route="sm90"),
+        {**kernel_entry("flash_attention_fwd_sm90",
+                        "wedetect_tpu_torch/csrc/flash_attn_sm90.cu", K3_FWD,
+                        launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
+                        route="sm90"),
+         "launches_admit": admit["bfloat16"]["k3_sm90"]},
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32; K2-bwd in f32 at
         # D = 128 is the FFMA pair, and the SIMT dq and dk/dv kernels

@@ -1994,3 +1994,88 @@ def test_drop_path_generator_on_the_card(cuda):
     assert 0.5 < float(kept.float().mean()) < 0.9
     with pytest.raises(RuntimeError):
         drop_path(y, 0.3, torch.Generator())       # a CPU generator
+
+
+def _mini_gen_cfg():
+    from wedetect_tpu_torch.nn.qwen3vl import RefCfg, RefTextCfg, RefVisionCfg
+
+    return RefCfg(
+        vision=RefVisionCfg(depth=2, hidden=128, heads=2, intermediate=256,
+                            patch=4, temporal_patch=2, merge=2,
+                            out_hidden=256, num_pos_emb=64,
+                            deepstack_idx=(0, 1)),
+        text=RefTextCfg(vocab_size=256, hidden=256, layers=2, heads=4,
+                        kv_heads=2, head_dim=128, intermediate=512,
+                        rope_theta=1000.0),
+        image_token_id=120, vision_start_token_id=122, object_token_id=123)
+
+
+def test_prng_and_sampler_on_the_card_bitwise(cuda):
+    """The PRNG twin's bits, uniforms and draws and the serving sampler
+    on the card equal the CPU's bitwise."""
+    from wedetect_tpu_torch.models.serve import _sample_rows
+    from wedetect_tpu_torch.ops import prng
+
+    seeds = torch.tensor([0, 7, -3, 2**31 - 1], dtype=torch.int32)
+    logits = torch.randn(4, 151936, generator=torch.Generator().manual_seed(0))
+    got, want = [], []
+    for dev, out in ((cuda, got), (torch.device("cpu"), want)):
+        keys = prng.fold_in(prng.PRNGKey(seeds.to(dev)), 9)
+        out += [prng.random_bits(keys, (1000,)).cpu(),
+                prng.uniform(keys, (1000,)).cpu().view(torch.int32),
+                prng.categorical(keys, logits.to(dev)).cpu(),
+                _sample_rows(logits.to(dev), (0.8, 50, 0.9), seeds.to(dev),
+                             torch.arange(4, device=dev)).cpu()]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_bits": 8}, {"piggyback": True}])
+def test_generation_and_server_card_match_cpu(cuda, kw):
+    """A miniature Ref (head_dim 128): greedy ref_generate and a 3-slot
+    GenServer on the card emit the CPU's tokens (f32, TF32 off), with K2
+    and K3 launched in every admission prefill."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_generate import ref_generate
+    from wedetect_tpu_torch.models.serve import GenServer
+    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_single_image
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _mini_gen_cfg()
+    cpu = init_ref_variables(cfg, seed=11, device="cpu")
+    card = init_ref_variables(cfg, seed=11, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(12)
+    reqs = []
+    for k in range(4):
+        seq = np.concatenate([[1, 2, 122], np.full(24, 120),
+                              rng.integers(5, 110, 3 + 2 * k)])
+        ids = np.zeros(128, np.int32)
+        ids[:len(seq)] = seq
+        mask = (np.arange(128) < len(seq)).astype(np.int32)
+        pos = np.zeros((3, 128), np.int32)
+        pos[:, :len(seq)] = get_rope_index_single_image(seq, 120, 8, 12, 2)
+        reqs.append((rng.standard_normal((96, 96)).astype(np.float32), ids,
+                     mask, pos, int(pos.max()) + 1))
+    pa, ids, mask, pos, n0 = reqs[0]
+    toks = [ref_generate(cfg, 8, 12, m, pa, ids[None], mask[None],
+                         pos[:, None], 3, np.array([n0]),
+                         np.array([[0, 0, 48, 32]], np.float32),
+                         np.array([48.0, 32.0], np.float32), 8, 255,
+                         pad_id=254).cpu() for m in (card, cpu)]
+    assert torch.equal(*toks)
+    outs = []
+    for m in (card, cpu):
+        fg.gqa_flash_attention.launches = fa.flash_attention.launches = 0
+        srv = GenServer(cfg, 8, 12, m, slots=3, prompt_len=128, max_new=8,
+                        chunk=3, eos_id=255, pad_id=254, **kw)
+        rids = [srv.submit(*r[:4], 3, r[4]) for r in reqs]
+        out = srv.run()
+        outs.append([list(map(int, out[r])) for r in rids])
+        if m is card:
+            classic = srv.stats["admits"] - srv.stats.get("pb_admits", 0)
+            assert fg.gqa_flash_attention.launches == 2 * classic
+            assert fa.flash_attention.launches == 2 * srv.stats["admits"]
+    assert outs[0] == outs[1]

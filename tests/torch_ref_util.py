@@ -5,6 +5,8 @@ both jointly and split at the shared prefix."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
@@ -64,7 +66,8 @@ def jax_params(jcfg, gh=8, gw=8, seed=0):
 
 
 def port_model(params, tcfg, attn_impl="auto"):
-    model = RefModules(tcfg, attn_impl=attn_impl)
+    model = RefModules(tcfg, attn_impl=attn_impl,
+                       lm_head="lm_head" in params)
     model.load_state_dict(from_jax_ref_params(params, tcfg), strict=True)
     return model.eval()
 
@@ -140,3 +143,14 @@ def batch(seed=1, gh=8, gw=8, p_pad=24, s_pad=8, l_pad=None, n_obj=2,
                  ori_wh=np.array([96.0, 64.0], np.float32),
                  visual_start=3, prefix_ids=prefix_ids,
                  prefix_mask=prefix_mask, prefix_pos=prefix_pos, **out)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a test module that imports this fixture:
+    the models are tiny, and with several test workers on the host
+    torch's default thread team only contends."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -2,9 +2,10 @@
 """Where the port's detect step, its Ref scoring, or its Ref SFT step
 spends its time on the card.
 
-    python3 tools/profile_detect_torch.py [--ref | --train | --det-train]
+    python3 tools/profile_detect_torch.py [--ref | --train | --det-train
+                                           | --gen | --serve]
                                           [--batch N] [--bf16] [--iters 3]
-                                          [--table F]
+                                          [--tokens N] [--table F]
 
 Detect (the default): full-width WeDetect-Base (640x640, K = 1203,
 random weights and random class embeddings, the head calibrated to a
@@ -22,11 +23,16 @@ phase builds it (cli/train's builders: WeDetect-Base, 640x640, K = 80,
 bf16, random init and text bank; --batch images, default 16, of its
 seeded in-memory samples), the batch built beforehand, so the time is
 the step's alone (upload, forward, assigner, losses, backward, AdamW).
+--gen: one models/ref_generate call of --tokens new tokens (default 16)
+at ref_2b (random weights), chip_smoke.py's image and generation
+prompt (P = 384), f32 or --bf16. --serve: one 16-step decode chunk of a
+GenServer whose --batch slots (default 8) all decode, same model and
+prompt.
 The call runs under torch.profiler; the script prints one
 JSON line: wall time per call, device busy time per call (the union of
-kernel intervals on the card) and so the device's idle share, and the
-ops with the most device time. --table writes the full profiler table
-to file F. Needs a CUDA card.
+kernel intervals on the card) and so the device's idle share, the
+kernels launched a call, and the ops with the most device time.
+--table writes the full profiler table to file F. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -140,6 +146,48 @@ def det_train_call(args, C, dev):
             {"batch": b, "num_classes": cfg.num_classes})
 
 
+def _gen_setup(args, C, dev):
+    """ref_2b (random weights, seed 0) in the run's dtype, chip_smoke's
+    seeded 480x640 image and its generation prompt."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = ref_2b()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=C.CharTok(),
+                       dtype="bfloat16" if args.bf16 else "float32",
+                       device=dev)
+    g = torch.Generator().manual_seed(3)
+    image = torch.randint(0, 256, (480, 640, 3), generator=g,
+                          dtype=torch.uint8).numpy()
+    return cfg, model, C.gen_prompt(scorer, image, C.GEN_PROMPT, p_pad=384)
+
+
+def gen_call(args, C, dev):
+    cfg, model, b = _gen_setup(args, C, dev)
+    n = args.tokens
+    return (lambda: C.gen_call(cfg, model, b, n)), {"new_tokens": n}
+
+
+def serve_call(args, C, dev):
+    """One decode chunk of a GenServer whose slots all decode (slots
+    --batch, default 8; chunk 16; P = 384)."""
+    from wedetect_tpu_torch.models.serve import GenServer
+
+    cfg, model, b = _gen_setup(args, C, dev)
+    slots = args.batch or 8
+    srv = GenServer(cfg, b["gh"], b["gw"], model, slots=slots,
+                    prompt_len=384, max_new=16 * (args.iters + 2),
+                    chunk=16, eos_id=C.GEN_EOS, pad_id=C.GEN_PAD)
+    for _ in range(slots):
+        srv.submit(b["patches"], b["ids"], b["mask"], b["pos"], b["vs"],
+                   b["nxt"], boxes_xyxy=b["boxes"], ori_wh=b["ori"])
+    srv._admit_queued()
+    return (lambda: srv._collect(*srv._dispatch_chunk())), {
+        "slots": slots, "chunk": 16}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref", action="store_true",
@@ -148,6 +196,12 @@ def main(argv=None) -> int:
                    help="profile one Ref stage-3 SFT step")
     p.add_argument("--det-train", action="store_true",
                    help="profile one detector train step (bf16)")
+    p.add_argument("--gen", action="store_true",
+                   help="profile one ref_generate call (ref_2b)")
+    p.add_argument("--serve", action="store_true",
+                   help="profile one GenServer decode chunk (ref_2b)")
+    p.add_argument("--tokens", type=int, default=16,
+                   help="--gen: new tokens a call")
     p.add_argument("--batch", type=int, default=0,
                    help="images a call (default 8; --det-train 16)")
     p.add_argument("--iters", type=int, default=3)
@@ -165,7 +219,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     make = (det_train_call if args.det_train else train_call if args.train
-            else ref_call if args.ref else detect_call)
+            else ref_call if args.ref else gen_call if args.gen
+            else serve_call if args.serve else detect_call)
     call, info = make(args, C, dev)
     call()
     torch.cuda.synchronize()
@@ -184,13 +239,16 @@ def main(argv=None) -> int:
     dtype = ("bf16" if args.det_train or args.bf16 and not args.train
              else "f32")
     name = ("det_train_" if args.det_train else "train_" if args.train
-            else "ref_" if args.ref else "") + dtype
+            else "ref_" if args.ref else "gen_" if args.gen
+            else "serve_" if args.serve else "") + dtype
     top = sorted(prof.key_averages(),
                  key=lambda e: e.self_device_time_total, reverse=True)[:14]
     print(json.dumps({
         "profile": name,
         **info, "wall_ms": wall, "device_busy_ms": busy,
         "device_idle_share": max(0.0, 1 - busy / wall) if wall else None,
+        "kernels": sum(e.device_type == torch.autograd.DeviceType.CUDA
+                       for e in prof.events()) / args.iters,
         "top": [{"op": e.key[:70], "device_ms":
                  e.self_device_time_total / 1e3 / args.iters,
                  "calls": e.count // args.iters} for e in top]}))

@@ -8,10 +8,13 @@ that `wedetect_tpu/ckpt/convert_ref.py` reads (`model.visual.*`,
 `from_jax_ref_params` goes the other way from the JAX package: the
 `{vision, text, embed, extras}` params of `wedetect_tpu.models.ref`
 (as numpy) -> a port state dict, the exact inverse of
-`convert_ref_model`. Layouts: Dense (in, out) -> Linear (out, in); the
-patch-embed Dense (C*T*P*P, hidden) -> the checkpoint's Conv3d weight
-(hidden, C, T, P, P); ConvT2x (in, out, 2, 2) unchanged; norm scales ->
-`weight`. `jax_param_paths` gives the same map as port key -> JAX path,
+`convert_ref_model`, the untied `lm_head` included. Layouts: Dense
+(in, out) -> Linear (out, in); the patch-embed Dense (C*T*P*P, hidden)
+-> the checkpoint's Conv3d weight (hidden, C, T, P, P); ConvT2x (in,
+out, 2, 2) unchanged; norm scales -> `weight`. `from_jax_decode_params`
+carries a JAX decode-param tree (`models/quant.quantize_decode_params`,
+int8 or packed int4) into the port's (`wedetect_tpu_torch/models/
+quant.py`), codes and scales unchanged. `jax_param_paths` gives the same map as port key -> JAX path,
 which the optimizer's per-path rules read (`train/optimizer.py`).
 """
 
@@ -29,10 +32,12 @@ from wedetect_tpu_torch.nn.qwen3vl import RefCfg
 StateDict = Dict[str, torch.Tensor]
 
 
-def _entries(cfg: RefCfg) -> List[Tuple[str, Tuple[str, ...], str]]:
-    """(port key, JAX param path, layout) of every tensor. Layout "T":
-    Dense kernel (in, out) -> Linear weight (out, in); "patch": the
-    patch-embed Dense -> the Conv3d weight; "": as is."""
+def _entries(cfg: RefCfg, lm_head: bool = True
+             ) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(port key, JAX param path, layout) of every tensor, the untied
+    `lm_head` last (with `lm_head`). Layout "T": Dense kernel (in, out)
+    -> Linear weight (out, in); "patch": the patch-embed Dense -> the
+    Conv3d weight; "": as is."""
     v, t = cfg.vision, cfg.text
     out: List[Tuple[str, Tuple[str, ...], str]] = []
 
@@ -96,6 +101,8 @@ def _entries(cfg: RefCfg) -> List[Tuple[str, Tuple[str, ...], str]]:
     norm("model.first_scale_norm", pe + ("first_scale_norm",))
     lin("model.merge", pe + ("merge",))
     lin("out_proj", pe + ("out_proj",))
+    if lm_head:
+        lin("lm_head", ("lm_head",), bias=False)
     return out
 
 
@@ -106,10 +113,12 @@ def jax_param_paths(cfg: RefCfg) -> Dict[str, str]:
 
 
 def from_jax_ref_params(params: Mapping, cfg: RefCfg) -> StateDict:
-    """JAX Ref params (numpy leaves) -> port state dict (f32 tensors)."""
+    """JAX Ref params (numpy leaves) -> port state dict (f32 tensors).
+    A params["lm_head"]["kernel"] (the stage-1/2 untied head) becomes
+    `lm_head.weight`, transposed: load it into RefModules(lm_head=True)."""
     v = cfg.vision
     out: StateDict = {}
-    for key, path, layout in _entries(cfg):
+    for key, path, layout in _entries(cfg, lm_head="lm_head" in params):
         x = params
         for name in path:
             x = x[name]
@@ -135,3 +144,26 @@ def load_hf_state_dict(checkpoint_dir: str) -> StateDict:
     for f in files:
         sd.update(load_file(f, device="cpu"))
     return sd
+
+
+def from_jax_decode_params(tree: Mapping) -> Dict:
+    """A JAX decode-param tree (numpy leaves: quantized {w8, scale} /
+    {w4p, rscale, scale} leaves, or {kernel} ones) -> the port's: the
+    quantized leaves as they are ((in, out) layout), a {kernel} as
+    {weight} (out, in), a norm {scale} as its tensor, and the embedding
+    table under "embed"."""
+    def leaf(node):
+        if "kernel" in node:
+            return {"weight": torch.tensor(np.asarray(node["kernel"]).T)}
+        if "scale" in node and len(node) == 1:
+            return torch.tensor(np.asarray(node["scale"]))
+        return {k: torch.tensor(np.asarray(v)) for k, v in node.items()}
+
+    text = {name: (leaf(layer) if name == "norm"
+                   else {k: leaf(v) for k, v in layer.items()})
+            for name, layer in tree["text"].items()}
+    out = {"text": text, "embed": torch.tensor(np.asarray(
+        tree["embed"]["embed_tokens"]["embedding"]))}
+    if "lm_head" in tree:
+        out["lm_head"] = leaf(tree["lm_head"])
+    return out

@@ -1,14 +1,21 @@
-"""WeDetect-Ref REC demo: Uni proposals + one query -> best box.
+"""WeDetect-Ref REC demo: Uni proposals + one query -> best box; or
+chat / captioning with --generate.
 
     python -m wedetect_tpu_torch.cli.infer_wedetect_ref \
         --ref_checkpoint <hf-dir> --wedetect_uni_checkpoint u.pth \
         --image demo.jpg --query "the red box"
+    python -m wedetect_tpu_torch.cli.infer_wedetect_ref \
+        --ref_checkpoint <hf-dir> --image demo.jpg \
+        --generate "Describe the image." [--int8-decode | --int4-decode]
+        [--speculative] [--temperature 0.7]
 
-Scoring mode of the JAX package's CLI (reference
-infer_wedetect_ref.py:13-135): WeDetect-Uni proposals, then
-RefScorer.score. --generate and --video are not ported yet; drawing
-(--visualize) is not ported yet either. As in the JAX CLI, a random
-Ref model is refused: it needs a checkpoint's config.
+Port of the JAX package's CLI (reference infer_wedetect_ref.py:13-135):
+scoring runs WeDetect-Uni proposals, then RefScorer.score; --generate
+runs RefScorer.generate_text (the twin of the stage-1/2 class's
+inherited HF .generate()). With --generate, --random-init runs a
+miniature random Ref with a stub tokenizer (a smoke run); scoring
+refuses it, as the JAX CLI does. Not ported yet: --video,
+--int8-prefill and drawing (--visualize).
 """
 
 from __future__ import annotations
@@ -31,10 +38,47 @@ def parse_args(argv=None):
                    help="not ported yet: nothing is drawn")
     p.add_argument("--output", default="pred_ref.png")
     p.add_argument("--random-init", action="store_true")
-    p.add_argument("--generate", default="", help="not ported yet")
+    p.add_argument("--generate", default="",
+                   help="chat/caption prompt: text generation instead of "
+                        "proposal scoring (models/ref_generate)")
+    p.add_argument("--max_new_tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--int8-prefill", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--int8-decode", action="store_true",
+                   help="weight-only int8 generation decode (models/quant)")
+    p.add_argument("--int4-decode", action="store_true",
+                   help="weight-only packed-int4 generation decode "
+                        "(models/quant; lossier, validate per checkpoint)")
+    p.add_argument("--speculative", action="store_true",
+                   help="prompt-lookup speculative decoding (greedy only; "
+                        "models/ref_speculative)")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+def _run_generate(args, img):
+    from wedetect_tpu_torch.cli._ref_load import load_ref, tiny_random_ref
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+
+    if args.random_init:
+        cfg, model, tok = tiny_random_ref(args.device)
+    else:
+        cfg, model, tok = load_ref(args.ref_checkpoint, args.device)
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                       dtype="bfloat16" if args.bf16 else "float32",
+                       device=args.device,
+                       quantize_decode="int4" if args.int4_decode
+                       else args.int8_decode)
+    text = scorer.generate_text(
+        img, args.generate, max_new_tokens=args.max_new_tokens,
+        temperature=args.temperature,
+        eos_token_id=tok.convert_tokens_to_ids("<|im_end|>"),
+        pad_token_id=getattr(tok, "pad_token_id", None) or 151643,
+        speculative=args.speculative)
+    print(text)
+    return {"text": text}
 
 
 def main(argv=None):
@@ -45,14 +89,18 @@ def main(argv=None):
     from wedetect_tpu_torch.models.api import Detector
     from wedetect_tpu_torch.models.ref_api import RefScorer
 
-    if args.video or args.generate:
-        raise SystemExit("--generate / --video (generation) are not "
-                         "ported yet")
+    if args.video:
+        raise SystemExit("--video (video chat) is not ported yet")
+    if args.int8_prefill:
+        raise SystemExit("--int8-prefill (dynamic int8 prefill, "
+                         "ops/int8.py) is not ported yet")
     if not args.image:
         raise SystemExit("supply --image")
+    img = load_image_rgb(args.image)
+    if args.generate:
+        return _run_generate(args, img)
     if not args.query:
         raise SystemExit("--query is required for proposal scoring")
-    img = load_image_rgb(args.image)
 
     # stage 1: Uni proposals
     if args.random_init or not args.wedetect_uni_checkpoint:

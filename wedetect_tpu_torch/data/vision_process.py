@@ -6,7 +6,8 @@ with factor-of-32 rounding and token budgets, grid buckets, the PIL
 BICUBIC resize (Pillow when importable, else the bit-exact numpy copy in
 `data/pil_resize.py`), and the Qwen processor's patch layout (rows in
 2x2 merge-block order, each row flattened (C, T, P, P), normalized with
-the Qwen mean/std). Video and `fetch_image` are not ported yet.
+the Qwen mean/std), and `fetch_image` (every image source form the
+reference accepts). Video is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +90,58 @@ def resize_pil_bicubic(img: np.ndarray, wb: int, hb: int) -> np.ndarray:
         from wedetect_tpu_torch.data.pil_resize import resize_bicubic_u8
 
         return resize_bicubic_u8(img, wb, hb)
+
+
+def fetch_image(src) -> np.ndarray:
+    """An image from any source form of the reference's `fetch_image`
+    (wedetect_ref/models/vision_process.py:95-150): a numpy array
+    (passed through), a PIL.Image, encoded bytes, a local path, a
+    `file://` path, a `data:image/...;base64,` URI or an `http(s)://`
+    URL. Returns RGB uint8 (H, W, 3); RGBA is composited onto white.
+    No resize here: smart_resize and snap_to_bucket do that."""
+    import base64
+    import io
+
+    if isinstance(src, np.ndarray):
+        arr = src
+        if arr.ndim == 2:
+            arr = np.stack([arr] * 3, -1)
+        return np.ascontiguousarray(arr[..., :3]).astype(np.uint8)
+
+    from PIL import Image
+
+    if isinstance(src, Image.Image):
+        img = src
+    elif isinstance(src, (bytes, bytearray)):
+        img = Image.open(io.BytesIO(bytes(src)))
+    elif isinstance(src, str):
+        if src.startswith(("http://", "https://")):
+            import urllib.request
+
+            with urllib.request.urlopen(src, timeout=30) as r:
+                img = Image.open(io.BytesIO(r.read()))
+                img.load()
+        elif src.startswith("file://"):
+            img = Image.open(src[len("file://"):])
+        elif src.startswith("data:image"):
+            if "base64," not in src:
+                raise ValueError(f"unsupported data URI: {src[:40]}")
+            img = Image.open(io.BytesIO(
+                base64.b64decode(src.split("base64,", 1)[1])))
+        else:
+            img = Image.open(src)
+    else:
+        raise ValueError(
+            f"unrecognized image input (ndarray, PIL.Image, bytes, "
+            f"path, file://, data:image or http(s):// supported), "
+            f"got {type(src)}")
+    if img.mode == "RGBA":
+        bg = Image.new("RGB", img.size, (255, 255, 255))
+        bg.paste(img, mask=img.split()[3])
+        img = bg
+    else:
+        img = img.convert("RGB")
+    return np.asarray(img)
 
 
 def image_to_pixels(img: np.ndarray, patch: int = 16, merge: int = 2,

@@ -168,14 +168,27 @@ def _t(x, device, dtype=None):
 
 
 class RefModules(nn.Module):
-    """The whole scorer: `model` (trunk + extras) and `out_proj`."""
+    """The whole scorer: `model` (trunk + extras) and `out_proj`, and the
+    untied LM head `lm_head` of a stage-1/2 checkpoint (reference
+    qwen3vl_grounding.py:315), which the LM loss and generation read
+    over the tied embedding; None unless the weights carry one."""
 
-    def __init__(self, cfg: RefCfg, attn_impl: str = "auto"):
+    def __init__(self, cfg: RefCfg, attn_impl: str = "auto",
+                 lm_head: bool = False):
         super().__init__()
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.model = GroundingModel(cfg)
         self.out_proj = nn.Linear(cfg.text.hidden, 1)
+        self.lm_head = (nn.Linear(cfg.text.hidden, cfg.text.vocab_size,
+                                  bias=False) if lm_head else None)
+
+    def lm_logits(self, hidden):
+        """f32 LM logits of hidden states: the untied head when present,
+        else the tied input embedding (JAX train/ref_lm.py:99-104)."""
+        w = (self.lm_head.weight if self.lm_head is not None
+             else self.model.language_model.embed_tokens.weight)
+        return hidden.float() @ w.float().T
 
     @property
     def device(self) -> torch.device:
@@ -318,13 +331,16 @@ class RefModules(nn.Module):
 
 # ------------------------------------------------------------ init, dtype
 
-_KEEP_F32 = ("out_proj", "model.visual.pos_embed")
+_KEEP_F32 = ("out_proj", "model.visual.pos_embed",
+             "model.language_model.embed_tokens", "lm_head")
 
 
 def cast_ref_model(model: RefModules, dtype) -> RefModules:
     """Cast the matmul weights (Linear, Conv3d, ConvTranspose2d,
-    Embedding) to `dtype` once, in place; norms, the pos-embed table and
-    out_proj stay f32 (the JAX package computes them in f32)."""
+    Embedding) to `dtype` once, in place; norms, the pos-embed table,
+    out_proj and the LM head (the token table, which is also the tied
+    head, and an untied `lm_head`) stay f32: the JAX package computes
+    them in f32 and rounds a looked-up token row to the compute dtype."""
     dtype = {"float32": torch.float32,
              "bfloat16": torch.bfloat16}.get(dtype, dtype)
     for name, m in model.named_modules():
@@ -342,17 +358,18 @@ def _lecun_(w: torch.Tensor, fan_in: int, g: torch.Generator):
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
 
 
-def init_ref_variables(cfg: RefCfg, seed: int = 0,
-                       device="cuda") -> RefModules:
+def init_ref_variables(cfg: RefCfg, seed: int = 0, device="cuda",
+                       lm_head: bool = False) -> RefModules:
     """A RefModules with random weights from torch.Generator(seed), built
     on `device` (meta first: the full model is never made on the host).
     The flax initializers' distributions: lecun-normal Dense kernels
     (ConvT2x with flax's fan-in of its (in, out, 2, 2) kernel, 2*in*out),
     zero biases, unit norm scales, token embeddings N(0, 1/hidden),
-    pos_embed N(0, 0.02), and out_proj's prior bias -log(0.99/0.01)."""
+    pos_embed N(0, 0.02), and out_proj's prior bias -log(0.99/0.01).
+    `lm_head` adds an untied LM head (lecun-normal, drawn last)."""
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = RefModules(cfg)
+        model = RefModules(cfg, lm_head=lm_head)
     model = model.to_empty(device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
     done = set()

@@ -11,10 +11,18 @@ only its suffix against the prefix KV.
     scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok)   # cuda
     scores = scorer.score(image_rgb_uint8, boxes_xyxy, ["the red car"])
 
+Generation (`generate_text`: `models/ref_generate`, or
+`models/ref_speculative` with `speculative=True`) and continuous-batching
+generation (`generate_batch`: `models/serve.GenServer`) take the same
+image through the chat template of `_build_gen_prompt`;
+`quantize_decode` ("int8" / True, or "int4") feeds their decode steps a
+`models/quant` tree.
+
 `device` defaults to "cuda" and raises without a card. The model's
 matmul weights are cast to `dtype` once, at construction. Not ported
-yet: `score_multi_images`, `score_rec`, generation, the calibrated and
-quantized decode, and int8 prefill.
+yet: `score_multi_images`, `score_rec`, `generate_video_text`, the
+calibrated int4 decode (`calibrate_decode`) and int8 prefill
+(`quant_prefill` raises).
 """
 
 from __future__ import annotations
@@ -71,10 +79,22 @@ class RefScorer:
     # dispatched query batches in flight before readbacks start
     dispatch_window: int = 4
     device: str = "cuda"
+    # weight-only quantized generation decode (models/quant): True or
+    # "int8" (per-channel scales), "int4" (rank-1 two-sided scales,
+    # lossier); prefill and scoring stay full precision
+    quantize_decode: object = False
+    # dynamic int8 prefill matmuls (the JAX package's ops/int8.py)
+    quant_prefill: bool = False
+    _decode_params: object = dataclasses.field(default=None, init=False,
+                                               repr=False)
 
     def __post_init__(self):
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {self.dtype!r}: float32 or bfloat16")
+        if self.quant_prefill:
+            raise NotImplementedError(
+                "quant_prefill (dynamic int8 prefill, ops/int8.py): not "
+                "ported yet")
         dev = resolve_device(self.device)
         self.model = cast_ref_model(self.model.to(dev), self.dtype)
         self.model.attn_impl = self.attn_impl
@@ -292,3 +312,150 @@ class RefScorer:
             lambda idsb, maskb, posb, objb: ref_suffix_step(
                 self.model, obj, kvs, idsb, maskb, posb, pmask, objb))
         return out[:, :n]
+
+    # -------------------------------------------------------- generation
+    def decode_tree(self):
+        """The decode-param tree of the generation entry points: the
+        quantized tree (built once) under quantize_decode, else None
+        (the model's own weights)."""
+        if self.quantize_decode and self._decode_params is None:
+            from wedetect_tpu_torch.models.quant import quantize_decode_params
+
+            bits = 4 if self.quantize_decode == "int4" else 8
+            self._decode_params = quantize_decode_params(self.model,
+                                                         bits=bits)
+        return self._decode_params
+
+    def _build_gen_prompt(self, image: np.ndarray, prompt: str,
+                          pad_token_id: int, p_pad: int = 0):
+        """Generation-prompt assembly: the image's patches (or pixels)
+        and the chat template's ids, mask and MRoPE positions,
+        right-padded to a multiple of 128 (or to p_pad) so the prefill
+        tiles for the kernels. Returns (patches, gh, gw, ids (P,),
+        mask (P,), pos (3, P), visual_start, w, h)."""
+        c = self.cfg
+        tok = self.tokenizer
+        assert tok is not None, "tokenizer required"
+        h, w = image.shape[:2]
+        patches, gh, gw = self._prep_patches(image)
+        m = c.vision.merge
+        n_img = (gh // m) * (gw // m)
+        tail = tok.encode(prompt + "<|im_end|>\n<|im_start|>assistant\n",
+                          add_special_tokens=False)
+        ids = np.concatenate([self.build_prefix(n_img),
+                              np.array(tail, np.int32)])
+        pos = get_rope_index_single_image(ids, c.image_token_id, gh, gw, m)
+        visual_start = int(np.nonzero(ids == c.image_token_id)[0][0])
+        p_real = len(ids)
+        if not p_pad:
+            p_pad = -(-p_real // 128) * 128
+        assert p_real <= p_pad, (p_real, p_pad)
+        mask = np.zeros(p_pad, np.int32)
+        mask[:p_real] = 1
+        ids = np.pad(ids, (0, p_pad - p_real), constant_values=pad_token_id)
+        pos = np.pad(pos, ((0, 0), (0, p_pad - p_real))).astype(np.int32)
+        return patches, gh, gw, ids, mask, pos, visual_start, w, h
+
+    def _decode_text(self, toks, eos_token_id: int, pad_token_id: int):
+        keep = []
+        for t in toks:
+            if t in (eos_token_id, pad_token_id):
+                break
+            keep.append(int(t))
+        tok = self.tokenizer
+        return tok.decode(keep) if hasattr(tok, "decode") else keep
+
+    def generate_text(self, image: np.ndarray, prompt: str,
+                      max_new_tokens: int = 64, temperature: float = 0.0,
+                      eos_token_id: int = 151645,
+                      pad_token_id: int = 151643, seed: int = 0,
+                      speculative: bool = False, spec_k: int = 8):
+        """Chat or captioning from an image and a user prompt (the twin
+        of the reference stage-1/2 class's inherited HF .generate(),
+        qwen3vl_grounding.py:311-379): one batched prefill and a
+        KV-cache decode (models/ref_generate), greedy or sampled from
+        PRNGKey(seed). speculative=True (greedy only) takes the
+        prompt-lookup path (models/ref_speculative): the same tokens in
+        fewer decode steps where the output replays prompt n-grams.
+        Returns the decoded text (the token ids without a decode())."""
+        from wedetect_tpu_torch.models.ref_generate import ref_generate
+        from wedetect_tpu_torch.ops import prng
+
+        patches, gh, gw, ids, mask, pos, visual_start, w, h = \
+            self._build_gen_prompt(image, prompt, pad_token_id)
+        args = (self.cfg, gh, gw, self.model, patches, ids[None],
+                mask[None], pos[:, None], visual_start,
+                np.array([pos.max() + 1], np.int32),
+                np.array([[0, 0, w, h]], np.float32),
+                np.array([w, h], np.float32), max_new_tokens, eos_token_id)
+        if speculative:
+            assert temperature == 0.0, "speculative decoding is greedy-only"
+            from wedetect_tpu_torch.models.ref_speculative import (
+                ref_generate_spec)
+            toks, _steps = ref_generate_spec(
+                *args, pad_token_id, decode_params=self.decode_tree(),
+                spec_k=spec_k)
+        else:
+            toks = ref_generate(
+                *args, temperature, pad_token_id,
+                rng=prng.PRNGKey(seed, device=self.model.device),
+                decode_params=self.decode_tree())
+        return self._decode_text(toks[0].cpu().numpy(), eos_token_id,
+                                 pad_token_id)
+
+    def generate_batch(self, requests, max_new_tokens: int = 64,
+                       eos_token_id: int = 151645,
+                       pad_token_id: int = 151643, slots: int = 8,
+                       chunk: int = 16, piggyback: bool = False,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0, seed: int = 0,
+                       kv_bits: int = 16):
+        """Continuous-batching generation over (image, prompt) requests
+        through models/serve.GenServer: requests grouped by image grid
+        (one server a group, prompts padded to the group's longest),
+        each group a slot pool with mid-run admission and pipelined
+        chunked decode. temperature > 0 samples (top_k / top_p warps)
+        with per-request streams (request i uses seed + i). Returns the
+        decoded texts in input order."""
+        from wedetect_tpu_torch.models.serve import GenServer
+
+        prepped = []
+        groups = {}
+        for i, (image, prompt) in enumerate(requests):
+            built = self._build_gen_prompt(image, prompt, pad_token_id)
+            prepped.append(built)
+            groups.setdefault((built[1], built[2], built[6]), []).append(i)
+        texts = [None] * len(requests)
+        for (gh, gw, visual_start), idxs in groups.items():
+            p_pad = max(int(prepped[i][4].sum()) for i in idxs)
+            p_pad = -(-p_pad // 128) * 128
+            srv = GenServer(
+                self.cfg, gh, gw, self.model, slots=min(slots, len(idxs)),
+                prompt_len=p_pad, max_new=max_new_tokens, chunk=chunk,
+                eos_id=eos_token_id, pad_id=pad_token_id,
+                decode_params=self.decode_tree(), piggyback=piggyback,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                kv_bits=kv_bits)
+            rid_to_idx = {}
+            for i in idxs:
+                patches, _, _, ids, mask, pos, _, w, h = prepped[i]
+                ids, mask, pos = _fit(ids, mask, pos, p_pad, pad_token_id)
+                rid = srv.submit(
+                    patches, ids, mask, pos, visual_start,
+                    int(pos[:, mask.astype(bool)].max()) + 1,
+                    boxes_xyxy=np.array([[0, 0, w, h]], np.float32),
+                    ori_wh=np.array([w, h], np.float32), seed=seed + i)
+                rid_to_idx[rid] = i
+            for rid, toks in srv.run().items():
+                texts[rid_to_idx[rid]] = self._decode_text(
+                    toks, eos_token_id, pad_token_id)
+        return texts
+
+
+def _fit(ids, mask, pos, p_pad: int, pad_token_id: int):
+    """A prompt's ids (P,), mask (P,) and positions (3, P) cut or
+    right-padded to p_pad."""
+    n = max(0, p_pad - len(ids))
+    return (np.pad(ids[:p_pad], (0, n), constant_values=pad_token_id),
+            np.pad(mask[:p_pad], (0, n)),
+            np.pad(pos[:, :p_pad], ((0, 0), (0, n))))

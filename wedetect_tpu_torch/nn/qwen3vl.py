@@ -428,7 +428,7 @@ class TextModel(nn.Module):
 
     deepstack_embeds: list of (V, out_hidden) visual features added after
     layers 0..n-1 over the span [visual_start, visual_start + V) of every
-    row (one shared image)."""
+    row (one shared image), or of (B, V, out_hidden), one image a row."""
 
     def __init__(self, cfg: RefTextCfg):
         super().__init__()
@@ -443,8 +443,11 @@ class TextModel(nn.Module):
         return self.layers[0].self_attn.q_proj.weight.dtype
 
     def _inject_deepstack(self, x, ds, visual_start: int):
-        n = ds.shape[0]
-        span = x[:, visual_start:visual_start + n] + ds.to(x.dtype)[None]
+        """ds: (V, D) shared by every row, or (B, V, D) a row each."""
+        n = ds.shape[-2]
+        ds = ds.to(x.dtype)
+        span = x[:, visual_start:visual_start + n] + (
+            ds if ds.dim() == 3 else ds[None])
         return torch.cat([x[:, :visual_start], span,
                           x[:, visual_start + n:]], dim=1)
 

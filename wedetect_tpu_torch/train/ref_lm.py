@@ -8,8 +8,11 @@ models/qwen3vl_grounding.py, the stage-2 twin of the grounding model).
 Stage schedule (reference scripts/run_stage{1,2}.sh): stage 1 trains the
 projectors only (lr 1e-3, vision and LLM frozen); stage 2 unfreezes the
 LLM. The hidden states are `RefModules.hidden_states` (the JAX
-package's `_hidden_states`); the LM head is the tied input embedding
-(the port's checkpoint loader reads no separate `lm_head`).
+package's `_hidden_states`); the LM head is `RefModules.lm_logits`: the
+untied `lm_head` of a stage-1/2 checkpoint when the model carries one,
+else the tied input embedding. The stage optimizers train `lm_head`
+from stage 1 on: its path, "lm_head/kernel", matches none of the
+frozen keys, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -85,8 +88,7 @@ def ref_lm_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
                                  position_ids, boxes, ori_wh, visual_start,
                                  object_positions, grid_h=grid_h,
                                  grid_w=grid_w)
-    emb = model.model.language_model.embed_tokens.weight
-    logits = hidden.float() @ emb.float().T
+    logits = model.lm_logits(hidden)
     loss = lm_cross_entropy(
         logits, torch.as_tensor(labels, device=model.device).long())
     loss.backward()
