@@ -77,13 +77,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the call's own thresholded scores held to both plain rules
             with its branch counts and timed beside torch.topk (the
             kernels line's path_ms); f32 and bf16 step times.
-8. parity   a miniature detector on the card against the same weights
+8. detect_int8  the same detector in its int8 mode (ModelCfg.quant_int8:
+            the block MLPs, the neck's Conv+BN convs and the head's tower
+            convs through ops/int8.py, torch._int_mm), the head
+            calibrated on it, B = 8 through Detector.__call__: K1
+            launched once a call; f32 and bf16: the class logits' cosine
+            to the float call on the same weights (DET_INT8_COS) and
+            their largest error, ms a call, int8 and float in turns.
+9. parity   a miniature detector on the card against the same weights
             on the CPU (forward to 1e-3; NMS slots exact on the same
             scores, through the kernel on the card).
-9. uni      WeDetect-Uni-Base forward_raw at B = 1.
-10. ref_parity  a miniature Ref (head_dim 128) on the card, through K2
+10. int8_parity  the int8 ops on the card against the CPU: torch._int_mm
+            through the padding rule (rows 1, 16, 17, K and N off the
+            multiples of 8) equal to the CPU's int64 product,
+            quant_linear and quant_conv2d (3x3, strided, 1x1) bitwise in
+            f32 and bf16, a control with one weight scale over the whole
+            tensor that must miss; the miniature detector (f32, bf16
+            autocast) and Ref in int8, every int8 call on the card equal
+            to the CPU's module on its input, bit for bit, the outputs'
+            distance to the CPU's reported; torch._int_mm against a bf16
+            torch.mm (and quant_linear against F.linear) at the three
+            largest int8 GEMMs (INT8_GEMMS), device time, with bounds.
+11. uni      WeDetect-Uni-Base forward_raw at B = 1.
+12. ref_parity  a miniature Ref (head_dim 128) on the card, through K2
             and K3, against the same weights on the CPU (logits 1e-5).
-11. ref     WeDetect-Ref at ref_2b's full width (ViT 24 x 1024, decoder
+13. ref     WeDetect-Ref at ref_2b's full width (ViT 24 x 1024, decoder
             28 x 2048, 16 q / 8 kv heads, vocab 151936), random init
             from seed 0 on the card: the top 100 proposals of a random
             Uni-Base on a seeded 480x640 image, 8 queries through a
@@ -99,8 +117,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             error, REF_LOGIT_MEAN_TOL); the joint path (prefix_sharing=False)
             agrees with the split one (f32 limit). ms per call, prefix
             and suffix stage ms, f32 and bf16.
+14. ref_int8  the same ref_2b call through RefScorer(quant_prefill=True)
+            (the ViT's and the decoder's Linears in int8), f32 and bf16:
+            K2 = 56 and K3 = 24 launches on the type's routes, the
+            logits against the float scorer on the same weights within
+            REF_INT8_TOL (max and mean), the model's int8 modules off
+            after the call; ms a call, int8 and float in turns.
 
-12. k2_bwd the grouped-KV backward kernels (K2-bwd-dq, K2-bwd-dkdv)
+15. k2_bwd the grouped-KV backward kernels (K2-bwd-dq, K2-bwd-dkdv)
             against gqa_flash_attention_bwd_plain at the training path's
             decoder shape (1, 2048, 16, 128 | 2048, 8), square causal,
             the last 795 keys invalid, on the JAX test grid (fully
@@ -125,11 +149,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             kernels the FFMA ones replaced (called through their library
             and held to the plain version, the dq one also against the
             dropped-tile control), each pair timed in turns (SIMT, f32,
-            f32, SIMT), the 32-row x 64-key tiles the FFMA dk/dv kernel
-            walks against those the frontier alone scans, and the key
-            tiles the FFMA dq kernel walked, read back from it and held
-            to the skip rule's map.
-13. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
+            f32, SIMT), the tiles each FFMA kernel walked (dk/dv: the
+            32-row tiles of each 64-key block; dq: the 32-key tiles of
+            each 64-row block), read back from it and held to the skip
+            rule's map (dkdv_walk_map, dq_walk_map), against those the
+            frontier alone scans.
+16. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
             segment 0, square causal, D = 128, three segments with
             boundaries off the 64-grid, a tail (L = 200) and D = 72:
@@ -148,21 +173,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             walked (dq: 128-row x 64-key, dk/dv: 64 x 128), read back
             from it and held to its skip rule's map, against those the
             frontier alone scans.
-14. train_parity  a miniature Ref (head_dim 128) takes one stage-3
+17. train_parity  a miniature Ref (head_dim 128) takes one stage-3
             ref_sft_step on the card and one on the CPU from the same
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
             K2-bwd-dkdv = layers and K3 = K3-bwd-dq = K3-bwd-dkv = depth
             (every forward, dq and dk/dv on the FFMA kernels).
-15. train_grad  one stage-3 loss and gradient at ref_2b's full width
+18. train_grad  one stage-3 loss and gradient at ref_2b's full width
             (random weights) at the --grid-tokens 256 bucket (ViT and
             decoder L = 1024), through the kernels and through the plain
             forward and backward versions: the loss difference, the
             relative L2 error of each parameter group's gradient and of
             grad_norm within TRAIN_GRAD_TOL, and a control with one key
             tile dropped in every backward call that must miss it.
-16. train   cli/train_ref.train_ref_loop, stage 3, ref_2b at full width
+19. train   cli/train_ref.train_ref_loop, stage 3, ref_2b at full width
             in f32 with the CLI defaults (--grid-tokens 1024: ViT
             L = 4144 padded to 4224; --seq-buckets 1024 2048 4096: L =
             2048; 100 proposals; lr 1e-5 cosine; ref_optimizer, vision
@@ -173,7 +198,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             each of K2's FFMA forward, dq and dk/dv kernels and 24 each
             of K3's a step, none of the SIMT ones); ms per step (steps
             2-3) and peak card memory.
-17. det_train_parity  a miniature detector (mini_cfg's widths at
+20. det_train_parity  a miniature detector (mini_cfg's widths at
             128x128) takes one f32 train_step (B = 2, five gts, drop path
             0) on the card and one on the CPU from the same weights: the
             loss and its parts, every gradient and the BN running
@@ -181,7 +206,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             step with one gt removed must miss; the card's step run
             twice (its run-to-run drift reported); no kernel of the port
             launches (K1 nor the attention kernels).
-18. det_train  cli/train's own builders (build_config, build_state,
+21. det_train  cli/train's own builders (build_config, build_state,
             make_sample_fn) at WeDetect-Base, not cut, 640x640, the CLI
             defaults (B = 16, K = 80, lr 5e-4 constant, weight decay
             0.025, drop path 0, no mosaic or mixup, bf16), random init and
@@ -193,7 +218,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             step (steps 2-3, the loop's own clock), img/s and peak card
             memory.
 
-19. gen_parity  the miniature Ref (head_dim 128) on the card against the
+22. gen_parity  the miniature Ref (head_dim 128) on the card against the
             same weights on the CPU, f32: the prefill's hidden states
             and KV (every position) within GEN_PREFILL_TOL, with K2 = 2
             and K3 = 2 launches on the FFMA kernels, and a control (one
@@ -204,7 +229,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             margin is within GEN_LOGIT_TOL); the PRNG twin's bits,
             uniforms, categorical draws and the sampler (top-k, top-p)
             on the card bitwise equal to the CPU's.
-20. gen     ref_2b at full width, the seeded 480x640 image, one prompt
+23. gen     ref_2b at full width, the seeded 480x640 image, one prompt
             (P = 384), 64 new tokens through RefScorer.generate_text in
             f32 and in bf16, greedy: K2 = 28 and K3 = 24 launches a call
             (f32 on the FFMA kernels, bf16 on the wgmma ones), prefill
@@ -212,7 +237,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             gives greedy's tokens (margin rule), its verify steps; int8
             and int4 decode: the first step's logit cosine against the
             full-precision tree (GEN_COS_LIMIT), and ms a token.
-21. serve   ref_2b, GenServer with 8 slots, chunk 16, P = 384, G = 64:
+24. serve   ref_2b, GenServer with 8 slots, chunk 16, P = 384, G = 64:
             16 requests with varied prompt tails and caps from 8 to 64.
             f32: every request completes and equals its own
             ref_generate stream (margin rule); chunk 4, pipeline off and
@@ -222,6 +247,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             int8 KV pool (kv_bits=8) at 0.52x the bf16 pool's bytes,
             every request complete; sampling (T = 0.8, top-k 50, top-p
             0.9) unchanged by the chunk size.
+25. quant_gate  ref_2b, random weights, f32: RefScorer.calibrate_decode
+            (int4) on 8 requests on the Ref image, K3 = 24 launches a
+            prompt (the decoder replay is the einsum); gate_report
+            (eval/quant_gate: first-step logit cosine, greedy agreement
+            over 16 tokens, REC score deltas) of the plain and the
+            calibrated int4 trees on cli/quant_gate's 8 probe prompts;
+            one generate_text with the calibrated tree (32 tokens, K2 =
+            28, K3 = 24): prefill ms and ms a token.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -848,6 +881,272 @@ def phase_uni(dev):
     ms = host_ms(lambda: W.forward_raw(cfg, det.model, images), 5)
     emit({"phase": "uni", "scores_shape": list(out.scores.shape),
           "forward_raw_ms": ms})
+
+
+# ------------------------------------------------------------- int8
+INT8_OPS_PER_S = 1979e12    # int8 dense, tensor cores
+# the three largest int8 GEMMs of the main paths, (M, K, N): the head's
+# 3x3 tower conv at P3 (B = 8, 80x80, 256 -> 256, unfolded), the Ref
+# decoder's gate/up projection on the suffix rows (8 x 256), ConvNeXt
+# stage 0's block MLP (B = 8, 160x160, 128 -> 512)
+# the int8 class logits' cosine to the float call's at full width, f32
+# and bf16 (a floor: the same direction, nothing broken on the way)
+DET_INT8_COS = 0.95
+INT8_GEMMS = {"head_p3_tower": (51200, 2304, 256),
+              "ref_suffix_gate_up": (2048, 2048, 6144),
+              "convnext_s0_mlp": (204800, 128, 512)}
+
+
+class Int8Calls:
+    """Record (module, input, output) of every int8 module's call."""
+
+    def __init__(self, model):
+        from wedetect_tpu_torch.ops import int8 as TI
+
+        self.calls = []
+        self.hooks = [m.register_forward_hook(
+            lambda m_, i_, o_: self.calls.append((m_, i_[0], o_)))
+            for m in model.modules()
+            if isinstance(m, (TI.QuantLinear, TI.QuantConv2d))]
+
+    def __enter__(self):
+        return self.calls
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def int8_calls_match_cpu(calls, cpu_model, card_model, autocast=None):
+    """Each card call of an int8 module against the same module on the
+    CPU fed the card's input: equal bit for bit. Returns the count."""
+    cpu_mods = dict(cpu_model.named_modules())
+    names = {m: n for n, m in card_model.named_modules()}
+    ctx = (torch.autocast("cpu", dtype=autocast) if autocast
+           else contextlib.nullcontext())
+    for mod, x, out in calls:
+        with ctx, torch.inference_mode():
+            want = cpu_mods[names[mod]](x.cpu())
+        assert bitwise_equal(out.cpu().contiguous(), want.contiguous()), \
+            f"int8 call {names[mod]}: card != CPU"
+    return len(calls)
+
+
+def int8_gemm_timing(dev, m, k, n):
+    """torch._int_mm against a bf16 torch.mm at (M, K) x (K, N) (device
+    time, CUDA graphs), with quant_linear and a bf16 F.linear (the whole
+    int8 op: quantize, product, epilogue) beside them; the bounds of the
+    int8 and the bf16 products."""
+    import torch.nn.functional as F
+
+    from wedetect_tpu_torch.ops import int8 as TI
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a8 = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    w = torch.randn((n, k), generator=g, device=dev).bfloat16()
+    ops = 2.0 * m * k * n
+    res = {"mkn": [m, k, n],
+           "int_mm_ms": graph_ms(lambda: torch._int_mm(a8, w8.t())),
+           "bf16_mm_ms": graph_ms(lambda: torch.mm(x, w.t())),
+           "quant_linear_ms": graph_ms(lambda: TI.quant_linear(x, w)),
+           "bf16_linear_ms": graph_ms(lambda: F.linear(x, w)),
+           "int8_bound_ms": max(ops / INT8_OPS_PER_S,
+                                (m * k + n * k + 4 * m * n)
+                                / HBM_BYTES_PER_S) * 1e3,
+           "bf16_bound_ms": max(ops / BF16_OPS_PER_S,
+                                2 * (m * k + n * k + m * n)
+                                / HBM_BYTES_PER_S) * 1e3}
+    res["int_mm_over_bf16_mm"] = res["int_mm_ms"] / res["bf16_mm_ms"]
+    return res
+
+
+def phase_int8_parity(dev, timing: bool = True):
+    """The int8 ops on the card against the CPU: the int32 sums of
+    torch._int_mm through the padding rule equal the CPU's int64 product;
+    quant_linear and quant_conv2d equal the CPU's bit for bit in f32 and
+    bf16, padding included; a control with one weight scale for the
+    whole tensor must miss. Then the miniature detector (f32 and bf16
+    autocast) and the miniature Ref in int8: every int8 call on the card
+    equal to the CPU's module on the card's input, the outputs reported
+    against the CPU's. Times the three largest GEMMs (INT8_GEMMS)."""
+    from wedetect_tpu_torch.configs import ModelCfg, TestCfg
+    from wedetect_tpu_torch.models import wedetect as W
+    from wedetect_tpu_torch.models.ref import init_ref_variables, \
+        ref_score_step
+    from wedetect_tpu_torch.ops import int8 as TI
+
+    res = {"int_mm": [], "ops": {}}
+    g = torch.Generator().manual_seed(11)
+    for m, k, n in ((1, 12, 12), (16, 12, 12), (17, 12, 12), (37, 41, 9),
+                    (300, 2304, 256)):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        a[0], w[0] = 127, -127
+        got = TI.int8_matmul(a.to(dev), w.to(dev)).cpu().long()
+        ok = torch.equal(got, a.long() @ w.long().T)
+        res["int_mm"].append({"mkn": [m, k, n], "exact": ok,
+                              "padded": list(TI.int_mm_padded_shape(m, k,
+                                                                    n))})
+        assert ok, (m, k, n)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(3, 7, 37, generator=g).to(dt)
+        w = torch.randn(20, 37, generator=g).to(dt)
+        b = torch.randn(20, generator=g)
+        want = TI.quant_linear(x, w, b)
+        got = TI.quant_linear(x.to(dev), w.to(dev), b.to(dev)).cpu()
+        same = {"linear": bitwise_equal(got.float(), want.float())}
+        # the control: one weight scale over the whole tensor
+        x8, ls = TI._quantize(x.to(dev), -1)
+        w8, rs = TI._quantize(w.to(dev), (0, 1))
+        y = TI.int8_matmul(x8.reshape(-1, 37), w8).reshape(3, 7, 20)
+        ctrl = ((y.float() * ls * rs).to(dt) + b.to(dev).to(dt)).cpu()
+        ctrl_err = float((ctrl.float() - want.float()).abs().max())
+        xc = torch.randn(2, 6, 9, 7, generator=g).to(dt)
+        xc[1] *= 8
+        for kk, st in ((3, 1), (3, 2), (1, 1)):
+            wc = torch.randn(10, 6, kk, kk, generator=g).to(dt)
+            want_c = TI.quant_conv2d(xc, wc, None, st, kk // 2)
+            got_c = TI.quant_conv2d(xc.to(dev), wc.to(dev), None, st,
+                                    kk // 2).cpu()
+            same[f"conv{kk}s{st}"] = bitwise_equal(
+                got_c.float().contiguous(), want_c.float().contiguous())
+        res["ops"][str(dt)[6:]] = {"bitwise": same,
+                                   "control_max_abs_err": ctrl_err}
+        assert all(same.values()) and ctrl_err > 0, (dt, same, ctrl_err)
+
+    # the miniature detector in int8, f32 and bf16: card vs CPU
+    cfg = ModelCfg(name="mini", depths=(1, 1, 2, 1), dims=(32, 64, 128, 256),
+                   neck_scale=0.25, neck_repeats=2,
+                   head_in_channels=(32, 64, 128), embed_dims=32,
+                   img_size=(64, 64), text=None, num_classes=8,
+                   quant_int8=True,
+                   test=TestCfg(nms_pre=256, max_per_img=16, score_thr=0.3))
+    cpu = W.init_variables(cfg, seed=3, device="cpu")
+    card = W.init_variables(cfg, seed=3, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    images = torch.randint(0, 256, (2, 64, 64, 3), generator=g,
+                           dtype=torch.uint8).numpy()
+    w = torch.randn((8, 32), generator=g).numpy()
+    res["detector"] = {}
+    for name in ("float32", "bfloat16"):
+        c = cpu.cfg = card.cfg = dataclasses.replace(cfg,
+                                                     compute_dtype=name)
+        with Int8Calls(card) as calls:
+            b = W.forward_raw(c, card, images, w)
+        n = int8_calls_match_cpu(
+            calls, cpu, card,
+            autocast=torch.bfloat16 if name == "bfloat16" else None)
+        a = W.forward_raw(c, cpu, images, w)
+        with TI.quant_mode(cpu, False):
+            f = W.forward_raw(c, cpu, images, w)
+        res["detector"][name] = {
+            "int8_calls_equal_cpu": n,
+            "logits_max_abs_err": float((a.logits - b.logits.cpu()).abs()
+                                        .max()),
+            "cpu_int8_vs_float_max_abs": float((a.logits - f.logits).abs()
+                                               .max())}
+        assert n == 2 * sum(cfg.depths) + sum(
+            isinstance(m, TI.QuantConv2d) for m in card.modules())
+        assert torch.isfinite(b.logits).all()
+    del cpu, card
+
+    # the miniature Ref (phase_ref_parity's) in int8, f32: card vs CPU
+    rcfg, gh, gw, args = ref_parity_case()
+    rcfg = dataclasses.replace(rcfg, quant_int8=True)
+    cpu = init_ref_variables(rcfg, seed=5, device="cpu")
+    card = init_ref_variables(rcfg, seed=5, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    launch_counts(reset=True)
+    with Int8Calls(card) as calls:
+        got = ref_score_step(card, gh, gw, *args)
+    counts = launch_counts()
+    n = int8_calls_match_cpu(calls, cpu, card)
+    want = ref_score_step(cpu, gh, gw, *args)
+    with TI.quant_mode(cpu, False):
+        flt = ref_score_step(cpu, gh, gw, *args)
+    assert n == 4 * rcfg.vision.depth + 7 * rcfg.text.layers, n
+    assert counts == expected_counts(k2=2, k2_f32=2, k3=2, k3_f32=2), counts
+    res["ref"] = {"int8_calls_equal_cpu": n, "launches": counts,
+                  "logits_max_abs_err": float((got.cpu() - want).abs()
+                                              .max()),
+                  "cpu_int8_vs_float_max_abs": float((want - flt).abs()
+                                                     .max())}
+    del cpu, card
+    if timing:
+        res["gemm"] = {name: int8_gemm_timing(dev, *mkn)
+                       for name, mkn in INT8_GEMMS.items()}
+    emit({"phase": "int8_parity", **res})
+    return res
+
+
+def phase_detect_int8(dev, size: str, k: int, batch: int, text_embeds,
+                      timing: bool = True):
+    """The detector's int8 mode (ModelCfg.quant_int8) at full width
+    through Detector.__call__: K1 launched once a call (the head
+    calibrated on the int8 model, as in detect); the class logits' cosine
+    and largest error against the same weights in float (quant_mode off),
+    f32 and bf16; ms a call, int8 and float in turns."""
+    from wedetect_tpu_torch.models import wedetect as W
+    from wedetect_tpu_torch.models.api import Detector
+    from wedetect_tpu_torch.ops.int8 import quant_mode
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    det = Detector.from_random(size, seed=0, device=dev, num_classes=k,
+                               quant_int8=True)
+    det.reparameterize([f"class_{i}" for i in range(k)], embeds=text_embeds)
+    cfg = det.cfg
+    h, w = cfg.img_size
+    g = torch.Generator().manual_seed(2)
+    images = torch.randint(0, 256, (batch, h, w, 3), generator=g,
+                           dtype=torch.uint8).numpy()
+    thr = cfg.test.score_thr
+    calibrate_head(det, images, det._text_embeds, thr)
+    row_topk.launches = 0
+    results = det(list(images), score_thr=thr)
+    launches = row_topk.launches
+    assert launches == 1, f"the int8 detect call launched row_topk " \
+                          f"{launches}x"
+    res = {"size": size, "k": k, "batch": batch,
+           "row_topk_launches": launches,
+           "detections": check_detections(results, max(h, w), k, thr,
+                                          cfg.embed_dims)}
+    call = lambda: det(list(images), score_thr=thr)  # noqa: E731
+
+    def float_call():
+        with quant_mode(det.model, False):
+            return det(list(images), score_thr=thr)
+
+    for name, c in (("f32", cfg), ("bf16", dataclasses.replace(
+            cfg, compute_dtype="bfloat16"))):
+        det.cfg = det.model.cfg = c
+        q = W.forward_raw(c, det.model, images, det._text_embeds).logits
+        with quant_mode(det.model, False):
+            f = W.forward_raw(c, det.model, images,
+                              det._text_embeds).logits
+        r = res[name] = {
+            "logit_cosine": float(cosines(q.reshape(1, -1),
+                                          f.reshape(1, -1))[0]),
+            "logit_max_abs_err": float((q.float() - f.float()).abs()
+                                       .max()),
+            "logit_range": [float(f.min()), float(f.max())]}
+        del q, f
+        assert r["logit_cosine"] > DET_INT8_COS, r
+        row_topk.launches = 0
+        call()
+        r["row_topk_launches_per_call"] = row_topk.launches
+        if timing:
+            turns = [host_ms(fn, 3) for fn in (float_call, call, call,
+                                               float_call)]
+            r["call_ms"] = turns[1:3]
+            r["float_call_ms"] = turns[::3]
+            r["img_per_s"] = batch * 2e3 / sum(turns[1:3])
+    det.cfg = det.model.cfg = cfg
+    emit({"phase": "detect_int8", **res})
+    return res
 
 
 # ------------------------------------------------------- K2 and K3
@@ -1545,11 +1844,10 @@ def phase_ref(dev, inputs, cfg=None, timing: bool = True):
     return res
 
 
-def phase_ref_parity(dev):
-    """A miniature Ref (head_dim 128, so K2 tiles) on the card through
-    both kernels against the same weights on the CPU (einsum)."""
-    from wedetect_tpu_torch.models.ref import (init_ref_variables,
-                                               ref_score_step)
+def ref_parity_case():
+    """A miniature Ref (head_dim 128, so K2 tiles) and a joint scoring
+    batch on an 8x12-patch image: (cfg, gh, gw, ref_score_step's
+    arguments after the grid)."""
     from wedetect_tpu_torch.nn.qwen3vl import (RefCfg, RefTextCfg,
                                                RefVisionCfg,
                                                get_rope_index_single_image)
@@ -1563,9 +1861,6 @@ def phase_ref_parity(dev):
                         kv_heads=2, head_dim=128, intermediate=512,
                         rope_theta=1000.0),
         image_token_id=120, vision_start_token_id=122, object_token_id=123)
-    cpu = init_ref_variables(cfg, seed=5, device="cpu")
-    card = init_ref_variables(cfg, seed=5, device=dev)
-    card.load_state_dict(cpu.state_dict())
     gh, gw, l = 8, 12, 128
     rng = np.random.default_rng(6)
     patches = rng.standard_normal((gh * gw, 96)).astype(np.float32)
@@ -1581,8 +1876,20 @@ def phase_ref_parity(dev):
     obj = np.tile(np.nonzero(seq == 123)[0], (2, 1)).astype(np.int32)
     boxes = np.array([[2, 2, 30, 20], [10, 5, 47, 31], [0, 0, 48, 32]],
                      np.float32)
-    args = (patches, ids, mask, pos, 3, boxes,
-            np.array([48.0, 32.0], np.float32), obj)
+    return cfg, gh, gw, (patches, ids, mask, pos, 3, boxes,
+                         np.array([48.0, 32.0], np.float32), obj)
+
+
+def phase_ref_parity(dev):
+    """A miniature Ref (head_dim 128, so K2 tiles) on the card through
+    both kernels against the same weights on the CPU (einsum)."""
+    from wedetect_tpu_torch.models.ref import (init_ref_variables,
+                                               ref_score_step)
+
+    cfg, gh, gw, args = ref_parity_case()
+    cpu = init_ref_variables(cfg, seed=5, device="cpu")
+    card = init_ref_variables(cfg, seed=5, device=dev)
+    card.load_state_dict(cpu.state_dict())
     launch_counts(reset=True)
     got = ref_score_step(card, gh, gw, *args)
     counts = launch_counts()
@@ -1592,6 +1899,69 @@ def phase_ref_parity(dev):
     assert err < 1e-5, err
     emit({"phase": "ref_parity", "logits_max_abs_err": err,
           "launches": counts})
+
+
+# int8 prefill against the float call, pre-sigmoid logits at ref_2b
+# (max and mean over the 800), set before the first reading on the card
+REF_INT8_TOL = {"float32": (0.5, 0.1), "bfloat16": (0.5, 0.1)}
+
+
+def phase_ref_int8(dev, inputs, cfg=None, timing: bool = True):
+    """ref_2b's int8 prefill through RefScorer(quant_prefill=True).score,
+    f32 and bf16: K2 = 56 and K3 = 24 launches a call on the type's
+    routes, the logits against the float scorer on the same weights
+    within REF_INT8_TOL, the scorer's int8 modules off again after each
+    call; ms a call, int8 and float in turns."""
+    from wedetect_tpu_torch.models import ref_api
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+    from wedetect_tpu_torch.ops import int8 as TI
+
+    cfg = cfg or ref_2b()
+    image, boxes = inputs
+    torch.cuda.empty_cache()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    tok = CharTok()
+    res = {"queries": len(REF_QUERIES), "proposals": len(boxes)}
+    for name in ("float32", "bfloat16"):
+        flt = ref_api.RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                                dtype=name, device=dev)
+        q = ref_api.RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                              dtype=name, device=dev, quant_prefill=True)
+        launch_counts(reset=True)
+        scores = q.score(image, boxes, REF_QUERIES)
+        counts = launch_counts()
+        assert np.isfinite(scores).all() and scores.shape == (
+            len(REF_QUERIES), len(boxes))
+        k2, k3 = 2 * cfg.text.layers, cfg.vision.depth
+        bf16 = name == "bfloat16"
+        assert counts == expected_counts(
+            k2=k2, k2_sm90=k2 if bf16 else 0, k2_f32=0 if bf16 else k2,
+            k3=k3, k3_sm90=k3 if bf16 else 0,
+            k3_f32=0 if bf16 else k3), counts
+        assert not any(m.quant for m in model.modules()
+                       if isinstance(m, TI.QuantLinear))
+        ql = q.logits(image, boxes, REF_QUERIES)
+        fl = flt.logits(image, boxes, REF_QUERIES)
+        tol, mean_tol = REF_INT8_TOL[name]
+        r = res[name] = {
+            "launches": counts, "tolerance": tol, "mean_tolerance": mean_tol,
+            "logit_max_abs_err": float(np.abs(ql - fl).max()),
+            "logit_mean_abs_err": float(np.abs(ql - fl).mean()),
+            "logit_range": [float(fl.min()), float(fl.max())],
+            "top1_agree": float((ql.argmax(1) == fl.argmax(1)).mean())}
+        if timing:
+            turns = [host_ms(lambda s=s: s.score(image, boxes,
+                                                 REF_QUERIES), 3)
+                     for s in (flt, q, q, flt)]
+            r["score_ms"] = turns[1:3]
+            r["float_score_ms"] = turns[::3]
+        emit({"phase": "ref_int8", "dtype": name, **r})
+        assert r["logit_max_abs_err"] <= tol \
+            and r["logit_mean_abs_err"] <= mean_tol, r
+    del model
+    torch.cuda.empty_cache()
+    return res
 
 
 # --------------------------------------------------- K2-bwd and K3-bwd
@@ -1898,7 +2268,7 @@ def phase_k2_bwd(dev, timing: bool = True):
                     # the kernel's tiles as the skip rule counts them
                     # (dk/dv 32 rows x 64 keys, dq 64 x 32): walked, and
                     # scanned by the frontier alone
-                    # (every row as if it saw no valid key); the dq
+                    # (every row as if it saw no valid key); each
                     # kernel's walk also read back from the kernel
                     walk_map = (fg.dkdv_walk_map if product == "dkdv"
                                 else fg.dq_walk_map)
@@ -1907,15 +2277,16 @@ def phase_k2_bwd(dev, timing: bool = True):
                     r["rule_tiles_scanned"] = int(walk_map(
                         s, lk, h // kvh, causal, valid,
                         torch.full_like(lse, float("-inf"))).sum())
-                if route == "f32" and product == "dq":
                     walked = torch.zeros(rule.shape[:3], dtype=torch.int32,
                                          device=dev)
-                    fg.gqa_flash_bwd_dq_f32(
-                        q, k, v, valid, do, lse, delta, torch.empty_like(q),
+                    outs = ((torch.empty_like(q),) if product == "dq"
+                            else (torch.empty_like(k), torch.empty_like(v)))
+                    getattr(fg, f"gqa_flash_bwd_{product}_f32")(
+                        q, k, v, valid, do, lse, delta, *outs,
                         walked=walked, **kw)
                     r["tiles_walked"] = int(walked.sum())
                     assert torch.equal(walked, rule.sum(-1).int()), (
-                        "dq walk != rule", r["tiles_walked"],
+                        f"{product} walk != rule", r["tiles_walked"],
                         r["rule_tiles_walked"])
                 res[f"{kind}_{str(dtype)[6:]}"] = r
             # before and after in turns: SIMT, f32, f32, SIMT
@@ -3248,6 +3619,94 @@ def phase_serve(dev, image, cfg=None, slots: int = 8, chunk: int = 16,
     return res
 
 
+def phase_quant_gate(dev, image, cfg=None, n_calib: int = 8,
+                     n_prompts: int = 8, max_new: int = 16,
+                     new_tokens: int = 32):
+    """ref_2b, random weights, f32: RefScorer.calibrate_decode on n_calib
+    requests on the Ref image (K3 = 24 launches a prompt; the decoder
+    replay runs the einsum, no K2), then eval/quant_gate.gate_report of
+    the plain and the calibrated int4 trees (cli/quant_gate's probe
+    prompts, REC grid and queries), then one generate_text with the
+    calibrated tree: ms a token. Each report finite, its first-step
+    logit cosines above GEN_DECODE_COS_LIMIT[4] (the int4 envelope for
+    random weights)."""
+    from wedetect_tpu_torch.cli import quant_gate as QG
+    from wedetect_tpu_torch.eval.quant_gate import gate_report
+    from wedetect_tpu_torch.models import quant
+    from wedetect_tpu_torch.models import ref_generate as TG
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = cfg or ref_2b()
+    torch.cuda.empty_cache()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(),
+                       device=dev, quantize_decode="int4")
+    reqs = QG.calib_requests(image, n_calib)
+    launch_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    calib = scorer.calibrate_decode(reqs, pad_token_id=GEN_PAD)
+    torch.cuda.synchronize()
+    res = {"calib_prompts": n_calib,
+           "calibrate_ms": (time.perf_counter() - t0) * 1e3,
+           "calib_launches": launch_counts()}
+    k3 = cfg.vision.depth
+    assert res["calib_launches"] == expected_counts(
+        k3=k3 * n_calib, k3_f32=k3 * n_calib), res["calib_launches"]
+    rms = [calib["lm_head"]] + [v for layer in calib["text"].values()
+                                for v in layer.values()]
+    assert all(np.isfinite(a).all() and (a > 0).all() for a in rms)
+    gh, gw, gen, rec, _ = QG.scorer_batches(scorer, image, n_prompts, 0,
+                                            GEN_PAD)
+    for name, tree in (("plain", quant.quantize_decode_params(model, 4)),
+                       ("calibrated", scorer.decode_tree())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = gate_report(cfg, gh, gw, model, tree, gen, rec, max_new,
+                          GEN_EOS, GEN_PAD)
+        torch.cuda.synchronize()
+        rep["ms"] = (time.perf_counter() - t0) * 1e3
+        res[name] = rep
+        assert rep["n_prompts"] == n_prompts
+        assert all(np.isfinite(v) for v in (
+            rep["logit_cos_min"], rep["rec"]["max_abs_delta"]))
+        assert rep["logit_cos_min"] > GEN_DECODE_COS_LIMIT[4], rep
+    # one int4 generate_text with the calibrated tree
+    b = gen_prompt(scorer, image, GEN_PROMPT)
+
+    def prefill():
+        with torch.inference_mode():
+            return TG._prefill_hidden_kvs(
+                model, b["gh"], b["gw"], b["patches"], b["ids"][None],
+                b["mask"][None], b["pos"][:, None], b["boxes"], b["ori"],
+                b["vs"], np.full((1, 1), -1, np.int32))
+
+    launch_counts(reset=True)
+    text = scorer.generate_text(image, GEN_PROMPT,
+                                max_new_tokens=new_tokens,
+                                eos_token_id=GEN_EOS, pad_token_id=GEN_PAD)
+    counts = launch_counts()
+    assert counts == expected_counts(k2=cfg.text.layers,
+                                     k2_f32=cfg.text.layers, k3=k3,
+                                     k3_f32=k3), counts
+    assert len(text) > 0
+    prefill_ms = host_ms(prefill, 3)
+    call_ms = host_ms(lambda: scorer.generate_text(
+        image, GEN_PROMPT, max_new_tokens=new_tokens, eos_token_id=GEN_EOS,
+        pad_token_id=GEN_PAD), 2)
+    res["generate"] = {"launches": counts, "tokens": len(text),
+                       "prefill_ms": prefill_ms, "call_ms": call_ms,
+                       "decode_ms_per_token":
+                           (call_ms - prefill_ms) / new_tokens}
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "quant_gate", **res})
+    del model, scorer
+    torch.cuda.empty_cache()
+    return res
+
+
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
@@ -3320,12 +3779,16 @@ def main() -> int:
     k3 = phase_k3(dev)
     text_embeds = phase_text(dev, TEXT_BASE, N_CLASSES)
     detect = phase_detect(dev, "base", N_CLASSES, BATCH, text_embeds)
+    detect_int8 = phase_detect_int8(dev, "base", N_CLASSES, BATCH,
+                                    text_embeds)
     del text_embeds
     phase_parity(dev)
+    phase_int8_parity(dev)
     phase_uni(dev)
     phase_ref_parity(dev)
     image, proposals = ref_inputs(dev)
     ref = phase_ref(dev, (image, proposals))
+    ref_int8 = phase_ref_int8(dev, (image, proposals))
     launches = ref["float32"]["launches"]
     launches_bf16 = ref["bfloat16"]["launches"]
     k2_bwd = phase_k2_bwd(dev)
@@ -3338,10 +3801,15 @@ def main() -> int:
     phase_gen_parity(dev)
     phase_gen(dev, image)
     serve = phase_serve(dev, image)
+    gate = phase_quant_gate(dev, image)
     # K2's and K3's launches an admission prefill by route: f32 on the
     # FFMA kernels, bf16 on the wgmma ones, the SIMT ones none
     admit = {t: serve[t]["launches_per_admit"]
              for t in ("float32", "bfloat16")}
+    # K2's and K3's launches in the int8 score call, by type, and K3's in
+    # the calibration of one prompt
+    int8 = {t: ref_int8[t]["launches"] for t in ("float32", "bfloat16")}
+    calib_k3 = gate["calib_launches"]["k3_f32"] // gate["calib_prompts"]
     k2_train, k3_train = (k2_bwd_launches(train_counts),
                           k3_bwd_launches(train_counts))
     k2_bf16 = k2_bwd_launches(k2_bwd["autograd_bf16"]["launches"])
@@ -3351,6 +3819,7 @@ def main() -> int:
          "source": "wedetect_tpu_torch/csrc/row_topk.cu",
          "replaces": "wedetect_tpu/ops/pallas_topk.py:46",
          "launches": detect["row_topk_launches"],
+         "launches_int8": detect_int8["row_topk_launches"],
          "max_abs_err": k1["max_abs_err"], "max_abs_err_bf16": None,
          "tolerance": 0.0, "match": True,
          # ms / library_ms on k1_inputs (dense rows); path_ms on the
@@ -3381,6 +3850,7 @@ def main() -> int:
                         route="f32"),
          "launches_sft_step": train["launches_per_step"]["k2_f32"],
          "launches_admit": admit["float32"]["k2_f32"],
+         "launches_int8_score": int8["float32"]["k2_f32"],
          **{f"{shape}_{key}": k2[f"{shape}_float32"][key]
             for shape in ("prefix", "train")
             for key in ("ms", "bound_ms", "library_ms")},
@@ -3402,12 +3872,15 @@ def main() -> int:
                         "wedetect_tpu/ops/flash_gqa.py:86",
                         launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
                         route="sm90"),
-         "launches_admit": admit["bfloat16"]["k2_sm90"]},
+         "launches_admit": admit["bfloat16"]["k2_sm90"],
+         "launches_int8_score": int8["bfloat16"]["k2_sm90"]},
         {**kernel_entry("flash_attention_fwd_f32", K3_F32_FWD_SOURCE, K3_FWD,
                         launches["k3_f32"], k3, k3["vit_float32"],
                         route="f32"),
          "launches_sft_step": train["launches_per_step"]["k3_f32"],
          "launches_admit": admit["float32"]["k3_f32"],
+         "launches_int8_score": int8["float32"]["k3_f32"],
+         "launches_calib_prompt": calib_k3,
          **{f"train_{key}": k3["train_float32"][key]
             for key in ("ms", "bound_ms", "library_ms")},
          "turns_ms": {shape: k3[f"{shape}_float32"]["turns_ms"]
@@ -3427,7 +3900,8 @@ def main() -> int:
                         "wedetect_tpu_torch/csrc/flash_attn_sm90.cu", K3_FWD,
                         launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
                         route="sm90"),
-         "launches_admit": admit["bfloat16"]["k3_sm90"]},
+         "launches_admit": admit["bfloat16"]["k3_sm90"],
+         "launches_int8_score": int8["bfloat16"]["k3_sm90"]},
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32; K2-bwd in f32 at
         # D = 128 is the FFMA pair, and the SIMT dq and dk/dv kernels

@@ -1107,6 +1107,39 @@ def test_gqa_flash_bwd_dq_f32_walk_matches_rule(cuda, case):
                                                delta, **kw))
 
 
+@pytest.mark.parametrize("case", F32_DKDV_CASES)
+def test_gqa_flash_bwd_dkdv_f32_walk_matches_rule(cuda, case):
+    """The row tiles each key block of the f32 dk/dv kernel walked, read
+    back from the kernel, are the skip rule's (ops/flash_gqa.
+    dkdv_walk_map); the dk and dv of that launch are the route's, bit for
+    bit."""
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    b, s, lk, h, kvh, d, causal, holes = case
+    q, k, v, do, valid = _bwd_case(case, torch.float32, cuda,
+                                   seed=sum(case[:3]) + 9)
+    scale = d ** -0.5
+    o, lse = fg.gqa_flash_attention_plain(q, k, v, causal=causal,
+                                          kv_valid=valid, sm_scale=scale,
+                                          return_lse=True)
+    delta = fg.row_delta(o, do, kvh)
+    kw = dict(causal=causal, sm_scale=scale)
+    rule = fg.dkdv_walk_map(s, lk, h // kvh, causal, valid, lse)
+    walked = torch.full(rule.shape[:3], -1, dtype=torch.int32, device=cuda)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fg.gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv,
+                              walked=walked, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(walked, rule.sum(-1).int())
+    want_dk, want_dv = fg.gqa_flash_bwd_dkdv(q, k, v, valid, do, lse, delta,
+                                             **kw)
+    assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+    bad = torch.zeros(rule.shape[:2], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="walked"):
+        fg.gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv,
+                                  walked=bad, **kw)
+
+
 @pytest.mark.parametrize("d", [64, 256])
 def test_gqa_flash_bwd_dq_f32_only_at_d128(cuda, monkeypatch, d):
     """f32 at D = 64 or 256 keeps the SIMT dq kernel: no launch of the f32
@@ -2079,3 +2112,61 @@ def test_generation_and_server_card_match_cpu(cuda, kw):
             assert fg.gqa_flash_attention.launches == 2 * classic
             assert fa.flash_attention.launches == 2 * srv.stats["admits"]
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("rows", [1, 16, 17])
+def test_int_mm_padding_rule_on_the_card(cuda, rows):
+    """torch._int_mm through ops/int8's padding rule at rows 1, 16 and
+    17, K = N = 12 (off the card's multiples of 8): the sums equal the
+    CPU's int64 product exactly; unpadded, the card refuses the shape
+    (it raises; nothing falls back)."""
+    from wedetect_tpu_torch.ops import int8 as TI
+
+    g = torch.Generator().manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 12), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (12, 12), generator=g, dtype=torch.int8)
+    a[0], w[0] = 127, -127
+    got = TI.int8_matmul(a.to(cuda), w.to(cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu().long(), a.long() @ w.long().T)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(a.to(cuda), w.to(cuda).t())
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_ops_card_equal_cpu(cuda, dtype):
+    """quant_linear and quant_conv2d (3x3 / stride 2 and 1x1) on the card
+    equal the CPU's bit for bit: exact int32 sums, the same epilogue."""
+    from wedetect_tpu_torch.ops import int8 as TI
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 5, 37, generator=g).to(dtype)
+    w = torch.randn(20, 37, generator=g).to(dtype)
+    b = torch.randn(20, generator=g)
+    want = TI.quant_linear(x, w, b)
+    assert torch.equal(TI.quant_linear(x.to(cuda), w.to(cuda),
+                                       b.to(cuda)).cpu(), want)
+    xc = torch.randn(2, 6, 9, 7, generator=g).to(dtype)
+    for k, s in ((3, 2), (1, 1)):
+        wc = torch.randn(10, 6, k, k, generator=g).to(dtype)
+        want = TI.quant_conv2d(xc, wc, None, s, k // 2)
+        got = TI.quant_conv2d(xc.to(cuda), wc.to(cuda), None, s, k // 2)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_calibrated_int4_fit_card_equals_cpu(cuda):
+    """The activation-weighted int4 fit (models/quant, run on the
+    weight's device) gives the CPU's codes and scales on the card."""
+    from wedetect_tpu_torch.models import quant
+
+    g = torch.Generator().manual_seed(7)
+    w = torch.randn(256, 96, generator=g)
+    w[:, 0] *= 30.0
+    rms = (torch.rand(256, generator=g) * 3 + 0.1).numpy()
+    want = quant.quantize_weight4(w, act_rms=rms)
+    got = quant.quantize_weight4(w.to(cuda), act_rms=rms)
+    for k in ("w4p", "rscale", "scale"):
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -326,8 +326,12 @@ def test_video_and_multi_image_raise(tiny):
     with pytest.raises(NotImplementedError, match="video"):
         TG.ref_generate(tcfg, GH, GW, model, patches, ids, mask, pos, 1, nxt,
                         BOXES, ORI, 4, EOS, grid_t=2)
-    with pytest.raises(NotImplementedError, match="quant_prefill"):
-        RefScorer(cfg=tcfg, model=model, device="cpu", quant_prefill=True)
+    # quant_prefill is ported: it sets the scorer's cfg, and the model's
+    # int8 modules only for the scorer's own calls
+    scorer = RefScorer(cfg=tcfg, model=model, device="cpu",
+                       quant_prefill=True)
+    assert scorer.cfg.quant_int8 and not tcfg.quant_int8
+    assert not model.model.language_model.layers[0].self_attn.q_proj.quant
 
 
 def test_lm_head_loss_matches_jax_and_control_misses(tiny):

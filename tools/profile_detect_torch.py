@@ -4,8 +4,9 @@ spends its time on the card.
 
     python3 tools/profile_detect_torch.py [--ref | --train | --det-train
                                            | --gen | --serve]
-                                          [--batch N] [--bf16] [--iters 3]
-                                          [--tokens N] [--table F]
+                                          [--batch N] [--bf16] [--int8]
+                                          [--iters 3] [--tokens N]
+                                          [--table F]
 
 Detect (the default): full-width WeDetect-Base (640x640, K = 1203,
 random weights and random class embeddings, the head calibrated to a
@@ -27,7 +28,8 @@ the step's alone (upload, forward, assigner, losses, backward, AdamW).
 at ref_2b (random weights), chip_smoke.py's image and generation
 prompt (P = 384), f32 or --bf16. --serve: one 16-step decode chunk of a
 GenServer whose --batch slots (default 8) all decode, same model and
-prompt.
+prompt. --int8 (detect and --ref): the int8 serving mode, the
+detector's ModelCfg.quant_int8 or RefScorer(quant_prefill=True).
 The call runs under torch.profiler; the script prints one
 JSON line: wall time per call, device busy time per call (the union of
 kernel intervals on the card) and so the device's idle share, the
@@ -73,7 +75,8 @@ def detect_call(args, C, dev):
 
     kw = dict(compute_dtype="bfloat16") if args.bf16 else {}
     det = Detector.from_random("base", seed=0, device=dev,
-                               num_classes=C.N_CLASSES, **kw)
+                               num_classes=C.N_CLASSES,
+                               quant_int8=args.int8, **kw)
     g = torch.Generator(device=dev).manual_seed(0)
     w = torch.randn((C.N_CLASSES, TEXT_BASE.head_out), generator=g,
                     device=dev)
@@ -98,7 +101,7 @@ def ref_call(args, C, dev):
     scorer = RefScorer(cfg=cfg, model=init_ref_variables(cfg, 0, dev),
                        tokenizer=C.CharTok(),
                        dtype="bfloat16" if args.bf16 else "float32",
-                       device=dev)
+                       device=dev, quant_prefill=args.int8)
     return (lambda: scorer.score(image, boxes, C.REF_QUERIES),
             {"proposals": len(boxes), "queries": len(C.REF_QUERIES)})
 
@@ -206,6 +209,8 @@ def main(argv=None) -> int:
                    help="images a call (default 8; --det-train 16)")
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="detect, --ref: the int8 serving mode")
     p.add_argument("--table", default="",
                    help="write the full profiler table to this file")
     args = p.parse_args(argv)
@@ -240,7 +245,8 @@ def main(argv=None) -> int:
              else "f32")
     name = ("det_train_" if args.det_train else "train_" if args.train
             else "ref_" if args.ref else "gen_" if args.gen
-            else "serve_" if args.serve else "") + dtype
+            else "serve_" if args.serve else "") + dtype \
+        + ("_int8" if args.int8 else "")
     top = sorted(prof.key_averages(),
                  key=lambda e: e.self_device_time_total, reverse=True)[:14]
     print(json.dumps({

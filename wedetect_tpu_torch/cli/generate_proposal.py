@@ -8,7 +8,8 @@ generate_proposal.py:1222-1273):
 Outputs proposals as {bboxes, scores, embeddings}; --save-npz dumps
 them. The detect step runs with score_thr 0 here, so every anchor holds
 all its prompts as candidates and the pre-NMS selection takes its dense
-branch. Drawing (--visualize) is not ported yet.
+branch. --int8 runs the int8 serving mode (ModelCfg.quant_int8,
+ops/int8.py). Drawing (--visualize) is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ def parse_args(argv=None):
     p.add_argument("--save-npz", default="")
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="dynamic int8 channel-mixing matmuls and convs "
+                        "(serving mode; ops/int8.py)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -46,6 +50,8 @@ def main(argv=None):
                          else "large" if args.wedetect_uni_checkpoint
                          else "base")
     kw = dict(compute_dtype="bfloat16") if args.bf16 else {}
+    if args.int8:
+        kw["quant_int8"] = True
     if args.random_init or not args.wedetect_uni_checkpoint:
         det = Detector.from_random(f"uni_{size}", device=args.device, **kw)
     else:

@@ -4,7 +4,8 @@
         --checkpoint wedetect_base.pth --size base \
         --image demo.jpeg --text "person,dog" --topk 100 --threshold 0.1
 
-With --random-init the detector runs with random weights (smoke mode).
+With --random-init the detector runs with random weights (smoke mode);
+--int8 runs the int8 serving mode (ModelCfg.quant_int8, ops/int8.py).
 Drawing the detections is not ported yet: --output is not written.
 """
 
@@ -29,6 +30,9 @@ def parse_args(argv=None):
     p.add_argument("--tokenizer", default="xlm-roberta-base")
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--bf16", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="dynamic int8 channel-mixing matmuls and convs "
+                        "(serving mode; ops/int8.py)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -40,6 +44,8 @@ def main(argv=None):
     from wedetect_tpu_torch.models.api import Detector
 
     kw = dict(compute_dtype="bfloat16") if args.bf16 else {}
+    if args.int8:
+        kw["quant_int8"] = True
     texts = [t.strip() for t in args.text.split(",") if t.strip()]
     if args.random_init or not args.checkpoint:
         det = Detector.from_random(args.size, device=args.device, **kw)

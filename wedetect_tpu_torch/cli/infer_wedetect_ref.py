@@ -7,15 +7,17 @@ chat / captioning with --generate.
     python -m wedetect_tpu_torch.cli.infer_wedetect_ref \
         --ref_checkpoint <hf-dir> --image demo.jpg \
         --generate "Describe the image." [--int8-decode | --int4-decode]
-        [--speculative] [--temperature 0.7]
+        [--speculative] [--temperature 0.7] [--int8-prefill]
 
 Port of the JAX package's CLI (reference infer_wedetect_ref.py:13-135):
 scoring runs WeDetect-Uni proposals, then RefScorer.score; --generate
 runs RefScorer.generate_text (the twin of the stage-1/2 class's
 inherited HF .generate()). With --generate, --random-init runs a
 miniature random Ref with a stub tokenizer (a smoke run); scoring
-refuses it, as the JAX CLI does. Not ported yet: --video,
---int8-prefill and drawing (--visualize).
+refuses it, as the JAX CLI does. --int8-prefill runs every prefill's
+ViT and decoder matmuls in dynamic int8 (RefScorer(quant_prefill=True),
+ops/int8.py), in scoring and generation. Not ported yet: --video and
+drawing (--visualize).
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--int8-prefill", action="store_true",
-                   help="not ported yet")
+                   help="dynamic int8 decoder/ViT prefill matmuls "
+                        "(ops/int8.py)")
     p.add_argument("--int8-decode", action="store_true",
                    help="weight-only int8 generation decode (models/quant)")
     p.add_argument("--int4-decode", action="store_true",
@@ -70,7 +73,8 @@ def _run_generate(args, img):
                        dtype="bfloat16" if args.bf16 else "float32",
                        device=args.device,
                        quantize_decode="int4" if args.int4_decode
-                       else args.int8_decode)
+                       else args.int8_decode,
+                       quant_prefill=args.int8_prefill)
     text = scorer.generate_text(
         img, args.generate, max_new_tokens=args.max_new_tokens,
         temperature=args.temperature,
@@ -91,9 +95,6 @@ def main(argv=None):
 
     if args.video:
         raise SystemExit("--video (video chat) is not ported yet")
-    if args.int8_prefill:
-        raise SystemExit("--int8-prefill (dynamic int8 prefill, "
-                         "ops/int8.py) is not ported yet")
     if not args.image:
         raise SystemExit("supply --image")
     img = load_image_rgb(args.image)
@@ -123,7 +124,7 @@ def main(argv=None):
     cfg, model, tok = load_ref(args.ref_checkpoint, args.device)
     scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok,
                        dtype="bfloat16" if args.bf16 else "float32",
-                       device=args.device)
+                       device=args.device, quant_prefill=args.int8_prefill)
     scores = scorer.score(img, boxes, [args.query])[0]
     keep = (np.argsort(-scores)[:1] if args.score_thre < 0
             else np.nonzero(scores > args.score_thre)[0])

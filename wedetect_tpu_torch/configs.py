@@ -94,6 +94,8 @@ class ModelCfg:
     num_classes: int = 80
     # "bfloat16" runs convolutions and matmuls under bf16 autocast
     compute_dtype: str = "float32"
+    # dynamic int8 block MLPs, neck convs and head tower convs
+    # (ops/int8.py; inference only)
     quant_int8: bool = False
     test: TestCfg = TestCfg()
     train: TrainCfg = TrainCfg()

@@ -63,7 +63,9 @@
 //   the walk. 64-row tiles in two stages would need 135.2 KB for Q and dO
 //   alone and 244 KB in all, over the 227 KB a block may hold.
 // - The walk: the row tiles the rule keeps for the block's keys; a
-//   block that walks nothing writes zeros.
+//   block that walks nothing writes zeros. With a non-null `walked`,
+//   each block also writes how many tiles it walked (a check of the
+//   rule; null on the main path).
 // - Order. Grid (B * KVH, Lk / 64): key block 0 of every (batch, head)
 //   launches before key block 1 of any, so the longest causal walks
 //   start first.
@@ -165,7 +167,8 @@ struct Args {
   float* dk;
   float* dv;
   float* dq;
-  int* walked;          // dq: tiles walked a block (B * KVH, row blocks)
+  int* walked;          // tiles walked a block, or null: dq (B * KVH, row
+                        // blocks), dk/dv (B * KVH, key blocks)
   int b, s, lk, h, kvh, g;
   int g_shift;          // log2 G when G is a power of two, else -1
   int causal, off, bq, bk;
@@ -357,6 +360,8 @@ gqa_bwd_dkdv_f32_kernel(const Args a) {
     if (lane == 0) walk[t] = any != 0;
   }
   __syncthreads();
+  count_walked(a.walked, static_cast<int64_t>(blockIdx.x) * gridDim.y
+                             + blockIdx.y, walk, ntiles);
 
   int t = next_walked(walk, 0, ntiles);
   if (t < ntiles) {
@@ -754,15 +759,18 @@ Args make_args(const float* q, const float* k, const float* v,
 // K2-bwd-dkdv, f32 at D = 128. q, dout (B, S, H, D); k, v, dk, dv
 // (B, Lk, KVH, D), each 16-byte aligned; kv_valid (B, Lk) int32; lse,
 // delta (B, KVH, S * H / KVH) f32; bq, bk: the Pallas kernel's blocks,
-// which fix each row's frontier. Lk must be a multiple of 64. Launches
-// on `stream`; returns cudaGetLastError() (0 = ok).
+// which fix each row's frontier. Lk must be a multiple of 64. walked:
+// null, or (B * KVH, Lk / 64) int32 that gets each key block's count of
+// walked row tiles. Launches on `stream`; returns cudaGetLastError()
+// (0 = ok).
 extern "C" int gqa_flash_bwd_dkdv_f32(const float* q, const float* k,
                                       const float* v, const int* kv_valid,
                                       const float* dout, const float* lse,
                                       const float* delta, float* dk,
                                       float* dv, int b, int s, int lk, int h,
                                       int kvh, int d, int causal, int bq,
-                                      int bk, float sm_scale, void* stream) {
+                                      int bk, float sm_scale, int* walked,
+                                      void* stream) {
   const void* ptrs[] = {q, k, v, dout, dk, dv};
   int err = check_args(d, s, lk, h, kvh, causal, bq, bk, kBK, ptrs, 6);
   if (err) return err;
@@ -771,7 +779,7 @@ extern "C" int gqa_flash_bwd_dkdv_f32(const float* q, const float* k,
   err = allow_smem(gqa_bwd_dkdv_f32_kernel, smem, &configured);
   if (err) return err;
   Args a = make_args(q, k, v, kv_valid, dout, lse, delta, dk, dv, nullptr,
-                     nullptr, b, s, lk, h, kvh, causal, bq, bk, sm_scale);
+                     walked, b, s, lk, h, kvh, causal, bq, bk, sm_scale);
   dim3 grid(b * kvh, lk / kBK);
   gqa_bwd_dkdv_f32_kernel<<<grid, kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(a);

@@ -30,8 +30,8 @@ Scope is decode only: prefill keeps the model's full-precision weights.
 The LM head is always quantized with the layers; a tied head gets a
 quantized transposed copy of the embedding, whose table stays for the
 token lookup. `quantize_decode_params(..., calib=...)` takes the
-per-matmul activation RMS statistics of the JAX package's
-`models/quant_calib` (not ported yet) for the int4 fit.
+per-matmul activation RMS statistics of `models/quant_calib` for the
+activation-weighted int4 fit, which runs on the weights' device.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from wedetect_tpu_torch.ops.int8 import true_div
 
 _LAYER_MATMULS = ("q_proj", "k_proj", "v_proj", "o_proj",
                   "gate_proj", "up_proj", "down_proj")
@@ -52,7 +54,7 @@ def quantize_weight(w: torch.Tensor, axis: int = 0) -> Dict:
     max runs over `axis`, the contraction axis)."""
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp(amax, min=1e-12) / 127.0
+    scale = true_div(torch.clamp(amax, min=1e-12), 127.0)
     w8 = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w8": w8, "scale": scale.squeeze(axis)}
 
@@ -69,9 +71,9 @@ def quantize_weight4(w: torch.Tensor, axis: int = 0, iters: int = 2,
     assert axis == 0, "contraction axis must be 0"
     if act_rms is not None:
         return _fit_int4_calibrated(
-            w.float().cpu().numpy(),
+            w.float(),
             np.asarray(torch.as_tensor(act_rms).float().cpu(), np.float32),
-            iters, alphas, clip_grid, device=w.device)
+            iters, alphas, clip_grid)
     wf = w.float()
     h, _ = wf.shape
     assert h % 2 == 0, "contraction dim must be even to nibble-pack"
@@ -83,55 +85,67 @@ def quantize_weight4(w: torch.Tensor, axis: int = 0, iters: int = 2,
     c = (wa / r[:, None]).amax(dim=0)              # colmax == 1 exactly
     q = torch.clamp(torch.round(wf / (r[:, None] * c[None, :]) * 7.0),
                     -7, 7).to(torch.int8)
-    return {"w4p": pack_int4(q), "rscale": r, "scale": c / 7.0}
+    return {"w4p": pack_int4(q), "rscale": r, "scale": true_div(c, 7.0)}
 
 
 def _fit_int4_calibrated(wf, act_rms, iters, alphas, clip_grid,
-                         col_chunk=4096, device=None):
-    """Activation-weighted int4 fit on the host (numpy; a one-time
-    set-up step): minimizes sum_io a_i^2 (w_io - deq_io)^2 over AWQ-style
-    row re-weightings `alphas` and per-column clip factors `clip_grid`;
+                         col_chunk=4096):
+    """Activation-weighted int4 fit of an (in, out) f32 kernel, on its
+    device (a one-time set-up step; column-chunked so that the LM head
+    never holds more than one (in, col_chunk) temporary a candidate):
+    minimizes sum_io a_i^2 (w_io - deq_io)^2 over AWQ-style row
+    re-weightings `alphas` and per-column clip factors `clip_grid`;
     alpha 0, beta 1 (the plain fit) is always a candidate. The same
-    {w4p, rscale, scale} leaf as quantize_weight4."""
+    {w4p, rscale, scale} leaf as quantize_weight4.
+
+    The JAX package fits in numpy on the host. The elementwise work here
+    is the same f32 arithmetic (the activation weights `a ** alpha`
+    still come from numpy); the squared errors are summed in float64,
+    where numpy sums them in f32, so a candidate can differ from JAX's
+    choice only where two candidates' errors tie within f32 rounding."""
     h, o = wf.shape
     assert h % 2 == 0, "contraction dim must be even to nibble-pack"
+    dev = wf.device
     a = np.maximum(act_rms, 1e-12).astype(np.float32)
     a = a / a.mean()
-    w2 = (a * a)[:, None]                     # row weights of the MSE
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    w2 = t((a * a)[:, None])                  # row weights of the MSE
     best_total, best = np.inf, None
     for alpha in alphas:
-        s_act = a ** np.float32(alpha)
-        wa = np.maximum(np.abs(wf) * s_act[:, None], 1e-12)
-        r = np.ones(h, np.float32)
+        s_act = t(a ** np.float32(alpha))
+        wa = torch.clamp(wf.abs() * s_act[:, None], min=1e-12)
+        r = torch.ones(h, dtype=torch.float32, device=dev)
         for _ in range(iters):
-            c = (wa / r[:, None]).max(axis=0)
-            r = (wa / c[None, :]).max(axis=1)
-        c = (wa / r[:, None]).max(axis=0)
+            c = (wa / r[:, None]).amax(dim=0)
+            r = (wa / c[None, :]).amax(dim=1)
+        c = (wa / r[:, None]).amax(dim=0)
+        del wa
         r = r / s_act                     # undo the fit re-weighting
-        codes = np.empty((h, o), np.int8)
-        scale = np.empty(o, np.float32)
-        total = 0.0
+        codes = torch.empty((h, o), dtype=torch.int8, device=dev)
+        scale = torch.empty(o, dtype=torch.float32, device=dev)
+        total = torch.zeros((), dtype=torch.float64, device=dev)
         for st in range(0, o, col_chunk):
             sl = slice(st, min(st + col_chunk, o))
             wb = wf[:, sl]
-            err_best = np.full(wb.shape[1], np.inf, np.float32)
+            err_best = torch.full((wb.shape[1],), float("inf"),
+                                  dtype=torch.float64, device=dev)
             for beta in clip_grid:
-                sc = (c[sl] * np.float32(beta)) / 7.0
-                cd = np.clip(np.rint(wb / (r[:, None] * sc[None, :])),
-                             -7, 7).astype(np.int8)
-                err = (np.square(wb - r[:, None] * cd * sc[None, :])
-                       * w2).sum(axis=0)
+                sc = true_div(c[sl] * float(np.float32(beta)), 7.0)
+                cd = torch.clamp(torch.round(wb / (r[:, None] * sc[None, :])),
+                                 -7, 7)
+                err = ((wb - r[:, None] * cd * sc[None, :]).square()
+                       * w2).double().sum(dim=0)
                 upd = err < err_best
-                err_best = np.where(upd, err, err_best)
-                codes[:, sl] = np.where(upd[None, :], cd, codes[:, sl])
-                scale[sl] = np.where(upd, sc, scale[sl])
-            total += float(err_best.sum())
-        if total < best_total:
-            best_total = total
-            best = (codes.copy(), r, scale)
+                err_best = torch.where(upd, err, err_best)
+                codes[:, sl] = torch.where(upd[None, :], cd.to(torch.int8),
+                                           codes[:, sl])
+                scale[sl] = torch.where(upd, sc, scale[sl])
+            total += err_best.sum()
+        if float(total) < best_total:
+            best_total = float(total)
+            best = (codes, r, scale)
     codes, r, scale = best
-    t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
-    return {"w4p": pack_int4(t(codes)), "rscale": t(r), "scale": t(scale)}
+    return {"w4p": pack_int4(codes), "rscale": r, "scale": scale}
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ from torch import nn
 
 from wedetect_tpu_torch import resolve_device
 from wedetect_tpu_torch.data.vision_process import IMAGE_MEAN, IMAGE_STD
+from wedetect_tpu_torch.ops.int8 import set_quant
 from wedetect_tpu_torch.nn.qwen3vl import (RefCfg, RMSNorm, TextModel,
                                            VisionModel, layer_norm)
 from wedetect_tpu_torch.ops.roi_align import roi_align
@@ -182,6 +183,9 @@ class RefModules(nn.Module):
         self.out_proj = nn.Linear(cfg.text.hidden, 1)
         self.lm_head = (nn.Linear(cfg.text.hidden, cfg.text.vocab_size,
                                   bias=False) if lm_head else None)
+        # the int8 prefill (RefCfg.quant_int8): the ViT and decoder
+        # matmuls; RefScorer sets it from its own cfg for each call
+        set_quant(self, cfg.quant_int8)
 
     def lm_logits(self, hidden):
         """f32 LM logits of hidden states: the untied head when present,

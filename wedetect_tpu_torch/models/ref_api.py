@@ -16,18 +16,23 @@ Generation (`generate_text`: `models/ref_generate`, or
 generation (`generate_batch`: `models/serve.GenServer`) take the same
 image through the chat template of `_build_gen_prompt`;
 `quantize_decode` ("int8" / True, or "int4") feeds their decode steps a
-`models/quant` tree.
+`models/quant` tree; `calibrate_decode` fits the int4 tree on the
+prefill activations of calibration requests (`models/quant_calib`).
+`quant_prefill` sets `cfg.quant_int8`: every prefill (score, the prefill
+of `generate_text` and `generate_batch`, calibration's vision tower)
+runs the ViT and decoder matmuls in dynamic int8 (`ops/int8.py`). The
+flag is the scorer's: each entry point sets the model's int8 modules
+from `cfg.quant_int8` for its call and restores them after.
 
 `device` defaults to "cuda" and raises without a card. The model's
 matmul weights are cast to `dtype` once, at construction. Not ported
-yet: `score_multi_images`, `score_rec`, `generate_video_text`, the
-calibrated int4 decode (`calibrate_decode`) and int8 prefill
-(`quant_prefill` raises).
+yet: `score_multi_images`, `score_rec` and `generate_video_text`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,8 +44,19 @@ from wedetect_tpu_torch.models.ref import (RefModules, cast_ref_model,
                                            ref_suffix_step)
 from wedetect_tpu_torch.nn.qwen3vl import RefCfg, get_rope_index_single_image
 from wedetect_tpu_torch.ops.attention import is_flash_tileable
+from wedetect_tpu_torch.ops.int8 import quant_mode
 
 QUERY_TEMPLATE = 'Please detect the "%s" in the image'
+
+
+def _scorer_int8(fn):
+    """Run a RefScorer entry point with the model's int8 modules set
+    from the scorer's cfg (`quant_mode`), restored after the call."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with quant_mode(self.model, self.cfg.quant_int8):
+            return fn(self, *args, **kwargs)
+    return run
 
 
 def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -83,7 +99,8 @@ class RefScorer:
     # "int8" (per-channel scales), "int4" (rank-1 two-sided scales,
     # lossier); prefill and scoring stay full precision
     quantize_decode: object = False
-    # dynamic int8 prefill matmuls (the JAX package's ops/int8.py)
+    # dynamic int8 prefill matmuls (ops/int8.py via RefCfg.quant_int8),
+    # independent of quantize_decode and composable with it
     quant_prefill: bool = False
     _decode_params: object = dataclasses.field(default=None, init=False,
                                                repr=False)
@@ -91,10 +108,8 @@ class RefScorer:
     def __post_init__(self):
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype {self.dtype!r}: float32 or bfloat16")
-        if self.quant_prefill:
-            raise NotImplementedError(
-                "quant_prefill (dynamic int8 prefill, ops/int8.py): not "
-                "ported yet")
+        if self.quant_prefill and not self.cfg.quant_int8:
+            self.cfg = dataclasses.replace(self.cfg, quant_int8=True)
         dev = resolve_device(self.device)
         self.model = cast_ref_model(self.model.to(dev), self.dtype)
         self.model.attn_impl = self.attn_impl
@@ -246,6 +261,7 @@ class RefScorer:
         out = self.logits(image, proposals, queries, pad_token_id)
         return 1.0 / (1.0 + np.exp(-out))
 
+    @_scorer_int8
     def logits(self, image: np.ndarray, proposals: np.ndarray,
                queries: Sequence[str],
                pad_token_id: int = 151643) -> np.ndarray:
@@ -356,6 +372,37 @@ class RefScorer:
         pos = np.pad(pos, ((0, 0), (0, p_pad - p_real))).astype(np.int32)
         return patches, gh, gw, ids, mask, pos, visual_start, w, h
 
+    @_scorer_int8
+    def calibrate_decode(self, requests, pad_token_id: int = 151643):
+        """Fit the int4 decode tree on calibration activations before
+        serving (models/quant_calib): `requests` are (image, prompt) pairs
+        as in generate_batch; their prefill activations set the
+        per-matmul channel statistics that quantize_weight4(act_rms=...)
+        weighs its error by. Sets the scorer's decode tree (later
+        generate_* calls use it) and returns the calibration tree.
+        Requires quantize_decode == "int4" (int8 is plain absmax).
+        Validate the result with cli/quant_gate before serving it."""
+        assert self.quantize_decode == "int4", \
+            "calibration applies to the int4 decode fit only"
+        from wedetect_tpu_torch.models.quant import quantize_decode_params
+        from wedetect_tpu_torch.models.quant_calib import (
+            calibrate_decode_acts)
+
+        batches = []
+        for image, prompt in requests:
+            patches, gh, gw, ids, mask, pos, visual_start, w, h = \
+                self._build_gen_prompt(image, prompt, pad_token_id)
+            batches.append(dict(
+                grid_h=gh, grid_w=gw, patches=patches,
+                input_ids=ids[None], attn_mask=mask[None],
+                position_ids=pos[:, None], visual_start=visual_start,
+                boxes_xyxy=np.array([[0, 0, w, h]], np.float32),
+                ori_wh=np.array([w, h], np.float32)))
+        calib = calibrate_decode_acts(self.cfg, self.model, batches)
+        self._decode_params = quantize_decode_params(self.model, bits=4,
+                                                     calib=calib)
+        return calib
+
     def _decode_text(self, toks, eos_token_id: int, pad_token_id: int):
         keep = []
         for t in toks:
@@ -365,6 +412,7 @@ class RefScorer:
         tok = self.tokenizer
         return tok.decode(keep) if hasattr(tok, "decode") else keep
 
+    @_scorer_int8
     def generate_text(self, image: np.ndarray, prompt: str,
                       max_new_tokens: int = 64, temperature: float = 0.0,
                       eos_token_id: int = 151645,
@@ -403,6 +451,7 @@ class RefScorer:
         return self._decode_text(toks[0].cpu().numpy(), eos_token_id,
                                  pad_token_id)
 
+    @_scorer_int8
     def generate_batch(self, requests, max_new_tokens: int = 64,
                        eos_token_id: int = 151645,
                        pad_token_id: int = 151643, slots: int = 8,

@@ -59,6 +59,7 @@ from wedetect_tpu_torch.models.ref_generate import (_lm_logits, _out_mlp,
 from wedetect_tpu_torch.nn.qwen3vl import RefTextCfg, interleaved_mrope_cos_sin
 from wedetect_tpu_torch.ops import prng
 from wedetect_tpu_torch.ops.attention import gqa_attention
+from wedetect_tpu_torch.ops.int8 import true_div
 
 
 @dataclasses.dataclass
@@ -118,7 +119,7 @@ def _kv_quant(x: torch.Tensor):
     """Post-rope K or V -> (int8 codes, f32 absmax scale a vector):
     symmetric int8 over the head_dim axis."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(dim=-1), min=1e-12) / 127.0
+    s = true_div(torch.clamp(xf.abs().amax(dim=-1), min=1e-12), 127.0)
     q8 = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(
         torch.int8)
     return q8, s

@@ -11,7 +11,8 @@ graph as `wedetect_tpu.models.wedetect`:
 The public functions keep the JAX package's layout: uint8 NHWC images
 in, (B, A, K) scores and fixed-slot `Detections` out. The text tower
 runs separately (`Detector.reparameterize`); its (K, C) output is an
-input here.
+input here. `ModelCfg.quant_int8` is the int8 serving mode: the
+channel-mixing matmuls and convolutions in dynamic int8 (`ops/int8.py`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from wedetect_tpu_torch.nn.convnext import ConvNeXt
 from wedetect_tpu_torch.nn.head import HeadOutputs, WeDetectHead
 from wedetect_tpu_torch.nn.init import init_module
 from wedetect_tpu_torch.ops.boxes import distance2bbox
+from wedetect_tpu_torch.ops.int8 import set_quant
 from wedetect_tpu_torch.ops.nms import batched_static_nms
 from wedetect_tpu_torch.ops.priors import flat_priors_and_strides
 
@@ -65,8 +67,6 @@ class WeDetectModule(nn.Module):
 
     def __init__(self, cfg: ModelCfg):
         super().__init__()
-        if cfg.quant_int8:
-            raise NotImplementedError("the int8 detect mode is not ported")
         self.cfg = cfg
         self.backbone = ConvNeXt(cfg.depths, cfg.dims, cfg.drop_path_rate)
         c4 = cfg.dims[3]
@@ -89,6 +89,9 @@ class WeDetectModule(nn.Module):
                 self.adapter = nn.Sequential(
                     nn.Linear(cfg.embed_dims, 2 * cfg.embed_dims), nn.ReLU(),
                     nn.Linear(2 * cfg.embed_dims, cfg.embed_dims))
+        # the int8 serving mode (ops/int8.py): the block MLPs, every
+        # Conv+BN conv of the neck and the head's tower convs
+        set_quant(self, cfg.quant_int8)
 
     def forward(self, images: torch.Tensor,
                 w: Optional[torch.Tensor] = None,

@@ -16,6 +16,10 @@ drops its residual branch per sample with rate `drop_path_rate * k /
 explicit `torch.Generator` that the caller passes to `forward` (the
 train step seeds one per step); the global RNG is never used. At rate 0
 or in eval mode a block is exactly the identity on that branch.
+
+Under the int8 mode the block MLP's Linears (`pwconv1`, `pwconv2`) run
+in int8 (`ops/int8.QuantLinear`); the stem, the downsampling convs and
+the 7x7 depthwise conv stay float, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wedetect_tpu_torch.ops.int8 import QuantLinear
 
 
 class LayerNorm2d(nn.Module):
@@ -63,8 +69,8 @@ class ConvNeXtBlock(nn.Module):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=1e-6)
-        self.pwconv1 = nn.Linear(dim, 4 * dim)
-        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.pwconv1 = QuantLinear(dim, 4 * dim)
+        self.pwconv2 = QuantLinear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
         self.drop_path = drop_path
 

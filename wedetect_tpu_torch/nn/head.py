@@ -11,7 +11,9 @@ Per pyramid level:
 The towers are the checkpoint's flat Sequentials (conv 0, bn 1, conv 3,
 bn 4, pred 6). Outputs are flattened over levels to the JAX package's
 anchor-major layout (B, A, ...). Every BN of the head (towers and
-contrast norms) has torch momentum 0.03 (flax 0.97).
+contrast norms) has torch momentum 0.03 (flax 0.97). Under the int8
+mode the towers' 3x3 convs run in int8 (`ops/int8.QuantConv2d`); the
+1x1 predictions and the contrastive product stay float, as in JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from wedetect_tpu_torch.nn.layers import BatchNorm2d
+from wedetect_tpu_torch.ops.int8 import QuantConv2d
 from wedetect_tpu_torch.ops.dfl import dfl_expectation
 
 # every BN of the head: eps 1e-3, torch momentum 0.03 (flax 0.97)
@@ -82,9 +85,9 @@ class ContrastiveScore(nn.Module):
 
 def _tower(in_ch: int, hidden: int, out_ch: int) -> nn.Sequential:
     return nn.Sequential(
-        nn.Conv2d(in_ch, hidden, 3, padding=1, bias=False),
+        QuantConv2d(in_ch, hidden, 3, padding=1, bias=False),
         BatchNorm2d(hidden, **HEAD_BN), nn.SiLU(),
-        nn.Conv2d(hidden, hidden, 3, padding=1, bias=False),
+        QuantConv2d(hidden, hidden, 3, padding=1, bias=False),
         BatchNorm2d(hidden, **HEAD_BN), nn.SiLU(),
         nn.Conv2d(hidden, out_ch, 1))
 

@@ -12,6 +12,10 @@ train mode the running mean and variance move towards the batch's mean
 and *biased* variance, `ra = (1 - momentum) * ra + momentum * batch`
 (flax momentum 1 - `momentum`: torch 0.1 in the neck, 0.03 in the head).
 In eval mode it is torch's.
+
+Every Conv+BN conv is an `ops/int8.QuantConv2d`: int8 under the model's
+int8 mode (`ModelCfg.quant_int8`), as JAX's ConvBN takes `quant`; the
+transposed conv stays float.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wedetect_tpu_torch.ops.int8 import QuantConv2d
 
 ACTS = {"silu": nn.SiLU, "relu": nn.ReLU}
 
@@ -50,8 +56,8 @@ class ConvModule(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
                  stride: int = 1, act: str = "silu", bn_eps: float = 1e-5):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, stride, kernel // 2,
-                              bias=False)
+        self.conv = QuantConv2d(in_ch, out_ch, kernel, stride, kernel // 2,
+                                bias=False)
         self.bn = BatchNorm2d(out_ch, eps=bn_eps)
         self.act = ACTS[act]()
 

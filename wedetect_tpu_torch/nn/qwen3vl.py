@@ -12,6 +12,11 @@ norms keep f32 weights and compute in f32, as `RMSNorm` and
 `nn.LayerNorm(dtype=f32)` do in the JAX package. The ViT's attention
 goes through `ops/attention.dot_product_attention` (K3 on the card), the
 decoder's through `ops/attention.gqa_attention` (K2 on the card).
+
+`RefCfg.quant_int8` is the dynamic int8 prefill (`ops/int8.py`): the
+ViT blocks' four Linears and the decoder layers' seven projections are
+`QuantLinear`s, as JAX passes them `dot_general=`; the patch embed, the
+mergers and everything outside the two towers stay float.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 
 from wedetect_tpu_torch.ops.attention import (dot_product_attention,
                                               gqa_attention)
+from wedetect_tpu_torch.ops.int8 import QuantLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +76,9 @@ class RefCfg:
     video_token_id: int = 151656
     vision_start_token_id: int = 151652
     object_token_id: int = 151665
+    # dynamic int8 prefill matmuls of the ViT blocks and the decoder
+    # layers (ops/int8.py); independent of the weight-only decode modes
+    quant_int8: bool = False
 
     @classmethod
     def from_hf_config(cls, hf) -> "RefCfg":
@@ -194,15 +203,15 @@ def vision_pos_interp(grid_h: int, grid_w: int, side: int, merge: int):
 class _VisionAttn(nn.Module):
     def __init__(self, c: RefVisionCfg):
         super().__init__()
-        self.qkv = nn.Linear(c.hidden, 3 * c.hidden)
-        self.proj = nn.Linear(c.hidden, c.hidden)
+        self.qkv = QuantLinear(c.hidden, 3 * c.hidden)
+        self.proj = QuantLinear(c.hidden, c.hidden)
 
 
 class _VisionMlp(nn.Module):
     def __init__(self, c: RefVisionCfg):
         super().__init__()
-        self.linear_fc1 = nn.Linear(c.hidden, c.intermediate)
-        self.linear_fc2 = nn.Linear(c.intermediate, c.hidden)
+        self.linear_fc1 = QuantLinear(c.hidden, c.intermediate)
+        self.linear_fc2 = QuantLinear(c.intermediate, c.hidden)
 
 
 class VisionBlock(nn.Module):
@@ -355,12 +364,14 @@ def interleaved_mrope_cos_sin(position_ids: torch.Tensor, cfg: RefTextCfg):
 class _SelfAttn(nn.Module):
     def __init__(self, c: RefTextCfg):
         super().__init__()
-        self.q_proj = nn.Linear(c.hidden, c.heads * c.head_dim, bias=False)
-        self.k_proj = nn.Linear(c.hidden, c.kv_heads * c.head_dim,
-                                bias=False)
-        self.v_proj = nn.Linear(c.hidden, c.kv_heads * c.head_dim,
-                                bias=False)
-        self.o_proj = nn.Linear(c.heads * c.head_dim, c.hidden, bias=False)
+        self.q_proj = QuantLinear(c.hidden, c.heads * c.head_dim,
+                                  bias=False)
+        self.k_proj = QuantLinear(c.hidden, c.kv_heads * c.head_dim,
+                                  bias=False)
+        self.v_proj = QuantLinear(c.hidden, c.kv_heads * c.head_dim,
+                                  bias=False)
+        self.o_proj = QuantLinear(c.heads * c.head_dim, c.hidden,
+                                  bias=False)
         self.q_norm = RMSNorm(c.head_dim, c.rms_eps)
         self.k_norm = RMSNorm(c.head_dim, c.rms_eps)
 
@@ -368,9 +379,9 @@ class _SelfAttn(nn.Module):
 class _Mlp(nn.Module):
     def __init__(self, c: RefTextCfg):
         super().__init__()
-        self.gate_proj = nn.Linear(c.hidden, c.intermediate, bias=False)
-        self.up_proj = nn.Linear(c.hidden, c.intermediate, bias=False)
-        self.down_proj = nn.Linear(c.intermediate, c.hidden, bias=False)
+        self.gate_proj = QuantLinear(c.hidden, c.intermediate, bias=False)
+        self.up_proj = QuantLinear(c.hidden, c.intermediate, bias=False)
+        self.down_proj = QuantLinear(c.intermediate, c.hidden, bias=False)
 
 
 class TextLayer(nn.Module):

@@ -433,7 +433,7 @@ def type_bwd_f32(lib):
     """Set the C signatures of csrc/flash_gqa_bwd_f32.cu's entries on a
     loaded library (also a variant build's); returns it."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gqa_flash_bwd_dkdv_f32.argtypes = [p] * 9 + [i] * 9 + [f, p]
+    lib.gqa_flash_bwd_dkdv_f32.argtypes = [p] * 9 + [i] * 9 + [f, p, p]
     lib.gqa_flash_bwd_dq_f32.argtypes = [p] * 8 + [i] * 9 + [f, p, p]
     lib.gqa_flash_bwd_dkdv_f32.restype = ctypes.c_int
     lib.gqa_flash_bwd_dq_f32.restype = ctypes.c_int
@@ -736,11 +736,14 @@ def gqa_flash_bwd_dkdv_sm90(q, k, v, valid, do, lse, delta, dk, dv, *,
 
 
 def gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv, *,
-                           causal, sm_scale):
+                           causal, sm_scale, walked=None):
     """One launch of K2-bwd-dkdv's f32 kernel (FFMA register tiles fed by
     cp.async, D = 128) into dk and dv, on inputs that `_check_bwd`
-    passed. Raises for another type or head dim, and for a q, k, v, dO,
-    dk or dv that is not 16-byte aligned (cp.async copies 16 bytes)."""
+    passed. `walked`: None, or a contiguous int32 CUDA tensor
+    (B, KVH, Lk / DKDV_F32_KEYS) that gets each key block's count of
+    walked row tiles (`dkdv_walk_map` counts the same). Raises for
+    another type or head dim, and for a q, k, v, dO, dk or dv that is not
+    16-byte aligned (cp.async copies 16 bytes)."""
     name = "gqa_flash_bwd_dkdv"
     if q.dtype != torch.float32 or dk.dtype != torch.float32 \
             or dv.dtype != torch.float32:
@@ -751,9 +754,20 @@ def gqa_flash_bwd_dkdv_f32(q, k, v, valid, do, lse, delta, dk, dv, *,
                          f"{q.shape[3]}")
     _check_aligned(name, ("q", q), ("k", k), ("v", v), ("do", do),
                    ("dk", dk), ("dv", dv))
+    if walked is not None:
+        want = (q.shape[0], k.shape[2], k.shape[1] // DKDV_F32_KEYS)
+        _check_walked(name, walked, want, q)
     _launch_bwd(name, _bwd_f32_lib().gqa_flash_bwd_dkdv_f32, q, k, v, valid,
-                do, lse, delta, (dk, dv), causal, sm_scale)
+                do, lse, delta, (dk, dv), causal, sm_scale,
+                None if walked is None else walked.data_ptr())
     gqa_flash_bwd_dkdv_f32.launches += 1
+
+
+def _check_walked(name, walked, want, q):
+    if walked.dtype != torch.int32 or tuple(walked.shape) != want \
+            or walked.device != q.device or not walked.is_contiguous():
+        raise ValueError(f"{name}: walked must be contiguous int32 "
+                         f"{want} on q's device")
 
 
 def gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, delta, dq, *, causal,
@@ -777,11 +791,8 @@ def gqa_flash_bwd_dq_f32(q, k, v, valid, do, lse, delta, dq, *, causal,
     if walked is not None:
         b, s, h, _ = q.shape
         kvh = k.shape[2]
-        want = (b, kvh, -(-s * (h // kvh) // DQ_F32_ROWS))
-        if walked.dtype != torch.int32 or tuple(walked.shape) != want \
-                or walked.device != q.device or not walked.is_contiguous():
-            raise ValueError(f"{name}: walked must be contiguous int32 "
-                             f"{want} on q's device")
+        _check_walked(name, walked,
+                      (b, kvh, -(-s * (h // kvh) // DQ_F32_ROWS)), q)
     _launch_bwd(name, _bwd_f32_lib().gqa_flash_bwd_dq_f32, q, k, v, valid,
                 do, lse, delta, (dq,), causal, sm_scale,
                 None if walked is None else walked.data_ptr())
