@@ -77,17 +77,33 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the call's own thresholded scores held to both plain rules
             with its branch counts and timed beside torch.topk (the
             kernels line's path_ms); f32 and bf16 step times.
-8. detect_int8  the same detector in its int8 mode (ModelCfg.quant_int8:
+8. eval     detection evaluation (eval/runner.evaluate_coco, the
+            native matcher, the LVIS evaluator, the dump and the three
+            CLIs) on a seeded LVIS-format set of 50 JPEGs (sides
+            480-1000, 1-20 boxes each, 1203 categories with r/c/f
+            frequencies, neg and not-exhaustive domains) with a COCO
+            file over 80 categories: WeDetect-Base 640x640, B = 8, the
+            head calibrated to the sparse regime; LVIS in f32 and bf16
+            with K1 launched once a detect call (7); the f32 run again
+            through row_topk_plain (the dump bit for bit, the metrics
+            equal); the dump recomputed with the plain Python matcher
+            (the metrics exactly); flip TTA (K1 once a call, the dump's
+            metrics); cli/test.py at COCO K = 80 in f32 and bf16 (K1
+            never); cli/eval_recall.py and cli/extract_embedding.py on
+            Uni-Base, 16 images (K1 never). img/s and the host split
+            (loader wait, detect, read-back, add_image, summarize) of
+            the LVIS and COCO runs.
+9. detect_int8  the same detector in its int8 mode (ModelCfg.quant_int8:
             the block MLPs, the neck's Conv+BN convs and the head's tower
             convs through ops/int8.py, torch._int_mm), the head
             calibrated on it, B = 8 through Detector.__call__: K1
             launched once a call; f32 and bf16: the class logits' cosine
             to the float call on the same weights (DET_INT8_COS) and
             their largest error, ms a call, int8 and float in turns.
-9. parity   a miniature detector on the card against the same weights
+10. parity   a miniature detector on the card against the same weights
             on the CPU (forward to 1e-3; NMS slots exact on the same
             scores, through the kernel on the card).
-10. int8_parity  the int8 ops on the card against the CPU: torch._int_mm
+11. int8_parity  the int8 ops on the card against the CPU: torch._int_mm
             through the padding rule (rows 1, 16, 17, K and N off the
             multiples of 8) equal to the CPU's int64 product,
             quant_linear and quant_conv2d (3x3, strided, 1x1) bitwise in
@@ -98,10 +114,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             distance to the CPU's reported; torch._int_mm against a bf16
             torch.mm (and quant_linear against F.linear) at the three
             largest int8 GEMMs (INT8_GEMMS), device time, with bounds.
-11. uni      WeDetect-Uni-Base forward_raw at B = 1.
-12. ref_parity  a miniature Ref (head_dim 128) on the card, through K2
+12. uni      WeDetect-Uni-Base forward_raw at B = 1.
+13. ref_parity  a miniature Ref (head_dim 128) on the card, through K2
             and K3, against the same weights on the CPU (logits 1e-5).
-13. ref     WeDetect-Ref at ref_2b's full width (ViT 24 x 1024, decoder
+14. ref     WeDetect-Ref at ref_2b's full width (ViT 24 x 1024, decoder
             28 x 2048, 16 q / 8 kv heads, vocab 151936), random init
             from seed 0 on the card: the top 100 proposals of a random
             Uni-Base on a seeded 480x640 image, 8 queries through a
@@ -117,14 +133,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             error, REF_LOGIT_MEAN_TOL); the joint path (prefix_sharing=False)
             agrees with the split one (f32 limit). ms per call, prefix
             and suffix stage ms, f32 and bf16.
-14. ref_int8  the same ref_2b call through RefScorer(quant_prefill=True)
+15. ref_int8  the same ref_2b call through RefScorer(quant_prefill=True)
             (the ViT's and the decoder's Linears in int8), f32 and bf16:
             K2 = 56 and K3 = 24 launches on the type's routes, the
             logits against the float scorer on the same weights within
             REF_INT8_TOL (max and mean), the model's int8 modules off
             after the call; ms a call, int8 and float in turns.
 
-15. k2_bwd the grouped-KV backward kernels (K2-bwd-dq, K2-bwd-dkdv)
+16. k2_bwd the grouped-KV backward kernels (K2-bwd-dq, K2-bwd-dkdv)
             against gqa_flash_attention_bwd_plain at the training path's
             decoder shape (1, 2048, 16, 128 | 2048, 8), square causal,
             the last 795 keys invalid, on the JAX test grid (fully
@@ -154,7 +170,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             each 64-row block), read back from it and held to the skip
             rule's map (dkdv_walk_map, dq_walk_map), against those the
             frontier alone scans.
-16. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
+17. k3_bwd the same for the ViT's backward kernels (K3-bwd-dq,
             K3-bwd-dkv) at (1, 4224, 16, 64) with 80 pad tokens in
             segment 0, square causal, D = 128, three segments with
             boundaries off the 64-grid, a tail (L = 200) and D = 72:
@@ -173,21 +189,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             walked (dq: 128-row x 64-key, dk/dv: 64 x 128), read back
             from it and held to its skip rule's map, against those the
             frontier alone scans.
-17. train_parity  a miniature Ref (head_dim 128) takes one stage-3
+18. train_parity  a miniature Ref (head_dim 128) takes one stage-3
             ref_sft_step on the card and one on the CPU from the same
             weights: loss, grad_norm and every gradient within 1e-5
             (relative), the updated parameters too (TRAIN_PARAM_RULE);
             every parameter has a gradient on the card; K2 = K2-bwd-dq =
             K2-bwd-dkdv = layers and K3 = K3-bwd-dq = K3-bwd-dkv = depth
             (every forward, dq and dk/dv on the FFMA kernels).
-18. train_grad  one stage-3 loss and gradient at ref_2b's full width
+19. train_grad  one stage-3 loss and gradient at ref_2b's full width
             (random weights) at the --grid-tokens 256 bucket (ViT and
             decoder L = 1024), through the kernels and through the plain
             forward and backward versions: the loss difference, the
             relative L2 error of each parameter group's gradient and of
             grad_norm within TRAIN_GRAD_TOL, and a control with one key
             tile dropped in every backward call that must miss it.
-19. train   cli/train_ref.train_ref_loop, stage 3, ref_2b at full width
+20. train   cli/train_ref.train_ref_loop, stage 3, ref_2b at full width
             in f32 with the CLI defaults (--grid-tokens 1024: ViT
             L = 4144 padded to 4224; --seq-buckets 1024 2048 4096: L =
             2048; 100 proposals; lr 1e-5 cosine; ref_optimizer, vision
@@ -198,7 +214,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             each of K2's FFMA forward, dq and dk/dv kernels and 24 each
             of K3's a step, none of the SIMT ones); ms per step (steps
             2-3) and peak card memory.
-20. det_train_parity  a miniature detector (mini_cfg's widths at
+21. det_train_parity  a miniature detector (mini_cfg's widths at
             128x128) takes one f32 train_step (B = 2, five gts, drop path
             0) on the card and one on the CPU from the same weights: the
             loss and its parts, every gradient and the BN running
@@ -206,7 +222,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             step with one gt removed must miss; the card's step run
             twice (its run-to-run drift reported); no kernel of the port
             launches (K1 nor the attention kernels).
-21. det_train  cli/train's own builders (build_config, build_state,
+22. det_train  cli/train's own build functions (build_config, build_state,
             make_sample_fn) at WeDetect-Base, not cut, 640x640, the CLI
             defaults (B = 16, K = 80, lr 5e-4 constant, weight decay
             0.025, drop path 0, no mosaic or mixup, bf16), random init and
@@ -218,7 +234,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             step (steps 2-3, the loop's own clock), img/s and peak card
             memory.
 
-22. gen_parity  the miniature Ref (head_dim 128) on the card against the
+23. gen_parity  the miniature Ref (head_dim 128) on the card against the
             same weights on the CPU, f32: the prefill's hidden states
             and KV (every position) within GEN_PREFILL_TOL, with K2 = 2
             and K3 = 2 launches on the FFMA kernels, and a control (one
@@ -229,7 +245,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             margin is within GEN_LOGIT_TOL); the PRNG twin's bits,
             uniforms, categorical draws and the sampler (top-k, top-p)
             on the card bitwise equal to the CPU's.
-23. gen     ref_2b at full width, the seeded 480x640 image, one prompt
+24. gen     ref_2b at full width, the seeded 480x640 image, one prompt
             (P = 384), 64 new tokens through RefScorer.generate_text in
             f32 and in bf16, greedy: K2 = 28 and K3 = 24 launches a call
             (f32 on the FFMA kernels, bf16 on the wgmma ones), prefill
@@ -237,7 +253,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             gives greedy's tokens (margin rule), its verify steps; int8
             and int4 decode: the first step's logit cosine against the
             full-precision tree (GEN_COS_LIMIT), and ms a token.
-24. serve   ref_2b, GenServer with 8 slots, chunk 16, P = 384, G = 64:
+25. serve   ref_2b, GenServer with 8 slots, chunk 16, P = 384, G = 64:
             16 requests with varied prompt tails and caps from 8 to 64.
             f32: every request completes and equals its own
             ref_generate stream (margin rule); chunk 4, pipeline off and
@@ -247,7 +263,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             int8 KV pool (kv_bits=8) at 0.52x the bf16 pool's bytes,
             every request complete; sampling (T = 0.8, top-k 50, top-p
             0.9) unchanged by the chunk size.
-25. quant_gate  ref_2b, random weights, f32: RefScorer.calibrate_decode
+26. quant_gate  ref_2b, random weights, f32: RefScorer.calibrate_decode
             (int4) on 8 requests on the Ref image, K3 = 24 launches a
             prompt (the decoder replay is the einsum); gate_report
             (eval/quant_gate: first-step logit cosine, greedy agreement
@@ -822,6 +838,408 @@ def phase_detect(dev, size: str, k: int, batch: int, text_embeds,
             del dec
         det.cfg = det.model.cfg = cfg
     emit({"phase": "detect", **res})
+    return res
+
+
+# ------------------------------------------------------------- eval
+EVAL_IMAGES = 50         # the seeded LVIS-format set: JPEG, sides 480-1000
+EVAL_UNI_IMAGES = 16     # eval_recall and extract_embedding
+EVAL_COCO_CLASSES = 80
+EVAL_KEYS = ("mAP", "AP50", "AP75", "APs", "APm", "APl")
+LVIS_KEYS = EVAL_KEYS + ("APr", "APc", "APf")
+
+
+def write_eval_dataset(root, n: int, k_lvis: int, k_coco: int,
+                       sides=(480, 1000), seed: int = 5):
+    """n seeded JPEGs (smooth noise, sides in `sides`) with 1-20 boxes
+    each, painted in; an LVIS-format file over k_lvis categories (each
+    with a frequency r/c/f; per image neg_category_ids among the absent
+    ones and, on every fourth, one not_exhaustive_category_ids) and a
+    COCO-format file over k_coco categories, the same images and boxes.
+    Returns (lvis.json, coco.json)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    images, lvis_anns, coco_anns = [], [], []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+        small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3),
+                             dtype=np.uint8)
+        img = cv2.resize(small, (w, h))
+        n_gt = int(rng.integers(1, 21))
+        cats = rng.integers(0, k_lvis, n_gt)
+        for j in range(n_gt):
+            bw, bh = rng.uniform(8, w / 2), rng.uniform(8, h / 2)
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            img[int(y):int(y + bh), int(x):int(x + bw)] = rng.integers(
+                0, 256, 3)
+            box = {"image_id": i + 1, "bbox": [x, y, bw, bh],
+                   "area": bw * bh, "iscrowd": 0}
+            lvis_anns.append({**box, "id": len(lvis_anns) + 1,
+                              "category_id": int(cats[j]) + 1})
+            coco_anns.append({**box, "id": len(coco_anns) + 1,
+                              "category_id": int(cats[j]) % k_coco + 1})
+        name = f"{i:06d}.jpg"
+        cv2.imwrite(str(root / name), img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        absent = [int(c) + 1 for c in rng.choice(k_lvis, 20, replace=False)
+                  if c not in set(cats.tolist())]
+        images.append({"id": i + 1, "file_name": name, "width": w,
+                       "height": h, "neg_category_ids": absent[:10],
+                       "not_exhaustive_category_ids":
+                           [int(cats[0]) + 1] if i % 4 == 0 else []})
+    freq = rng.choice(["r", "c", "f"], k_lvis)
+    paths = []
+    for fname, anns, cats in (
+            ("lvis.json", lvis_anns,
+             [{"id": c + 1, "name": f"lvis_{c}", "frequency": str(freq[c])}
+              for c in range(k_lvis)]),
+            ("coco.json", coco_anns,
+             [{"id": c + 1, "name": f"coco_{c}"} for c in range(k_coco)])):
+        (root / fname).write_text(json.dumps(
+            {"images": images, "annotations": anns, "categories": cats}))
+        paths.append(str(root / fname))
+    return paths
+
+
+def plant_detections(ann_path: str, dump_path: str, cat_ids,
+                     seed: int = 6) -> dict:
+    """Replace the first half (rounded up) of each image's ground truths
+    in ann_path by its top-scoring detections in the dump, each of the
+    same class with every side moved by 0-3 px, so that the run's
+    detections match ground truth as a trained checkpoint's would;
+    neg_category_ids lose the planted classes and a non-empty
+    not_exhaustive_category_ids follows the image's new first gt.
+    Rewrites ann_path; returns the counts of planted and of all gts."""
+    from pathlib import Path
+
+    from wedetect_tpu_torch.eval.dump import load_detections
+
+    path = Path(ann_path)
+    ann = json.loads(path.read_text())
+    dets = {r["img_id"]: r for r in load_detections(dump_path)}
+    rng = np.random.default_rng(seed)
+    by_img = {}
+    for a in ann["annotations"]:
+        by_img.setdefault(a["image_id"], []).append(a)
+    planted = 0
+    for img in ann["images"]:
+        gts, r = by_img.get(img["id"], []), dets.get(img["id"])
+        m = 0 if r is None else min((len(gts) + 1) // 2, len(r["scores"]))
+        top = (np.argsort(-r["scores"], kind="stable")[:m] if m
+               else np.zeros(0, np.int64))
+        for a, j in zip(gts, top):
+            box, label = r["boxes"][j], r["labels"][j]
+            x0, y0, x1, y1 = (np.asarray(box, np.float64)
+                              + rng.uniform(-3, 3, 4)).tolist()
+            x0, x1 = np.clip(sorted((x0, x1)), 0, img["width"]).tolist()
+            y0, y1 = np.clip(sorted((y0, y1)), 0, img["height"]).tolist()
+            bw, bh = max(x1 - x0, 1.0), max(y1 - y0, 1.0)
+            a.update(bbox=[x0, y0, bw, bh], area=bw * bh,
+                     category_id=int(cat_ids[int(label)]))
+        planted += m
+        present = {a["category_id"] for a in gts}
+        img["neg_category_ids"] = [c for c in img.get("neg_category_ids",
+                                                      []) if c not in present]
+        if img.get("not_exhaustive_category_ids"):
+            img["not_exhaustive_category_ids"] = [gts[0]["category_id"]]
+    path.write_text(json.dumps(ann))
+    return {"planted_gts": planted, "gts": len(ann["annotations"])}
+
+
+def detection_load(ds, dump_path: str) -> dict:
+    """Detections an image in a dump (mean, min, max), and those the LVIS
+    domain filter keeps (class among the image's gt or neg classes)."""
+    from wedetect_tpu_torch.eval.dump import load_detections
+
+    idx = {it["img_id"]: i for i, it in enumerate(ds.items)}
+    n, kept = [], []
+    for r in load_detections(dump_path):
+        i = idx[r["img_id"]]
+        domain = (set(ds.gt_arrays(i)["labels"].tolist())
+                  | set(ds.items[i].get("neg_cats", [])))
+        n.append(len(r["labels"]))
+        kept.append(sum(int(c) in domain for c in r["labels"]))
+
+    def stats(v):
+        return {"mean": float(np.mean(v)), "min": int(min(v)),
+                "max": int(max(v))}
+
+    return {"dets_per_image": stats(n), "lvis_kept_per_image": stats(kept)}
+
+
+def eval_calibrate(det, batches, w, thr: float) -> dict:
+    """calibrate_head on the first batch, then lower every level's bias
+    until no anchor of any batch, nor of its mirror (the TTA view), holds
+    T_ROW candidates above thr, in f32 or bf16: every eval call then takes
+    the sparse (row top-k) branch."""
+    from wedetect_tpu_torch.models import wedetect as W
+
+    scale, shift = calibrate_head(det, batches[0], w, thr)
+    cfg, kth = det.cfg, -math.inf
+    for c in (cfg, dataclasses.replace(cfg, compute_dtype="bfloat16")):
+        det.model.cfg = c
+        for x in batches:
+            for view in (x, np.ascontiguousarray(x[:, :, ::-1])):
+                logits = W.forward_raw(c, det.model, view, w).logits.float()
+                kth = max(kth, float(torch.topk(logits, T_ROW, dim=-1)
+                                     .values[..., -1].max()))
+                del logits
+    det.model.cfg = cfg
+    extra = min(0.0, math.log(thr / (1 - thr)) - kth - 0.01)
+    with torch.no_grad():
+        for h in det.model.bbox_head.cls_contrasts:
+            h.bias += extra
+    return {"logit_scale_shift": scale, "bias_shift": shift,
+            "extra_bias_shift": extra, "max_kth_logit": kth}
+
+
+def same_metric(a: float, b: float) -> bool:
+    return (math.isnan(a) and math.isnan(b)) or a == b
+
+
+def metrics_equal(got: dict, want: dict) -> bool:
+    return (got.keys() == want.keys()
+            and got["per_class"].keys() == want["per_class"].keys()
+            and all(same_metric(got["per_class"][c], want["per_class"][c])
+                    for c in got["per_class"])
+            and all(same_metric(got[k], want[k]) for k in got
+                    if k != "per_class"))
+
+
+def check_metrics(m: dict, keys) -> dict:
+    """The headline metrics: each present, finite in [0, 1] or NaN (an
+    empty group)."""
+    for k in keys:
+        v = m[k]
+        assert isinstance(v, float) and (math.isnan(v) or 0 <= v <= 1), (k, v)
+    return {k: m[k] for k in keys}
+
+
+def dumps_equal(a: str, b: str) -> bool:
+    from wedetect_tpu_torch.eval.dump import load_detections
+
+    ra, rb = load_detections(a), load_detections(b)
+    return len(ra) == len(rb) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(ra, rb))
+
+
+def eval_split(t: dict) -> dict:
+    """img/s and the host split of one evaluate_coco call (its own
+    timings, host clock): loader wait, detect, read-back, add_image,
+    summarize ms, and the evaluator's share (add_image + summarize) of
+    the call."""
+    from wedetect_tpu_torch.eval.runner import TIMING_KEYS
+
+    return {"images": t["images"], "batches": t["batches"],
+            "wall_ms": t["wall_ms"],
+            "img_per_s": t["images"] * 1e3 / t["wall_ms"],
+            **{k: t[k] for k in TIMING_KEYS},
+            "host_eval_share": (t["add_image_ms"] + t["summarize_ms"])
+            / t["wall_ms"]}
+
+
+@contextlib.contextmanager
+def timed_runner(calls: list):
+    """Route eval/runner.evaluate_coco (as the CLIs call it) through a
+    wrapper that asks for its timings and its wall time (host clock, the
+    call ends on its last read-back), each call's appended to `calls`."""
+    from wedetect_tpu_torch.eval import runner
+
+    saved = runner.evaluate_coco
+
+    def timed(*args, **kw):
+        t = {}
+        t0 = time.perf_counter()
+        out = saved(*args, timings=t, **kw)
+        t["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        calls.append(t)
+        return out
+
+    runner.evaluate_coco = timed
+    try:
+        yield
+    finally:
+        runner.evaluate_coco = saved
+
+
+def phase_eval(dev, text_embeds, size: str = "base", k: int = N_CLASSES,
+               batch: int = BATCH, n_images: int = EVAL_IMAGES,
+               n_uni: int = EVAL_UNI_IMAGES, sides=(480, 1000), **cfg_kw):
+    """Detection evaluation through eval/runner.evaluate_coco and the
+    three CLIs on a seeded LVIS-format set (write_eval_dataset), the head
+    calibrated to the sparse regime (eval_calibrate). A first f32 pass
+    writes half of each image's ground truths from its own detections
+    (plant_detections; for COCO, from a first cli/test.py pass), so that
+    detections match and the LVIS domain filter keeps them; the
+    detections an image and those the filter keeps are recorded.
+    (a) LVIS (K = k) in f32 and bf16: K1 launched once a detect call;
+        AP50 above 0;
+    (b) the f32 run twice with cuDNN deterministic, through K1 and
+        through row_topk_plain: the same dump, bit for bit, and the same
+        metrics (the timed runs leave cuDNN as cli/test.py does);
+    (c) that dump's metrics recomputed with the plain Python matcher
+        and with the native one: the run's, exactly;
+    (d) flip TTA, f32: K1 once a (2B) detect call; the dump's metrics;
+    (e) cli/test.py at COCO K = 80, --random-init, f32 and bf16: K1 never;
+        AP50 above 0;
+    (f) cli/eval_recall.py and cli/extract_embedding.py on Uni (n_uni
+        images): JAX's keys, K1 never (Uni at score_thr 0 is dense).
+    img/s and the host split of (a) and (e)."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from wedetect_tpu_torch.cli import eval_recall, extract_embedding
+    from wedetect_tpu_torch.cli import test as cli_test
+    from wedetect_tpu_torch.data.coco import CocoDetDataset
+    from wedetect_tpu_torch.data.loader import EvalLoader
+    from wedetect_tpu_torch.eval.dump import recompute_metrics
+    from wedetect_tpu_torch.eval.runner import evaluate_coco
+    from wedetect_tpu_torch.models.api import Detector
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    tmp = tempfile.TemporaryDirectory(prefix="wedetect_eval_")
+    root = Path(tmp.name)
+    t0 = time.perf_counter()
+    lvis_path, coco_path = write_eval_dataset(root, n_images, k,
+                                              EVAL_COCO_CLASSES, sides)
+    res = {"card": nvidia_smi(), "images": n_images, "k": k, "batch": batch,
+           "write_dataset_s": time.perf_counter() - t0}
+    ds = CocoDetDataset(lvis_path, str(root))
+    det = Detector.from_random(size, seed=0, device=dev, num_classes=k,
+                               **cfg_kw)
+    det.reparameterize(ds.class_names, embeds=text_embeds)
+    cfg, w = det.cfg, det._text_embeds
+    batches = [b["images"] for b in EvalLoader(ds, cfg.img_size, batch)]
+    n_calls = len(batches)
+    res["calibration"] = eval_calibrate(det, batches, w, cfg.test.score_thr)
+    del batches
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+
+    def run(c, dump, **kw):
+        det.cfg = det.model.cfg = c
+        t = {}
+        row_topk.launches = 0
+        t0 = time.perf_counter()
+        m = evaluate_coco(c, det.model, ds, w, batch_size=batch,
+                          dump_path=dump and str(root / dump), timings=t,
+                          lvis=True, **kw)
+        t["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        return m, row_topk.launches, t
+
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    try:
+        # warm-up (cuDNN's choices, K1's build): the f32 pass whose
+        # detections are planted as ground truth, one bf16 batch
+        run(cfg, "seed.npz")
+        res["lvis_planting"] = plant_detections(
+            lvis_path, str(root / "seed.npz"), ds.cat_ids)
+        ds = CocoDetDataset(lvis_path, str(root))
+        run(bf16, None, max_images=batch)
+        # (a) LVIS in f32 and bf16
+        for name, c in (("f32", cfg), ("bf16", bf16)):
+            m, launches, t = run(c, f"{name}.npz")
+            assert launches == n_calls, (name, launches, n_calls)
+            assert m["AP50"] > 0, (name, m["AP50"])
+            res[f"lvis_{name}"] = {"row_topk_launches": launches,
+                                   "detect_calls": n_calls,
+                                   "metrics": check_metrics(m, LVIS_KEYS),
+                                   **detection_load(ds,
+                                                    str(root / f"{name}.npz")),
+                                   **eval_split(t)}
+        # (b) the f32 run through K1 and through its plain version, cuDNN
+        # deterministic so that the two differ only in K1
+        torch.backends.cudnn.deterministic = True
+        m32, launches, _ = run(cfg, "f32_det.npz")
+        assert launches == n_calls, ("f32_det", launches, n_calls)
+        with plain_row_topk():
+            m, launches, _ = run(cfg, "plain.npz")
+        torch.backends.cudnn.deterministic = False
+        dump_match = dumps_equal(str(root / "f32_det.npz"),
+                                 str(root / "plain.npz"))
+        assert launches == 0 and dump_match and metrics_equal(m, m32)
+        # (c) the plain Python matcher on the same detections
+        python_match = metrics_equal(recompute_metrics(
+            ds, str(root / "f32_det.npz"), lvis=True, matcher="python"), m32)
+        native_match = metrics_equal(recompute_metrics(
+            ds, str(root / "f32_det.npz"), lvis=True), m32)
+        assert python_match and native_match
+        res.update(plain_k1_dump_match=dump_match,
+                   python_matcher_match=python_match,
+                   native_recompute_match=native_match)
+        # (d) flip TTA
+        m, launches, t = run(cfg, "tta.npz", tta=True)
+        assert launches == n_calls, ("tta", launches, n_calls)
+        tta_match = metrics_equal(recompute_metrics(
+            ds, str(root / "tta.npz"), lvis=True), m)
+        assert tta_match
+        res["lvis_tta_f32"] = {"row_topk_launches": launches,
+                               "detect_calls": n_calls,
+                               "recompute_match": tta_match,
+                               "metrics": check_metrics(m, LVIS_KEYS),
+                               **eval_split(t)}
+        del det
+        torch.cuda.empty_cache()
+        # (e) cli/test.py at COCO K = 80 (random init), f32 and bf16,
+        # after a first f32 pass whose dump is planted as ground truth
+        dev_arg = ["--device", str(dev)]
+        coco = ["--ann", coco_path, "--img-root", str(root), "--random-init",
+                "--size", size, "--batch-size", str(batch), *dev_arg]
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_test.main(coco + ["--f32", "--dump", str(root / "coco.npz")])
+        res["coco_planting"] = plant_detections(
+            coco_path, str(root / "coco.npz"),
+            CocoDetDataset(coco_path, str(root)).cat_ids)
+        coco_load = detection_load(CocoDetDataset(coco_path, str(root)),
+                                   str(root / "coco.npz"))["dets_per_image"]
+        for name, flag in (("f32", ["--f32"]), ("bf16", [])):
+            calls = []
+            row_topk.launches = 0
+            with timed_runner(calls), contextlib.redirect_stdout(io.StringIO()):
+                m = cli_test.main(coco + [
+                    "--out", str(root / f"coco_{name}.json"), *flag])
+            assert row_topk.launches == 0, row_topk.launches
+            assert m["AP50"] > 0, (name, m["AP50"])
+            assert json.loads((root / f"coco_{name}.json").read_text()
+                              ).keys() == m.keys()
+            res[f"coco_{name}"] = {"row_topk_launches": row_topk.launches,
+                                   "metrics": check_metrics(m, EVAL_KEYS),
+                                   "dets_per_image": coco_load,
+                                   **eval_split(calls[0])}
+        # (f) the Uni CLIs
+        uni = ["--ann", coco_path, "--img-root", str(root), "--random-init",
+               "--size", size, "--max-images", str(n_uni), "--batch-size",
+               str(batch), *dev_arg]
+        row_topk.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            recall = eval_recall.main(uni)
+        recall_s = time.perf_counter() - t0
+        assert set(recall) == {"AR@100", "AR@300"}, recall
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            payload = extract_embedding.main(
+                uni + ["--out", str(root / "emb.pkl"), "--class-set", "lvis"])
+        extract_s = time.perf_counter() - t0
+        assert set(payload) == {"image_embedding", "text_embedding",
+                                "classnames"}
+        assert len(payload["image_embedding"]) == n_uni
+        assert all(set(r) == {"image_id", "embedding", "scale", "bias",
+                              "scores", "bboxes"}
+                   for r in payload["image_embedding"])
+        assert payload["text_embedding"].shape == (1203, 768)
+        assert row_topk.launches == 0, row_topk.launches
+        res["uni"] = {"images": n_uni, "recall": recall, "recall_s": recall_s,
+                      "extract_s": extract_s,
+                      "proposals": sum(len(r["scores"]) for r in
+                                       payload["image_embedding"]),
+                      "row_topk_launches": 0}
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        tmp.cleanup()
+    emit({"phase": "eval", **res})
     return res
 
 
@@ -3779,6 +4197,7 @@ def main() -> int:
     k3 = phase_k3(dev)
     text_embeds = phase_text(dev, TEXT_BASE, N_CLASSES)
     detect = phase_detect(dev, "base", N_CLASSES, BATCH, text_embeds)
+    ev = phase_eval(dev, text_embeds)
     detect_int8 = phase_detect_int8(dev, "base", N_CLASSES, BATCH,
                                     text_embeds)
     del text_embeds
@@ -3820,6 +4239,11 @@ def main() -> int:
          "replaces": "wedetect_tpu/ops/pallas_topk.py:46",
          "launches": detect["row_topk_launches"],
          "launches_int8": detect_int8["row_topk_launches"],
+         # per LVIS evaluation of 50 images (7 detect calls), f32, and
+         # with flip TTA (7 calls of 2B)
+         "launches_eval": ev["lvis_f32"]["row_topk_launches"],
+         "launches_eval_bf16": ev["lvis_bf16"]["row_topk_launches"],
+         "launches_eval_tta": ev["lvis_tta_f32"]["row_topk_launches"],
          "max_abs_err": k1["max_abs_err"], "max_abs_err_bf16": None,
          "tolerance": 0.0, "match": True,
          # ms / library_ms on k1_inputs (dense rows); path_ms on the

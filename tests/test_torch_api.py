@@ -183,6 +183,22 @@ def test_port_imports_no_jax_source_scan():
     assert len(_port_sources()) > 20
 
 
+# the detection-evaluation slice: every module the import checks above
+# and below must cover (their globs find whatever exists)
+EVAL_SLICE = ("native/__init__.py", "native/coco_match.cc",
+              "eval/coco_map.py", "eval/lvis_map.py", "eval/dist.py",
+              "eval/dump.py", "eval/runner.py", "eval/recall.py",
+              "eval/retrieval.py", "data/retrieval_classes.py",
+              "data/retrieval_classes.json", "data/loader.py",
+              "cli/test.py", "cli/eval_recall.py",
+              "cli/extract_embedding.py")
+
+
+def test_eval_slice_modules_scanned():
+    for rel in EVAL_SLICE:
+        assert (PKG / rel).is_file(), rel
+
+
 def test_port_imports_with_jax_blocked():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)

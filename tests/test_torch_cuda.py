@@ -2170,3 +2170,80 @@ def test_calibrated_int4_fit_card_equals_cpu(cuda):
     for k in ("w4p", "rscale", "scale"):
         assert got[k].device.type == "cuda"
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def _eval_fixture(root, n=4, k=3):
+    """An LVIS-format dataset of n seeded PNGs (60-120 px) with one gt
+    of each class a image, every category with a frequency."""
+    import json
+
+    import cv2
+
+    rng = np.random.default_rng(0)
+    images, anns = [], []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(60, 120, 2))
+        cv2.imwrite(str(root / f"img{i}.png"),
+                    rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
+        images.append({"id": i + 1, "file_name": f"img{i}.png", "width": w,
+                       "height": h, "neg_category_ids": [],
+                       "not_exhaustive_category_ids": []})
+        for c in range(k):
+            x, y = rng.uniform(0, w / 2), rng.uniform(0, h / 2)
+            bw, bh = rng.uniform(8, w - x), rng.uniform(8, h - y)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": c + 1, "bbox": [x, y, bw, bh],
+                         "area": bw * bh, "iscrowd": 0})
+    cats = [{"id": c + 1, "name": f"c{c}", "frequency": "rcf"[c % 3]}
+            for c in range(k)]
+    (root / "lvis.json").write_text(json.dumps(
+        {"images": images, "annotations": anns, "categories": cats}))
+    return root / "lvis.json"
+
+
+@pytest.mark.parametrize("tta", [False, True])
+def test_evaluate_coco_card_matches_cpu(cuda, tmp_path, tta, monkeypatch):
+    """eval/runner.evaluate_coco (LVIS, with its dump) on the card equals
+    the same weights on the CPU, TF32 off: boxes within 1e-3 px, scores
+    within 1e-5, labels equal; metrics within 1e-6."""
+    from wedetect_tpu_torch.configs import ModelCfg, TestCfg
+    from wedetect_tpu_torch.data.coco import CocoDetDataset
+    from wedetect_tpu_torch.eval.dump import load_detections
+    from wedetect_tpu_torch.eval.runner import evaluate_coco
+    from wedetect_tpu_torch.models import wedetect as W
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ann = _eval_fixture(tmp_path)
+    cfg = ModelCfg(name="mini", depths=(1, 1, 2, 1), dims=(32, 64, 128, 256),
+                   neck_scale=0.25, neck_repeats=2,
+                   head_in_channels=(32, 64, 128), embed_dims=32,
+                   img_size=(64, 64), text=None, num_classes=3,
+                   test=TestCfg(nms_pre=256, max_per_img=16))
+    cpu = W.init_variables(cfg, seed=0, device="cpu")
+    with torch.no_grad():
+        for i in range(3):   # small boxes, spread scores
+            reg = cpu.bbox_head.reg_preds[i][6]
+            reg.bias.copy_(-0.8 * (torch.arange(64) % 16).float())
+            reg.weight.mul_(3)
+            cpu.bbox_head.cls_contrasts[i].logit_scale += 2.5
+    card = W.init_variables(cfg, seed=0, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    w = np.random.default_rng(1).standard_normal((3, 32)).astype(np.float32)
+    ds = CocoDetDataset(str(ann), str(tmp_path))
+    res = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        path = str(tmp_path / f"{name}.npz")
+        res[name] = (evaluate_coco(cfg, model, ds, w, batch_size=3,
+                                   lvis=True, tta=tta, dump_path=path),
+                     load_detections(path))
+    (want, wd), (got, gd) = res["cpu"], res["card"]
+    assert sum(len(r["scores"]) for r in gd) > 0
+    for g, r in zip(gd, wd):
+        np.testing.assert_array_equal(g["labels"], r["labels"])
+        np.testing.assert_allclose(g["scores"], r["scores"], atol=1e-5)
+        np.testing.assert_allclose(g["boxes"], r["boxes"], atol=1e-3)
+    for key in ("mAP", "AP50", "AP75", "APs", "APm", "APl", "APr", "APc",
+                "APf"):
+        a, b = got[key], want[key]
+        assert (np.isnan(a) and np.isnan(b)) or abs(a - b) <= 1e-6, key

@@ -32,7 +32,7 @@ from wedetect_tpu_torch.nn.head import HeadOutputs, WeDetectHead
 from wedetect_tpu_torch.nn.init import init_module
 from wedetect_tpu_torch.ops.boxes import distance2bbox
 from wedetect_tpu_torch.ops.int8 import set_quant
-from wedetect_tpu_torch.ops.nms import batched_static_nms
+from wedetect_tpu_torch.ops.nms import batched_static_nms, nms_labeled
 from wedetect_tpu_torch.ops.priors import flat_priors_and_strides
 
 
@@ -206,6 +206,49 @@ def detect_step(cfg: ModelCfg, model: WeDetectModule, images_u8, w,
     return postprocess(cfg, dec, _as(scale_factor, dev, f32),
                        _as(pad_param, dev, f32), _as(ori_shape, dev, f32),
                        _as(class_mask, dev, torch.bool))
+
+
+@torch.inference_mode()
+def detect_step_tta(cfg: ModelCfg, model: WeDetectModule, images_u8, w,
+                    scale_factor, pad_param, ori_shape,
+                    class_mask=None) -> Detections:
+    """Flip test-time augmentation in one detect step.
+
+    Reference: test.py:95-128 --tta with the default DetTTAModel
+    (horizontal RandomFlip view added after LetterResize; per-view
+    predictions merged by one class-aware NMS at iou 0.5, top 100).
+    As `wedetect_tpu.models.wedetect.detect_step_tta`: the flipped view
+    is stacked onto the batch (one 2B forward), its letterbox pad
+    mirrored (left/right swapped) so un-padding is exact, its boxes
+    mirrored back in original-image coordinates, and the union of both
+    views goes through one labeled NMS at tta_nms_iou_thr, keeping
+    tta_max_per_img; the embeds are those of the kept detections.
+    """
+    dev = _device_of(model)
+    f32 = torch.float32
+    x = _as(images_u8, dev, torch.uint8)
+    sf, pad, ori = (_as(a, dev, f32)
+                    for a in (scale_factor, pad_param, ori_shape))
+    b = x.shape[0]
+    det = detect_step(cfg, model, torch.cat([x, x.flip(2)]), w,
+                      torch.cat([sf, sf]),
+                      torch.cat([pad, pad[:, [0, 1, 3, 2]]]),
+                      torch.cat([ori, ori]), class_mask)
+    fb = det.boxes[b:]
+    wmax = ori[:, 1][:, None]
+    fb = torch.stack([wmax - fb[..., 2], fb[..., 1],
+                      wmax - fb[..., 0], fb[..., 3]], dim=-1)
+    boxes = torch.cat([det.boxes[:b], fb], 1)
+    scores, labels, valid, embeds = (torch.cat([a[:b], a[b:]], 1) for a in
+                                     (det.scores, det.labels, det.valid,
+                                      det.embeds))
+    t = cfg.test
+    res = nms_labeled(boxes, scores, labels, valid, t.tta_nms_iou_thr,
+                      t.tta_max_per_img)
+    idx = res.anchors.clamp(min=0).long()[..., None]
+    kept = embeds.gather(1, idx.expand(-1, -1, embeds.shape[-1]))
+    return Detections(boxes=res.boxes, scores=res.scores, labels=res.labels,
+                      embeds=kept, anchors=res.anchors, valid=res.valid)
 
 
 @torch.inference_mode()
