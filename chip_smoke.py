@@ -36,7 +36,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4. k2       the grouped-KV flash kernels against gqa_flash_attention_plain
             at the Ref path's prefix (1, 384, 16, 128 | 384, 8) and
             suffix (8, 256, 16, 128 | 640, 8) shapes with kv_valid
-            holes, on the JAX test grid, a partial last block and fully
+            holes, at cross-image REC's batched prefix (8, 384 | 384)
+            and suffix (8, 256 | 640) with the holes differing by row,
+            on the JAX test grid, a partial last block and fully
             masked rows, f32 through the FFMA kernel at D = 128 (atol
             1e-4; in turns with the SIMT one it replaced, its walk read
             back at K2_TRAIN) and bf16 through the wgmma + TMA kernel,
@@ -49,7 +51,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             captured in a CUDA graph, replays timed (graph_ms); the
             eager calls' times, host included, beside them.
 5. k3       the same for the ViT's flash kernel at (1, 1280, 16, 64)
-            with 80 pad tokens in segment 0, at the training shape
+            with 80 pad tokens in segment 0, at cross-image REC's
+            batched ViT (8, 1024, 16, 64; 16 pad), at the training shape
             (1, 4224, 16, 64; 80 pad), square causal, causal with
             segment ids, three segments off the 64-grid, a tail
             (L = 200), D = 128, D = 256 and D = 72 (zero-padded to 128
@@ -271,6 +274,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             calibrated int4 trees on cli/quant_gate's 8 probe prompts;
             one generate_text with the calibrated tree (32 tokens, K2 =
             28, K3 = 24): prefill ms and ms a token.
+27. grounding  WeDetect-Ref grounding evaluation at ref_2b's full width,
+            random weights, on 20 seeded JPEGs (12 at 480x640, 8 at
+            640x480: two grid buckets of make_grid_buckets(256)) with
+            Uni-Base proposals, f32 then bf16: RefScorer.score_rec, one
+            query an image, query_batch 8 (three fused steps, the last
+            landscape chunk padded), K2 = 56 and K3 = 24 a fused step on
+            the type's route (the ViT once over (8, 1024, 16, 64), the
+            prefix pass over (8, P) rows, one suffix pass on per-row KV),
+            its logits within REF_LOGIT_TOL (bf16: and the mean limit) of
+            per-image logits(), a control with every suffix row on image
+            0's KV missing that limit; score_multi_images on a landscape
+            and a portrait image with proposals and a square one for
+            context, prefix sharing (K2 = 56, K3 = 72) and joint (K2 =
+            28, K3 = 72) within the same limit; the REC and the shared
+            multi-image logits also within that limit of the same calls
+            through the kernels' plain versions, while the plain versions
+            with one key tile masked in every call miss it; f32 ref_generate_multi,
+            16 greedy tokens on one image equal to ref_generate's, and on
+            two images; cli/eval_grounding --random-init --random-size 2b
+            on a refcoco-format set (f32, --grid-tokens 256: three fused
+            steps) and a COCO-format set (80 queries an image, 4 images,
+            --bf16). ms a fused step, items/s through score_rec and
+            through per-image score(), multi-image ms, the CLI's items/s
+            and host split, peak GB.
 
 Then the kernels line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -1590,8 +1617,8 @@ def k2_case(dev, b, s, lk, h, kvh, d, causal, holes, dtype, seed):
                for shape in ((b, s, h, d), (b, lk, kvh, d),
                              (b, lk, kvh, d)))
     valid = torch.ones((b, lk), dtype=torch.int32, device=dev)
-    for lo, hi in holes:
-        valid[:, lo:hi] = 0
+    for lo, hi, *row in holes:      # (lo, hi) every row, (lo, hi, r) row r
+        valid[row[0] if row else slice(None), lo:hi] = 0
     return q, k, v, valid
 
 
@@ -1609,6 +1636,14 @@ def k2_visible_pairs(s, lk, causal, valid):
 # 256 suffix slots, a short query's tail padded)
 K2_PREFIX = (1, 384, 384, 16, 8, 128, True, ((332, 384),))
 K2_SUFFIX = (8, 256, 640, 16, 8, 128, True, ((332, 384), (600, 640)))
+# cross-image REC (grounding phase, a 448x576 bucket, 8 images): the
+# batched prefix rows and the suffix rows over per-row prefix KV; the
+# real lengths differ by row here, so a per-row mask slip shows
+K2_REC_PREFIX = (8, 384, 384, 16, 8, 128, True,
+                 tuple((262 + 9 * r, 384, r) for r in range(8)))
+K2_REC_SUFFIX = (8, 256, 640, 16, 8, 128, True,
+                 tuple((262 + 9 * r, 384, r) for r in range(8))
+                 + tuple((600 - 11 * r, 640, r) for r in range(8)))
 K2_GRID = [  # tests/test_flash_gqa.py's grid, and fully masked rows
     (2, 128, 384, 4, 2, 128, True, ()),
     (1, 128, 128, 4, 1, 128, True, ()),
@@ -1687,7 +1722,8 @@ def phase_k2(dev, timing: bool = True):
                                                   gqa_flash_fwd_sm90)
 
     checks, worst = [], {}
-    cases = [K2_PREFIX, K2_SUFFIX, K2_TRAIN, *K2_GRID, *K2_D256, K2_D384]
+    cases = [K2_PREFIX, K2_SUFFIX, K2_REC_PREFIX, K2_REC_SUFFIX, K2_TRAIN,
+             *K2_GRID, *K2_D256, K2_D384]
     gqa_flash_fwd_sm90.launches = gqa_flash_fwd_f32.launches = 0
     routed = {"sm90": 0, "f32": 0, "simt": 0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1807,6 +1843,9 @@ def k2_walk(q, k, v, valid):
 
 
 K3_VIT = (1, 1280, 16, 64, 1200, False)      # 480x640: 1200 real tokens
+# cross-image REC's batched ViT (grounding phase): 8 images of the
+# 448x576 bucket, 1008 real tokens padded to 1024
+K3_REC = (8, 1024, 16, 64, 1008, False)
 # the training path's ViT attention (--grid-tokens 1024: 4144 tokens
 # padded to 4224)
 K3_TRAIN = (1, 4224, 16, 64, 4144, False)
@@ -1820,7 +1859,7 @@ K3_D72 = (1, 256, 2, 72, 200, False)
 K3_THREE_SEGMENTS = (1, 512, 4, 64, ((100, 1), (300, 2), (480, 3)), False)
 # the controls' wrong attention: one 64-key tile masked
 K3_CONTROL_DROP = slice(64, 128)
-K3_CASES = [K3_VIT, K3_TRAIN, (1, 1280, 16, 64, 1280, True),
+K3_CASES = [K3_VIT, K3_REC, K3_TRAIN, (1, 1280, 16, 64, 1280, True),
             (1, 384, 4, 64, ((150, 1), (300, 2)), True),  # causal + ids
             K3_THREE_SEGMENTS, (1, 200, 4, 64, 180, False),  # a tail
             (2, 256, 4, 128, 200, False), K3_D256, (1, 256, 2, 256, 256,
@@ -4125,6 +4164,427 @@ def phase_quant_gate(dev, image, cfg=None, n_calib: int = 8,
     return res
 
 
+# ---------------------------------------------------------- grounding
+GROUND_IMAGES = 20              # the first 12 landscape, then 8 portrait
+GROUND_SIZES = ((480, 640), (640, 480))
+GROUND_GRID_TOKENS = 256        # make_grid_buckets: 448x576 and 576x448
+GROUND_QUERY_BATCH = 8
+GROUND_GEN_TOKENS = 16
+
+
+def write_grounding_dataset(root, n: int, sizes, k_coco: int,
+                            seed: int = 8):
+    """n seeded JPEGs painted as write_eval_dataset paints them (smooth
+    noise, 1-8 flat boxes), the first 3/5 at sizes[0], the rest at
+    sizes[1]; a refcoco-format file (one expression an image, REF_QUERIES
+    in turn, the first painted box its gt) and a COCO-format file over
+    k_coco categories. Returns (refcoco.json, coco.json, file names)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    images, coco_anns, refs, names = [], [], [], []
+    for i in range(n):
+        h, w = sizes[0] if i < n * 3 // 5 else sizes[1]
+        small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3),
+                             dtype=np.uint8)
+        img = cv2.resize(small, (w, h))
+        boxes = []
+        for j in range(int(rng.integers(1, 9))):
+            bw, bh = rng.uniform(16, w / 2), rng.uniform(16, h / 2)
+            x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            img[int(y):int(y + bh), int(x):int(x + bw)] = rng.integers(
+                0, 256, 3)
+            boxes.append([x, y, x + bw, y + bh])
+            coco_anns.append({"id": len(coco_anns) + 1, "image_id": i + 1,
+                              "category_id": int(rng.integers(k_coco)) + 1,
+                              "bbox": [x, y, bw, bh], "area": bw * bh,
+                              "iscrowd": 0})
+        name = f"g{i:04d}.jpg"
+        cv2.imwrite(str(root / name), img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        names.append(name)
+        images.append({"id": i + 1, "file_name": name, "width": w,
+                       "height": h})
+        refs.append({"id": i + 1, "image": name, "bounding_boxes": [boxes[0]],
+                     "conversations": [{"value": "<image>"}, {
+                         "value": REF_QUERIES[i % len(REF_QUERIES)]}]})
+    (root / "refcoco_val.json").write_text(json.dumps(refs))
+    (root / "coco.json").write_text(json.dumps(
+        {"images": images, "annotations": coco_anns,
+         "categories": [{"id": c + 1, "name": f"coco_{c}"}
+                        for c in range(k_coco)]}))
+    return str(root / "refcoco_val.json"), str(root / "coco.json"), names
+
+
+def uni_proposals(dev, images, n: int = 100):
+    """Each image's top n proposals of a random Uni-Base (score_thr 0, as
+    ref_inputs takes them)."""
+    from wedetect_tpu_torch.models.api import Detector
+
+    uni = Detector.from_random("uni_base", seed=0, device=dev)
+    out = []
+    for i in range(0, len(images), BATCH):
+        out += [r["bboxes"][:n] for r in uni(images[i:i + BATCH],
+                                             score_thr=0.0)]
+    return out
+
+
+def rec_step_image0_kv(model, *args):
+    """ref_rec_batch_step with every suffix row given image 0's prefix KV:
+    the control that per-row KV must tell apart."""
+    from wedetect_tpu_torch.models import ref as R
+
+    stage = R.RefModules.suffix_stage
+
+    def image0(self, obj, kvs, *a):
+        kvs = tuple((k[:1].expand_as(k), v[:1].expand_as(v))
+                    for k, v in kvs)
+        return stage(self, obj, kvs, *a)
+
+    R.RefModules.suffix_stage = image0
+    try:
+        return R.ref_rec_batch_step(model, *args)
+    finally:
+        R.RefModules.suffix_stage = stage
+
+
+@contextlib.contextmanager
+def rec_steps(calls: list, step=None, sync: bool = False):
+    """Route RefScorer's fused REC steps through `step` (default the
+    real one), appending each call's launch counts (and, with `sync`,
+    its synchronized ms) to calls."""
+    from wedetect_tpu_torch.models import ref_api
+
+    saved = ref_api.ref_rec_batch_step
+    fn = step or saved
+
+    def run(*a, **kw):
+        before = launch_counts()
+        if sync:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        if sync:
+            torch.cuda.synchronize()
+        after = launch_counts()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    ref_api.ref_rec_batch_step = run
+    try:
+        yield
+    finally:
+        ref_api.ref_rec_batch_step = saved
+
+
+def route_counts(dtype: str, k2: int = 0, k3: int = 0) -> dict:
+    """expected_counts with every K2 and K3 launch on the type's route:
+    f32 on the FFMA kernels, bf16 on the wgmma ones, none on SIMT."""
+    bf16 = dtype == "bfloat16"
+    return expected_counts(k2=k2, k2_sm90=k2 if bf16 else 0,
+                           k2_f32=0 if bf16 else k2, k3=k3,
+                           k3_sm90=k3 if bf16 else 0,
+                           k3_f32=0 if bf16 else k3)
+
+
+def nonzero(counts: dict) -> dict:
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def plain_kernel_control(fn):
+    """fn() through K2's and K3's plain versions, and through them with
+    REF_CONTROL_DROP's key tile masked in every call (the control):
+    (plain, dropped). Fails if either ran a kernel."""
+    launch_counts(reset=True)
+    with plain_attention():
+        plain = fn()
+    with plain_attention(drop=REF_CONTROL_DROP):
+        dropped = fn()
+    ran = nonzero(launch_counts())
+    assert not ran, ("a kernel ran on the plain side", ran)
+    return plain, dropped
+
+
+def logit_errors(got, want) -> dict:
+    d = np.abs(np.concatenate([np.ravel(g) for g in got])
+               - np.concatenate([np.ravel(w) for w in want]))
+    return {"max": float(d.max()), "mean": float(d.mean())}
+
+
+def within_limit(err: dict, name: str) -> bool:
+    """REF_LOGIT_TOL on the largest error, and in bf16 REF_LOGIT_MEAN_TOL
+    on the mean."""
+    mean_tol = REF_LOGIT_MEAN_TOL[name]
+    return err["max"] <= REF_LOGIT_TOL[name] and (
+        mean_tol is None or err["mean"] <= mean_tol)
+
+
+def phase_grounding(dev, cfg=None, n_images: int = GROUND_IMAGES,
+                    sizes=GROUND_SIZES, grid_tokens: int = GROUND_GRID_TOKENS,
+                    cli_size: str = "2b", proposals_fn=uni_proposals,
+                    timing: bool = True):
+    """WeDetect-Ref grounding evaluation at ref_2b's full width (or
+    `cfg`), random weights, on n_images seeded JPEGs in two grid buckets
+    (write_grounding_dataset) with Uni-Base proposals, f32 then bf16:
+    (a) RefScorer.score_rec, one query an image, query_batch 8 (the
+        landscape bucket's last chunk padded): K2 = 56 and K3 = 24 a
+        fused step, all on the type's route; the logits within
+        REF_LOGIT_TOL (bf16: and REF_LOGIT_MEAN_TOL) of per-image
+        logits(), while the control that gives every suffix row image
+        0's prefix KV misses that limit;
+    (b) score_multi_images on a landscape and a portrait image with
+        proposals and a square one for context: prefix sharing (K2 = 56,
+        K3 = 24 an image) and the joint path (K2 = 28, K3 = 24 an image)
+        agree within the same limit;
+    (a, b) the REC and the shared multi-image logits within that limit
+        of the same calls through K2's and K3's plain versions, while
+        the plain versions with REF_CONTROL_DROP's key tile masked miss
+        it (plain_kernel_control);
+    (c) f32: ref_generate_multi, 16 greedy tokens on one image, equal to
+        ref_generate's (K2 = 28, K3 = 24), and on two images;
+    (d) cli/eval_grounding --random-init on the refcoco-format set (f32,
+        --grid-tokens: K2 = 56 and K3 = 24 a fused step) and on the
+        COCO-format set (80 queries an image, --bf16).
+    ms a fused step, items/s through score_rec and through per-image
+    score(), multi-image ms, the CLI's items/s and host split, peak GB."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from wedetect_tpu_torch.cli import eval_grounding
+    from wedetect_tpu_torch.data.loader import load_image_rgb
+    from wedetect_tpu_torch.data.vision_process import make_grid_buckets
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = cfg or ref_2b()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.TemporaryDirectory(prefix="wedetect_ground_")
+    root = Path(tmp.name)
+    ref_path, coco_path, names = write_grounding_dataset(
+        root, n_images, sizes, EVAL_COCO_CLASSES)
+    images = [load_image_rgb(str(root / n)) for n in names]
+    props = proposals_fn(dev, images)
+    (root / "proposals.json").write_text(json.dumps(
+        {n: np.asarray(p).tolist() for n, p in zip(names, props)}))
+    samples = [(im, p, REF_QUERIES[i % len(REF_QUERIES)])
+               for i, (im, p) in enumerate(zip(images, props))]
+    buckets = tuple(make_grid_buckets(grid_tokens,
+                                      cfg.vision.patch * cfg.vision.merge))
+    n_big = n_images * 3 // 5
+    n_steps = (-(-n_big // GROUND_QUERY_BATCH)
+               - (-(n_images - n_big) // GROUND_QUERY_BATCH))
+    # the multi-image conversation: landscape and portrait with proposals,
+    # a square crop for context only
+    multi_imgs = [images[0], images[-1],
+                  np.ascontiguousarray(images[1][:, :sizes[0][0]])]
+    multi_props = [props[0], props[-1], None]
+    k2, k3 = 2 * cfg.text.layers, cfg.vision.depth
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    tok = CharTok()
+    res = {"card": nvidia_smi(), "samples": n_images, "sizes": sizes,
+           "grid_tokens": grid_tokens, "fused_steps": n_steps,
+           "proposals": [len(p) for p in props]}
+    for name in ("float32", "bfloat16"):
+        scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok, dtype=name,
+                           grid_buckets=buckets,
+                           query_batch=GROUND_QUERY_BATCH, device=dev)
+        # (a) cross-image REC against per-image scoring and the control
+        calls = []
+        with rec_steps(calls):
+            rec = scorer.rec_logits(samples)
+        assert len(calls) == n_steps, (len(calls), n_steps)
+        for c in calls:
+            assert c["launches"] == route_counts(name, k2, k3), c
+        assert all(r.shape == (len(p),) and np.isfinite(r).all()
+                   for r, p in zip(rec, props))
+        per_image = [scorer.logits(im, p, [q])[0] for im, p, q in samples]
+        with rec_steps([], step=rec_step_image0_kv):
+            wrong = scorer.rec_logits(samples)
+        err = logit_errors(rec, per_image)
+        control = logit_errors(wrong, per_image)
+        r = res[name] = {
+            "rec_step_launches": nonzero(calls[0]["launches"]),
+            "tolerance": REF_LOGIT_TOL[name],
+            "mean_tolerance": REF_LOGIT_MEAN_TOL[name],
+            "rec_vs_per_image": err, "image0_kv_control": control,
+            "logit_range": [float(min(x.min() for x in per_image)),
+                            float(max(x.max() for x in per_image))]}
+        ok = within_limit(err, name) and not within_limit(control, name)
+        launch_counts(reset=True)
+        shared = scorer.multi_image_logits(multi_imgs, multi_props,
+                                           REF_QUERIES)
+        counts = launch_counts()
+        # (a, b) the kernels at these shapes against their plain versions
+        # (the batched ViT, the (B, P) prefix rows, the per-row suffix,
+        # the multi-image sequences), and the control with one key tile
+        # dropped, which must miss
+        for key, fn, got in (
+                ("rec", lambda: scorer.rec_logits(samples), rec),
+                ("multi", lambda: scorer.multi_image_logits(
+                    multi_imgs, multi_props, REF_QUERIES), shared)):
+            plain, dropped = plain_kernel_control(fn)
+            r[f"{key}_vs_plain"] = logit_errors(got, plain)
+            r[f"{key}_dropped_tile_control"] = logit_errors(dropped, plain)
+            ok = (ok and within_limit(r[f"{key}_vs_plain"], name)
+                  and not within_limit(r[f"{key}_dropped_tile_control"],
+                                       name))
+        # (b) several images in one conversation, shared prefix and joint
+        joint = RefScorer(cfg=cfg, model=model, tokenizer=tok, dtype=name,
+                          grid_buckets=buckets, prefix_sharing=False,
+                          query_batch=GROUND_QUERY_BATCH, device=dev)
+        launch_counts(reset=True)
+        jl = joint.multi_image_logits(multi_imgs, multi_props, REF_QUERIES)
+        joint_counts = launch_counts()
+        assert counts == route_counts(name, k2, 3 * k3), counts
+        assert joint_counts == route_counts(name, k2 // 2, 3 * k3), \
+            joint_counts
+        r["multi_launches"] = nonzero(counts)
+        r["multi_joint_launches"] = nonzero(joint_counts)
+        assert [x.shape for x in shared] == [(len(REF_QUERIES), len(p))
+                                             for p in multi_props[:2]]
+        r["multi_shared_vs_joint"] = logit_errors(shared, jl)
+        ok = ok and within_limit(r["multi_shared_vs_joint"], name)
+        if not ok:
+            emit({"phase": "grounding", "dtype": name, **r})
+            raise AssertionError(f"grounding {name}: logits out of limits")
+        if timing:
+            timed = []
+            with rec_steps(timed, sync=True):
+                scorer.rec_logits(samples)
+            r["rec_step_ms"] = [c["ms"] for c in timed]
+            ms = host_ms(lambda: scorer.score_rec(samples), 2)
+            r["score_rec_items_per_s"] = n_images / ms * 1e3
+            ms = host_ms(lambda: [scorer.score(im, p, [q])
+                                  for im, p, q in samples], 1)
+            r["per_image_score_items_per_s"] = n_images / ms * 1e3
+            r["multi_ms"] = host_ms(lambda: scorer.score_multi_images(
+                multi_imgs, multi_props, REF_QUERIES), 2)
+            r["multi_joint_ms"] = host_ms(lambda: joint.score_multi_images(
+                multi_imgs, multi_props, REF_QUERIES), 2)
+        if name == "float32":
+            r["generate"] = grounding_generate(cfg, scorer, multi_imgs,
+                                               timing)
+        emit({"phase": "grounding", "dtype": name, **r})
+    del model, scorer, joint
+    torch.cuda.empty_cache()
+    # (d) the CLI on both sets, its own random ref model
+    common = ["--random-init", "--random-size", cli_size, "--device",
+              str(dev), "--img-root", str(root), "--proposals",
+              str(root / "proposals.json"), "--grid-tokens",
+              str(grid_tokens), "--batch-queries", str(GROUND_QUERY_BATCH)]
+    try:
+        for ds, extra, metric in (
+                ("refcoco", ["--ann", ref_path, "--num_select", "20"],
+                 "refcoco_val"),
+                ("coco", ["--ann", coco_path, "--max-items", "4", "--bf16"],
+                 "coco")):
+            calls, t = [], {}
+            launch_counts(reset=True)
+            with rec_steps(calls), contextlib.redirect_stdout(io.StringIO()):
+                out = eval_grounding.main(common + ["--dataset", ds, *extra,
+                                                    "--out",
+                                                    str(root / f"{ds}.json")],
+                                          timings=t)
+            counts = launch_counts()
+            assert json.loads((root / f"{ds}.json").read_text()).keys() \
+                == out.keys() == {metric}, out
+            vals = [v for v in out[metric].values()
+                    if isinstance(v, float)]
+            assert vals and all(math.isnan(v) or 0 <= v <= 1 for v in vals)
+            if ds == "refcoco":
+                assert len(calls) == n_steps, (len(calls), n_steps)
+                assert counts == route_counts(
+                    "float32", k2 * n_steps, k3 * n_steps), counts
+            else:
+                # per image: one prefix stage, a suffix stage a query batch
+                batches = 1 + -(-EVAL_COCO_CLASSES // GROUND_QUERY_BATCH)
+                assert not calls and counts == route_counts(
+                    "bfloat16", k2 // 2 * batches * t["items"],
+                    k3 * t["items"]), counts
+            res[f"cli_{ds}"] = {
+                "items": t["items"], "items_per_s": t["items"] / t["wall_ms"]
+                * 1e3, "wall_ms": t["wall_ms"], "fused_steps": len(calls),
+                "launches": nonzero(counts), "metrics": out[metric],
+                **{k: t.get(k, 0.0) for k in eval_grounding.TIMING_KEYS}}
+    finally:
+        tmp.cleanup()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "grounding", **{k: v for k, v in res.items()
+                                   if k not in ("float32", "bfloat16")}})
+    return res
+
+
+def grounding_generate(cfg, scorer, imgs, timing: bool) -> dict:
+    """ref_generate_multi in f32: on one image, the tokens of
+    ref_generate (the generation phase's prompt layout); on the first two
+    images, valid tokens. K2 = 28 and K3 = 24 an image."""
+    from wedetect_tpu_torch.models.ref_generate import ref_generate_multi
+    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_multi
+
+    model, m = scorer.model, cfg.vision.merge
+    b = gen_prompt(scorer, imgs[0], GEN_PROMPT)
+    single = gen_call(cfg, model, b, GROUND_GEN_TOKENS)
+
+    def one():
+        return ref_generate_multi(
+            cfg, ((b["gh"], b["gw"]),), model, (b["patches"],),
+            b["ids"][None], b["mask"][None], b["pos"][:, None], (None,),
+            (b["ori"],), (b["vs"],), np.array([b["nxt"]], np.int32),
+            GROUND_GEN_TOKENS, GEN_EOS, pad_id=GEN_PAD)
+
+    launch_counts(reset=True)
+    multi = one()
+    counts = launch_counts()
+    k2, k3 = cfg.text.layers, cfg.vision.depth
+    assert counts == route_counts("float32", k2, k3), counts
+    assert torch.equal(multi, single), (multi, single)
+    # two images, caption only
+    pix, grids, ori = [], [], []
+    for im in imgs[:2]:
+        p, gh, gw = scorer._prep_patches(im)
+        pix.append(p)
+        grids.append((gh, gw))
+        ori.append(np.array([im.shape[1], im.shape[0]], np.float32))
+    tail = scorer.tokenizer.encode(
+        GEN_PROMPT + "<|im_end|>\n<|im_start|>assistant\n")
+    ids = np.concatenate([scorer.build_prefix_multi(
+        [(gh // m) * (gw // m) for gh, gw in grids]),
+        np.array(tail, np.int32)])
+    img_pos = np.nonzero(ids == cfg.image_token_id)[0]
+    starts = (int(img_pos[0]), int(img_pos[(grids[0][0] // m)
+                                           * (grids[0][1] // m)]))
+    p_real = len(ids)
+    p_pad = -(-p_real // 128) * 128
+    pos = np.zeros((3, 1, p_pad), np.int32)
+    pos[:, 0, :p_real] = get_rope_index_multi(ids, cfg.image_token_id,
+                                              grids, m)
+    mask = (np.arange(p_pad) < p_real).astype(np.int32)[None]
+    ids = np.pad(ids, (0, p_pad - p_real), constant_values=GEN_PAD)[None]
+    nxt = np.array([pos.max() + 1], np.int32)
+
+    def two():
+        return ref_generate_multi(cfg, tuple(grids), model, pix, ids, mask,
+                                  pos, (None, None), ori, starts, nxt,
+                                  GROUND_GEN_TOKENS, GEN_EOS, pad_id=GEN_PAD)
+
+    launch_counts(reset=True)
+    toks = two()
+    counts2 = launch_counts()
+    assert counts2 == route_counts("float32", k2, 2 * k3), counts2
+    assert toks.shape == (1, GROUND_GEN_TOKENS)
+    assert ((toks >= 0) & (toks < cfg.text.vocab_size)).all()
+    out = {"tokens_equal_ref_generate": True,
+           "launches_one_image": nonzero(counts),
+           "launches_two_images": nonzero(counts2), "prompt_two_images": p_pad}
+    if timing:
+        out["one_image_ms"] = host_ms(one, 2)
+        out["two_images_ms"] = host_ms(two, 2)
+    return out
+
+
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
@@ -4221,6 +4681,18 @@ def main() -> int:
     phase_gen(dev, image)
     serve = phase_serve(dev, image)
     gate = phase_quant_gate(dev, image)
+    ground = phase_grounding(dev)
+    # K2's and K3's launches a fused REC step and a multi-image call
+    # (prefix sharing), by type: f32 on the FFMA kernels, bf16 on wgmma,
+    # the SIMT kernels none (their nonzero counts)
+    rec_step = {t: ground[t]["rec_step_launches"]
+                for t in ("float32", "bfloat16")}
+    multi = {t: ground[t]["multi_launches"] for t in ("float32", "bfloat16")}
+
+    def simt(counts, k):
+        return {t: a.get(k, 0) - a.get(f"{k}_sm90", 0) - a.get(f"{k}_f32", 0)
+                for t, a in counts.items()}
+
     # K2's and K3's launches an admission prefill by route: f32 on the
     # FFMA kernels, bf16 on the wgmma ones, the SIMT ones none
     admit = {t: serve[t]["launches_per_admit"]
@@ -4275,6 +4747,8 @@ def main() -> int:
          "launches_sft_step": train["launches_per_step"]["k2_f32"],
          "launches_admit": admit["float32"]["k2_f32"],
          "launches_int8_score": int8["float32"]["k2_f32"],
+         "launches_rec_step": rec_step["float32"].get("k2_f32", 0),
+         "launches_multi": multi["float32"].get("k2_f32", 0),
          **{f"{shape}_{key}": k2[f"{shape}_float32"][key]
             for shape in ("prefix", "train")
             for key in ("ms", "bound_ms", "library_ms")},
@@ -4289,6 +4763,8 @@ def main() -> int:
                         - launches["k2_f32"], k2, k2["suffix_simt_float32"]),
          "launches_admit": {t: a["k2"] - a["k2_sm90"] - a["k2_f32"]
                             for t, a in admit.items()},
+         "launches_rec_step": simt(rec_step, "k2"),
+         "launches_multi": simt(multi, "k2"),
          **{f"{shape}_ms": k2[f"{shape}_simt_float32"]["ms"]
             for shape in ("prefix", "train")}},
         {**kernel_entry("gqa_flash_fwd_sm90",
@@ -4297,7 +4773,9 @@ def main() -> int:
                         launches_bf16["k2_sm90"], k2, k2["suffix_bfloat16"],
                         route="sm90"),
          "launches_admit": admit["bfloat16"]["k2_sm90"],
-         "launches_int8_score": int8["bfloat16"]["k2_sm90"]},
+         "launches_int8_score": int8["bfloat16"]["k2_sm90"],
+         "launches_rec_step": rec_step["bfloat16"].get("k2_sm90", 0),
+         "launches_multi": multi["bfloat16"].get("k2_sm90", 0)},
         {**kernel_entry("flash_attention_fwd_f32", K3_F32_FWD_SOURCE, K3_FWD,
                         launches["k3_f32"], k3, k3["vit_float32"],
                         route="f32"),
@@ -4305,6 +4783,8 @@ def main() -> int:
          "launches_admit": admit["float32"]["k3_f32"],
          "launches_int8_score": int8["float32"]["k3_f32"],
          "launches_calib_prompt": calib_k3,
+         "launches_rec_step": rec_step["float32"].get("k3_f32", 0),
+         "launches_multi": multi["float32"].get("k3_f32", 0),
          **{f"train_{key}": k3["train_float32"][key]
             for key in ("ms", "bound_ms", "library_ms")},
          "turns_ms": {shape: k3[f"{shape}_float32"]["turns_ms"]
@@ -4319,13 +4799,17 @@ def main() -> int:
                         - launches["k3_f32"], k3, k3["vit_simt_float32"]),
          "launches_admit": {t: a["k3"] - a["k3_sm90"] - a["k3_f32"]
                             for t, a in admit.items()},
+         "launches_rec_step": simt(rec_step, "k3"),
+         "launches_multi": simt(multi, "k3"),
          "train_ms": k3["train_simt_float32"]["ms"]},
         {**kernel_entry("flash_attention_fwd_sm90",
                         "wedetect_tpu_torch/csrc/flash_attn_sm90.cu", K3_FWD,
                         launches_bf16["k3_sm90"], k3, k3["vit_bfloat16"],
                         route="sm90"),
          "launches_admit": admit["bfloat16"]["k3_sm90"],
-         "launches_int8_score": int8["bfloat16"]["k3_sm90"]},
+         "launches_int8_score": int8["bfloat16"]["k3_sm90"],
+         "launches_rec_step": rec_step["bfloat16"].get("k3_sm90", 0),
+         "launches_multi": multi["bfloat16"].get("k3_sm90", 0)},
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32; K2-bwd in f32 at
         # D = 128 is the FFMA pair, and the SIMT dq and dk/dv kernels

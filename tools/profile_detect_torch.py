@@ -2,8 +2,9 @@
 """Where the port's detect step, its Ref scoring, or its Ref SFT step
 spends its time on the card.
 
-    python3 tools/profile_detect_torch.py [--ref | --train | --det-train
-                                           | --gen | --serve]
+    python3 tools/profile_detect_torch.py [--ref | --rec | --train
+                                           | --det-train | --gen
+                                           | --serve]
                                           [--batch N] [--bf16] [--int8]
                                           [--iters 3] [--tokens N]
                                           [--table F]
@@ -15,7 +16,11 @@ Detector.__call__ on --batch images. --ref: WeDetect-Ref at ref_2b's
 full width (random weights, seed 0), then RefScorer.score (prefix
 sharing) on chip_smoke.py's Ref inputs: its seeded 480x640 image, the
 top 100 proposals of a random Uni-Base, its 8 queries and stub
-tokenizer. --train: one stage-3 SFT step (train/ref_sft.ref_sft_step,
+tokenizer. --rec: one fused cross-image REC step
+(RefScorer.rec_logits -> models/ref.ref_rec_batch_step) on --batch
+images (default 8) of chip_smoke.py's grounding set, all of its 480x640
+size (one grid bucket of make_grid_buckets(256)), one query and the top
+100 Uni-Base proposals an image, ref_2b. --train: one stage-3 SFT step (train/ref_sft.ref_sft_step,
 f32, ref_optimizer) at ref_2b's full width on chip_smoke.py's training
 sample with the train_ref CLI defaults (--grid-tokens 1024: ViT
 L = 4224; decoder L = 2048; 100 proposals); --bf16 does not apply.
@@ -104,6 +109,37 @@ def ref_call(args, C, dev):
                        device=dev, quant_prefill=args.int8)
     return (lambda: scorer.score(image, boxes, C.REF_QUERIES),
             {"proposals": len(boxes), "queries": len(C.REF_QUERIES)})
+
+
+def rec_call(args, C, dev):
+    import tempfile
+    from pathlib import Path
+
+    from wedetect_tpu_torch.data.loader import load_image_rgb
+    from wedetect_tpu_torch.data.vision_process import make_grid_buckets
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    b = args.batch or C.GROUND_QUERY_BATCH
+    size = C.GROUND_SIZES[0]
+    with tempfile.TemporaryDirectory() as root:
+        _, _, names = C.write_grounding_dataset(Path(root), b, (size, size),
+                                                C.EVAL_COCO_CLASSES)
+        images = [load_image_rgb(os.path.join(root, n)) for n in names]
+    props = C.uni_proposals(dev, images)
+    samples = [(im, p, C.REF_QUERIES[i % len(C.REF_QUERIES)])
+               for i, (im, p) in enumerate(zip(images, props))]
+    cfg = ref_2b()
+    buckets = tuple(make_grid_buckets(C.GROUND_GRID_TOKENS,
+                                      cfg.vision.patch * cfg.vision.merge))
+    scorer = RefScorer(cfg=cfg, model=init_ref_variables(cfg, 0, dev),
+                       tokenizer=C.CharTok(), grid_buckets=buckets,
+                       query_batch=b,
+                       dtype="bfloat16" if args.bf16 else "float32",
+                       device=dev)
+    return (lambda: scorer.rec_logits(samples),
+            {"images": b, "grid_tokens": C.GROUND_GRID_TOKENS})
 
 
 def train_call(args, C, dev):
@@ -195,6 +231,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ref", action="store_true",
                    help="profile RefScorer.score instead of the detector")
+    p.add_argument("--rec", action="store_true",
+                   help="profile one fused cross-image REC step")
     p.add_argument("--train", action="store_true",
                    help="profile one Ref stage-3 SFT step")
     p.add_argument("--det-train", action="store_true",
@@ -224,7 +262,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     make = (det_train_call if args.det_train else train_call if args.train
-            else ref_call if args.ref else gen_call if args.gen
+            else ref_call if args.ref else rec_call if args.rec
+            else gen_call if args.gen
             else serve_call if args.serve else detect_call)
     call, info = make(args, C, dev)
     call()
@@ -244,7 +283,8 @@ def main(argv=None) -> int:
     dtype = ("bf16" if args.det_train or args.bf16 and not args.train
              else "f32")
     name = ("det_train_" if args.det_train else "train_" if args.train
-            else "ref_" if args.ref else "gen_" if args.gen
+            else "ref_" if args.ref else "rec_" if args.rec
+            else "gen_" if args.gen
             else "serve_" if args.serve else "") + dtype \
         + ("_int8" if args.int8 else "")
     top = sorted(prof.key_averages(),

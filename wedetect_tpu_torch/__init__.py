@@ -6,7 +6,8 @@ configs, the same detect graph and the same fixed-slot outputs, as NCHW
 training (`train/`, `cli/train.py`), and the WeDetect-Ref proposal
 scorer (Qwen3-VL) under the HF key names, its SFT training, and its
 text generation and continuous-batching serving (`models/ref_generate`,
-`models/serve`, `models/serve_http`). The TPU kernels on these paths
+`models/serve`, `models/serve_http`), and its grounding evaluation
+(`cli/eval_grounding`: cross-image and multi-image scoring). The TPU kernels on these paths
 are CUDA C++ kernels under `csrc/`, built with nvcc at first use: the
 per-anchor row top-k (detection), the two flash attention forwards
 (the Qwen3-VL decoder's grouped-KV one and the ViT's) and their

@@ -5,7 +5,8 @@ the reference's checkpoint layout) into (RefCfg, RefModules on
 `device`, tokenizer), with the untied `lm_head` when the checkpoint
 carries one. transformers and safetensors are imported on use.
 `tiny_random_ref` builds the random-weight smoke model of the
-generation and serving CLIs (`--random-init`).
+generation and serving CLIs (`--random-init`); `random_ref` that one or
+ref_2b at full width, as the grounding CLI's `--random-size` picks.
 """
 
 from __future__ import annotations
@@ -97,5 +98,20 @@ def tiny_random_ref(device="cuda", seed: int = 0):
                         rope_theta=1000.0),
         image_token_id=496, video_token_id=497, vision_start_token_id=498,
         object_token_id=499)
+    return (cfg, init_ref_variables(cfg, seed=seed, device=device),
+            StubTokenizer(cfg.text.vocab_size))
+
+
+def random_ref(size: str = "tiny", device="cuda", seed: int = 0):
+    """(RefCfg, random RefModules, StubTokenizer): tiny_random_ref's
+    miniature Ref ("tiny") or ref_2b at full width ("2b")."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    if size == "tiny":
+        return tiny_random_ref(device, seed)
+    if size != "2b":
+        raise ValueError(f"random Ref size {size!r}: tiny or 2b")
+    cfg = ref_2b()
     return (cfg, init_ref_variables(cfg, seed=seed, device=device),
             StubTokenizer(cfg.text.vocab_size))

@@ -75,11 +75,12 @@ def _run_generate(args, img):
                        quantize_decode="int4" if args.int4_decode
                        else args.int8_decode,
                        quant_prefill=args.int8_prefill)
+    pad = getattr(tok, "pad_token_id", None)
     text = scorer.generate_text(
         img, args.generate, max_new_tokens=args.max_new_tokens,
         temperature=args.temperature,
         eos_token_id=tok.convert_tokens_to_ids("<|im_end|>"),
-        pad_token_id=getattr(tok, "pad_token_id", None) or 151643,
+        pad_token_id=151643 if pad is None else pad,
         speculative=args.speculative)
     print(text)
     return {"text": text}

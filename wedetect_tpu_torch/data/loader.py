@@ -1,5 +1,6 @@
-"""Image loading for the detection API and CLIs, and the eval loader:
-decode -> letterbox -> batch, with prefetch.
+"""Image loading for the detection API and CLIs, image sizes from file
+headers (`image_size`), and the eval loader: decode -> letterbox ->
+batch, with prefetch.
 
 Replaces the reference's torch DataLoader stack (reference
 config/wedetect_base.py:197-211 val_dataloader, datasets/utils.py:8-60
@@ -15,7 +16,8 @@ the cv2 path too.
 from __future__ import annotations
 
 import concurrent.futures as cf
-from typing import Dict, Iterator, List, Optional, Sequence
+import struct
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -33,6 +35,66 @@ def load_image_rgb(path: str) -> np.ndarray:
     if img is None:
         raise FileNotFoundError(path)
     return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+
+
+# JPEG start-of-frame markers (baseline, extended, progressive, lossless,
+# arithmetic): each carries the frame's height and width
+_JPEG_SOF = {0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
+             0xCD, 0xCE, 0xCF}
+
+
+def _jpeg_size(f) -> Optional[Tuple[int, int]]:
+    """(width, height) from a JPEG's frame header, the file positioned
+    after its SOI marker; None when the scan starts before any frame."""
+    while True:
+        byte = f.read(1)
+        if not byte:
+            return None
+        if byte != b"\xff":
+            continue
+        marker = 0xFF
+        while marker == 0xFF:                 # fill bytes
+            nxt = f.read(1)
+            if not nxt:
+                return None
+            marker = nxt[0]
+        if marker in (0x00, 0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
+            continue                          # no length field
+        if marker in (0xD9, 0xDA):
+            return None
+        seg = f.read(2)
+        if len(seg) < 2:
+            return None
+        if marker in _JPEG_SOF:
+            h, w = struct.unpack(">xHH", f.read(5))
+            return w, h
+        f.seek(struct.unpack(">H", seg)[0] - 2, 1)
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(width, height) of an image file as its header states it (the
+    size PIL's Image.open reports, before any EXIF rotation), read from
+    the header of a PNG, JPEG, GIF or BMP; other formats are decoded
+    (cv2). The JAX package reads headers with Pillow, which the card's
+    installation lacks."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+        if head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR":
+            return struct.unpack(">II", head[16:24])
+        if head[:6] in (b"GIF87a", b"GIF89a"):
+            return struct.unpack("<HH", head[6:10])
+        if head[:2] == b"BM" and len(head) == 26:
+            if struct.unpack("<I", head[14:18])[0] == 12:   # OS/2 header
+                return struct.unpack("<HH", head[18:22])
+            w, h = struct.unpack("<ii", head[18:26])
+            return w, abs(h)
+        if head[:2] == b"\xff\xd8":
+            f.seek(2)
+            size = _jpeg_size(f)
+            if size is not None:
+                return size
+    img = load_image_rgb(path)
+    return img.shape[1], img.shape[0]
 
 
 def eval_sample(ds, idx: int, img_size, fast_decode: bool = False) -> Dict:

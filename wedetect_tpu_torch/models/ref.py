@@ -16,9 +16,19 @@ batch as (B, L) rows sharing the image.
 fixes it per module instance). `cast_ref_model` casts the matmul weights
 to the compute dtype once; norms, the pos-embed table and `out_proj`
 stay f32, as in the JAX package. `sigmoid_focal_loss` is the stage-3
-training loss (`train/ref_sft.py`). Not ported yet: the multi-image and
-cross-image entry points (`score_multi`, `prefix_stage_multi`,
-`ref_rec_batch_step`).
+training loss (`train/ref_sft.py`).
+
+Several images a sequence (`score_multi`, `prefix_stage_multi`, through
+`_assemble`): each image runs the ViT at its own grid, its object
+features are optional, and its taps land at its own span; the
+single-image `hidden_states` and `prefix_stage` are their one-image
+calls. Cross-image
+REC batching (`ref_rec_batch_step`, through `prefix_stage_batch`): B
+images of one grid, one query row each; the ViT runs once over the
+(B, S, ...) batch and the prefix pass once over (B, P) rows (one K3 or
+K2 launch a layer, as the JAX package's `jax.vmap` of the single-image
+stage computes it), then one suffix pass in which row i attends image
+i's prefix KV. RoI object features loop over the images.
 """
 
 from __future__ import annotations
@@ -205,14 +215,18 @@ class RefModules(nn.Module):
         return self.model.language_model.embed_tokens(_t(ids, self.device))
 
     def _put_span(self, x, tokens, start: int):
-        b, n = x.shape[0], tokens.shape[0]
-        span = tokens.to(x.dtype)[None].expand(b, n, tokens.shape[1])
+        """Write tokens (n, D), shared by every row, or (B, n, D), a row
+        each, over x[:, start:start + n]."""
+        b, n = x.shape[0], tokens.shape[-2]
+        span = tokens.to(x.dtype).expand(b, n, tokens.shape[-1])
         return torch.cat([x[:, :start], span, x[:, start + n:]], dim=1)
 
     def _scatter_objects(self, x, obj, object_positions):
         """Write object features into the <object> slots; -1 marks a
         padded slot, which keeps the token's own embedding. obj is (N, D)
         shared by every row or (B, N, D) per row."""
+        if object_positions.shape[1] == 0 or obj.shape[-2] == 0:
+            return x            # no object slot (context-only images)
         b = x.shape[0]
         bidx = torch.arange(b, device=x.device)[:, None]
         pos = object_positions.clamp(min=0).long()
@@ -232,30 +246,90 @@ class RefModules(nn.Module):
         """Vision tower + RoI object features + pos-embedded image
         tokens. patches: (S, C*t*p*p) f32 patches, or (H, W, 3) uint8
         resized pixels (patchified here, on the device)."""
-        c = self.cfg
-        dev = self.device
-        patches = _t(patches, dev)
-        if patches.dim() == 3:
-            patches = pixels_to_patches(patches, c.vision.patch,
-                                        c.vision.temporal_patch,
-                                        c.vision.merge)
-        m = c.vision.merge
-        mh, mw = grid_h // m, grid_w // m
-        d = c.text.hidden
-        img_embeds, taps = self.model.visual(patches, grid_h, grid_w,
+        img_tokens, taps, scales = self._vision_one(patches, grid_h, grid_w)
+        obj = self._objects_from(scales, boxes_xyxy, ori_wh)
+        return img_tokens, obj, taps
+
+    def _patches(self, patches, batch: bool):
+        """patches on the device: (S, C*t*p*p) f32 patches as given,
+        (H, W, 3) resized pixels patchified; with `batch`, the same with
+        a leading B (images of one size)."""
+        v = self.cfg.vision
+        patches = _t(patches, self.device)
+        if patches.dim() == 2 + batch:
+            return patches
+
+        def patchify(pixels):
+            return pixels_to_patches(pixels, v.patch, v.temporal_patch,
+                                     v.merge)
+        return (torch.stack([patchify(p) for p in patches]) if batch
+                else patchify(patches))
+
+    def _vision_one(self, patches, gh: int, gw: int, batch: bool = False):
+        """The ViT at the call's grid: (pos-embedded image tokens, taps,
+        (scale1, scale2, scale3) merged-grid maps) of one image, or with
+        `batch` of B images of one grid in one batched pass (a leading B
+        on every output)."""
+        m = self.cfg.vision.merge
+        mh, mw = gh // m, gw // m
+        d = self.cfg.text.hidden
+        img_embeds, taps = self.model.visual(self._patches(patches, batch),
+                                             gh, gw,
                                              attn_impl=self.attn_impl)
-        scale3 = img_embeds[:mh * mw].reshape(mh, mw, d)
-        scale2 = taps[-1][:mh * mw].reshape(mh, mw, d)
-        scale1 = taps[-2][:mh * mw].reshape(mh, mw, d)
-        s1, s2, s3 = self.model.build_pyramid(scale1, scale2, scale3)
+        lead = img_embeds.shape[:-2]
+        scales = tuple(t.reshape(*lead, mh, mw, d)
+                       for t in (taps[-2], taps[-1], img_embeds))
+        return img_embeds + self.model.image_pos(mh, mw), taps, scales
+
+    def _objects_from(self, scales, boxes_xyxy, ori_wh):
+        """RoI object features (N, D) for boxes (N, 4) in original image
+        coordinates (ori_wh: (width, height)) on the image whose merged
+        grid maps are `scales`."""
+        dev = self.device
+        s1, s2, s3 = self.model.build_pyramid(*scales)
+        mh, mw = scales[2].shape[:2]
         norm = torch.tensor([mw * 32.0, mh * 32.0, mw * 32.0, mh * 32.0],
                             device=dev)
         ori = _t(ori_wh, dev, torch.float32)
         boxes_32 = _t(boxes_xyxy, dev).float() / (torch.cat([ori, ori])
                                                   / norm)
-        obj = self.model.object_feats(s1, s2, s3, boxes_32)
-        img_tokens = img_embeds + self.model.image_pos(mh, mw)
-        return img_tokens, obj, taps
+        return self.model.object_feats(s1, s2, s3, boxes_32)
+
+    def _multi_assembly(self, patches_list, grids, boxes_list, ori_wh_list):
+        """Every multi-image entry point's per-image loop: the ViT at
+        each image's grid, its RoI object features where it has boxes
+        (None: a context-only image), and the taps regrouped layer by
+        layer. Returns (tokens list, per-layer tuples of taps, obj
+        (N_total, D), (0, D) when no image has boxes)."""
+        tokens, taps_all, objs = [], [], []
+        for patches_i, (gh, gw), boxes_i, ori_i in zip(
+                patches_list, grids, boxes_list, ori_wh_list):
+            img_tokens, taps, scales = self._vision_one(patches_i, gh, gw)
+            tokens.append(img_tokens)
+            taps_all.append(taps)
+            if boxes_i is not None:
+                objs.append(self._objects_from(scales, boxes_i, ori_i))
+        obj = (torch.cat(objs, dim=0) if objs else
+               tokens[0].new_zeros((0, self.cfg.text.hidden)))
+        ds = [tuple(taps[i] for taps in taps_all)
+              for i in range(len(taps_all[0]))]
+        return tokens, ds, obj
+
+    def _assemble(self, patches_list, grids, input_ids, boxes_list,
+                  ori_wh_list, visual_starts, object_positions=None):
+        """The decoder's input embeddings of sequences holding the images
+        (_multi_assembly) at their spans, with the object features
+        scattered into the <object> slots when object_positions is
+        given. Returns (x (B, L, D), per-layer taps, obj)."""
+        tokens, ds, obj = self._multi_assembly(patches_list, grids,
+                                               boxes_list, ori_wh_list)
+        x = self._embed(input_ids)
+        for tok, vs in zip(tokens, visual_starts):
+            x = self._put_span(x, tok, vs)
+        if object_positions is not None:
+            x = self._scatter_objects(x, obj,
+                                      _t(object_positions, self.device))
+        return x, ds, obj
 
     def forward(self, patches, input_ids, attn_mask, position_ids,
                 boxes_xyxy, ori_wh, visual_start: int, object_positions, *,
@@ -275,15 +349,23 @@ class RefModules(nn.Module):
         """forward's final normed hidden states (B, L, D), before
         out_proj (the LM-loss stages read them: train/ref_lm.py).
         object_positions may hold -1 (a caption-only sample's or a padded
-        slot): that token keeps its own embedding."""
-        dev = self.device
-        img_tokens, obj, taps = self._vision_and_objects(
-            patches, boxes_xyxy, ori_wh, grid_h, grid_w)
-        x = self._put_span(self._embed(input_ids), img_tokens, visual_start)
-        x = self._scatter_objects(x, obj, _t(object_positions, dev))
+        slot): that token keeps its own embedding. The one-image call of
+        hidden_states_multi."""
+        return self.hidden_states_multi(
+            (patches,), ((grid_h, grid_w),), input_ids, attn_mask,
+            position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,),
+            object_positions)
+
+    def hidden_states_multi(self, patches_list, grids, input_ids, attn_mask,
+                            position_ids, boxes_list, ori_wh_list,
+                            visual_starts, object_positions):
+        """score_multi's final normed hidden states (B, L, D)."""
+        x, ds, _ = self._assemble(patches_list, grids, input_ids,
+                                  boxes_list, ori_wh_list, visual_starts,
+                                  object_positions)
         return self.model.language_model(
-            x, _t(position_ids, dev), _t(attn_mask, dev),
-            deepstack_embeds=list(taps), visual_start=visual_start,
+            x, _t(position_ids, self.device), _t(attn_mask, self.device),
+            deepstack_embeds=ds, visual_start=tuple(visual_starts),
             attn_impl=self.attn_impl)
 
     def prefill_split(self, patches, prefix_ids, suffix_ids, prefix_mask,
@@ -308,10 +390,56 @@ class RefModules(nn.Module):
                      visual_start: int, *, grid_h: int, grid_w: int):
         """Image-level half: vision tower + object features + the prefix
         decoder pass. Returns (obj (N, D), kvs), reusable by every
-        query batch of the image."""
+        query batch of the image. The one-image call of
+        prefix_stage_multi."""
+        return self.prefix_stage_multi(
+            (patches,), ((grid_h, grid_w),), prefix_ids, prefix_mask,
+            prefix_position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,))
+
+    def score_multi(self, patches_list, grids, input_ids, attn_mask,
+                    position_ids, boxes_list, ori_wh_list, visual_starts,
+                    object_positions):
+        """Joint scoring of sequences holding several images (reference
+        qwen3vl_referring.py:186-258: one boxes / ori_shape entry per
+        image; object features concatenate in image order). grids: each
+        image's unmerged (gh, gw); visual_starts: each span's offset;
+        boxes_list entries (N_i, 4) or None (context only);
+        object_positions (B, N_total). Returns (B, N_total) logits."""
+        hidden = self.hidden_states_multi(
+            patches_list, grids, input_ids, attn_mask, position_ids,
+            boxes_list, ori_wh_list, visual_starts, object_positions)
+        return self._pick(hidden, _t(object_positions, self.device))
+
+    def prefix_stage_multi(self, patches_list, grids, prefix_ids,
+                           prefix_mask, prefix_position_ids, boxes_list,
+                           ori_wh_list, visual_starts):
+        """The multi-image prefix_stage: every image lies in the shared
+        prefix, which runs the decoder once. Returns (obj (N_total, D),
+        kvs)."""
+        xp, ds, obj = self._assemble(patches_list, grids, prefix_ids,
+                                     boxes_list, ori_wh_list, visual_starts)
+        kvs = self.model.language_model.prefix_pass(
+            xp, _t(prefix_position_ids, self.device),
+            _t(prefix_mask, self.device), deepstack_embeds=ds,
+            visual_start=tuple(visual_starts), attn_impl=self.attn_impl)
+        return obj, kvs
+
+    def prefix_stage_batch(self, patches, prefix_ids, prefix_mask,
+                           prefix_position_ids, boxes_xyxy, ori_wh,
+                           visual_start: int, *, grid_h: int, grid_w: int):
+        """prefix_stage of B images of one grid, batched: patches
+        (B, S, C*t*p*p) or (B, H, W, 3) uint8 pixels; prefix_ids /
+        prefix_mask (B, P); prefix_position_ids (3, B, P); boxes_xyxy
+        (B, N, 4); ori_wh (B, 2). The ViT and the prefix pass run once
+        over the batch; the RoI features loop over the images. Returns
+        (obj (B, N, D), kvs, each (B, P, kv_heads, head_dim))."""
         dev = self.device
-        img_tokens, obj, taps = self._vision_and_objects(
-            patches, boxes_xyxy, ori_wh, grid_h, grid_w)
+        img_tokens, taps, scales = self._vision_one(patches, grid_h, grid_w,
+                                                    batch=True)
+        boxes, ori = _t(boxes_xyxy, dev), _t(ori_wh, dev)
+        obj = torch.stack([
+            self._objects_from(tuple(t[i] for t in scales), boxes[i],
+                               ori[i]) for i in range(boxes.shape[0])])
         xp = self._put_span(self._embed(prefix_ids), img_tokens,
                             visual_start)
         kvs = self.model.language_model.prefix_pass(
@@ -323,7 +451,9 @@ class RefModules(nn.Module):
     def suffix_stage(self, obj, kvs, suffix_ids, suffix_mask,
                      suffix_position_ids, prefix_mask, object_positions):
         """Per-query-batch half: embed the suffixes, scatter the object
-        features, decode against the prefix KV, score."""
+        features, decode against the prefix KV, score. obj (N, D), kvs
+        and prefix_mask (1, P) shared by every row (one image), or
+        (B, ...) a row each (cross-image REC: row i is image i's)."""
         dev = self.device
         objp = _t(object_positions, dev)
         xs = self._scatter_objects(self._embed(suffix_ids), obj, objp)
@@ -438,6 +568,51 @@ def ref_prefix_step(model: RefModules, grid_h: int, grid_w: int, patches,
     return model.prefix_stage(patches, prefix_ids, prefix_mask,
                               prefix_position_ids, boxes_xyxy, ori_wh,
                               visual_start, grid_h=grid_h, grid_w=grid_w)
+
+
+@torch.inference_mode()
+def ref_score_step_multi(model: RefModules, grids, patches_list, input_ids,
+                         attn_mask, position_ids, boxes_list, ori_wh_list,
+                         visual_starts, object_positions) -> torch.Tensor:
+    """Joint multi-image REC scoring (RefModules.score_multi):
+    (B, N_total) logits."""
+    return model.score_multi(patches_list, grids, input_ids, attn_mask,
+                             position_ids, boxes_list, ori_wh_list,
+                             visual_starts, object_positions)
+
+
+@torch.inference_mode()
+def ref_prefix_step_multi(model: RefModules, grids, patches_list,
+                          prefix_ids, prefix_mask, prefix_position_ids,
+                          boxes_list, ori_wh_list, visual_starts):
+    """Multi-image image-level stage: (obj, kvs) for ref_suffix_step."""
+    return model.prefix_stage_multi(patches_list, grids, prefix_ids,
+                                    prefix_mask, prefix_position_ids,
+                                    boxes_list, ori_wh_list, visual_starts)
+
+
+@torch.inference_mode()
+def ref_rec_batch_step(model: RefModules, grid_h: int, grid_w: int, patches,
+                       prefix_ids, prefix_mask, prefix_position_ids,
+                       boxes_xyxy, ori_wh, visual_start: int, suffix_ids,
+                       suffix_mask, suffix_position_ids,
+                       object_positions) -> torch.Tensor:
+    """Cross-image REC batching: B images of one grid bucket, one query
+    row each, one fused step (the refcoco protocol, one query an image).
+    Arguments as the JAX step takes them: patches (B, S, Dp) or (B, H,
+    W, 3) uint8; prefix_ids / prefix_mask (B, P); prefix_position_ids
+    (B, 3, 1, P), each image's (3, 1, P) prefix ids; boxes (B, N, 4);
+    ori_wh (B, 2); suffix_* (B, S). The prefix stages run batched
+    (prefix_stage_batch), then one suffix pass in which row i attends
+    image i's KV. Returns (B, N) logits."""
+    dev = model.device
+    pos = _t(prefix_position_ids, dev)[:, :, 0].permute(1, 0, 2)
+    obj, kvs = model.prefix_stage_batch(
+        patches, prefix_ids, prefix_mask, pos, boxes_xyxy, ori_wh,
+        visual_start, grid_h=grid_h, grid_w=grid_w)
+    return model.suffix_stage(obj, kvs, suffix_ids, suffix_mask,
+                              suffix_position_ids, prefix_mask,
+                              object_positions)
 
 
 @torch.inference_mode()

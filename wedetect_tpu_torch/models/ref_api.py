@@ -24,9 +24,19 @@ runs the ViT and decoder matmuls in dynamic int8 (`ops/int8.py`). The
 flag is the scorer's: each entry point sets the model's int8 modules
 from `cfg.quant_int8` for its call and restores them after.
 
+`score_rec` scores one query an image across images (the refcoco
+protocol): with `grid_buckets` and `prefix_sharing`, the images of a
+bucket go in chunks of `query_batch` through one fused step each
+(`models/ref.ref_rec_batch_step`), else each through `score()`.
+`score_multi_images` scores queries against the proposals of several
+images in one conversation (`models/ref.score_multi`, or with
+`prefix_sharing` one multi-image prefix stage and the suffix stages).
+`rec_logits` and `multi_image_logits` return their pre-sigmoid scores,
+as `logits` does for `score`.
+
 `device` defaults to "cuda" and raises without a card. The model's
 matmul weights are cast to `dtype` once, at construction. Not ported
-yet: `score_multi_images`, `score_rec` and `generate_video_text`.
+yet: `generate_video_text`.
 """
 
 from __future__ import annotations
@@ -40,9 +50,14 @@ import torch
 
 from wedetect_tpu_torch import resolve_device
 from wedetect_tpu_torch.models.ref import (RefModules, cast_ref_model,
-                                           ref_prefix_step, ref_score_step,
+                                           ref_prefix_step,
+                                           ref_prefix_step_multi,
+                                           ref_rec_batch_step,
+                                           ref_score_step,
+                                           ref_score_step_multi,
                                            ref_suffix_step)
-from wedetect_tpu_torch.nn.qwen3vl import RefCfg, get_rope_index_single_image
+from wedetect_tpu_torch.nn.qwen3vl import (RefCfg, get_rope_index_multi,
+                                           get_rope_index_single_image)
 from wedetect_tpu_torch.ops.attention import is_flash_tileable
 from wedetect_tpu_torch.ops.int8 import quant_mode
 
@@ -57,6 +72,18 @@ def _scorer_int8(fn):
         with quant_mode(self.model, self.cfg.quant_int8):
             return fn(self, *args, **kwargs)
     return run
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def _drain_rec(out, fut, rows):
+    """Read one fused REC step's (B, N) logits back into out[idx] for
+    its real rows (the pad rows of a chunk are dropped)."""
+    logits = fut.float().cpu().numpy()
+    for i, s in enumerate(rows):
+        out[s["idx"]] = logits[i, :s["n"]]
 
 
 def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -154,6 +181,17 @@ class RefScorer:
         """Token ids for one chat with the image/object spans."""
         return np.concatenate([self.build_prefix(n_img),
                                self.build_suffix(query, n_obj)])
+
+    def build_prefix_multi(self, n_imgs: Sequence[int]) -> np.ndarray:
+        """Chat preamble + several vision spans, one an image."""
+        c = self.cfg
+        tok = self.tokenizer
+        assert tok is not None, "tokenizer required to build sequences"
+        parts = [tok.encode("<|im_start|>user\n", add_special_tokens=False)]
+        ve = tok.encode("<|vision_end|>", add_special_tokens=False)
+        for n in n_imgs:
+            parts += [[c.vision_start_token_id], [c.image_token_id] * n, ve]
+        return np.array([t for p in parts for t in p], np.int32)
 
     def _prep_patches(self, image: np.ndarray):
         """Resize (PIL-bicubic parity), then the resized uint8 pixels
@@ -258,8 +296,7 @@ class RefScorer:
               pad_token_id: int = 151643) -> np.ndarray:
         """image HWC uint8 RGB; proposals (N, 4) xyxy in image coords ->
         (num_queries, N) sigmoid scores."""
-        out = self.logits(image, proposals, queries, pad_token_id)
-        return 1.0 / (1.0 + np.exp(-out))
+        return _sigmoid(self.logits(image, proposals, queries, pad_token_id))
 
     @_scorer_int8
     def logits(self, image: np.ndarray, proposals: np.ndarray,
@@ -328,6 +365,179 @@ class RefScorer:
             lambda idsb, maskb, posb, objb: ref_suffix_step(
                 self.model, obj, kvs, idsb, maskb, posb, pmask, objb))
         return out[:, :n]
+
+    # --------------------------------------------------- cross-image REC
+    def score_rec(self, samples, pad_token_id: int = 151643):
+        """Cross-image REC scoring: samples are (image HWC uint8,
+        proposals (N_i, 4), query) with one query an image (the refcoco
+        protocol). Returns a list of (N_i,) sigmoid scores in input
+        order."""
+        return [_sigmoid(x) for x in self.rec_logits(samples, pad_token_id)]
+
+    @_scorer_int8
+    def rec_logits(self, samples, pad_token_id: int = 151643):
+        """The pre-sigmoid scores of `score_rec`. Images that snap to the
+        same grid bucket go in chunks of query_batch through one fused
+        step each (ref_rec_batch_step); a partial chunk is padded by
+        repeating its last sample, whose rows are dropped. Without
+        grid_buckets or prefix_sharing each image goes through logits(),
+        as the JAX package does."""
+        if not self.prefix_sharing or not self.grid_buckets:
+            return [self.logits(im, pr, [q], pad_token_id)[0]
+                    for im, pr, q in samples]
+        n_pad = self.max_proposals
+        dev = self.model.device
+        groups = {}
+        for idx, (image, proposals, query) in enumerate(samples):
+            h, w = image.shape[:2]
+            pr, n = self._prep_proposals(proposals, w, h)
+            patches, gh, gw = self._prep_patches(image)
+            groups.setdefault((gh, gw), []).append(dict(
+                idx=idx, patches=patches, pr=pr, n=n, wh=(w, h),
+                query=query))
+        out = [None] * len(samples)
+        futs = []
+        bsz = self.query_batch
+        for (gh, gw), grp in groups.items():
+            (prefix_ids, prefix_mask, ppos, visual_start,
+             next_pos) = self._prefix_layout(gh, gw, pad_token_id)
+            sufs = [self.build_suffix(s["query"], n_pad) for s in grp]
+            s_pad = pad_to_tileable_bucket(max(len(x) for x in sufs),
+                                           self.suffix_buckets)
+            spos = np.broadcast_to(
+                (next_pos + np.arange(s_pad, dtype=np.int32))[None, None],
+                (3, bsz, s_pad)).copy()
+            for st in range(0, len(grp), bsz):
+                chunk = grp[st:st + bsz]
+                pad = [chunk[-1]] * (bsz - len(chunk))
+                sids, smask, objp = self._pack_suffixes(
+                    sufs[st:st + bsz] + [sufs[st + len(chunk) - 1]]
+                    * len(pad), s_pad, n_pad, pad_token_id)
+                rows = chunk + pad
+                fut = ref_rec_batch_step(
+                    self.model, gh, gw,
+                    torch.as_tensor(np.stack([r["patches"] for r in rows]),
+                                    device=dev),
+                    np.tile(prefix_ids, (bsz, 1)),
+                    np.tile(prefix_mask, (bsz, 1)),
+                    np.tile(ppos, (bsz, 1, 1, 1)),
+                    np.stack([r["pr"] for r in rows]),
+                    np.array([r["wh"] for r in rows], np.float32),
+                    visual_start, sids, smask, spos, objp)
+                futs.append((fut, chunk))
+                if len(futs) > self.dispatch_window:
+                    _drain_rec(out, *futs.pop(0))
+        while futs:
+            _drain_rec(out, *futs.pop(0))
+        return out
+
+    # ------------------------------------------------------- multi-image
+    def score_multi_images(self, images, proposals_list,
+                           queries: Sequence[str],
+                           pad_token_id: int = 151643):
+        """Score proposals across several images in one conversation
+        (a layout the reference model takes, qwen3vl_referring.py:
+        186-258, that its single-image eval drivers never use). images:
+        HWC uint8 RGB; proposals_list: per image (N_i, 4) xyxy boxes or
+        None (context only); each query scored in its own row against
+        every proposal. Returns a list of (num_queries, N_i) sigmoid
+        scores, one a proposal-bearing image, in image order."""
+        return [_sigmoid(x) for x in self.multi_image_logits(
+            images, proposals_list, queries, pad_token_id)]
+
+    @_scorer_int8
+    def multi_image_logits(self, images, proposals_list,
+                           queries: Sequence[str],
+                           pad_token_id: int = 151643):
+        """The pre-sigmoid scores of `score_multi_images`."""
+        c = self.cfg
+        m = c.vision.merge
+        n_pad = self.max_proposals
+        dev = self.model.device
+        patches_list, grids, ori_list, boxes_list, n_real = [], [], [], [], []
+        for image, proposals in zip(images, proposals_list):
+            h, w = image.shape[:2]
+            patches, gh, gw = self._prep_patches(image)
+            patches_list.append(torch.tensor(patches, device=dev))
+            grids.append((gh, gw))
+            ori_list.append(torch.tensor([w, h], dtype=torch.float32,
+                                         device=dev))
+            if proposals is None:
+                boxes_list.append(None)
+            else:
+                pr, n = self._prep_proposals(proposals, w, h)
+                boxes_list.append(torch.as_tensor(pr, device=dev))
+                n_real.append(n)
+        n_total = n_pad * len(n_real)
+        n_imgs = [(gh // m) * (gw // m) for gh, gw in grids]
+        prefix = self.build_prefix_multi(n_imgs)
+        img_pos = np.nonzero(prefix == c.image_token_id)[0]
+        starts = [int(img_pos[off]) for off in np.cumsum([0] + n_imgs[:-1])]
+        images_args = (patches_list, grids, boxes_list, ori_list, starts)
+        if self.prefix_sharing:
+            out = self._score_multi_split(*images_args, prefix, n_total,
+                                          queries, pad_token_id)
+        else:
+            seqs = [np.concatenate([prefix, self.build_suffix(q, n_total)])
+                    for q in queries]
+            l = pad_to_tileable_bucket(max(len(s) for s in seqs),
+                                       self.seq_buckets)
+            ids = np.full((len(seqs), l), pad_token_id, np.int32)
+            mask = np.zeros((len(seqs), l), np.int32)
+            for i, s in enumerate(seqs):
+                ids[i, :len(s)] = s
+                mask[i, :len(s)] = 1
+            obj_pos = np.stack([
+                np.nonzero(s == c.object_token_id)[0][:n_total]
+                for s in seqs]).astype(np.int32)
+            pos = np.stack([
+                np.pad(get_rope_index_multi(s, c.image_token_id, grids, m),
+                       ((0, 0), (0, l - len(s))))
+                for s in seqs], axis=1).astype(np.int32)   # (3, Q, L)
+            out = self._dispatch_batches(
+                len(seqs), n_total, ids, mask, pos, obj_pos,
+                lambda idsb, maskb, posb, objb: ref_score_step_multi(
+                    self.model, grids, patches_list, idsb, maskb, posb,
+                    boxes_list, ori_list, starts, objb))
+        return [out[:, i * n_pad:i * n_pad + n]
+                for i, n in enumerate(n_real)]
+
+    def _score_multi_split(self, patches_list, grids, boxes_list, ori_list,
+                           starts, prefix, n_total, queries, pad_token_id):
+        """Prefix sharing across several images: every image lies in the
+        shared prefix, so one ref_prefix_step_multi covers every image's
+        vision, RoI and the joint prefix pass; the query batches ride
+        ref_suffix_step. The suffix starts at the prefix's largest
+        position + 1."""
+        c = self.cfg
+        p_real = len(prefix)
+        p_pad = -(-p_real // 128) * 128
+        prefix_ids = np.full((1, p_pad), pad_token_id, np.int32)
+        prefix_ids[0, :p_real] = prefix
+        pmask = np.zeros((1, p_pad), np.int32)
+        pmask[0, :p_real] = 1
+        prefix_pos = get_rope_index_multi(prefix, c.image_token_id, grids,
+                                          c.vision.merge)
+        ppos = np.zeros((3, 1, p_pad), np.int32)
+        ppos[:, 0, :p_real] = prefix_pos
+        next_pos = int(prefix_pos.max()) + 1
+        sufs = [self.build_suffix(q, n_total) for q in queries]
+        s_pad = pad_to_tileable_bucket(max(len(s) for s in sufs),
+                                       self.suffix_buckets)
+        suffix_ids, suffix_mask, obj_pos = self._pack_suffixes(
+            sufs, s_pad, n_total, pad_token_id)
+        nq = len(sufs)
+        pos_suffix = np.broadcast_to(
+            (next_pos + np.arange(s_pad, dtype=np.int32))[None, None],
+            (3, nq, s_pad)).copy()
+        pmask_t = torch.as_tensor(pmask, device=self.model.device)
+        obj, kvs = ref_prefix_step_multi(
+            self.model, grids, patches_list, prefix_ids, pmask_t, ppos,
+            boxes_list, ori_list, starts)
+        return self._dispatch_batches(
+            nq, n_total, suffix_ids, suffix_mask, pos_suffix, obj_pos,
+            lambda idsb, maskb, posb, objb: ref_suffix_step(
+                self.model, obj, kvs, idsb, maskb, posb, pmask_t, objb))
 
     # -------------------------------------------------------- generation
     def decode_tree(self):

@@ -19,9 +19,10 @@ Sampling draws from `ops/prng`, so a seed gives JAX's stream: the key
 chain of `jax.random.split` from `PRNGKey(seed)`.
 
 The loop stops once every row has emitted eos: the remaining columns
-are pad, as the JAX scan would emit them. Not ported yet:
-`ref_generate_multi` (several images a prompt) and video prompts
-(`grid_t > 1`).
+are pad, as the JAX scan would emit them. `ref_generate_multi` takes
+prompts holding several images (`_prefill_hidden_kvs_multi`: the
+model's multi-image assembly, each image's ViT at its own grid) onto
+the same decode. Not ported yet: video prompts (`grid_t > 1`).
 """
 
 from __future__ import annotations
@@ -111,18 +112,29 @@ def _prefill_hidden_kvs(model, grid_h: int, grid_w: int, patches, input_ids,
                         visual_start: int, object_positions):
     """The grounding prefill: the model's vision and RoI assembly, then
     prefix_pass(return_hidden=True) -> (the final normed hidden states
-    (B, P, D), the per-layer post-rope KV, each (B, P, KVH, HD))."""
+    (B, P, D), the per-layer post-rope KV, each (B, P, KVH, HD)). The
+    one-image call of _prefill_hidden_kvs_multi."""
+    return _prefill_hidden_kvs_multi(
+        model, (patches,), ((grid_h, grid_w),), input_ids, attn_mask,
+        position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,),
+        object_positions)
+
+
+def _prefill_hidden_kvs_multi(model, patches_list, grids, input_ids,
+                              attn_mask, position_ids, boxes_list,
+                              ori_wh_list, visual_starts, object_positions):
+    """_prefill_hidden_kvs of prompts holding several images: the
+    model's multi-image assembly (RefModules._assemble, each
+    image's ViT at its own grid), then prefix_pass(return_hidden=True)."""
     from wedetect_tpu_torch.models.ref import _t
 
     dev = model.device
-    img_tokens, obj, taps = model._vision_and_objects(
-        patches, boxes_xyxy, ori_wh, grid_h, grid_w)
-    x = model._put_span(model._embed(input_ids), img_tokens, visual_start)
-    x = model._scatter_objects(x, obj, _t(object_positions, dev))
+    x, ds, _ = model._assemble(patches_list, grids, input_ids, boxes_list,
+                               ori_wh_list, visual_starts, object_positions)
     kvs, hidden = model.model.language_model.prefix_pass(
-        x, _t(position_ids, dev), _t(attn_mask, dev),
-        deepstack_embeds=list(taps), visual_start=visual_start,
-        return_hidden=True, attn_impl=model.attn_impl)
+        x, _t(position_ids, dev), _t(attn_mask, dev), deepstack_embeds=ds,
+        visual_start=tuple(visual_starts), return_hidden=True,
+        attn_impl=model.attn_impl)
     return hidden, kvs
 
 
@@ -162,11 +174,30 @@ def ref_generate(cfg, grid_h: int, grid_w: int, model, patches, input_ids,
     (B, max_new_tokens) int32 tokens: eos is emitted, later positions
     hold pad_id. The compute dtype is the model's (models/ref.
     cast_ref_model)."""
-    from wedetect_tpu_torch.models.ref import _t
-
     if grid_t > 1:
         raise NotImplementedError(
             "video prompts (grid_t > 1): not ported yet")
+    return ref_generate_multi(
+        cfg, ((grid_h, grid_w),), model, (patches,), input_ids, attn_mask,
+        position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,), next_pos,
+        max_new_tokens, eos_id, temperature, pad_id, object_positions, rng,
+        decode_params)
+
+
+@torch.inference_mode()
+def ref_generate_multi(cfg, grids, model, patches_list, input_ids, attn_mask,
+                       position_ids, boxes_list, ori_wh_list, visual_starts,
+                       next_pos, max_new_tokens: int, eos_id: int,
+                       temperature: float = 0.0, pad_id: int = 0,
+                       object_positions=None, rng=None,
+                       decode_params=None) -> torch.Tensor:
+    """ref_generate for prompts holding several images: grids each
+    image's unmerged (gh, gw), visual_starts each span's offset, as in
+    models/ref.ref_score_step_multi; boxes_list entries may be None;
+    object_positions None for caption-only prompts; decode_params as in
+    ref_generate. Returns (B, max_new_tokens) int32 tokens."""
+    from wedetect_tpu_torch.models.ref import _t
+
     dev = model.device
     input_ids = _t(input_ids, dev)
     attn_mask = _t(attn_mask, dev)
@@ -176,9 +207,9 @@ def ref_generate(cfg, grid_h: int, grid_w: int, model, patches, input_ids,
                                       device=dev)
     if rng is None:
         rng = prng.PRNGKey(0, device=dev)
-    hidden, kvs = _prefill_hidden_kvs(
-        model, grid_h, grid_w, patches, input_ids, attn_mask, position_ids,
-        boxes_xyxy, ori_wh, visual_start, object_positions)
+    hidden, kvs = _prefill_hidden_kvs_multi(
+        model, patches_list, grids, input_ids, attn_mask, position_ids,
+        boxes_list, ori_wh_list, visual_starts, object_positions)
     dp = (decode_params if decode_params is not None
           else quant.decode_params(model))
     return _decode_from_prefill(cfg.text, dp, hidden, kvs, attn_mask,

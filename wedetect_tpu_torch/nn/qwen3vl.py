@@ -224,23 +224,30 @@ class VisionBlock(nn.Module):
         self.mlp = _VisionMlp(cfg)
 
     def forward(self, x, cos, sin, valid=None, attn_impl: str = "auto"):
+        """x (S, hidden), or (B, S, hidden): B images of one grid, one
+        attention launch over the batch; cos / sin (S, head_dim) and
+        valid (S,) are the grid's, shared by every image."""
         c = self.cfg
         dt = self.attn.qkv.weight.dtype
-        s = x.shape[0]
+        shape = x.shape
+        s = shape[-2]
+        x = x.reshape(-1, s, c.hidden)
+        b = x.shape[0]
         h, d = c.heads, c.head_dim
         y = layer_norm(self.norm1, x, dt)
-        q, k, v = (t.reshape(s, h, d)
+        q, k, v = (t.reshape(b, s, h, d)
                    for t in self.attn.qkv(y).chunk(3, dim=-1))
-        q, k = _apply_rope(q, k, cos[:, None, :], sin[:, None, :])
+        q, k = _apply_rope(q, k, cos[None, :, None, :],
+                           sin[None, :, None, :])
         o = dot_product_attention(
-            q[None], k[None], v[None], causal=False,
-            kv_valid=None if valid is None else valid[None],
-            sm_scale=1.0 / math.sqrt(d), impl=attn_impl)[0]
-        x = x + self.attn.proj(o.reshape(s, c.hidden))
+            q, k, v, causal=False,
+            kv_valid=None if valid is None else valid.expand(b, s),
+            sm_scale=1.0 / math.sqrt(d), impl=attn_impl)
+        x = x + self.attn.proj(o.reshape(b, s, c.hidden))
         y = layer_norm(self.norm2, x, dt)
         y = self.mlp.linear_fc1(y)
         y = F.gelu(y.float(), approximate="tanh").to(dt)
-        return x + self.mlp.linear_fc2(y)
+        return (x + self.mlp.linear_fc2(y)).reshape(shape)
 
 
 class PatchMerger(nn.Module):
@@ -281,7 +288,10 @@ class _PatchEmbed(nn.Module):
 
 class VisionModel(nn.Module):
     """patches (grid_t*gh*gw, in_ch*t*p*p) -> (merged
-    (grid_t*gh*gw/m^2, out_hidden), deepstack list of the same)."""
+    (grid_t*gh*gw/m^2, out_hidden), deepstack list of the same); or
+    patches (B, S, in_ch*t*p*p) of B images on one grid -> (B, V,
+    out_hidden) and taps of the same, each block one attention launch
+    over the batch (the JAX package vmaps the single-image tower)."""
 
     def __init__(self, cfg: RefVisionCfg):
         super().__init__()
@@ -331,13 +341,20 @@ class VisionModel(nn.Module):
             sin = F.pad(sin, (0, 0, 0, s_pad - s))
             valid = (torch.arange(s_pad, device=dev) < s).to(torch.int32)
 
+        lead = x.shape[:-2]             # () or (B,)
+
+        def merged(merger, t):
+            # a merge block is m^2 consecutive tokens of one image
+            return merger(t[..., :s, :]).reshape(
+                *lead, s // c.merge ** 2, c.out_hidden)
+
         taps = []
         for i, block in enumerate(self.blocks):
             x = block(x, cos, sin, valid, attn_impl=attn_impl)
             if i in c.deepstack_idx:
                 j = c.deepstack_idx.index(i)
-                taps.append(self.deepstack_merger_list[j](x[:s]))
-        return self.merger(x[:s]), taps
+                taps.append(merged(self.deepstack_merger_list[j], x))
+        return merged(self.merger, x), taps
 
 
 # ----------------------------------------------------------------- text
@@ -439,7 +456,9 @@ class TextModel(nn.Module):
 
     deepstack_embeds: list of (V, out_hidden) visual features added after
     layers 0..n-1 over the span [visual_start, visual_start + V) of every
-    row (one shared image), or of (B, V, out_hidden), one image a row."""
+    row (one shared image), or of (B, V, out_hidden), one image a row;
+    or, for sequences holding several images, a list of tuples of
+    (V_i, out_hidden) with visual_start a tuple of the spans' starts."""
 
     def __init__(self, cfg: RefTextCfg):
         super().__init__()
@@ -453,14 +472,20 @@ class TextModel(nn.Module):
     def dtype(self):
         return self.layers[0].self_attn.q_proj.weight.dtype
 
-    def _inject_deepstack(self, x, ds, visual_start: int):
-        """ds: (V, D) shared by every row, or (B, V, D) a row each."""
-        n = ds.shape[-2]
-        ds = ds.to(x.dtype)
-        span = x[:, visual_start:visual_start + n] + (
-            ds if ds.dim() == 3 else ds[None])
-        return torch.cat([x[:, :visual_start], span,
-                          x[:, visual_start + n:]], dim=1)
+    def _inject_deepstack(self, x, ds, visual_start):
+        """Add tap features over visual span(s). ds: (V, D) shared by
+        every row, or (B, V, D) a row each, at the int visual_start; or
+        a tuple of (V_i, D) with a tuple of starts for sequences that
+        hold several images (each image's tap at its own span)."""
+        if not isinstance(ds, (tuple, list)):
+            ds, visual_start = (ds,), (visual_start,)
+        for d_i, vs_i in zip(ds, visual_start):
+            n = d_i.shape[-2]
+            d_i = d_i.to(x.dtype)
+            span = x[:, vs_i:vs_i + n] + (d_i if d_i.dim() == 3
+                                          else d_i[None])
+            x = torch.cat([x[:, :vs_i], span, x[:, vs_i + n:]], dim=1)
+        return x
 
     def forward(self, inputs_embeds, position_ids, attention_mask,
                 deepstack_embeds: Optional[Sequence[torch.Tensor]] = None,
@@ -478,9 +503,11 @@ class TextModel(nn.Module):
     def prefix_pass(self, prefix_embeds, prefix_position_ids, prefix_mask,
                     deepstack_embeds=None, visual_start: int = 0,
                     return_hidden: bool = False, attn_impl: str = "auto"):
-        """The (1, P, D) shared prefix through every layer -> the
-        per-layer post-rope KV (tuple of (k, v), each
-        (1, P, kv_heads, head_dim)) [, the normed hidden states]."""
+        """The (1, P, D) shared prefix, or (B, P, D) rows each with its
+        own image (cross-image REC batching; deepstack taps (B, V, D)),
+        through every layer -> the per-layer post-rope KV (tuple of
+        (k, v), each (1 | B, P, kv_heads, head_dim)) [, the normed hidden
+        states]."""
         cos, sin = interleaved_mrope_cos_sin(prefix_position_ids, self.cfg)
         pvalid = prefix_mask.to(torch.int32)
         x = prefix_embeds.to(self.dtype)
@@ -498,8 +525,10 @@ class TextModel(nn.Module):
 
     def suffix_pass(self, kvs, suffix_embeds, suffix_position_ids,
                     prefix_mask, suffix_mask, attn_impl: str = "auto"):
-        """(B, S, D) suffix rows attending to the shared prefix KV from
-        prefix_pass -> normed hidden states."""
+        """(B, S, D) suffix rows attending to the prefix KV from
+        prefix_pass -> normed hidden states. kvs and prefix_mask (1, P)
+        are shared by every row, or (B, ...) a row each: row i attends
+        image i's prefix."""
         b = suffix_embeds.shape[0]
         cos, sin = interleaved_mrope_cos_sin(suffix_position_ids, self.cfg)
         pvalid = prefix_mask.to(torch.int32)
@@ -549,4 +578,36 @@ def get_rope_index_single_image(input_ids: np.ndarray, image_token_id: int,
     nxt = st + max(mh, mw)
     rest = l - (st + mh * mw)
     pos[:, st + mh * mw:] = nxt + np.arange(rest)
+    return pos
+
+
+def get_rope_index_multi(input_ids: np.ndarray, image_token_id: int,
+                         grids: Sequence[Tuple[int, int]],
+                         merge: int) -> np.ndarray:
+    """Host-side MRoPE position ids (3, L) for one sequence holding
+    several images: text advances all three axes; the i-th contiguous
+    run of image tokens gets (t=st, st+row, st+col) at the running
+    offset st; text after image i resumes at st + max(mh_i, mw_i).
+    grids lists each image's unmerged (grid_h, grid_w) in order."""
+    l = len(input_ids)
+    pos = np.zeros((3, l), np.int64)
+    is_img = input_ids == image_token_id
+    edges = np.flatnonzero(np.diff(np.concatenate(
+        [[0], is_img.view(np.int8), [0]])))
+    runs = list(zip(edges[::2], edges[1::2]))
+    assert len(runs) == len(grids), (len(runs), len(grids))
+    cur = 0     # next text position
+    prev_end = 0
+    for (st, en), (gh, gw) in zip(runs, grids):
+        mh, mw = gh // merge, gw // merge
+        assert en - st == mh * mw, (en - st, mh, mw)
+        n_text = st - prev_end
+        pos[:, prev_end:st] = cur + np.arange(n_text)
+        cur += n_text
+        pos[0, st:en] = cur
+        pos[1, st:en] = cur + np.repeat(np.arange(mh), mw)
+        pos[2, st:en] = cur + np.tile(np.arange(mw), mh)
+        cur += max(mh, mw)
+        prev_end = en
+    pos[:, prev_end:] = cur + np.arange(l - prev_end)
     return pos
