@@ -298,8 +298,51 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             --bf16). ms a fused step, items/s through score_rec and
             through per-image score(), multi-image ms, the CLI's items/s
             and host split, peak GB.
+28. video_gen  WeDetect-Ref video chat at ref_2b's full width, random
+            weights: 16 seeded 480x640 frames saved as an .npy stack,
+            through RefScorer.generate_video_text (fetch_video,
+            video_to_patches: grid 30 x 40, grid_t = 8, 9600 ViT tokens
+            as one segment, 2400 video tokens, P = 2483 in 2560), 32
+            greedy tokens, f32 then bf16: K2 = 28 and K3 = 24 a call and
+            a prefill on the type's route (SIMT 0), the call's tokens
+            equal to a direct ref_generate(grid_t) call; the prefill's
+            last-position logits within REF_LOGIT_TOL (bf16: and the mean
+            limit) of the same prefill through K2's and K3's plain
+            versions, while the plain versions with one key tile masked,
+            the clip with temporal groups 0 and 1 swapped and
+            image-layout rope ids each miss it. Host prompt ms, prefill
+            ms, decode ms a token, peak GB. Then K2 at the prompt's
+            prefix (1, 2560, 16, 128 | 2560, 8) and K3 at its ViT (1,
+            9600, 16, 64), both types: the route's one launch held to the
+            plain version (K_TOL), device time beside the plain version,
+            SDPA and the bound; K3's f32 walk read back and held to
+            fwd_walk_map, the other tile timed.
+29. video_sft  stage-2 video SFT at ref_2b, f32: a list of 4 seeded
+            448x448 PNG frames through ChatSftDataset and
+            build_step_inputs (grid_t = 2, 28 x 28, 1568 ViT tokens in
+            1664, 392 video tokens, L = 1024); one LM loss and gradient
+            through the kernels and through the plain forward and
+            backward versions within TRAIN_GRAD_TOL (per parameter
+            group, grad_norm, the loss), a control with one key tile
+            dropped in every backward call that must miss; then 2
+            ref_lm_steps through cli/train_ref.train_ref_loop: finite
+            losses, the vision tower bitwise unchanged (stage 2), the
+            decoder changed, 28 each of K2's FFMA forward, dq and dk/dv
+            and 24 each of K3's a step (the ViT takes gradients); ms a
+            step, peak GB.
+30. video_cli  python -m wedetect_tpu_torch.cli.infer_wedetect_ref
+            --random-init --video <the .npy> --generate "Describe the
+            clip." on the card: exit 0 and text printed.
+31. vis     the three CLIs' drawing on the card's detections of a
+            seeded 480x640 image: infer_wedetect --output (WeDetect-Base,
+            random init), generate_proposal --visualize (Uni-Base) and
+            infer_wedetect_ref --visualize (Uni-Base proposals scored by
+            the miniature random Ref, the checkpoint loader stubbed):
+            each PNG written, at the input's size, different from it.
 
-Then the kernels line, the nvidia-smi line, and as the last line
+Then the kernels line (each K2 and K3 entry with its launches a video
+prefill and its times at the video shape, each backward entry with its
+launches a video SFT step), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
 """
@@ -4585,6 +4628,488 @@ def grounding_generate(cfg, scorer, imgs, timing: bool) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ video
+VIDEO_FRAMES = 16          # seeded uint8 frames at 480x640, an .npy stack:
+VIDEO_HW = (480, 640)      # video_frame_pixel_budget(16) keeps the size,
+#                            grid 30 x 40 and grid_t = 8: 9600 ViT tokens
+#                            (75 x 128, no pad), 2400 video tokens
+VIDEO_PROMPT = "Describe the clip."
+VIDEO_GEN_TOKENS = 32
+VIDEO_SFT_FRAMES = 4       # PNG frames at 448x448: grid_t = 2, 28 x 28,
+VIDEO_SFT_SIDE = 448       # 1568 ViT tokens (1664 padded), 392 video tokens
+VIDEO_SFT_STEPS = 2
+
+
+def video_root() -> str:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke", "video")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def write_video_npy(n: int = VIDEO_FRAMES, hw=VIDEO_HW, seed: int = 5) -> str:
+    """n seeded uint8 RGB frames of size hw saved as an .npy stack."""
+    frames = np.random.default_rng(seed).integers(0, 256, (n, *hw, 3),
+                                                  dtype=np.uint8)
+    path = os.path.join(video_root(), "clip.npy")
+    np.save(path, frames)
+    return path
+
+
+def video_prompt(scorer, npy: str) -> dict:
+    """RefScorer's video-prompt layout (build_video_prompt) as arrays, and
+    its host time (fetch_video, video_to_patches and the layout)."""
+    t0 = time.perf_counter()
+    patches, gt, gh, gw, ids, mask, pos, vs, w, h = \
+        scorer.build_video_prompt(npy, VIDEO_PROMPT, GEN_PAD)
+    host = (time.perf_counter() - t0) * 1e3
+    return dict(patches=patches, gt=gt, gh=gh, gw=gw, ids=ids, mask=mask,
+                pos=pos, vs=vs, nxt=int(pos.max()) + 1, host_ms=host,
+                boxes=np.array([[0, 0, w, h]], np.float32),
+                ori=np.array([w, h], np.float32))
+
+
+def video_prefill(model, b, patches=None, pos=None):
+    """The video prompt's prefill (ref_generate's): (hidden, kvs)."""
+    from wedetect_tpu_torch.models import ref_generate as TG
+
+    with torch.inference_mode():
+        return TG._prefill_hidden_kvs(
+            model, b["gh"], b["gw"],
+            b["patches"] if patches is None else patches, b["ids"][None],
+            b["mask"][None], (b["pos"] if pos is None else pos)[:, None],
+            b["boxes"], b["ori"], b["vs"], np.full((1, 1), -1, np.int32),
+            grid_t=b["gt"])
+
+
+def video_logits(model, b, **kw) -> np.ndarray:
+    """The prefill's LM logits (f32) at the prompt's last position."""
+    hidden, kvs = video_prefill(model, b, **kw)
+    del kvs
+    with torch.inference_mode():
+        out = model.lm_logits(hidden[0, int(b["mask"].sum()) - 1])
+    return out.float().cpu().numpy()
+
+
+def swap_groups(b) -> np.ndarray:
+    """The clip's patches with temporal groups 0 and 1 swapped."""
+    n = b["gh"] * b["gw"]
+    p = b["patches"].copy()
+    p[:n], p[n:2 * n] = b["patches"][n:2 * n], b["patches"][:n]
+    return p
+
+
+def image_rope(cfg, b) -> np.ndarray:
+    """Image-layout rope ids in place of the video ones: the span read as
+    one image of grid_t * gh rows."""
+    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_single_image
+
+    ids = np.where(b["ids"] == cfg.video_token_id, -1, b["ids"])
+    return get_rope_index_single_image(ids, -1, b["gt"] * b["gh"], b["gw"],
+                                       cfg.vision.merge).astype(np.int32)
+
+
+def video_kernels(dev, p_real: int, p_pad: int, l: int) -> dict:
+    """K2 at the video prompt's prefix (1, P, 16, 128 | P, 8; causal, the
+    pad keys invalid) and K3 at its ViT (1, 9600, 16, 64; one segment),
+    f32 and bf16: the route's launch, held to the plain version (K_TOL,
+    lse 1e-3); device time (graph_ms) beside the plain version and SDPA,
+    the bound; K3's f32 walk read back and held to fwd_walk_map."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = str(dtype)[6:]
+        q, k, v, valid = k2_case(dev, 1, p_pad, p_pad, 16, 8, 128, True,
+                                 ((p_real, p_pad),), dtype=dtype, seed=0)
+        pairs = k2_visible_pairs(p_pad, p_pad, True, valid)
+        r = attn_bound(16, 128, pairs, q.numel() + 2 * k.numel(), q.numel(),
+                       p_pad * 16, dtype)
+        launch_counts(reset=True)
+        o, lse = fg.gqa_flash_attention(q, k, v, causal=True, kv_valid=valid,
+                                        return_lse=True)
+        torch.cuda.synchronize()
+        r["launches"] = nonzero(launch_counts())
+        po, plse = fg.gqa_flash_attention_plain(
+            q, k, v, causal=True, kv_valid=valid, return_lse=True)
+        r["route"] = fg.fwd_route(dtype, 128, 2)
+        r["max_abs_err"] = float((o.float() - po.float()).abs().max())
+        r["lse_err"] = float((lse - plse).abs().max())
+        r["match"] = (kernel_close(o, po, dtype) and r["lse_err"] <= 1e-3
+                      and r["launches"] == nonzero(route_counts(t, k2=1)))
+        call = lambda: fg.gqa_flash_attention(  # noqa: E731
+            q, k, v, causal=True, kv_valid=valid)
+        mask = k2_mask(valid, p_pad, p_pad)
+        r["ms"] = graph_ms(call)
+        r["plain_ms"] = cuda_ms(lambda: fg.gqa_flash_attention_plain(
+            q, k, v, causal=True, kv_valid=valid), iters=3, warmup=1)
+        r["library_ms"] = graph_ms(lambda: sdpa_gqa(q, k, v, mask))
+        res[f"k2_{t}"] = r
+        del q, k, v, valid, o, lse, po, plse, mask
+        q, k, v, seg = k3_case(dev, 1, l, 16, 64, l, False, dtype=dtype,
+                               seed=1)
+        kw = dict(q_segment_ids=seg, kv_segment_ids=seg, sm_scale=0.125)
+        r = attn_bound(16, 64, l * l, 3 * q.numel(), q.numel(), l * 16,
+                       dtype)
+        launch_counts(reset=True)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        r["launches"] = nonzero(launch_counts())
+        po, plse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        r["route"] = fa.fwd_route(dtype, 64)
+        r["max_abs_err"] = float((o.float() - po.float()).abs().max())
+        r["lse_err"] = float((lse - plse).abs().max())
+        r["match"] = (kernel_close(o, po, dtype) and r["lse_err"] <= 1e-3
+                      and r["launches"] == nonzero(route_counts(t, k3=1)))
+        del o, lse, po, plse
+        call = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        r["ms"] = graph_ms(call)
+        r["plain_ms"] = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, **kw), iters=3, warmup=1)
+        r["library_ms"] = graph_ms(lambda: sdpa_gqa(q, k, v, None))
+        if dtype == torch.float32:
+            r.update(k3_walk(q, k, v, seg))
+        res[f"k3_{t}"] = r
+        del q, k, v, seg
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_video_gen(dev, cfg=None, frames: int = VIDEO_FRAMES,
+                    hw=VIDEO_HW, new_tokens: int = VIDEO_GEN_TOKENS,
+                    timing: bool = True):
+    """Video chat at ref_2b's full width (or `cfg`), random weights, on
+    VIDEO_FRAMES seeded frames through RefScorer.generate_video_text, f32
+    then bf16, greedy: K2 = layers and K3 = depth launches a call and a
+    prefill on the type's route; the prefill's last-position logits
+    within REF_LOGIT_TOL (bf16: and the mean limit) of the same prefill
+    through K2's and K3's plain versions, while the plain versions with
+    one key tile masked, the clip with two temporal groups swapped and
+    image-layout rope ids each miss it; the call's tokens equal a direct
+    ref_generate(grid_t) call. Host prompt ms, prefill ms, decode ms a
+    token, peak GB; the kernels at the video shapes (video_kernels)."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.models.ref_generate import ref_generate
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = cfg or ref_2b()
+    npy = write_video_npy(frames, hw)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    res = {"frames": frames, "hw": list(hw), "npy": npy,
+           "new_tokens": new_tokens}
+    ok = True
+    for name in ("float32", "bfloat16"):
+        scorer = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(),
+                           dtype=name, device=dev)
+        b = video_prompt(scorer, npy)
+        want = route_counts(name, k2=cfg.text.layers, k3=cfg.vision.depth)
+
+        def call():
+            return scorer.generate_video_text(
+                npy, VIDEO_PROMPT, max_new_tokens=new_tokens,
+                eos_token_id=GEN_EOS, pad_token_id=GEN_PAD)
+
+        launch_counts(reset=True)
+        text = call()
+        counts = launch_counts()
+        direct = trim(ref_generate(
+            cfg, b["gh"], b["gw"], model, b["patches"], b["ids"][None],
+            b["mask"][None], b["pos"][:, None], b["vs"],
+            np.array([b["nxt"]], np.int32), b["boxes"], b["ori"],
+            new_tokens, GEN_EOS, pad_id=GEN_PAD,
+            grid_t=b["gt"])[0].cpu().numpy())
+        launch_counts(reset=True)
+        logits = video_logits(model, b)
+        prefill_counts = launch_counts()
+        plain, dropped = plain_kernel_control(lambda: video_logits(model, b))
+        err = logit_errors([logits], [plain])
+        controls = {
+            "dropped_tile": logit_errors([dropped], [plain]),
+            "swap_groups": logit_errors(
+                [video_logits(model, b, patches=swap_groups(b))], [plain]),
+            "image_rope": logit_errors(
+                [video_logits(model, b, pos=image_rope(cfg, b))], [plain])}
+        r = res[name] = {
+            "grid_t": b["gt"], "grid": [b["gh"], b["gw"]],
+            "vit_tokens": b["gt"] * b["gh"] * b["gw"],
+            "video_tokens": int((b["ids"] == cfg.video_token_id).sum()),
+            "prompt_len": int(b["mask"].sum()), "bucket": len(b["ids"]),
+            "next_pos": b["nxt"], "host_prompt_ms": b["host_ms"],
+            "launches": counts, "prefill_launches": prefill_counts,
+            "tokens": len(text), "text_equals_direct_call":
+                list(text) == direct,
+            "logit_err": err, "control_err": controls,
+            "tolerance": {"max": REF_LOGIT_TOL[name],
+                          "mean": REF_LOGIT_MEAN_TOL[name]}}
+        ok = ok and (counts == want and prefill_counts == want
+                     and r["text_equals_direct_call"] and len(text) > 0
+                     and within_limit(err, name)
+                     and not any(within_limit(c, name)
+                                 for c in controls.values()))
+        if timing:
+            r["prefill_ms"] = host_ms(lambda: video_prefill(model, b), 2)
+            r["call_ms"] = host_ms(call, 1)
+            r["decode_ms_per_token"] = (r["call_ms"] - r["host_prompt_ms"]
+                                        - r["prefill_ms"]) / new_tokens
+        emit({"phase": "video_gen", "dtype": name, **r})
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, scorer
+    torch.cuda.empty_cache()
+    if timing:
+        b = res["float32"]
+        res["kernels"] = video_kernels(dev, b["prompt_len"], b["bucket"],
+                                       b["vit_tokens"])
+        ok = ok and all(r["match"] for r in res["kernels"].values())
+    emit({"phase": "video_gen_model", "peak_mem_gb": res["peak_mem_gb"],
+          "kernels": res.get("kernels")})
+    if not ok:
+        raise AssertionError("video_gen: video generation broke its checks")
+    return res
+
+
+def write_video_sft(root: str, n: int = VIDEO_SFT_FRAMES,
+                    side: int = VIDEO_SFT_SIDE, seed: int = 6) -> str:
+    """A chat json of one video sample: n seeded PNG frames (cv2) as a
+    frame list, a <video> turn and an answer."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        p = os.path.join(root, f"sft_frame{i}.png")
+        cv2.imwrite(p, rng.integers(0, 256, (side, side, 3), dtype=np.uint8))
+        paths.append(p)
+    path = os.path.join(root, "video_chat.json")
+    with open(path, "w") as f:
+        json.dump([{"video": paths, "conversations": [
+            {"from": "human", "value": "<video>\n" + VIDEO_PROMPT},
+            {"from": "gpt", "value": "Coloured noise flickers across four "
+                                     "frames."}]}], f)
+    return path
+
+
+def lm_loss_grads(model, b):
+    """ref_lm_step's loss and gradients on a step's inputs, without the
+    update."""
+    from wedetect_tpu_torch.train.ref_lm import lm_cross_entropy
+
+    gh, gw = b["grid"]
+    model.zero_grad(set_to_none=True)
+    hidden = model.hidden_states(
+        b["patches"], b["input_ids"], b["attn_mask"], b["position_ids"],
+        b["boxes"], b["ori_wh"], b["visual_start"], b["object_positions"],
+        grid_h=gh, grid_w=gw, grid_t=b["grid_t"])
+    loss = lm_cross_entropy(model.lm_logits(hidden), torch.as_tensor(
+        b["labels"], device=model.device).long())
+    loss.backward()
+    # out_proj does not enter the LM loss: its gradient is zero
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def phase_video_sft(dev, cfg=None, steps: int = VIDEO_SFT_STEPS):
+    """Stage-2 video SFT at ref_2b's full width (or `cfg`), random
+    weights, f32: a frame-list video sample through ChatSftDataset and
+    build_step_inputs; one LM loss and gradient through the kernels and
+    through the plain forward and backward versions (the loss, each
+    parameter group's relative L2 gradient error and grad_norm's within
+    TRAIN_GRAD_TOL; a control with one key tile dropped in every backward
+    call must miss); then `steps` ref_lm_steps through
+    cli/train_ref.train_ref_loop (stage_optimizer, stage 2): finite
+    losses, the vision tower bitwise unchanged, the decoder changed, K2,
+    K3 and their backward kernels launched on the f32 routes a step (the
+    ViT takes gradients); ms a step, peak GB."""
+    from wedetect_tpu_torch.cli.train_ref import (build_step_inputs,
+                                                  train_ref_loop)
+    from wedetect_tpu_torch.data.sft_chat import ChatSftDataset
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+    from wedetect_tpu_torch.train.ref_lm import stage_optimizer
+    from wedetect_tpu_torch.train.train_step import TrainState
+
+    cfg = cfg or ref_2b()
+    ds = ChatSftDataset(
+        write_video_sft(video_root()), CharTok(),
+        image_token_id=cfg.image_token_id,
+        vision_start_token_id=cfg.vision_start_token_id,
+        object_token_id=cfg.object_token_id,
+        video_token_id=cfg.video_token_id, patch=cfg.vision.patch,
+        merge=cfg.vision.merge)
+    sample = ds.sample(0)
+    buckets = (1024, 2048, 4096)
+    b = build_step_inputs(cfg, sample, 2, buckets, 100, GEN_PAD)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    launch_counts(reset=True)
+    loss_k, gk = lm_loss_grads(model, b)
+    counts = launch_counts()
+    with plain_attention():
+        loss_p, gp = lm_loss_grads(model, b)
+    errs = group_errors(gk, gp)
+    del gk
+    with plain_attention(bwd_drop=BWD_CONTROL_DROP):
+        loss_c, gc = lm_loss_grads(model, b)
+    ctrl = group_errors(gc, gp)
+    del gc, gp
+    torch.cuda.empty_cache()
+    per_step = expected_counts(
+        k2=cfg.text.layers, k2_f32=cfg.text.layers, k3=cfg.vision.depth,
+        k3_f32=cfg.vision.depth, k2_bwd=cfg.text.layers,
+        k3_bwd=cfg.vision.depth, k2_bwd_dkdv_f32=cfg.text.layers,
+        k2_bwd_dq_f32=cfg.text.layers, k3_bwd_dkv_f32=cfg.vision.depth,
+        k3_bwd_dq_f32=cfg.vision.depth)
+    gh, gw = b["grid"]
+    res = {"grid_t": b["grid_t"], "grid": [gh, gw],
+           "vit_tokens": b["grid_t"] * gh * gw,
+           "video_tokens": int((sample["input_ids"]
+                                == cfg.video_token_id).sum()),
+           "seq_len": int(b["input_ids"].shape[1]),
+           "real_tokens": int(b["attn_mask"].sum()),
+           "loss_launches": counts, "loss": loss_k,
+           "loss_abs_diff": abs(loss_k - loss_p),
+           "control_loss_abs_diff": abs(loss_c - loss_p),
+           "rel_l2_err": errs, "control_rel_l2_err": ctrl,
+           "tolerance": TRAIN_GRAD_TOL}
+    ok = (max(errs.values()) <= TRAIN_GRAD_TOL < max(ctrl.values())
+          and res["loss_abs_diff"] <= TRAIN_GRAD_TOL * abs(loss_p)
+          and counts == per_step)
+    watch = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n.startswith("model.visual.blocks.0.") or n ==
+             "model.language_model.layers.0.mlp.down_proj.weight"}
+    state = TrainState.create(model, stage_optimizer(model, 2))
+    logs = []
+    launch_counts(reset=True)
+    state = train_ref_loop(cfg, state, ds, 2, steps, seq_buckets=buckets,
+                           max_proposals=100, pad_token_id=GEN_PAD,
+                           log_every=1, seed=0,
+                           log_fn=lambda s, m: logs.append(m))
+    step_counts = launch_counts()
+    torch.cuda.synchronize()
+    params = dict(model.named_parameters())
+    losses = [m["loss"] for m in logs]
+    step_ms = [1e3 / m["steps_per_s"] for m in logs]
+    res.update({
+        "steps": steps, "losses": losses, "step_ms": step_ms,
+        "ms_per_step": float(np.mean(step_ms[1:] or step_ms)),
+        "launches_per_step": {n: c / steps for n, c in step_counts.items()},
+        "vision_unchanged": all(torch.equal(params[n].detach(), w)
+                                for n, w in watch.items()
+                                if n.startswith("model.visual.")),
+        "decoder_changed": not torch.equal(
+            params["model.language_model.layers.0.mlp.down_proj.weight"]
+            .detach(),
+            watch["model.language_model.layers.0.mlp.down_proj.weight"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    ok = ok and (len(losses) == steps and all(np.isfinite(losses))
+                 and res["vision_unchanged"] and res["decoder_changed"]
+                 and step_counts == {n: c * steps
+                                     for n, c in per_step.items()})
+    emit({"phase": "video_sft", **res})
+    del state, model, watch, params
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("video_sft: the video SFT step broke its checks")
+    return res
+
+
+def phase_video_cli(dev, npy: str):
+    """python -m wedetect_tpu_torch.cli.infer_wedetect_ref --random-init
+    --video <npy> --generate VIDEO_PROMPT on `dev` (the miniature random
+    Ref, the same clip): exit 0 and text printed."""
+    cmd = [sys.executable, "-m", "wedetect_tpu_torch.cli.infer_wedetect_ref",
+           "--random-init", "--video", npy, "--generate", VIDEO_PROMPT,
+           "--max_new_tokens", "16", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.strip().splitlines()
+    res = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+           "text": lines[-1] if lines else ""}
+    emit({"phase": "video_cli", **res})
+    if proc.returncode != 0 or not res["text"].strip():
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError("video_cli: the CLI printed no text")
+    return res
+
+
+@contextlib.contextmanager
+def random_ref_loader():
+    """cli/_ref_load.load_ref returning the miniature random Ref: the Ref
+    CLI's scoring refuses --random-init, and no checkpoint is here."""
+    from wedetect_tpu_torch.cli import _ref_load
+
+    saved = _ref_load.load_ref
+    _ref_load.load_ref = lambda ckpt, device: \
+        _ref_load.tiny_random_ref(device)
+    try:
+        yield
+    finally:
+        _ref_load.load_ref = saved
+
+
+def phase_vis(dev):
+    """The three CLIs' drawing on the card's detections of a seeded
+    480x640 image: infer_wedetect --output (WeDetect-Base, random
+    init), generate_proposal --visualize (Uni-Base) and
+    infer_wedetect_ref --visualize (Uni-Base proposals scored by the
+    miniature random Ref through random_ref_loader). Each PNG written,
+    at the input's size, different from the input."""
+    import cv2
+
+    from wedetect_tpu_torch.cli import (generate_proposal, infer_wedetect,
+                                        infer_wedetect_ref)
+
+    root = os.path.join(video_root(), "vis")
+    os.makedirs(root, exist_ok=True)
+    img = np.random.default_rng(7).integers(0, 256, (480, 640, 3),
+                                            dtype=np.uint8)
+    path = os.path.join(root, "image.png")
+    cv2.imwrite(path, img)
+    outs = {n: os.path.join(root, f"{n}.png")
+            for n in ("infer_wedetect", "generate_proposal",
+                      "infer_wedetect_ref")}
+    for out in outs.values():
+        if os.path.exists(out):
+            os.remove(out)
+    boxes = {}
+    on = ["--device", dev.type]
+    r = infer_wedetect.main(["--image", path, "--text", "person,dog,car",
+                             "--random-init", "--threshold", "0.0",
+                             "--output", outs["infer_wedetect"], *on])
+    boxes["infer_wedetect"] = len(r["bboxes"])
+    r = generate_proposal.main(["--image", path, "--random-init",
+                                "--score_thre", "0.0", "--visualize",
+                                "--output", outs["generate_proposal"], *on])
+    boxes["generate_proposal"] = len(r["bboxes"])
+    with random_ref_loader():
+        r = infer_wedetect_ref.main([
+            "--image", path, "--query", "a dog", "--ref_checkpoint",
+            "random", "--visualize", "--output", outs["infer_wedetect_ref"],
+            *on])
+    boxes["infer_wedetect_ref"] = len(r["boxes"])
+    res, ok = {}, True
+    for name, out in outs.items():
+        drawn = cv2.imread(out) if os.path.exists(out) else None
+        res[name] = {"boxes": boxes[name], "written": drawn is not None,
+                     "size_ok": drawn is not None
+                     and drawn.shape == img.shape,
+                     "pixels_changed": 0 if drawn is None
+                     or drawn.shape != img.shape
+                     else int((drawn != img).any(-1).sum())}
+        ok = ok and res[name]["size_ok"] and res[name]["pixels_changed"] > 0
+    emit({"phase": "vis", **res})
+    if not ok:
+        raise AssertionError("vis: a CLI's drawing is missing or unchanged")
+    return res
+
+
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
@@ -4682,6 +5207,10 @@ def main() -> int:
     serve = phase_serve(dev, image)
     gate = phase_quant_gate(dev, image)
     ground = phase_grounding(dev)
+    video = phase_video_gen(dev)
+    video_sft = phase_video_sft(dev)
+    phase_video_cli(dev, video["npy"])
+    phase_vis(dev)
     # K2's and K3's launches a fused REC step and a multi-image call
     # (prefix sharing), by type: f32 on the FFMA kernels, bf16 on wgmma,
     # the SIMT kernels none (their nonzero counts)
@@ -4705,7 +5234,22 @@ def main() -> int:
                           k3_bwd_launches(train_counts))
     k2_bf16 = k2_bwd_launches(k2_bwd["autograd_bf16"]["launches"])
     k3_bf16 = k3_bwd_launches(k3_bwd["autograd_bf16"]["launches"])
-    emit({"kernels": [
+    # K2's and K3's launches a video prefill by type (the SIMT kernels'
+    # none), and the backward kernels' a video SFT step (f32)
+    vprefill = {t: video[t]["prefill_launches"]
+                for t in ("float32", "bfloat16")}
+    vk = video["kernels"]
+    vsft = {n: int(c) for n, c in video_sft["launches_per_step"].items()}
+    vsft_bwd = {**k2_bwd_launches(vsft), **k3_bwd_launches(vsft)}
+
+    def video_times(key):
+        """A kernel's times at the video shape (video_kernels): K2 at the
+        video prompt's prefix, K3 at its ViT (L = 9600)."""
+        r = vk[key]
+        return {f"video_{k}": r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms",
+                                             "max_abs_err")}
+    kernels = [
         {"name": "row_topk", "route": "cuda",
          "source": "wedetect_tpu_torch/csrc/row_topk.cu",
          "replaces": "wedetect_tpu/ops/pallas_topk.py:46",
@@ -4749,6 +5293,9 @@ def main() -> int:
          "launches_int8_score": int8["float32"]["k2_f32"],
          "launches_rec_step": rec_step["float32"].get("k2_f32", 0),
          "launches_multi": multi["float32"].get("k2_f32", 0),
+         "launches_video_prefill": vprefill["float32"]["k2_f32"],
+         "launches_video_sft_step": vsft["k2_f32"],
+         **video_times("k2_float32"),
          **{f"{shape}_{key}": k2[f"{shape}_float32"][key]
             for shape in ("prefix", "train")
             for key in ("ms", "bound_ms", "library_ms")},
@@ -4765,6 +5312,7 @@ def main() -> int:
                             for t, a in admit.items()},
          "launches_rec_step": simt(rec_step, "k2"),
          "launches_multi": simt(multi, "k2"),
+         "launches_video_prefill": simt(vprefill, "k2"),
          **{f"{shape}_ms": k2[f"{shape}_simt_float32"]["ms"]
             for shape in ("prefix", "train")}},
         {**kernel_entry("gqa_flash_fwd_sm90",
@@ -4775,7 +5323,9 @@ def main() -> int:
          "launches_admit": admit["bfloat16"]["k2_sm90"],
          "launches_int8_score": int8["bfloat16"]["k2_sm90"],
          "launches_rec_step": rec_step["bfloat16"].get("k2_sm90", 0),
-         "launches_multi": multi["bfloat16"].get("k2_sm90", 0)},
+         "launches_multi": multi["bfloat16"].get("k2_sm90", 0),
+         "launches_video_prefill": vprefill["bfloat16"]["k2_sm90"],
+         **video_times("k2_bfloat16")},
         {**kernel_entry("flash_attention_fwd_f32", K3_F32_FWD_SOURCE, K3_FWD,
                         launches["k3_f32"], k3, k3["vit_float32"],
                         route="f32"),
@@ -4785,6 +5335,12 @@ def main() -> int:
          "launches_calib_prompt": calib_k3,
          "launches_rec_step": rec_step["float32"].get("k3_f32", 0),
          "launches_multi": multi["float32"].get("k3_f32", 0),
+         "launches_video_prefill": vprefill["float32"]["k3_f32"],
+         "launches_video_sft_step": vsft["k3_f32"],
+         **video_times("k3_float32"),
+         "video_tiles_walked": vk["k3_float32"]["tiles_walked"],
+         "video_tiles_scanned": vk["k3_float32"]["rule_tiles_scanned"],
+         "video_tile_rows": vk["k3_float32"]["tile_rows"],
          **{f"train_{key}": k3["train_float32"][key]
             for key in ("ms", "bound_ms", "library_ms")},
          "turns_ms": {shape: k3[f"{shape}_float32"]["turns_ms"]
@@ -4801,6 +5357,7 @@ def main() -> int:
                             for t, a in admit.items()},
          "launches_rec_step": simt(rec_step, "k3"),
          "launches_multi": simt(multi, "k3"),
+         "launches_video_prefill": simt(vprefill, "k3"),
          "train_ms": k3["train_simt_float32"]["ms"]},
         {**kernel_entry("flash_attention_fwd_sm90",
                         "wedetect_tpu_torch/csrc/flash_attn_sm90.cu", K3_FWD,
@@ -4809,7 +5366,9 @@ def main() -> int:
          "launches_admit": admit["bfloat16"]["k3_sm90"],
          "launches_int8_score": int8["bfloat16"]["k3_sm90"],
          "launches_rec_step": rec_step["bfloat16"].get("k3_sm90", 0),
-         "launches_multi": multi["bfloat16"].get("k3_sm90", 0)},
+         "launches_multi": multi["bfloat16"].get("k3_sm90", 0),
+         "launches_video_prefill": vprefill["bfloat16"]["k3_sm90"],
+         **video_times("k3_bfloat16")},
         # the backward kernels' launches from the train phase, their
         # times at its shapes (decoder and ViT), f32; K2-bwd in f32 at
         # D = 128 is the FFMA pair, and the SIMT dq and dk/dv kernels
@@ -4865,7 +5424,11 @@ def main() -> int:
                   k3_bwd, k3_bwd["dq_bfloat16"], dtype="bfloat16"),
         bwd_entry("flash_attention_bwd_dkv_sm90", K3_SM90_BWD_SOURCE,
                   f"{STOCK_FA}:796", k3_bf16["flash_attention_bwd_dkv_sm90"],
-                  k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bfloat16")]})
+                  k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bfloat16")]
+    for entry in kernels:
+        if entry["name"] in vsft_bwd:
+            entry["launches_video_sft_step"] = vsft_bwd[entry["name"]]
+    emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -229,6 +229,7 @@ def test_infer_cli_random_init_on_cpu(tmp_path, capsys):
                              "--device", "cpu", "--threshold", "0.0",
                              "--output", str(tmp_path / "out.png")])
     out = capsys.readouterr().out
-    assert "detections over thr" in out and "not writing" in out
+    assert "detections over thr" in out and "saved" in out
+    assert (tmp_path / "out.png").exists()
     assert np.isfinite(r["bboxes"]).all()
     assert ((r["bboxes"] >= 0) & (r["bboxes"] <= 120)).all()

@@ -2247,3 +2247,161 @@ def test_evaluate_coco_card_matches_cpu(cuda, tmp_path, tta, monkeypatch):
                 "APf"):
         a, b = got[key], want[key]
         assert (np.isnan(a) and np.isnan(b)) or abs(a - b) <= 1e-6, key
+
+
+def _video_prompt(cfg, gt=3, gh=8, gw=12, tail=5, seed=13):
+    """A video prompt of the miniature Ref: gt temporal groups at a
+    gh x gw grid (gt * gh * gw ViT tokens, padded to a multiple of 128 in
+    the ViT) as one contiguous span, right-padded to 128 tokens."""
+    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_single_video
+
+    rng = np.random.default_rng(seed)
+    n_vid = gt * (gh // 2) * (gw // 2)
+    seq = np.concatenate([[1, 2, cfg.vision_start_token_id],
+                          np.full(n_vid, cfg.video_token_id),
+                          rng.integers(5, 110, tail)])
+    ids = np.zeros(128, np.int32)
+    ids[:len(seq)] = seq
+    mask = (np.arange(128) < len(seq)).astype(np.int32)
+    pos = np.zeros((3, 128), np.int32)
+    pos[:, :len(seq)] = get_rope_index_single_video(
+        seq, cfg.video_token_id, gt, gh, gw, 2)
+    patches = rng.standard_normal((gt * gh * gw, 96)).astype(np.float32)
+    return dict(patches=patches, gt=gt, gh=gh, gw=gw, ids=ids[None],
+                mask=mask[None], pos=pos[:, None], nxt=int(pos.max()) + 1,
+                boxes=np.array([[0, 0, 4.0 * gw, 4.0 * gh]], np.float32),
+                ori=np.array([4.0 * gw, 4.0 * gh], np.float32))
+
+
+def _video_cfg():
+    import dataclasses
+
+    return dataclasses.replace(_mini_gen_cfg(), video_token_id=121)
+
+
+def _video_prefill(model, b, patches=None):
+    from wedetect_tpu_torch.models import ref_generate as TG
+
+    with torch.inference_mode():
+        return TG._prefill_hidden_kvs(
+            model, b["gh"], b["gw"],
+            b["patches"] if patches is None else patches, b["ids"],
+            b["mask"], b["pos"], b["boxes"], b["ori"], 3,
+            np.full((1, 1), -1, np.int32), grid_t=b["gt"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_video_prefill_kernels_match_plain(cuda, monkeypatch, dtype):
+    """A video prefill (3 temporal groups: 288 ViT tokens padded to 384
+    as one segment, a 72-token span) through K2 and K3 on the type's
+    route (2 launches each) against the same prefill through their plain
+    versions: hidden states and KV on the real rows, f32 within 1e-4;
+    bf16 (the kernel and the plain version round P to bf16 at different
+    points, and two layers carry it) within the Ref phase's logit terms,
+    max 0.1 and mean 0.025 (chip_smoke.REF_LOGIT_TOL, _MEAN_TOL); the
+    clip with two groups swapped misses."""
+    from wedetect_tpu_torch.models.ref import (cast_ref_model,
+                                               init_ref_variables)
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _video_cfg()
+    model = cast_ref_model(init_ref_variables(cfg, seed=11, device=cuda),
+                           dtype)
+    b = _video_prompt(cfg)
+    route = {"float32": "f32", "bfloat16": "sm90"}[dtype]
+    k2_route = getattr(fg, f"gqa_flash_fwd_{route}")
+    k3_route = getattr(fa, f"flash_attention_fwd_{route}")
+    for fn in (fg.gqa_flash_attention, fa.flash_attention, k2_route,
+               k3_route):
+        fn.launches = 0
+    got_h, got_kv = _video_prefill(model, b)
+    n, n3 = cfg.text.layers, cfg.vision.depth
+    assert (fg.gqa_flash_attention.launches, k2_route.launches) == (n, n)
+    assert (fa.flash_attention.launches, k3_route.launches) == (n3, n3)
+    swapped = b["patches"].copy()
+    g = b["gh"] * b["gw"]
+    swapped[:g], swapped[g:2 * g] = b["patches"][g:2 * g], b["patches"][:g]
+    ctrl_h, _ = _video_prefill(model, b, patches=swapped)
+    monkeypatch.setattr(fg, "gqa_flash_attention",
+                        fg.gqa_flash_attention_plain)
+    monkeypatch.setattr(fa, "flash_attention", fa.flash_attention_plain)
+    want_h, want_kv = _video_prefill(model, b)
+    real = torch.as_tensor(b["mask"][0], device=cuda).bool()
+    max_tol, mean_tol = (1e-4, 1e-4) if dtype == "float32" else (0.1, 0.025)
+
+    def err(x, y):
+        d = (x[0, real].float() - y[0, real].float()).abs()
+        return float(d.max()), float(d.mean())
+
+    def close(x, y):
+        e = err(x, y)
+        return e[0] <= max_tol and e[1] <= mean_tol
+
+    assert close(got_h, want_h), err(got_h, want_h)
+    for (gk, gv), (wk, wv) in zip(got_kv, want_kv):
+        assert close(gk, wk) and close(gv, wv), (err(gk, wk), err(gv, wv))
+    assert not close(ctrl_h, want_h), err(ctrl_h, want_h)
+
+
+def test_video_generation_card_matches_cpu(cuda, monkeypatch):
+    """Greedy ref_generate(grid_t=3) of the miniature Ref on the card
+    emits the CPU's tokens (f32, TF32 off)."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_generate import ref_generate
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _video_cfg()
+    cpu = init_ref_variables(cfg, seed=11, device="cpu")
+    card = init_ref_variables(cfg, seed=11, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    b = _video_prompt(cfg)
+    toks = [ref_generate(cfg, b["gh"], b["gw"], m, b["patches"], b["ids"],
+                         b["mask"], b["pos"], 3, np.array([b["nxt"]]),
+                         b["boxes"], b["ori"], 8, 255, pad_id=254,
+                         grid_t=b["gt"]).cpu() for m in (card, cpu)]
+    assert torch.equal(*toks)
+
+
+def test_video_lm_step_card_matches_cpu(cuda, monkeypatch):
+    """One stage-2 ref_lm_step on a video sample (grid_t = 3) on the card
+    and on the CPU from the same weights: loss and grad_norm within 1e-5
+    relative; on the card K2, K3 and their backward kernels launch once a
+    layer on the f32 routes (the ViT takes gradients)."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+    from wedetect_tpu_torch.train.ref_lm import (IGNORE_INDEX, ref_lm_step,
+                                                 stage_optimizer)
+    from wedetect_tpu_torch.train.train_step import TrainState
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = _video_cfg()
+    b = _video_prompt(cfg)
+    labels = np.where(b["mask"] > 0, b["ids"], IGNORE_INDEX).astype(np.int32)
+    labels[b["ids"] == cfg.video_token_id] = IGNORE_INDEX
+    counters = (fg.gqa_flash_fwd_f32, fg.gqa_flash_bwd_dq_f32,
+                fg.gqa_flash_bwd_dkdv_f32, fa.flash_attention_fwd_f32,
+                fa.flash_attention_bwd_dq_f32, fa.flash_attention_bwd_dkv_f32)
+    metrics = {}
+    cpu = init_ref_variables(cfg, seed=11, device="cpu")
+    for name, dev in (("cpu", "cpu"), ("card", cuda)):
+        model = init_ref_variables(cfg, seed=11, device=dev)
+        model.load_state_dict(cpu.state_dict())
+        if name == "cpu":
+            model.attn_impl = "flash"           # the plain versions
+        state = TrainState.create(model, stage_optimizer(model, 2))
+        for fn in counters:
+            fn.launches = 0
+        _, m = ref_lm_step(cfg, b["gh"], b["gw"], state, b["patches"],
+                           b["ids"], b["mask"], b["pos"], 3, b["boxes"],
+                           b["ori"], np.full((1, 1), -1, np.int32), labels,
+                           b["gt"])
+        metrics[name] = {k: float(v) for k, v in m.items()}
+        if name == "card":
+            layers = [cfg.text.layers] * 3 + [cfg.vision.depth] * 3
+            assert [fn.launches for fn in counters] == layers
+    for key in ("loss", "grad_norm"):
+        assert metrics["card"][key] == pytest.approx(metrics["cpu"][key],
+                                                     rel=1e-5), key

@@ -182,7 +182,8 @@ def test_cli_refuses_unported_modes_and_random_ref(tmp_path, capsys):
 
     path = tmp_path / "img.png"
     cv2.imwrite(str(path), _image())
-    with pytest.raises(SystemExit, match="not ported"):
+    # --video is ported: it is video chat and needs --generate
+    with pytest.raises(SystemExit, match="requires --generate"):
         cli.main(["--image", str(path), "--device", "cpu", "--video",
                   "v.mp4"])
     for extra in ([], ["--int8-prefill"]):        # --int8-prefill is ported

@@ -321,11 +321,27 @@ def test_generate_cli_on_cpu(tmp_path, capsys):
 
 
 def test_video_and_multi_image_raise(tiny):
-    _, tcfg, _, model = tiny
-    patches, ids, mask, pos, nxt = _prompts((5,))
-    with pytest.raises(NotImplementedError, match="video"):
-        TG.ref_generate(tcfg, GH, GW, model, patches, ids, mask, pos, 1, nxt,
-                        BOXES, ORI, 4, EOS, grid_t=2)
+    """A video prompt (grid_t = 2: two temporal groups, one contiguous
+    span of 2 * 16 tokens, video rope ids) now runs: JAX's tokens."""
+    from wedetect_tpu.nn.qwen3vl import get_rope_index_single_video
+
+    jcfg, tcfg, params, model = tiny
+    rng = np.random.default_rng(11)
+    patches = rng.standard_normal((2 * GH * GW, 96)).astype(np.float32)
+    ids = np.concatenate([[1, VSTART], np.full(32, IMG),
+                          rng.integers(2, 100, 5)]).astype(np.int32)
+    pos = get_rope_index_single_video(ids, IMG, 2, GH, GW, 2)
+    nxt = np.array([pos.max() + 1], np.int32)
+    want = np.asarray(JG.ref_generate(
+        jcfg, GH, GW, params, jnp.asarray(patches), jnp.asarray(ids[None]),
+        jnp.ones((1, len(ids)), jnp.int32), jnp.asarray(pos[:, None]), 2,
+        jnp.asarray(nxt), jnp.asarray(BOXES), jnp.asarray(ORI), 4, EOS,
+        pad_id=PAD, grid_t=2))
+    got = TG.ref_generate(tcfg, GH, GW, model, patches, ids[None],
+                          np.ones((1, len(ids)), np.int32), pos[:, None], 2,
+                          nxt, BOXES, ORI, 4, EOS, pad_id=PAD,
+                          grid_t=2).numpy()
+    np.testing.assert_array_equal(got, want)
     # quant_prefill is ported: it sets the scorer's cfg, and the model's
     # int8 modules only for the scorer's own calls
     scorer = RefScorer(cfg=tcfg, model=model, device="cpu",

@@ -392,13 +392,17 @@ def test_dataset_image_reader(files):
 
 
 def test_video_samples_raise(files, tmp_path):
+    """Video samples are ported: a video entry whose frames cannot be read
+    is retried like any bad sample (JAX's sample()), and a dataset of
+    only such entries gives up as JAX's does; --fsdp > 1 still raises."""
     path = tmp_path / "video.json"
     path.write_text(json.dumps([{"video": ["a.png"], "conversations": [
         {"from": "human", "value": "<video>\nhi"}]}]))
-    ds = TD.ChatSftDataset(str(path), StubTok(), image_token_id=IMG,
-                           vision_start_token_id=VSTART)
-    with pytest.raises(NotImplementedError):
-        ds.sample(0)
+    for mod in (TD, JD):
+        ds = mod.ChatSftDataset(str(path), StubTok(), image_token_id=IMG,
+                                vision_start_token_id=VSTART)
+        with pytest.raises(ValueError, match="too many bad samples"):
+            ds.sample(0)
     with pytest.raises(NotImplementedError):
         TCLI.main(["--stage", "3", "--data", "x", "--fsdp", "4"])
 

@@ -9,7 +9,8 @@ Outputs proposals as {bboxes, scores, embeddings}; --save-npz dumps
 them. The detect step runs with score_thr 0 here, so every anchor holds
 all its prompts as candidates and the pre-NMS selection takes its dense
 branch. --int8 runs the int8 serving mode (ModelCfg.quant_int8,
-ops/int8.py). Drawing (--visualize) is not ported yet.
+ops/int8.py). --visualize draws the proposals into --output
+(utils/vis.draw_detections, every box as class 0).
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ def parse_args(argv=None):
     p.add_argument("--num_proposals", type=int, default=300)
     p.add_argument("--size", default="",
                    help="base/large; inferred from ckpt name if empty")
-    p.add_argument("--visualize", action="store_true",
-                   help="not available yet: drawing is not ported")
+    p.add_argument("--visualize", action="store_true")
+    p.add_argument("--output", default="pred.png")
     p.add_argument("--save-npz", default="")
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--bf16", action="store_true")
@@ -73,8 +74,14 @@ def main(argv=None):
                  embeddings=r["embeddings"])
         print(f"saved {args.save_npz}")
     if args.visualize:
-        print("not drawing: visualization is not ported to the PyTorch "
-              "package yet")
+        from wedetect_tpu_torch.data.loader import load_image_rgb
+        from wedetect_tpu_torch.utils.vis import draw_detections
+
+        img = draw_detections(load_image_rgb(args.image), r["bboxes"],
+                              r["scores"],
+                              np.zeros(len(r["bboxes"]), np.int64))
+        img.save(args.output)
+        print(f"saved {args.output}")
     return r
 
 

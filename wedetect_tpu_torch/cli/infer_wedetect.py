@@ -6,7 +6,9 @@
 
 With --random-init the detector runs with random weights (smoke mode);
 --int8 runs the int8 serving mode (ModelCfg.quant_int8, ops/int8.py).
-Drawing the detections is not ported yet: --output is not written.
+--output PATH draws the detections into PATH (utils/vis.draw_detections,
+captions in --font or a probed CJK font). Unlike the JAX CLI, whose
+--output defaults to pred.png, nothing is drawn without --output.
 """
 
 from __future__ import annotations
@@ -26,7 +28,11 @@ def parse_args(argv=None):
     p.add_argument("--topk", type=int, default=100)
     p.add_argument("--threshold", type=float, default=0.1)
     p.add_argument("--output", default="",
-                   help="not written yet: drawing is not ported")
+                   help="draw the detections into this image file")
+    p.add_argument("--font", default=None,
+                   help="TrueType font path for captions (CJK class "
+                        "names need one, e.g. simsun.ttc; common system "
+                        "CJK fonts are probed when omitted)")
     p.add_argument("--tokenizer", default="xlm-roberta-base")
     p.add_argument("--random-init", action="store_true")
     p.add_argument("--bf16", action="store_true")
@@ -65,8 +71,14 @@ def main(argv=None):
         print(f"  {texts[int(l)]:>12s} {s:.3f} "
               f"[{b[0]:.0f},{b[1]:.0f},{b[2]:.0f},{b[3]:.0f}]")
     if args.output:
-        print(f"not writing {args.output}: drawing detections is not "
-              "ported to the PyTorch package yet")
+        from wedetect_tpu_torch.data.loader import load_image_rgb
+        from wedetect_tpu_torch.utils.vis import draw_detections
+
+        img = draw_detections(load_image_rgb(args.image), r["bboxes"],
+                              r["scores"], r["labels"], class_names=texts,
+                              font_path=args.font)
+        img.save(args.output)
+        print(f"saved {args.output}")
     return r
 
 

@@ -20,8 +20,10 @@ Usage:
         --resume
 
 Runs on the card (`--device cuda`, the default) through the flash
-attention kernels and their backward kernels. Not ported yet: video
-samples, multi-card FSDP (`--fsdp` > 1).
+attention kernels and their backward kernels. Stage 1-2 data may hold
+video samples (data/sft_chat.ChatSftDataset: one contiguous video span,
+get_rope_index_single_video ids, ref_lm_step(grid_t=...)). Not ported
+yet: multi-card FSDP (`--fsdp` > 1).
 """
 
 from __future__ import annotations
@@ -73,23 +75,27 @@ def pad_to_bucket(n: int, buckets: Sequence[int]) -> int:
 
 def build_step_inputs(cfg, sample, stage: int, seq_buckets,
                       max_proposals: int, pad_token_id: int):
-    """Pad one dataset sample to the step's static shapes (image
-    samples; a video sample raises NotImplementedError)."""
-    from wedetect_tpu_torch.nn.qwen3vl import get_rope_index_single_image
+    """Pad one dataset sample to the step's static shapes. A video
+    sample (grid_t > 1, or video tokens in its ids) takes
+    get_rope_index_single_video positions."""
+    from wedetect_tpu_torch.nn.qwen3vl import (get_rope_index_single_image,
+                                               get_rope_index_single_video)
     from wedetect_tpu_torch.train.ref_lm import IGNORE_INDEX
 
     ids = sample["input_ids"]
     gh, gw = sample["grid"]
     grid_t = int(sample.get("grid_t", 1))
-    if grid_t > 1 or (np.asarray(ids) == cfg.video_token_id).any():
-        raise NotImplementedError("video SFT samples: not ported yet")
     l = pad_to_bucket(len(ids), seq_buckets)
     ids_p = np.full((1, l), pad_token_id, np.int32)
     ids_p[0, :len(ids)] = ids
     mask = np.zeros((1, l), np.int32)
     mask[0, :len(ids)] = 1
-    rope = get_rope_index_single_image(ids, cfg.image_token_id, gh, gw,
-                                       cfg.vision.merge)
+    if grid_t > 1 or (np.asarray(ids) == cfg.video_token_id).any():
+        rope = get_rope_index_single_video(ids, cfg.video_token_id, grid_t,
+                                           gh, gw, cfg.vision.merge)
+    else:
+        rope = get_rope_index_single_image(ids, cfg.image_token_id, gh, gw,
+                                           cfg.vision.merge)
     pos = np.pad(rope, ((0, 0), (0, l - len(ids))))[:, None]  # (3, 1, L)
 
     n = max_proposals

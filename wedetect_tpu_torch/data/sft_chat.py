@@ -10,8 +10,11 @@ one (the reference's retry loop).
 
 Images are read by `image_reader(path) -> HWC uint8 RGB`, by default
 `data/loader.load_image_rgb` (cv2); pass another reader where cv2 is
-missing or the images are in memory. Video samples ("video" entries,
-"<video>" tags) are not ported yet and raise NotImplementedError.
+missing or the images are in memory. A video sample's "video" entry is
+a list of frame paths (each through `image_reader`) or one video file
+(`data/vision_process.read_video_cv2`); its frames go through
+`video_to_patches`, a "<video>" tag emits one contiguous span of
+grid_t * mh * mw video tokens, and the sample carries its `grid_t`.
 """
 
 from __future__ import annotations
@@ -35,13 +38,10 @@ def _default_reader(path: str) -> np.ndarray:
 def _retrying(get, n: int, max_retry: int, rng: np.random.Generator,
               idx: int) -> Dict:
     """get(idx), replacing a failing index by a random one up to
-    max_retry times; NotImplementedError (an unported sample kind) is
-    raised at once."""
+    max_retry times."""
     for _ in range(max_retry + 1):
         try:
             return get(idx)
-        except NotImplementedError:
-            raise
         except Exception:
             idx = int(rng.integers(n))
     raise ValueError("too many bad samples")
@@ -78,24 +78,28 @@ class ChatSftDataset:
     def build(self, conversations: Sequence[Dict], n_img: int
               ) -> Tuple[np.ndarray, np.ndarray, int]:
         """-> (input_ids, labels, visual_start). Assistant turns
-        supervise; user/image tokens are IGNORE_INDEX."""
+        supervise; user/image tokens are IGNORE_INDEX. A "<video>" tag
+        emits one contiguous video-token span instead (n_img is then the
+        token count over every temporal group)."""
         ids: List[int] = []
         spans: List[Tuple[int, int]] = []
         visual_start = -1
         for conv in conversations:
             role = conv.get("from", conv.get("role"))
             text = conv["value"] if "value" in conv else conv["content"]
-            if "<video>" in text:
-                raise NotImplementedError("video SFT samples: not ported "
-                                          "yet")
             has_image = "<image>" in text
+            has_video = "<video>" in text
             text = text.replace("<image>\n", "").replace("<image>", "")
+            text = text.replace("<video>\n", "").replace("<video>", "")
             if role in ("human", "user"):
                 ids += self._enc("<|im_start|>user\n")
-                if has_image:
+                if has_image or has_video:
+                    tok_id = (self.video_token_id if has_video
+                              else self.image_token_id)
+                    assert tok_id is not None
                     ids.append(self.vision_start_token_id)
                     visual_start = len(ids)
-                    ids += [self.image_token_id] * n_img
+                    ids += [tok_id] * n_img
                     ids += self._enc("<|vision_end|>")
                 ids += self._enc(text)
                 ids += self._enc("<|im_end|>\n")
@@ -119,19 +123,31 @@ class ChatSftDataset:
         return _retrying(self._get, len(self), self.max_retry, self.rng, idx)
 
     def _get(self, idx: int) -> Dict:
-        from wedetect_tpu_torch.data.vision_process import image_to_patches
+        from wedetect_tpu_torch.data.vision_process import (image_to_patches,
+                                                            read_video_cv2,
+                                                            video_to_patches)
 
         src = self.data[idx]
+        grid_t = 1
         if "video" in src:
-            raise NotImplementedError("video SFT samples: not ported yet")
-        img = self.image_reader(src["image"])
-        patches, gh, gw = image_to_patches(img, patch=self.patch,
-                                           merge=self.merge)
-        n_img = (gh // self.merge) * (gw // self.merge)
+            # a list of frame image paths, or one decodable video file
+            vid = src["video"]
+            if isinstance(vid, str):
+                frames, _ = read_video_cv2(vid)
+            else:
+                frames = np.stack([self.image_reader(p) for p in vid])
+            patches, grid_t, gh, gw = video_to_patches(
+                frames, patch=self.patch, merge=self.merge)
+            img = frames[0]
+        else:
+            img = self.image_reader(src["image"])
+            patches, gh, gw = image_to_patches(img, patch=self.patch,
+                                               merge=self.merge)
+        n_img = grid_t * (gh // self.merge) * (gw // self.merge)
         ids, labels, visual_start = self.build(src["conversations"], n_img)
         out = {"input_ids": ids, "labels": labels,
                "visual_start": visual_start, "patches": patches,
-               "grid": (gh, gw), "grid_t": 1, "image": img}
+               "grid": (gh, gw), "grid_t": grid_t, "image": img}
         # region-caption samples carry <object> turns + boxes
         # (reference sft.py stage-2 data)
         if self.object_token_id is not None:

@@ -28,7 +28,11 @@ images of one grid, one query row each; the ViT runs once over the
 (B, S, ...) batch and the prefix pass once over (B, P) rows (one K3 or
 K2 launch a layer, as the JAX package's `jax.vmap` of the single-image
 stage computes it), then one suffix pass in which row i attends image
-i's prefix KV. RoI object features loop over the images.
+i's prefix KV. RoI object features loop over the images. A video
+(`grid_t` > 1 temporal groups; `hidden_states`, the generation prefill)
+runs the ViT over every group's tokens as one segment, repeats the image
+pos-embeds per group and reads the RoI pyramid from the first group, as
+the JAX package does.
 """
 
 from __future__ import annotations
@@ -227,15 +231,17 @@ class RefModules(nn.Module):
         shared by every row or (B, N, D) per row."""
         if object_positions.shape[1] == 0 or obj.shape[-2] == 0:
             return x            # no object slot (context-only images)
-        b = x.shape[0]
+        b, l, d = x.shape
         bidx = torch.arange(b, device=x.device)[:, None]
-        pos = object_positions.clamp(min=0).long()
+        # padded slots write into a scratch column past the row: several
+        # of them never share a real position, so each real token's
+        # gradient flows once (as the JAX package's scatter gives it)
+        pos = torch.where(object_positions >= 0, object_positions,
+                          l).long()
         objb = (obj[None] if obj.dim() == 2 else obj).to(x.dtype)
-        newv = torch.where((object_positions >= 0)[..., None],
-                           objb.expand((b,) + objb.shape[1:]), x[bidx, pos])
-        x = x.clone()
-        x[bidx, pos] = newv
-        return x
+        xe = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
+        xe[bidx, pos] = objb.expand((b,) + objb.shape[1:])
+        return xe[:, :l]
 
     def _pick(self, hidden, object_positions):
         logits = self.score(hidden)
@@ -265,21 +271,27 @@ class RefModules(nn.Module):
         return (torch.stack([patchify(p) for p in patches]) if batch
                 else patchify(patches))
 
-    def _vision_one(self, patches, gh: int, gw: int, batch: bool = False):
+    def _vision_one(self, patches, gh: int, gw: int, batch: bool = False,
+                    grid_t: int = 1):
         """The ViT at the call's grid: (pos-embedded image tokens, taps,
         (scale1, scale2, scale3) merged-grid maps) of one image, or with
         `batch` of B images of one grid in one batched pass (a leading B
-        on every output)."""
+        on every output). grid_t > 1: a video of grid_t temporal groups,
+        whose tokens all attend as one segment; the tokens and taps keep
+        every group's rows, the image pos-embeds repeat per group, and
+        the merged-grid maps (the RoI pyramid) read the first group, as
+        the JAX package does."""
         m = self.cfg.vision.merge
         mh, mw = gh // m, gw // m
         d = self.cfg.text.hidden
         img_embeds, taps = self.model.visual(self._patches(patches, batch),
-                                             gh, gw,
+                                             gh, gw, grid_t=grid_t,
                                              attn_impl=self.attn_impl)
         lead = img_embeds.shape[:-2]
-        scales = tuple(t.reshape(*lead, mh, mw, d)
+        scales = tuple(t[..., :mh * mw, :].reshape(*lead, mh, mw, d)
                        for t in (taps[-2], taps[-1], img_embeds))
-        return img_embeds + self.model.image_pos(mh, mw), taps, scales
+        pos = self.model.image_pos(mh, mw).repeat(grid_t, 1)
+        return img_embeds + pos, taps, scales
 
     def _objects_from(self, scales, boxes_xyxy, ori_wh):
         """RoI object features (N, D) for boxes (N, 4) in original image
@@ -295,16 +307,19 @@ class RefModules(nn.Module):
                                                   / norm)
         return self.model.object_feats(s1, s2, s3, boxes_32)
 
-    def _multi_assembly(self, patches_list, grids, boxes_list, ori_wh_list):
+    def _multi_assembly(self, patches_list, grids, boxes_list, ori_wh_list,
+                        grid_t: int = 1):
         """Every multi-image entry point's per-image loop: the ViT at
-        each image's grid, its RoI object features where it has boxes
-        (None: a context-only image), and the taps regrouped layer by
-        layer. Returns (tokens list, per-layer tuples of taps, obj
+        each image's grid (grid_t temporal groups each: > 1 for the one
+        video of a video prompt), its RoI object features where it has
+        boxes (None: a context-only image), and the taps regrouped layer
+        by layer. Returns (tokens list, per-layer tuples of taps, obj
         (N_total, D), (0, D) when no image has boxes)."""
         tokens, taps_all, objs = [], [], []
         for patches_i, (gh, gw), boxes_i, ori_i in zip(
                 patches_list, grids, boxes_list, ori_wh_list):
-            img_tokens, taps, scales = self._vision_one(patches_i, gh, gw)
+            img_tokens, taps, scales = self._vision_one(patches_i, gh, gw,
+                                                        grid_t=grid_t)
             tokens.append(img_tokens)
             taps_all.append(taps)
             if boxes_i is not None:
@@ -316,13 +331,15 @@ class RefModules(nn.Module):
         return tokens, ds, obj
 
     def _assemble(self, patches_list, grids, input_ids, boxes_list,
-                  ori_wh_list, visual_starts, object_positions=None):
+                  ori_wh_list, visual_starts, object_positions=None,
+                  grid_t: int = 1):
         """The decoder's input embeddings of sequences holding the images
         (_multi_assembly) at their spans, with the object features
         scattered into the <object> slots when object_positions is
         given. Returns (x (B, L, D), per-layer taps, obj)."""
         tokens, ds, obj = self._multi_assembly(patches_list, grids,
-                                               boxes_list, ori_wh_list)
+                                               boxes_list, ori_wh_list,
+                                               grid_t=grid_t)
         x = self._embed(input_ids)
         for tok, vs in zip(tokens, visual_starts):
             x = self._put_span(x, tok, vs)
@@ -345,24 +362,28 @@ class RefModules(nn.Module):
 
     def hidden_states(self, patches, input_ids, attn_mask, position_ids,
                       boxes_xyxy, ori_wh, visual_start: int,
-                      object_positions, *, grid_h: int, grid_w: int):
+                      object_positions, *, grid_h: int, grid_w: int,
+                      grid_t: int = 1):
         """forward's final normed hidden states (B, L, D), before
         out_proj (the LM-loss stages read them: train/ref_lm.py).
         object_positions may hold -1 (a caption-only sample's or a padded
-        slot): that token keeps its own embedding. The one-image call of
+        slot): that token keeps its own embedding. grid_t > 1: a video
+        sample, its grid_t * mh * mw tokens one contiguous span from
+        visual_start (see _vision_one). The one-image call of
         hidden_states_multi."""
         return self.hidden_states_multi(
             (patches,), ((grid_h, grid_w),), input_ids, attn_mask,
             position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,),
-            object_positions)
+            object_positions, grid_t=grid_t)
 
     def hidden_states_multi(self, patches_list, grids, input_ids, attn_mask,
                             position_ids, boxes_list, ori_wh_list,
-                            visual_starts, object_positions):
+                            visual_starts, object_positions,
+                            grid_t: int = 1):
         """score_multi's final normed hidden states (B, L, D)."""
         x, ds, _ = self._assemble(patches_list, grids, input_ids,
                                   boxes_list, ori_wh_list, visual_starts,
-                                  object_positions)
+                                  object_positions, grid_t=grid_t)
         return self.model.language_model(
             x, _t(position_ids, self.device), _t(attn_mask, self.device),
             deepstack_embeds=ds, visual_start=tuple(visual_starts),

@@ -34,9 +34,14 @@ images in one conversation (`models/ref.score_multi`, or with
 `rec_logits` and `multi_image_logits` return their pre-sigmoid scores,
 as `logits` does for `score`.
 
+`generate_video_text` is video chat: the frames of any
+`data/vision_process.fetch_video` source, temporally patched
+(`video_to_patches`), go in as one contiguous video span with
+`get_rope_index_single_video` ids through the same generation
+(`ref_generate(grid_t=...)`).
+
 `device` defaults to "cuda" and raises without a card. The model's
-matmul weights are cast to `dtype` once, at construction. Not ported
-yet: `generate_video_text`.
+matmul weights are cast to `dtype` once, at construction.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ from wedetect_tpu_torch.models.ref import (RefModules, cast_ref_model,
                                            ref_score_step_multi,
                                            ref_suffix_step)
 from wedetect_tpu_torch.nn.qwen3vl import (RefCfg, get_rope_index_multi,
-                                           get_rope_index_single_image)
+                                           get_rope_index_single_image,
+                                           get_rope_index_single_video)
 from wedetect_tpu_torch.ops.attention import is_flash_tileable
 from wedetect_tpu_torch.ops.int8 import quant_mode
 
@@ -658,6 +664,83 @@ class RefScorer:
                 *args, temperature, pad_token_id,
                 rng=prng.PRNGKey(seed, device=self.model.device),
                 decode_params=self.decode_tree())
+        return self._decode_text(toks[0].cpu().numpy(), eos_token_id,
+                                 pad_token_id)
+
+    def build_video_prompt(self, video, prompt: str, pad_token_id: int,
+                           fps: Optional[float] = None,
+                           nframes: Optional[int] = None):
+        """Video-prompt assembly on the host: fetch_video, then
+        video_to_patches, then the chat layout: the user header, the
+        vision start, grid_t * mh * mw video tokens, the vision end, the
+        prompt and the assistant header, right-padded to a multiple of
+        128, with get_rope_index_single_video positions. Returns
+        (patches, grid_t, gh, gw, ids (P,), mask (P,), pos (3, P),
+        visual_start, w, h)."""
+        from wedetect_tpu_torch.data.vision_process import (fetch_video,
+                                                            video_to_patches)
+
+        c = self.cfg
+        tok = self.tokenizer
+        assert tok is not None, "tokenizer required"
+        frames, _sample_fps = fetch_video(video, fps=fps, nframes=nframes)
+        patches, gt, gh, gw = video_to_patches(
+            frames, patch=c.vision.patch,
+            temporal_patch=c.vision.temporal_patch, merge=c.vision.merge)
+        m = c.vision.merge
+        n_vid = gt * (gh // m) * (gw // m)
+        pre = tok.encode("<|im_start|>user\n", add_special_tokens=False)
+        ve = tok.encode("<|vision_end|>", add_special_tokens=False)
+        tail = tok.encode(prompt + "<|im_end|>\n<|im_start|>assistant\n",
+                          add_special_tokens=False)
+        ids = np.array(pre + [c.vision_start_token_id]
+                       + [c.video_token_id] * n_vid + ve + tail, np.int32)
+        pos = get_rope_index_single_video(ids, c.video_token_id, gt, gh, gw,
+                                          m)
+        visual_start = int(np.nonzero(ids == c.video_token_id)[0][0])
+        p_real = len(ids)
+        p_pad = -(-p_real // 128) * 128
+        mask = np.zeros(p_pad, np.int32)
+        mask[:p_real] = 1
+        ids = np.pad(ids, (0, p_pad - p_real), constant_values=pad_token_id)
+        pos = np.pad(pos, ((0, 0), (0, p_pad - p_real))).astype(np.int32)
+        h, w = frames.shape[1:3]
+        return patches, gt, gh, gw, ids, mask, pos, visual_start, w, h
+
+    @_scorer_int8
+    def generate_video_text(self, video, prompt: str,
+                            max_new_tokens: int = 64,
+                            temperature: float = 0.0,
+                            eos_token_id: int = 151645,
+                            pad_token_id: int = 151643, seed: int = 0,
+                            fps: Optional[float] = None,
+                            nframes: Optional[int] = None):
+        """Video chat or captioning from a video and a user prompt.
+        `video` is any source fetch_video accepts (a file path or
+        file:// URI, a frame list, a directory or glob of frames, a GIF,
+        an .npy/.npz stack, a (T, H, W, 3) uint8 array); the frames are
+        sampled (smart_nframes), temporally patched and fed as one
+        contiguous video span (build_video_prompt), the layout that
+        train/ref_lm's video SFT trains on. The next position is
+        pos.max() + 1: text after the span resumes at
+        st + max(grid_t, mh, mw). Decoding as in generate_text (the
+        decode tree of quantize_decode; the prefill in int8 under
+        quant_prefill). Returns the decoded text (the token ids without
+        a decode())."""
+        from wedetect_tpu_torch.models.ref_generate import ref_generate
+        from wedetect_tpu_torch.ops import prng
+
+        patches, gt, gh, gw, ids, mask, pos, visual_start, w, h = \
+            self.build_video_prompt(video, prompt, pad_token_id, fps=fps,
+                                    nframes=nframes)
+        toks = ref_generate(
+            self.cfg, gh, gw, self.model, patches, ids[None], mask[None],
+            pos[:, None], visual_start, np.array([pos.max() + 1], np.int32),
+            np.array([[0, 0, w, h]], np.float32),
+            np.array([w, h], np.float32), max_new_tokens, eos_token_id,
+            temperature, pad_token_id,
+            rng=prng.PRNGKey(seed, device=self.model.device),
+            decode_params=self.decode_tree(), grid_t=gt)
         return self._decode_text(toks[0].cpu().numpy(), eos_token_id,
                                  pad_token_id)
 

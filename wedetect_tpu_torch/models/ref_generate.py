@@ -22,7 +22,9 @@ The loop stops once every row has emitted eos: the remaining columns
 are pad, as the JAX scan would emit them. `ref_generate_multi` takes
 prompts holding several images (`_prefill_hidden_kvs_multi`: the
 model's multi-image assembly, each image's ViT at its own grid) onto
-the same decode. Not ported yet: video prompts (`grid_t > 1`).
+the same decode. A video prompt (`grid_t > 1`) runs the ViT over every
+temporal group's tokens as one sequence, through the same prefill and
+decode.
 """
 
 from __future__ import annotations
@@ -109,20 +111,23 @@ def _sample(logits: torch.Tensor, temperature: float, key) -> torch.Tensor:
 
 def _prefill_hidden_kvs(model, grid_h: int, grid_w: int, patches, input_ids,
                         attn_mask, position_ids, boxes_xyxy, ori_wh,
-                        visual_start: int, object_positions):
+                        visual_start: int, object_positions,
+                        grid_t: int = 1):
     """The grounding prefill: the model's vision and RoI assembly, then
     prefix_pass(return_hidden=True) -> (the final normed hidden states
-    (B, P, D), the per-layer post-rope KV, each (B, P, KVH, HD)). The
-    one-image call of _prefill_hidden_kvs_multi."""
+    (B, P, D), the per-layer post-rope KV, each (B, P, KVH, HD)).
+    grid_t > 1: a video prompt (RefModules._vision_one). The one-image
+    call of _prefill_hidden_kvs_multi."""
     return _prefill_hidden_kvs_multi(
         model, (patches,), ((grid_h, grid_w),), input_ids, attn_mask,
         position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,),
-        object_positions)
+        object_positions, grid_t=grid_t)
 
 
 def _prefill_hidden_kvs_multi(model, patches_list, grids, input_ids,
                               attn_mask, position_ids, boxes_list,
-                              ori_wh_list, visual_starts, object_positions):
+                              ori_wh_list, visual_starts, object_positions,
+                              grid_t: int = 1):
     """_prefill_hidden_kvs of prompts holding several images: the
     model's multi-image assembly (RefModules._assemble, each
     image's ViT at its own grid), then prefix_pass(return_hidden=True)."""
@@ -130,7 +135,8 @@ def _prefill_hidden_kvs_multi(model, patches_list, grids, input_ids,
 
     dev = model.device
     x, ds, _ = model._assemble(patches_list, grids, input_ids, boxes_list,
-                               ori_wh_list, visual_starts, object_positions)
+                               ori_wh_list, visual_starts, object_positions,
+                               grid_t=grid_t)
     kvs, hidden = model.model.language_model.prefix_pass(
         x, _t(position_ids, dev), _t(attn_mask, dev), deepstack_embeds=ds,
         visual_start=tuple(visual_starts), return_hidden=True,
@@ -173,15 +179,16 @@ def ref_generate(cfg, grid_h: int, grid_w: int, model, patches, input_ids,
     int4 decode; the prefill stays full precision). Returns
     (B, max_new_tokens) int32 tokens: eos is emitted, later positions
     hold pad_id. The compute dtype is the model's (models/ref.
-    cast_ref_model)."""
-    if grid_t > 1:
-        raise NotImplementedError(
-            "video prompts (grid_t > 1): not ported yet")
+    cast_ref_model). grid_t > 1 feeds a video prompt: patches hold
+    grid_t temporal groups, the prompt's vision span is grid_t * mh * mw
+    video tokens and position_ids come from
+    nn/qwen3vl.get_rope_index_single_video (the contiguous-span layout
+    that train/ref_lm.ref_lm_step trains on)."""
     return ref_generate_multi(
         cfg, ((grid_h, grid_w),), model, (patches,), input_ids, attn_mask,
         position_ids, (boxes_xyxy,), (ori_wh,), (visual_start,), next_pos,
         max_new_tokens, eos_id, temperature, pad_id, object_positions, rng,
-        decode_params)
+        decode_params, grid_t=grid_t)
 
 
 @torch.inference_mode()
@@ -190,12 +197,13 @@ def ref_generate_multi(cfg, grids, model, patches_list, input_ids, attn_mask,
                        next_pos, max_new_tokens: int, eos_id: int,
                        temperature: float = 0.0, pad_id: int = 0,
                        object_positions=None, rng=None,
-                       decode_params=None) -> torch.Tensor:
+                       decode_params=None, grid_t: int = 1) -> torch.Tensor:
     """ref_generate for prompts holding several images: grids each
     image's unmerged (gh, gw), visual_starts each span's offset, as in
     models/ref.ref_score_step_multi; boxes_list entries may be None;
-    object_positions None for caption-only prompts; decode_params as in
-    ref_generate. Returns (B, max_new_tokens) int32 tokens."""
+    object_positions None for caption-only prompts; decode_params and
+    grid_t as in ref_generate. Returns (B, max_new_tokens) int32
+    tokens."""
     from wedetect_tpu_torch.models.ref import _t
 
     dev = model.device
@@ -209,7 +217,8 @@ def ref_generate_multi(cfg, grids, model, patches_list, input_ids, attn_mask,
         rng = prng.PRNGKey(0, device=dev)
     hidden, kvs = _prefill_hidden_kvs_multi(
         model, patches_list, grids, input_ids, attn_mask, position_ids,
-        boxes_list, ori_wh_list, visual_starts, object_positions)
+        boxes_list, ori_wh_list, visual_starts, object_positions,
+        grid_t=grid_t)
     dp = (decode_params if decode_params is not None
           else quant.decode_params(model))
     return _decode_from_prefill(cfg.text, dp, hidden, kvs, attn_mask,

@@ -581,6 +581,39 @@ def get_rope_index_single_image(input_ids: np.ndarray, image_token_id: int,
     return pos
 
 
+def get_rope_index_single_video(input_ids: np.ndarray, video_token_id: int,
+                                grid_t: int, grid_h: int, grid_w: int,
+                                merge: int) -> np.ndarray:
+    """Host-side MRoPE position ids (3, L) for one sequence with one
+    contiguous video span: per temporal group the (row, col) grid
+    repeats and the t axis advances by one group; text after the span
+    resumes at st + max(grid_t, mh, mw).
+
+    This is the JAX package's layout, not HF's: the HF Qwen3-VL
+    processor splits a video into per-frame vision spans separated by
+    timestamp text (each span with t = 1). The contiguous span is what
+    data/sft_chat.ChatSftDataset and RefScorer.generate_video_text
+    emit; time still advances on the t axis and rows and columns match
+    per frame."""
+    l = len(input_ids)
+    pos = np.zeros((3, l), np.int64)
+    vid = np.nonzero(input_ids == video_token_id)[0]
+    if len(vid) == 0:
+        pos[:] = np.arange(l)
+        return pos
+    st = int(vid[0])
+    mh, mw = grid_h // merge, grid_w // merge
+    n = grid_t * mh * mw
+    assert len(vid) == n, (len(vid), grid_t, mh, mw)
+    pos[:, :st] = np.arange(st)
+    pos[0, st:st + n] = st + np.repeat(np.arange(grid_t), mh * mw)
+    pos[1, st:st + n] = st + np.tile(np.repeat(np.arange(mh), mw), grid_t)
+    pos[2, st:st + n] = st + np.tile(np.tile(np.arange(mw), mh), grid_t)
+    nxt = st + max(grid_t, mh, mw)
+    pos[:, st + n:] = nxt + np.arange(l - (st + n))
+    return pos
+
+
 def get_rope_index_multi(input_ids: np.ndarray, image_token_id: int,
                          grids: Sequence[Tuple[int, int]],
                          merge: int) -> np.ndarray:

@@ -77,17 +77,14 @@ def ref_lm_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
                 ori_wh, object_positions, labels, grid_t: int = 1
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One LM-loss step through the grounding trunk, updating `state` in
-    place. labels: (B, L) token ids with IGNORE_INDEX masking. Video
-    samples (grid_t > 1) are not ported yet."""
-    if grid_t > 1:
-        raise NotImplementedError("video SFT samples (grid_t > 1): not "
-                                  "ported yet")
+    place. labels: (B, L) token ids with IGNORE_INDEX masking. grid_t > 1
+    feeds a video sample (one contiguous span; RefModules.hidden_states)."""
     model = state.model
     model.zero_grad(set_to_none=True)
     hidden = model.hidden_states(patches, input_ids, attn_mask,
                                  position_ids, boxes, ori_wh, visual_start,
                                  object_positions, grid_h=grid_h,
-                                 grid_w=grid_w)
+                                 grid_w=grid_w, grid_t=grid_t)
     logits = model.lm_logits(hidden)
     loss = lm_cross_entropy(
         logits, torch.as_tensor(labels, device=model.device).long())
