@@ -18,6 +18,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             innermost loop, where every shared-memory load must feed at
             least 8 FFMA, and their registers; none of the eight may
             spill.
+2a. native the port's JPEG decoder (cv2's libjpeg-turbo, the header,
+            EXIF and letterbox C++ of native/image_pipeline.cc built by
+            g++), held to cv2 + preprocess_image on
+            the eval set's 50 seeded JPEGs, two at 2592 x 1458 and one
+            with an EXIF orientation: scale factor, pad and ori shape
+            exactly, pixels of decode_jpeg and decode_letterbox at the
+            JAX package's limits (mean < 1, 99.9th percentile <= 2),
+            fast (libjpeg's DCT-scaled decode) against exact (mean < 2,
+            99th percentile <= 12); a
+            corrupt file rejected (decode_fallbacks counts it); a
+            letterbox one pixel off must miss. ms an image (native
+            exact and fast, cv2), on one thread and on 8.
 3. k1       the row top-k kernel (selection by key) against its plain
             PyTorch version (t rounds of iterative max) and against its
             own rule (row_topk_by_key), vals and cls bitwise, at the
@@ -80,6 +92,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the call's own thresholded scores held to both plain rules
             with its branch counts and timed beside torch.topk (the
             kernels line's path_ms); f32 and bf16 step times.
+7a. detect_files  the same detector through Detector.__call__ on 8 JPEG
+            paths (the native decode + letterbox), the head calibrated:
+            one K1 launch, detections bitwise those of the same step on
+            decode_letterbox's arrays (cuDNN deterministic), no cv2
+            fallback; ms a call in f32 and bf16 on files, on decoded
+            arrays and letterboxed, and the host decode's share.
+7b. fold    ckpt/fuse on that detector, its BN statistics made random
+            and the head calibrated again: the fold_conv_bn state in
+            the same modules against the unfolded one in f32, logits
+            within FOLD_TOL of their largest entry, the box (DFL)
+            logits too, one K1 launch a call in each, and every
+            detection kept by one model only a flipped decision (a
+            score or an NMS IoU across its threshold, two scores
+            swapped, or a cascade of such: nms_flips), none unexplained; bake_text_head's e @ W^T + c against each
+            level's contrastive logits; controls that must miss: the
+            neck's eps in the head's fold, the bake without the
+            contrastive norms.
 8. eval     detection evaluation (eval/runner.evaluate_coco, the
             native matcher, the LVIS evaluator, the dump and the three
             CLIs) on a seeded LVIS-format set of 50 JPEGs (sides
@@ -95,7 +124,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             never); cli/eval_recall.py and cli/extract_embedding.py on
             Uni-Base, 16 images (K1 never). img/s and the host split
             (loader wait, detect, read-back, add_image, summarize) of
-            the LVIS and COCO runs.
+            the LVIS and COCO runs, and the LVIS f32 run again with
+            the loader's fast_decode; every JPEG natively decoded.
+8a. odinw   cli/eval_odinw.main --random-init on a seeded tree of two
+            ODinW-13 subsets (Aquarium, K = 7; PascalVOC, K = 20; 8
+            JPEGs each with planted boxes): both found and printed with
+            mean_mAP, K1 never launched; items/s.
 9. detect_int8  the same detector in its int8 mode (ModelCfg.quant_int8:
             the block MLPs, the neck's Conv+BN convs and the head's tower
             convs through ops/int8.py, torch._int_mm), the head
@@ -1103,10 +1137,28 @@ def eval_split(t: dict) -> dict:
 
     return {"images": t["images"], "batches": t["batches"],
             "wall_ms": t["wall_ms"],
+            "loader_wait_ms_per_batch": t["loader_wait_ms"]
+            / max(t["batches"], 1),
             "img_per_s": t["images"] * 1e3 / t["wall_ms"],
             **{k: t[k] for k in TIMING_KEYS},
             "host_eval_share": (t["add_image_ms"] + t["summarize_ms"])
             / t["wall_ms"]}
+
+
+@contextlib.contextmanager
+def fast_decode_loader():
+    """Route eval/runner's EvalLoader through fast_decode=True (the
+    native decoder's DCT-scaled decode)."""
+    import functools
+
+    from wedetect_tpu_torch.data.loader import EvalLoader
+    from wedetect_tpu_torch.eval import runner
+
+    runner.EvalLoader = functools.partial(EvalLoader, fast_decode=True)
+    try:
+        yield
+    finally:
+        runner.EvalLoader = EvalLoader
 
 
 @contextlib.contextmanager
@@ -1144,7 +1196,8 @@ def phase_eval(dev, text_embeds, size: str = "base", k: int = N_CLASSES,
     detections match and the LVIS domain filter keeps them; the
     detections an image and those the filter keeps are recorded.
     (a) LVIS (K = k) in f32 and bf16: K1 launched once a detect call;
-        AP50 above 0;
+        AP50 above 0; the f32 run again with the loader's fast_decode;
+        every JPEG through the native decoder (no cv2 fallback);
     (b) the f32 run twice with cuDNN deterministic, through K1 and
         through row_topk_plain: the same dump, bit for bit, and the same
         metrics (the timed runs leave cuDNN as cli/test.py does);
@@ -1169,6 +1222,9 @@ def phase_eval(dev, text_embeds, size: str = "base", k: int = N_CLASSES,
     from wedetect_tpu_torch.models.api import Detector
     from wedetect_tpu_torch.ops.row_topk import row_topk
 
+    from wedetect_tpu_torch import native
+
+    fallbacks = native.decode_fallbacks
     tmp = tempfile.TemporaryDirectory(prefix="wedetect_eval_")
     root = Path(tmp.name)
     t0 = time.perf_counter()
@@ -1219,6 +1275,12 @@ def phase_eval(dev, text_embeds, size: str = "base", k: int = N_CLASSES,
                                    **detection_load(ds,
                                                     str(root / f"{name}.npz")),
                                    **eval_split(t)}
+        with fast_decode_loader():
+            m, launches, t = run(cfg, None)
+        assert launches == n_calls, ("fast_decode", launches, n_calls)
+        res["lvis_f32_fast_decode"] = {
+            "row_topk_launches": launches,
+            "metrics": check_metrics(m, LVIS_KEYS), **eval_split(t)}
         # (b) the f32 run through K1 and through its plain version, cuDNN
         # deterministic so that the two differ only in K1
         torch.backends.cudnn.deterministic = True
@@ -1309,6 +1371,8 @@ def phase_eval(dev, text_embeds, size: str = "base", k: int = N_CLASSES,
     finally:
         torch.backends.cudnn.deterministic = saved_det
         tmp.cleanup()
+    res["decode_fallbacks"] = native.decode_fallbacks - fallbacks
+    assert res["decode_fallbacks"] == 0, res["decode_fallbacks"]
     emit({"phase": "eval", **res})
     return res
 
@@ -5110,6 +5174,659 @@ def phase_vis(dev):
     return res
 
 
+# ------------------------------------------------------------ deploy path
+NATIVE_SIZE = (640, 640)
+NATIVE_THREADS = 8
+# the JAX package's limits (tests/test_native_loader.py): the native
+# decode and letterbox against cv2's, the mean |diff| and its 99.9th
+# percentile; fast decode against exact, its mean and 99th percentile
+NATIVE_MEAN_TOL, NATIVE_P999_TOL = 1.0, 2.0
+FAST_MEAN_TOL, FAST_P99_TOL = 2.0, 12.0
+
+
+def exif_jpeg(data: bytes, orient: int) -> bytes:
+    """JPEG bytes with an EXIF APP1 segment (one Orientation tag)
+    spliced in after SOI."""
+    tiff = (b"II*\x00\x08\x00\x00\x00\x01\x00\x12\x01\x03\x00\x01\x00"
+            b"\x00\x00" + bytes([orient]) + b"\x00\x00\x00\x00\x00\x00\x00")
+    body = b"Exif\x00\x00" + tiff
+    return (data[:2] + b"\xff\xe1" + (len(body) + 2).to_bytes(2, "big")
+            + body + data[2:])
+
+
+def pixel_diff(got: np.ndarray, want: np.ndarray) -> dict:
+    """|got - want| over every channel: mean, 99th and 99.9th percentile,
+    max."""
+    assert got.shape == want.shape, (got.shape, want.shape)
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return {"mean": float(d.mean()), "p99": float(np.percentile(d, 99)),
+            "p999": float(np.quantile(d, 0.999)), "max": int(d.max())}
+
+
+def within(stats: dict, mean_tol: float, q_key: str, q_tol: float) -> bool:
+    return stats["mean"] < mean_tol and stats[q_key] <= q_tol
+
+
+def worst(stats: list) -> dict:
+    return {k: max(s[k] for s in stats) for k in stats[0]}
+
+
+def per_image_ms(fn, items, threads: int) -> float:
+    """Wall ms an item of fn over items, on one thread or a pool (after
+    one warm-up pass, which builds each thread's decoder)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads) as pool:
+        list(pool.map(fn, items))
+        t0 = time.perf_counter()
+        list(pool.map(fn, items))
+        return (time.perf_counter() - t0) * 1e3 / len(items)
+
+
+def synthetic_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """tests/test_native_loader.py's synthetic RGB image: x, y and x + y
+    ramps with noise 0-31."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 / max(w - 1, 1), yy * 255 / max(h - 1, 1),
+                    (xx + yy) % 256], -1).astype(np.uint8)
+    noise = rng.integers(0, 32, img.shape, np.int32)
+    return np.clip(img.astype(np.int32) + noise, 0, 255).astype(np.uint8)
+
+
+def dec_shape(data: bytes):
+    """(h, w) of a JPEG as cv2 decodes it."""
+    import cv2
+
+    return cv2.imdecode(np.frombuffer(data, np.uint8),
+                        cv2.IMREAD_COLOR).shape[:2]
+
+
+def cv2_letterbox(data: bytes, size):
+    """The reference path: cv2 decode + ops/letterbox.preprocess_image."""
+    import cv2
+
+    from wedetect_tpu_torch.ops.letterbox import preprocess_image
+
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return preprocess_image(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), size)
+
+
+def phase_native(n_images: int = EVAL_IMAGES, sides=(480, 1000),
+                 size=NATIVE_SIZE, timing: bool = True):
+    """The port's JPEG decoder (native/image_pipeline.cc) built here and
+    held to cv2 + ops/letterbox.preprocess_image on the eval phase's
+    seeded JPEGs (write_eval_dataset), two at 2592 x 1458 (fast decode
+    engages: the JAX package's synthetic image, and smooth noise, whose
+    fast-vs-exact error is reported, not held), one with an EXIF
+    orientation (6) and one corrupt file: scale factor, pad and ori
+    shape exactly, the
+    pixels of decode_jpeg and decode_letterbox within the JAX package's
+    limits (mean < 1, 99.9th percentile <= 2), fast decode against
+    exact (mean < 2, 99th percentile <= 12); the corrupt file rejected
+    (rc 1: decode_fallbacks counts it); a control, the letterbox one
+    pixel to the right, must miss. ms an image, native exact, native
+    fast and cv2, and the native decode alone (no resize), on one thread
+    and on NATIVE_THREADS."""
+    import tempfile
+    from pathlib import Path
+
+    import cv2
+
+    from wedetect_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load_image()
+    res = {"decoder": f"cv2 {cv2.__version__}",
+           "build_s": time.perf_counter() - t0,
+           "images": n_images, "size": list(size)}
+    tmp = tempfile.TemporaryDirectory(prefix="wedetect_native_")
+    try:
+        root = Path(tmp.name)
+        write_eval_dataset(root, n_images, N_CLASSES, EVAL_COCO_CLASSES,
+                           sides)
+        paths = sorted(root.glob("*.jpg"))
+        # two 2592 x 1458 images, >= 2x downscales where fast decode
+        # engages: the JAX package's synthetic image of
+        # its fast-decode limit (gradients + noise), held to that limit,
+        # and the eval set's smooth noise, reported
+        large = root / "large.jpg"
+        cv2.imwrite(str(large), synthetic_image(1458, 2592)[..., ::-1],
+                    [cv2.IMWRITE_JPEG_QUALITY, 92])
+        noise = root / "large_noise.jpg"
+        small = np.random.default_rng(8).integers(0, 256, (92, 163, 3),
+                                                  dtype=np.uint8)
+        cv2.imwrite(str(noise), cv2.resize(small, (2592, 1458)),
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+        exif = root / "exif6.jpg"
+        exif.write_bytes(exif_jpeg(paths[0].read_bytes(), 6))
+        paths += [large, noise, exif]
+        datas = [p.read_bytes() for p in paths]
+        dec, box, fast, control = [], [], [], []
+        meta_exact = True
+        for path, data in zip(paths, datas):
+            want = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
+            dec.append(pixel_diff(native.decode_jpeg(data), want))
+            got = native.decode_letterbox(data, size)
+            ref = cv2_letterbox(data, size)
+            meta_exact &= (np.array_equal(got[1], ref[1])
+                           and np.array_equal(got[2], ref[2])
+                           and got[3] == tuple(ref[3]))
+            box.append(pixel_diff(got[0], ref[0]))
+            control.append(pixel_diff(np.roll(got[0], 1, axis=1), ref[0]))
+            quick = native.decode_letterbox(data, size, fast=True)
+            meta_exact &= (np.array_equal(quick[1], got[1])
+                           and np.array_equal(quick[2], got[2])
+                           and quick[3] == got[3])
+            fast.append(pixel_diff(quick[0], got[0]))
+        fast_noise = fast.pop(-2)
+        exif_shape = list(native.decode_jpeg(datas[-1]).shape)
+        exif_ok = (exif_shape == list(cv2.imread(str(exif)).shape)
+                   and exif_shape[:2] == list(dec_shape(datas[0]))[::-1])
+        res.update(meta_exact=meta_exact, exif_shape=exif_shape,
+                   exif_rotated=exif_ok,
+                   decode=worst(dec), letterbox=worst(box),
+                   fast_vs_exact=worst(fast),
+                   fast_vs_exact_noise=fast_noise, control=worst(control))
+        # the corrupt file: SOI, then bytes that are no JPEG segment
+        corrupt = (b"\xff\xd8"
+                   + np.random.default_rng(9).bytes(4096))
+        before = native.decode_fallbacks
+        rejected = (native.decode_letterbox(corrupt, size) is None
+                    and native.decode_jpeg(corrupt) is None)
+        res["corrupt_rejected"] = rejected
+        res["corrupt_fallbacks"] = native.decode_fallbacks - before
+        if timing:
+            decode = native.decode_jpeg
+            exact = lambda b: native.decode_letterbox(b, size)  # noqa: E731
+            quick = lambda b: native.decode_letterbox(  # noqa: E731
+                b, size, fast=True)
+            ref = lambda b: cv2_letterbox(b, size)  # noqa: E731
+            res["ms_per_image"] = {
+                f"{name}_{threads}t": per_image_ms(fn, datas[:n_images],
+                                                   threads)
+                for threads in (1, NATIVE_THREADS)
+                for name, fn in (("native_decode", decode),
+                                 ("native", exact), ("native_fast", quick),
+                                 ("cv2", ref))}
+            res["cpu_count"] = os.cpu_count()
+    finally:
+        tmp.cleanup()
+    res["ok"] = (meta_exact and rejected and res["corrupt_fallbacks"] == 2
+                 and exif_ok
+                 and all(within(s, NATIVE_MEAN_TOL, "p999", NATIVE_P999_TOL)
+                         for s in dec + box)
+                 and all(within(s, FAST_MEAN_TOL, "p99", FAST_P99_TOL)
+                         for s in fast)
+                 and not any(within(c, NATIVE_MEAN_TOL, "p999",
+                                    NATIVE_P999_TOL) for c in control))
+    emit({"phase": "native", **res})
+    if not res["ok"]:
+        raise AssertionError("native: the decoder missed a limit")
+    return res
+
+
+def det_lists_equal(a: list, b: list) -> bool:
+    """Two Detector.__call__ results, key by key, bit for bit."""
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def call_on_letterboxed(det, boxed: list, thr: float) -> list:
+    """Detector.__call__'s step and filter on already letterboxed images
+    (decode_letterbox's (padded, sf, pad, ori) each)."""
+    from wedetect_tpu_torch.models import wedetect as W
+
+    d = W.detect_step(det.cfg, det.model, np.stack([b[0] for b in boxed]),
+                      det._text_embeds, np.stack([b[1] for b in boxed]),
+                      np.stack([b[2] for b in boxed]),
+                      np.stack([np.array(b[3], np.float32) for b in boxed]))
+    d = W.Detections(*(x.cpu().numpy() for x in d))
+    out = []
+    for i in range(len(boxed)):
+        keep = d.valid[i] & (d.scores[i] > thr)
+        out.append({"bboxes": d.boxes[i][keep], "scores": d.scores[i][keep],
+                    "labels": d.labels[i][keep],
+                    "embeddings": d.embeds[i][keep]})
+    return out
+
+
+def phase_detect_files(dev, text_embeds, size: str = "base",
+                       k: int = N_CLASSES, batch: int = BATCH,
+                       sides=(480, 1000), timing: bool = True, **cfg_kw):
+    """Detector.__call__ on `batch` JPEG paths (the eval set's first
+    images): each decoded by the native decoder, the head calibrated as
+    the eval phase's (eval_calibrate: calibrate_head, then the bias
+    lowered until bf16 is sparse too) so that K1 takes the sparse branch
+    in both types, one K1 launch a call. Its detections equal, bit for bit
+    (cuDNN deterministic), the same step on the arrays that
+    native.decode_letterbox returns; no file falls back to cv2. ms a
+    call in f32 and bf16: on the files, on the decoded arrays (cv2
+    letterbox), the host decode alone and its share of the file call,
+    and the detect step on letterboxed arrays. Returns the detector and
+    its letterboxed inputs for the fold phase."""
+    import tempfile
+    from pathlib import Path
+
+    from wedetect_tpu_torch import native
+    from wedetect_tpu_torch.models.api import Detector
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    det = Detector.from_random(size, seed=0, device=dev, num_classes=k,
+                               **cfg_kw)
+    det.reparameterize([f"class_{i}" for i in range(k)], embeds=text_embeds)
+    cfg, thr = det.cfg, det.cfg.test.score_thr
+    tmp = tempfile.TemporaryDirectory(prefix="wedetect_files_")
+    saved_det = torch.backends.cudnn.deterministic
+    try:
+        root = Path(tmp.name)
+        write_eval_dataset(root, batch, N_CLASSES, EVAL_COCO_CLASSES, sides)
+        paths = [str(p) for p in sorted(root.glob("*.jpg"))]
+        datas = [Path(p).read_bytes() for p in paths]
+        fallbacks = native.decode_fallbacks
+        boxed = [native.decode_letterbox(b, cfg.img_size) for b in datas]
+        images = np.stack([b[0] for b in boxed])
+        res = {"calibration": eval_calibrate(det, [images],
+                                             det._text_embeds, thr)}
+        torch.backends.cudnn.deterministic = True
+        row_topk.launches = 0
+        got = det(paths, score_thr=thr)
+        launches = row_topk.launches
+        want = call_on_letterboxed(det, boxed, thr)
+        torch.backends.cudnn.deterministic = saved_det
+        match = det_lists_equal(got, want)
+        res.update({
+            "size": size, "k": k, "batch": batch, "img": list(cfg.img_size),
+            "row_topk_launches": launches,
+            "detections": sum(
+                check_detections([r], max(b[3]), k, thr, cfg.embed_dims)
+                for r, b in zip(got, boxed)),
+            "matches_letterboxed_arrays": match,
+            "decode_fallbacks": native.decode_fallbacks - fallbacks})
+        assert launches == 1, f"the file call launched row_topk {launches}x"
+        assert match, "detections on files != on decode_letterbox's arrays"
+        assert res["decode_fallbacks"] == 0, res["decode_fallbacks"]
+        if timing:
+            import cv2
+
+            arrays = [cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+                      for p in paths]
+            for name, c in (("f32", cfg), ("bf16", dataclasses.replace(
+                    cfg, compute_dtype="bfloat16"))):
+                det.cfg = det.model.cfg = c
+                row_topk.launches = 0
+                r = res[name] = {
+                    "files_call_ms": host_ms(
+                        lambda: det(paths, score_thr=thr), 3)}
+                r["row_topk_launches_per_call"] = row_topk.launches / 4
+                r["arrays_call_ms"] = host_ms(
+                    lambda: det(arrays, score_thr=thr), 3)
+                r["letterboxed_step_ms"] = host_ms(
+                    lambda: call_on_letterboxed(det, boxed, thr), 3)
+                r["img_per_s_files"] = batch * 1e3 / r["files_call_ms"]
+            det.cfg = det.model.cfg = cfg
+            decode_ms = host_ms(lambda: [native.decode_letterbox(
+                b, cfg.img_size) for b in datas], 3)
+            res["host_decode_ms"] = decode_ms
+            res["host_decode_share"] = {n: decode_ms / res[n]["files_call_ms"]
+                                        for n in ("f32", "bf16")}
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        tmp.cleanup()
+    emit({"phase": "detect_files", **res})
+    return det, boxed, res
+
+
+# the fold phase: the folded model's f32 class logits, its box (DFL)
+# logits and the baked head's logits within this share of each tensor's
+# largest entry. The boxes are read, not held: each side is a softmax
+# expectation over reg_max bins times the level's stride (up to 32), so
+# a logit error reaches the pixels amplified by up to 2 (reg_max - 1)
+# stride
+FOLD_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def record_nms(calls: list):
+    """Keep each batched_static_nms call of models/wedetect.postprocess:
+    (scores (B, A, K), boxes (B, A, 4), NMSResult, its keywords)."""
+    from wedetect_tpu_torch.models import wedetect as W
+
+    inner = W.batched_static_nms
+
+    def recorded(scores, boxes, **kw):
+        out = inner(scores, boxes, **kw)
+        calls.append((scores, boxes, out, kw))
+        return out
+
+    W.batched_static_nms = recorded
+    try:
+        yield calls
+    finally:
+        W.batched_static_nms = inner
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> float:
+    """IoU of two xyxy boxes (4,), by ops/nms's own function on their
+    device."""
+    from wedetect_tpu_torch.ops.nms import _pairwise_iou_nn
+
+    return float(_pairwise_iou_nn(a[None].float(), b[None].float())[0, 0])
+
+
+def nms_flips(x_call, y_call) -> list:
+    """The detections that one NMS call keeps and the other does not,
+    keyed by (image, anchor, label), each with the decision that flipped
+    it. For a candidate kept by one call (X) and dropped by the other
+    (Y): "score_thr" when its score crossed the score threshold;
+    otherwise the kept detection y of Y that suppressed it (same label,
+    higher score, IoU above the threshold) and, in X: "order" when X
+    ranks it above y, "iou" when its IoU with y in X is at or below the
+    threshold (the IoU crossed it), "cascade" when X did not keep y (y
+    flipped itself), "cap" when Y's slots were full, else
+    "unexplained"."""
+    flips = []
+    for first, (cx, cy) in (("x", (x_call, y_call)), ("y", (y_call,
+                                                            x_call))):
+        sx, bx, rx, kw = cx
+        sy, by, ry, _ = cy
+        thr, score_thr = kw["iou_thr"], kw["score_thr"]
+        for img in range(rx.valid.shape[0]):
+            keep = [set(zip(r.anchors[img][r.valid[img]].tolist(),
+                            r.labels[img][r.valid[img]].tolist()))
+                    for r in (rx, ry)]
+            for a, lab in sorted(keep[0] - keep[1]):
+                f = {"kept_by": first, "image": img, "anchor": a,
+                     "label": lab, "score": float(sx[img, a, lab]),
+                     "score_other": float(sy[img, a, lab])}
+                if f["score_other"] <= score_thr:
+                    f["cause"] = "score_thr"
+                    flips.append(f)
+                    continue
+                box_y = by[img, a]
+                sup = [(float(sy[img, a2, lab]), a2)
+                       for a2, l2 in keep[1] if l2 == lab
+                       and box_iou(box_y, by[img, a2]) > thr
+                       and float(sy[img, a2, lab]) >= f["score_other"]]
+                if not sup:
+                    f["cause"] = ("cap" if len(keep[1]) == kw["max_out"]
+                                  else "unexplained")
+                    flips.append(f)
+                    continue
+                s_sup, a2 = max(sup)
+                f.update(by_anchor=a2, by_score_other=s_sup,
+                         by_score=float(sx[img, a2, lab]),
+                         iou_other=box_iou(box_y, by[img, a2]),
+                         iou=box_iou(bx[img, a], bx[img, a2]))
+                if (a2, lab) not in keep[0]:
+                    f["cause"] = "cascade"
+                elif f["by_score"] <= f["score"]:
+                    f["cause"] = "order"
+                elif f["iou"] <= thr:
+                    f["cause"] = "iou"
+                else:
+                    f["cause"] = "unexplained"
+                flips.append(f)
+    return flips
+
+
+def perturb_bn(model, seed: int = 11) -> None:
+    """Random BN statistics and affines, in place (the random init
+    leaves them at 0 / 1, where a fold changes nothing)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                draw = [0.1 * torch.randn(n, generator=g),
+                        0.05 + 1.45 * torch.rand(n, generator=g),
+                        0.1 * torch.randn(n, generator=g),
+                        0.1 * torch.randn(n, generator=g)]
+                mean, var, dw, db = (x.to(m.weight.device) for x in draw)
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+                m.weight.add_(dw)
+                m.bias.add_(db)
+
+
+def rel_max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over want's largest entry."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def phase_fold(dev, det, boxed, timing: bool = True):
+    """ckpt/fuse on the detect_files detector, its BN statistics made
+    random first (perturb_bn) and its head calibrated again: the
+    fold_conv_bn model (the same modules, the folded state) against the
+    unfolded one in f32 on decode_letterbox's arrays: logits within
+    FOLD_TOL of their largest entry, and the box (DFL) logits too (the
+    boxes' largest move read), one K1 launch a call in each; every
+    detection that one model keeps and the other does not is a decision
+    that the fold's rounding flipped (nms_flips: a score across the
+    threshold, a score order or an NMS IoU crossed, or a cascade of
+    such), none unexplained; a fold with the neck's eps in the head
+    must miss. bake_text_head: e @ W^T + c on each level's raw
+    embeddings within FOLD_TOL of the head's contrastive
+    logits (both less the level's scalar bias), and a bake that leaves
+    the norms out must miss. ms a call of both."""
+    from wedetect_tpu_torch.ckpt import fuse
+    from wedetect_tpu_torch.models import wedetect as W
+    from wedetect_tpu_torch.models.api import Detector, _build_detector
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    cfg, thr = det.cfg, det.cfg.test.score_thr
+    images = np.stack([b[0] for b in boxed])
+    w = det._text_embeds
+    perturb_bn(det.model)
+    calibrate_head(det, images, w, thr)
+
+    def folded(state):
+        model = _build_detector(cfg, dev)
+        model.load_state_dict(state, strict=True)
+        return Detector(cfg=cfg, model=model, _text_embeds=w)
+
+    fdet = folded(fuse.fold_conv_bn(det.model))
+    saved = fuse.HEAD_EPS
+    fuse.HEAD_EPS = fuse.NECK_EPS
+    try:
+        control_state = fuse.fold_conv_bn(det.model.state_dict())
+    finally:
+        fuse.HEAD_EPS = saved
+    # the bake's control: the contrastive norms left out (each made the
+    # identity), as if raw embeddings were scored
+    neutral = {"norm.weight": 1.0, "norm.bias": 0.0,
+               "norm.running_mean": 0.0,
+               "norm.running_var": 1.0 - fuse.HEAD_EPS}
+    baked_control = fuse.bake_text_head(
+        {k: torch.full_like(v, neutral[k.split(".", 3)[3]])
+         if k.startswith("bbox_head.cls_contrasts.")
+         and k.split(".", 3)[3] in neutral else v
+         for k, v in det.model.state_dict().items()}, w.cpu())
+    res = {"pairs": len(fuse.conv_bn_pairs(det.model.state_dict()))}
+    with torch.inference_mode():
+        a = W.forward_raw(cfg, det.model, images, w)
+        b = W.forward_raw(cfg, fdet.model, images, w)
+        res["logits_err"] = rel_max_err(b.logits, a.logits)
+        res["dist_logits_err"] = rel_max_err(b.dist_logits, a.dist_logits)
+        res["boxes_max_px"] = float((b.boxes - a.boxes).abs().max())
+        del b
+        c = W.forward_raw(cfg, folded(control_state).model, images, w)
+        res["control_logits_err"] = rel_max_err(c.logits, a.logits)
+        del a, c, control_state
+    counts = []
+    calls = []
+    for d in (det, fdet):
+        row_topk.launches = 0
+        with record_nms(calls):
+            call_on_letterboxed(d, boxed, thr)
+        counts.append(row_topk.launches)
+    res["row_topk_launches"] = counts
+    res["detections"] = [int(c[2].valid.sum()) for c in calls]
+    flips = nms_flips(*calls)
+    del calls
+    res["flips"] = len(flips)
+    res["flip_causes"] = {c: sum(f["cause"] == c for f in flips)
+                          for c in sorted({f["cause"] for f in flips})}
+    res["flipped"] = flips
+    res["flip_max_score"] = max((f["score"] for f in flips), default=0.0)
+
+    # the baked head on each level's raw (pre-BN) region embeddings
+    raw, logits = {}, {}
+    hooks = []
+    head = det.model.bbox_head
+    for i, (pred, contrast) in enumerate(zip(head.cls_preds,
+                                             head.cls_contrasts)):
+        hooks.append(pred.register_forward_hook(
+            lambda m, inp, out, i=i: raw.__setitem__(i, out)))
+        hooks.append(contrast.register_forward_hook(
+            lambda m, inp, out, i=i: logits.__setitem__(i, out[0])))
+    try:
+        with torch.inference_mode():
+            W.forward_raw(cfg, det.model, images, w)
+    finally:
+        for h in hooks:
+            h.remove()
+    baked = fuse.bake_text_head(det.model, w.cpu())
+    bake_err, bake_control = [], []
+    with torch.inference_mode():
+        for i in sorted(raw):
+            # against the contrastive term: the level's scalar bias (the
+            # calibrated shift, ~-30) is left out of both sides
+            b = det.model.bbox_head.cls_contrasts[i].bias
+            for table, errs in ((baked, bake_err),
+                                (baked_control, bake_control)):
+                p = table[f"cls_contrasts.{i}"]
+                got = (torch.einsum("bchw,kc->bkhw", raw[i],
+                                    p["weight"].to(dev))
+                       + p["bias"].to(dev)[None, :, None, None])
+                errs.append(rel_max_err(got - b, logits[i] - b))
+    del raw, logits
+    res.update(bake_err=bake_err, bake_control_err=bake_control)
+    if timing:
+        res["unfolded_call_ms"] = host_ms(
+            lambda: call_on_letterboxed(det, boxed, thr), 3)
+        res["folded_call_ms"] = host_ms(
+            lambda: call_on_letterboxed(fdet, boxed, thr), 3)
+    del fdet
+    torch.cuda.empty_cache()
+    res["ok"] = (res["logits_err"] <= FOLD_TOL
+                 and res["dist_logits_err"] <= FOLD_TOL
+                 and res["control_logits_err"] > FOLD_TOL
+                 and counts == [1, 1]
+                 and "unexplained" not in res["flip_causes"]
+                 and max(bake_err) <= FOLD_TOL
+                 and min(bake_control) > FOLD_TOL)
+    emit({"phase": "fold", "tol": FOLD_TOL, **res})
+    if not res["ok"]:
+        raise AssertionError("fold: the folded model missed a limit")
+    return res
+
+
+# two ODinW-13 subsets (class lists as in GLIP's ODinW configs)
+ODINW_SUBSETS = {
+    "Aquarium": ["fish", "jellyfish", "penguin", "puffin", "shark",
+                 "starfish", "stingray"],
+    "PascalVOC": ["aeroplane", "bicycle", "bird", "boat", "bottle", "bus",
+                  "car", "cat", "chair", "cow", "diningtable", "dog",
+                  "horse", "motorbike", "person", "pottedplant", "sheep",
+                  "sofa", "train", "tvmonitor"]}
+ODINW_IMAGES = 8
+
+
+def write_odinw_tree(root, n: int = ODINW_IMAGES, sides=(480, 1000),
+                     seed: int = 12) -> int:
+    """Each subset as `<subset>/<subset>.coco/test/test_annotations.json`
+    with n seeded JPEGs beside it (smooth noise, 1-10 planted boxes each,
+    painted in, of its classes). Returns the number of images."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for sub, classes in ODINW_SUBSETS.items():
+        d = root / sub / f"{sub}.coco" / "test"
+        d.mkdir(parents=True)
+        images, anns = [], []
+        for i in range(n):
+            h, w = (int(v) for v in rng.integers(sides[0], sides[1] + 1, 2))
+            small = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3),
+                                 dtype=np.uint8)
+            img = cv2.resize(small, (w, h))
+            for _ in range(int(rng.integers(1, 11))):
+                bw, bh = rng.uniform(16, w / 2), rng.uniform(16, h / 2)
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                img[int(y):int(y + bh), int(x):int(x + bw)] = rng.integers(
+                    0, 256, 3)
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": int(rng.integers(len(classes)))
+                             + 1, "bbox": [x, y, bw, bh], "area": bw * bh,
+                             "iscrowd": 0})
+            name = f"{i:06d}.jpg"
+            cv2.imwrite(str(d / name), img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+            images.append({"id": i + 1, "file_name": name, "width": w,
+                           "height": h})
+        (d / "test_annotations.json").write_text(json.dumps(
+            {"images": images, "annotations": anns,
+             "categories": [{"id": c + 1, "name": t}
+                            for c, t in enumerate(classes)]}))
+    return n * len(ODINW_SUBSETS)
+
+
+def phase_odinw(dev, n_images: int = ODINW_IMAGES, sides=(480, 1000),
+                size: str = "base"):
+    """cli/eval_odinw.main --random-init on a seeded tree of two ODinW-13
+    subsets (write_odinw_tree: Aquarium, K = 7; PascalVOC, K = 20):
+    discover finds both, main returns (exit 0) and prints each subset's
+    mAP line and the mean_mAP JSON; K1 never launches (K <= 20 takes the
+    dense selection). items/s through the CLI and through its
+    evaluate_coco calls, with their host split."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from wedetect_tpu_torch import native
+    from wedetect_tpu_torch.cli import eval_odinw
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+
+    tmp = tempfile.TemporaryDirectory(prefix="wedetect_odinw_")
+    try:
+        root = Path(tmp.name)
+        n = write_odinw_tree(root, n_images, sides)
+        found = [s[0] for s in eval_odinw.discover(str(root))]
+        assert found == sorted(ODINW_SUBSETS), found
+        calls = []
+        out = io.StringIO()
+        fallbacks = native.decode_fallbacks
+        row_topk.launches = 0
+        t0 = time.perf_counter()
+        with timed_runner(calls), contextlib.redirect_stdout(out):
+            results = eval_odinw.main(["--root", str(root), "--random-init",
+                                       "--size", size, "--device",
+                                       dev.type])
+        wall = time.perf_counter() - t0
+    finally:
+        tmp.cleanup()
+    text = out.getvalue()
+    lines = [line for line in text.splitlines() if ": mAP " in line]
+    eval_ms = sum(c["wall_ms"] for c in calls)
+    res = {"images": n, "subsets": found, "results": results,
+           "printed": lines, "row_topk_launches": row_topk.launches,
+           "decode_fallbacks": native.decode_fallbacks - fallbacks,
+           "cli_s": wall, "items_per_s_cli": n / wall,
+           "items_per_s_eval": n * 1e3 / eval_ms,
+           "eval": [eval_split(c) for c in calls]}
+    res["ok"] = (set(results) == {*ODINW_SUBSETS, "mean_mAP"}
+                 and [line.split(":")[0] for line in lines]
+                 == sorted(ODINW_SUBSETS)
+                 and '"mean_mAP"' in text and row_topk.launches == 0
+                 and res["decode_fallbacks"] == 0
+                 and all(0 <= v <= 1 for v in results.values() if v == v))
+    emit({"phase": "odinw", **res})
+    if not res["ok"]:
+        raise AssertionError("odinw: the CLI's output is not as expected")
+    return res
+
+
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
@@ -5177,12 +5894,18 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_device()
     phase_build()
+    phase_native()
     k1 = phase_k1(dev, BATCH * 8400, N_CLASSES)
     k2 = phase_k2(dev)
     k3 = phase_k3(dev)
     text_embeds = phase_text(dev, TEXT_BASE, N_CLASSES)
     detect = phase_detect(dev, "base", N_CLASSES, BATCH, text_embeds)
+    det, boxed, files = phase_detect_files(dev, text_embeds)
+    fold = phase_fold(dev, det, boxed)
+    del det, boxed
+    torch.cuda.empty_cache()
     ev = phase_eval(dev, text_embeds)
+    odinw = phase_odinw(dev)
     detect_int8 = phase_detect_int8(dev, "base", N_CLASSES, BATCH,
                                     text_embeds)
     del text_embeds
@@ -5260,6 +5983,11 @@ def main() -> int:
          "launches_eval": ev["lvis_f32"]["row_topk_launches"],
          "launches_eval_bf16": ev["lvis_bf16"]["row_topk_launches"],
          "launches_eval_tta": ev["lvis_tta_f32"]["row_topk_launches"],
+         # a Detector.__call__ on 8 JPEG paths; the unfolded and the
+         # folded detector's call (fold); the ODinW CLI (K <= 20: none)
+         "launches_detect_files": files["row_topk_launches"],
+         "launches_fold": fold["row_topk_launches"],
+         "launches_odinw": odinw["row_topk_launches"],
          "max_abs_err": k1["max_abs_err"], "max_abs_err_bf16": None,
          "tolerance": 0.0, "match": True,
          # ms / library_ms on k1_inputs (dense rows); path_ms on the

@@ -77,6 +77,37 @@ def test_detector_call_matches_jax(preproc):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("preproc", ["pipeline", "yolov5"])
+def test_detector_call_on_jpeg_paths_matches_jax(tmp_path, preproc):
+    """JPEG paths: each package's native decode + letterbox (the yolov5
+    preprocessing decodes with cv2 in both); detections as above. The
+    decoders may differ by 1 LSB on a few pixels (the build flags;
+    tests/test_torch_native_image.py)."""
+    import cv2
+
+    jcfg, tcfg = _cfgs()
+    jvars = jax_init(jcfg, seed=0)
+    w = np.random.default_rng(1).standard_normal((4, 32)).astype(np.float32)
+    jdet = JDetector(cfg=jcfg, variables=jvars, preproc=preproc)
+    jdet.reparameterize(["a", "b", "c", "d"], embeds=w)
+    tdet = Detector.from_jax_variables(jax.tree.map(np.asarray, jvars), tcfg,
+                                       device="cpu", preproc=preproc)
+    tdet.reparameterize(["a", "b", "c", "d"], embeds=w)
+    paths = []
+    for i, img in enumerate(_images()):
+        paths.append(str(tmp_path / f"{i}.jpg"))
+        cv2.imwrite(paths[-1], img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    want = jdet(paths, score_thr=0.3, max_dets=10)
+    got = tdet(paths, score_thr=0.3, max_dets=10)
+    assert sum(len(r["labels"]) for r in got) > 0
+    for g, r in zip(got, want):
+        np.testing.assert_array_equal(g["labels"], r["labels"])
+        np.testing.assert_allclose(g["scores"], r["scores"], atol=1e-4)
+        np.testing.assert_allclose(g["bboxes"], r["bboxes"], atol=1e-3)
+        np.testing.assert_allclose(g["embeddings"], r["embeddings"],
+                                   atol=1e-4, rtol=1e-4)
+
+
 def test_text_tower_through_detector():
     """from_jax_variables with text params; reparameterize on token ids
     runs the port's tower, equal to the flax TextTower to 1e-5."""
@@ -197,6 +228,26 @@ EVAL_SLICE = ("native/__init__.py", "native/coco_match.cc",
 def test_eval_slice_modules_scanned():
     for rel in EVAL_SLICE:
         assert (PKG / rel).is_file(), rel
+
+
+# the deploy slice: the native decoder, the fold and bake, ODinW and WeRef
+DEPLOY_SLICE = ("native/__init__.py", "native/image_pipeline.cc",
+                "ckpt/__init__.py", "ckpt/fuse.py", "nn/__init__.py",
+                "nn/head.py", "cli/eval_odinw.py", "data/weref.py",
+                "data/loader.py", "data/wds.py", "models/api.py")
+
+
+def test_deploy_slice_modules_scanned():
+    sources = _port_sources()
+    for rel in DEPLOY_SLICE:
+        assert (PKG / rel).is_file(), rel
+        if rel.endswith(".py"):
+            assert PKG / rel in sources, rel
+    # the C++ copy stands alone: no include of, or path to, the JAX
+    # package's sources
+    cc = (PKG / "native/image_pipeline.cc").read_text()
+    assert "#include \"" not in cc and "wedetect_tpu/" not in cc.replace(
+        "wedetect_tpu/native/image_pipeline.cc", "")
 
 
 def test_port_imports_with_jax_blocked():

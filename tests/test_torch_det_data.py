@@ -3,11 +3,10 @@
 package's under the same rng, and `cli/train.py` end to end on the CPU.
 
 Tolerances: the data copies bitwise (images, boxes, labels, texts and
-the rng's state after each call). wds decodes with cv2 in the port; the
-JAX package's native JPEG decoder is switched off here so that both
-decode with cv2. The CLI: a run stopped at a checkpoint and resumed
-ends bitwise equal to the run kept going (model, BN statistics, Adam
-state, step).
+the rng's state after each call). wds decodes with each package's
+native JPEG decoder (a plain decode, no resampling: bitwise). The CLI:
+a run stopped at a checkpoint and resumed ends bitwise equal to the run
+kept going (model, BN statistics, Adam state, step).
 """
 
 import io
@@ -18,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-import wedetect_tpu.native as jnative
 from wedetect_tpu.data import augment as JAUG
 from wedetect_tpu.data import coco as JCOCO
 from wedetect_tpu.data import concat as JCAT
@@ -241,8 +239,7 @@ def shards(tmp_path_factory):
     dict(en_zh_map={"cat": "猫"}),
     dict(class_texts=[["bird", "finch"]], use_negative_queue=True, seed=3),
     dict(rank=1, world_size=2)])
-def test_wds_stream_bitwise(shards, kw, monkeypatch):
-    monkeypatch.setattr(jnative, "decode_jpeg", lambda b: None)
+def test_wds_stream_bitwise(shards, kw):
     t, j = TWDS.WdsDetDataset(shards, **kw), JWDS.WdsDetDataset(shards, **kw)
     assert t.paths == j.paths
     for _ in range(12):

@@ -299,10 +299,31 @@ def test_eval_loader_equals_jax(coco_dir, bs, indices):  # noqa: F811
                 assert x == w[key], key
 
 
-def test_eval_loader_fast_decode_raises(coco_dir):  # noqa: F811
-    ds = CocoDetDataset(str(coco_dir / "ann.json"), str(coco_dir))
-    with pytest.raises(NotImplementedError, match="image_pipeline"):
-        EvalLoader(ds, (64, 64), fast_decode=True)
+def test_eval_loader_fast_decode_raises(coco_dir, tmp_path,  # noqa: F811
+                                        monkeypatch):
+    """fast_decode=True is taken (the JAX loader's batches on the PNG
+    fixture), and a JPEG whose decoder cannot be built raises: no cv2
+    fallback for a missing toolchain."""
+    from wedetect_tpu_torch import native
+
+    path = str(coco_dir / "ann.json")
+    got = list(EvalLoader(CocoDetDataset(path, str(coco_dir)), (64, 64),
+                          batch_size=2, fast_decode=True))
+    want = list(JLoader(JDataset(path, str(coco_dir)), (64, 64),
+                        batch_size=2, fast_decode=True))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["images"], w["images"])
+    ann = json.loads((coco_dir / "ann.json").read_text())
+    ann["images"] = ann["images"][:1]
+    ann["images"][0]["file_name"] = "a.jpg"
+    cv2.imwrite(str(tmp_path / "a.jpg"), np.zeros((40, 50, 3), np.uint8))
+    (tmp_path / "ann.json").write_text(json.dumps(ann))
+    ds = CocoDetDataset(str(tmp_path / "ann.json"), str(tmp_path))
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_image_lib", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="g\\+\\+ could not run"):
+        list(EvalLoader(ds, (64, 64), fast_decode=True))
 
 
 def test_process_shard_equals_jax():

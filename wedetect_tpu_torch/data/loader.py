@@ -6,11 +6,12 @@ Replaces the reference's torch DataLoader stack (reference
 config/wedetect_base.py:197-211 val_dataloader, datasets/utils.py:8-60
 yolow_collate) with a thread-pooled numpy pipeline, as
 `wedetect_tpu.data.loader` does: images are decoded and letterboxed on
-host threads while the card runs the previous batch. Every image is
-decoded with cv2 and letterboxed by `ops/letterbox.preprocess_image`,
-the JAX package's own path for non-JPEG files; its fused native JPEG
-decoder (`native/image_pipeline.cc`) is not ported, so JPEG files take
-the cv2 path too.
+host threads while the card runs the previous batch. A `.jpg` /
+`.jpeg` file goes through the fused native decode + letterbox
+(`native.decode_letterbox`, C++ with the GIL released, so the pool's
+threads decode in parallel); any other file, and a JPEG that the
+decoder rejects, is decoded with cv2 and letterboxed by
+`ops/letterbox.preprocess_image`, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from wedetect_tpu_torch import native
 from wedetect_tpu_torch.ops.letterbox import preprocess_image
 
-NO_FAST_DECODE = ("fast_decode needs the fused native JPEG decoder "
-                  "(native/image_pipeline.cc), which is not ported")
+JPEG_SUFFIXES = (".jpg", ".jpeg")
 
 
 def load_image_rgb(path: str) -> np.ndarray:
@@ -97,13 +98,26 @@ def image_size(path: str) -> Tuple[int, int]:
     return img.shape[1], img.shape[0]
 
 
+def letterbox_file(path: str, img_size, fast_decode: bool = False):
+    """An image file decoded and letterboxed to img_size: (padded, sf,
+    pad, ori), the ops/letterbox.preprocess_image contract. JPEG files
+    go through the native decoder (fast_decode: its DCT-scaled decode
+    for >= 2x downscales, near-exact), others and rejected JPEGs
+    through cv2 + preprocess_image."""
+    if path.lower().endswith(JPEG_SUFFIXES):
+        with open(path, "rb") as f:
+            result = native.decode_letterbox(f.read(), img_size,
+                                             fast=fast_decode)
+        if result is not None:
+            return result
+    return preprocess_image(load_image_rgb(path), img_size)
+
+
 def eval_sample(ds, idx: int, img_size, fast_decode: bool = False) -> Dict:
     """One letterboxed eval sample of a CocoDetDataset with its metas."""
-    if fast_decode:
-        raise NotImplementedError(NO_FAST_DECODE)
     item = ds.items[idx]
-    padded, sf, pad, ori = preprocess_image(load_image_rgb(item["path"]),
-                                            img_size)
+    padded, sf, pad, ori = letterbox_file(item["path"], img_size,
+                                          fast_decode)
     return {
         "image": padded, "scale_factor": sf, "pad_param": pad,
         "ori_shape": np.array(ori, np.float32),
@@ -122,8 +136,6 @@ class EvalLoader:
                  indices: Optional[Sequence[int]] = None,
                  num_workers: int = 8, prefetch: int = 4,
                  fast_decode: bool = False):
-        if fast_decode:
-            raise NotImplementedError(NO_FAST_DECODE)
         self.ds = ds
         self.img_size = tuple(img_size)
         self.bs = batch_size
@@ -131,6 +143,7 @@ class EvalLoader:
                             else range(len(ds)))
         self.workers = num_workers
         self.prefetch = prefetch
+        self.fast_decode = fast_decode
 
     def __len__(self):
         return (len(self.indices) + self.bs - 1) // self.bs
@@ -146,7 +159,8 @@ class EvalLoader:
                 chunk = next(it, None)
                 if chunk is None:
                     return
-                futs = [pool.submit(eval_sample, self.ds, i, self.img_size)
+                futs = [pool.submit(eval_sample, self.ds, i,
+                                    self.img_size, self.fast_decode)
                         for i in chunk]
                 pending.append((chunk, futs))
 

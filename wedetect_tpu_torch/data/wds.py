@@ -7,9 +7,9 @@ shared negative-text queue) and weref.py:48-156 (NegQueue).
 
 Implemented without the webdataset dependency: a plain tarfile stream
 with shard resampling, per-process splitting, and bounded retry. A copy
-of `wedetect_tpu.data.wds`, except that images are decoded with cv2
-(imported on use): the JAX package's native JPEG decoder
-(native/image_pipeline.cc) is not ported.
+of `wedetect_tpu.data.wds`: images are decoded by the port's native
+JPEG decoder (`native.decode_jpeg`, C++ with the GIL released), and a
+sample it rejects by cv2 (imported on use).
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import tarfile
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+from wedetect_tpu_torch import native
 
 
 class NegQueue:
@@ -120,13 +122,15 @@ class WdsDetDataset:
 
     def _decode(self, raw: Dict[str, bytes]) -> Dict:
         js = json.loads(raw["json"])
-        import cv2
-
-        img = cv2.imdecode(np.frombuffer(raw["jpg"], np.uint8),
-                           cv2.IMREAD_COLOR)
+        img = native.decode_jpeg(raw["jpg"])
         if img is None:
-            raise ValueError("bad image")
-        img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+            import cv2
+
+            img = cv2.imdecode(np.frombuffer(raw["jpg"], np.uint8),
+                               cv2.IMREAD_COLOR)
+            if img is None:
+                raise ValueError("bad image")
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
         class_texts = list(self.base_class_texts or [])
         text2cat = {}

@@ -156,8 +156,11 @@ class Detector:
     def __call__(self, images: Sequence[Union[str, np.ndarray]],
                  score_thr: float = 0.0, max_dets: Optional[int] = None
                  ) -> List[Dict[str, np.ndarray]]:
-        """Detect on a list of image paths / HWC uint8 RGB arrays."""
-        from wedetect_tpu_torch.data.loader import load_image_rgb
+        """Detect on a list of image paths / HWC uint8 RGB arrays. A JPEG
+        path goes through the native decode + letterbox (cv2 for a file
+        it rejects), except under the Uni presets' yolov5 letterbox."""
+        from wedetect_tpu_torch.data.loader import (letterbox_file,
+                                                    load_image_rgb)
 
         cfg = self.cfg
         if cfg.num_prompts:
@@ -166,12 +169,15 @@ class Detector:
             raise ValueError("call reparameterize(texts) first")
         else:
             w = self._text_embeds
-        pre = (yolov5_letterbox if self.preproc == "yolov5"
-               else preprocess_image)
         arrs, sfs, pads, oris = [], [], [], []
         for im in images:
-            arr = load_image_rgb(im) if isinstance(im, str) else im
-            padded, sf, pad, ori = pre(arr, cfg.img_size)
+            if self.preproc == "yolov5":
+                arr = load_image_rgb(im) if isinstance(im, str) else im
+                padded, sf, pad, ori = yolov5_letterbox(arr, cfg.img_size)
+            elif isinstance(im, str):
+                padded, sf, pad, ori = letterbox_file(im, cfg.img_size)
+            else:
+                padded, sf, pad, ori = preprocess_image(im, cfg.img_size)
             arrs.append(padded)
             sfs.append(sf)
             pads.append(pad)

@@ -32,6 +32,12 @@ from wedetect_tpu_torch.ops.dfl import dfl_expectation
 HEAD_BN = dict(eps=1e-3, momentum=0.03)
 
 
+def bn_fold_scale_bias(scale, bias, mean, var, eps: float = 1e-3):
+    """Inference BatchNorm as an affine (k, b): y = k*x + b."""
+    k = scale / torch.sqrt(var + eps)
+    return k, bias - mean * k
+
+
 class HeadOutputs(NamedTuple):
     """Flattened head outputs over all levels (anchor axis A)."""
 
