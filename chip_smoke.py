@@ -374,9 +374,57 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             the miniature random Ref, the checkpoint loader stubbed):
             each PNG written, at the input's size, different from it.
 
+32. dist_det  multi-card detector training, two gloo ranks on the one
+            card (spawned by spawn_ranks, a file:// rendezvous; nccl
+            refuses two ranks on one GPU): WeDetect-Base at full width,
+            640x640, K = 80, cli/train's build functions, each rank
+            making only its rows of the global batch, drop path 0.2, lr
+            1e-4, f32 with TF32 off and cuDNN deterministic: data = 2
+            (B = 16, 8 a rank) and fsdp = 2 (data = 1, B = 8), two steps
+            each, held to the one-process step on the same weights and
+            global batch (run first, in this process). fsdp = 2
+            bitwise: both steps' metrics, the gradients and moment
+            slices after the first, the parameters after the second.
+            data = 2: the first step's loss, its parts and grad_norm
+            within DIST_TOL relative, the second's within
+            DIST_DET_STEP2_TOL, num_pos equal; after the first step the
+            summed gradients and each rank's Adam mu and nu by relative
+            L2 per parameter group within DIST_DET_TOL, each BatchNorm
+            weight's and bias's gradient within DIST_DET_BN_TOL, the BN
+            running statistics; after the second each group's
+            parameter move within DIST_DET_MOVE_TOL. The limits are
+            constants; the one-process step with its BatchNorm through
+            the data-parallel formula (the rounding floor) must stay
+            within them, and a control with each rank's BatchNorm on
+            its own rows must miss; K1 launched 0 times. Then 3 bf16
+            steps (the CLI's dtype) of each: ms a step per rank,
+            collective ms, calls and MB a step (each collective
+            synchronised), peak GB per rank, beside det_train's
+            one-process step.
+33. dist_ref  WeDetect-Ref stage-3 SFT over fsdp = 2, two gloo ranks on
+            the one card: ref_2b's widths cut to 8 of 28 decoder layers
+            and 8 of 24 ViT blocks (two full-depth f32 ranks do not fit
+            one card beside each other), the CLI's defaults, one step in
+            f32 held to one process (loss and grad_norm within
+            TRAIN_RANK_TOL, the parameters by TRAIN_PARAM_RULE, each
+            rank's mu and nu slices within TRAIN_RANK_TOL of their
+            tensor's largest entry, the initial weights' checksum equal;
+            bitwise reported), K2, K3, K2-bwd and K3-bwd launches per
+            rank (8 each on the FFMA kernels); a second step timed: ms
+            and collective ms a step, peak GB per rank.
+34. dist_nccl  the NCCL route at world 1: cli/train.py (WeDetect-Base,
+            B = 4, 2 steps, a checkpoint read back) and cli/train_ref.py
+            (ref_2b at full depth, random weights through a stubbed
+            loader, stage 3, one f32 step: its peak GB) under torchrun's
+            variables with WORLD_SIZE=1, through make_mesh at world 1;
+            then an all_reduce, a gather and a broadcast of
+            parallel/collectives on a one-rank nccl group.
+
 Then the kernels line (each K2 and K3 entry with its launches a video
 prefill and its times at the video shape, each backward entry with its
-launches a video SFT step), the nvidia-smi line, and as the last line
+launches a video SFT step, every attention kernel with its launches in
+each rank of a dist_ref step and K1 with its launches in dist_det's
+ranks), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
 """
@@ -3223,14 +3271,15 @@ def phase_train_parity(dev):
         raise AssertionError("train_parity: card step != CPU step")
 
 
-def ref_sft_dataset(cfg, image, proposals, grid_tokens: int):
+def ref_sft_dataset(cfg, image, proposals, grid_tokens: int, root=None):
     """The stage-3 dataset of the training phases: one seeded image (read
-    from memory), two seeded ground-truth boxes, the Uni proposals."""
+    from memory), two seeded ground-truth boxes, the Uni proposals (its
+    json files under `root`, default build/chip_smoke)."""
     from wedetect_tpu_torch.data.sft_chat import ReferringSftDataset
     from wedetect_tpu_torch.data.vision_process import make_grid_buckets
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "build", "chip_smoke")
+    root = root or os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "build", "chip_smoke")
     os.makedirs(root, exist_ok=True)
     data, props = os.path.join(root, "stage3.json"), \
         os.path.join(root, "proposals.json")
@@ -5828,6 +5877,740 @@ def phase_odinw(dev, n_images: int = ODINW_IMAGES, sides=(480, 1000),
 
 
 # a forward kernel's errors by its route: (f32, bf16) keys of its phase
+# ------------------------------------------------- multi-rank training
+# Two ranks share the one card over gloo (nccl refuses two ranks on one
+# GPU); each is a process of this script (`spawn_ranks`), joined through
+# eval/dist.maybe_initialize with a file:// rendezvous. The one-process
+# reference runs first, in this process, and leaves its tensors under
+# dist_root() for the ranks, which compare on the card and write JSON.
+DIST_LR = 1e-4            # tests/test_torch_dist_train.py's rate
+# detector, one process vs 2 ranks, f32 with TF32 off, cuDNN
+# deterministic. fsdp = 2 (data = 1): each rank computes the one-process
+# step on the whole batch and updates its slice of the moments, so it is
+# held bitwise: both steps' metrics, the summed gradients and moment
+# slices after the first step, the parameters after the second. data =
+# 2: the first step's loss, its parts and grad_norm within DIST_TOL
+# relative, the second's within DIST_DET_STEP2_TOL, num_pos equal; after
+# the first step the relative L2 error of the summed gradients, mu and
+# nu for each parameter group (backbone, neck, head) and the whole
+# within DIST_DET_TOL, and of each BatchNorm weight's and bias's
+# gradient within DIST_DET_BN_TOL; each BN running statistic within
+# DET_STATS_TOL of max(1, its tensor's largest entry); after the second
+# step the relative L2 error of each group's parameter move (p - p0)
+# within DIST_DET_MOVE_TOL (a rank that skipped its update reads 1).
+# The limits are constants. The rounding floor, one process with its
+# BatchNorm through the data-parallel formula (gathered statistics,
+# Chan's rule: the same function, other rounding), must pass them too
+# (`bn_formula_floor`); the per-rank BatchNorm control must miss. Read
+# at random-init Base (NVIDIA H100 80GB HBM3, 700 W): data = 2 gradients
+# 1.6e-3 and nu 1.9e-3 in the backbone and neck, the worst BatchNorm
+# tensor 2.4e-3, the second step's loss 1.3e-4 (Adam turns the sign
+# noise of near-zero gradients into +-lr), the move 0.114 in the
+# backbone; the control 0.37, 0.43, 6.7e-4 and 0.47-0.76.
+DIST_TOL = 1e-4
+DIST_DET_STEP2_TOL = 1e-3
+DIST_DET_TOL = 5e-3
+DIST_DET_BN_TOL = 2e-2
+DIST_DET_MOVE_TOL = 0.3
+DIST_DET_BATCH = {"dp": 16, "fsdp": 8}    # global batches
+DIST_DET_DROP_PATH = 0.2
+# dist_ref: ref_2b's widths at 8 of 28 decoder layers and 8 of 24 ViT
+# blocks (two full-depth f32 ranks do not fit one card beside each
+# other); its deepstack taps scaled from (5, 11, 17) of 24
+DIST_REF_DEPTH = {"layers": 8, "vit": 8, "deepstack": (1, 3, 5)}
+DIST_DEV = "cuda"         # the ranks' device (a CPU rehearsal sets "cpu")
+
+
+def dist_root() -> str:
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "dist")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def spawn_ranks(entry: str, root: str, world: int = 2,
+                timeout: int = 600) -> list:
+    """Run `chip_smoke.<entry>(root)` as `world` ranks on card 0 (gloo,
+    a file:// rendezvous under root); their results (root/<entry>
+    .rank<r>.json). Raises with a rank's stderr if one fails; kills
+    every rank on a timeout."""
+    rdv = os.path.join(root, f"{entry}.rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, WEDETECT_DIST="1", RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   WEDETECT_DIST_INIT=f"file://{rdv}", GLOO_SOCKET_IFNAME="lo",
+                   PYTHONPATH=here)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as C; C.DIST_DEV = {DIST_DEV!r}; "
+             f"C.{entry}({root!r})"],
+            env=env, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    errs = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            print(err[-6000:], file=sys.stderr)
+            raise AssertionError(f"{entry}: rank {rank} exited "
+                                 f"{p.returncode}")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(root, f"{entry}.rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dist_join():
+    """A rank's start: TF32 off, the gloo group joined (the join point's
+    CPU route; gloo carries all_reduce and broadcast of CUDA tensors),
+    then card 0 set for every rank."""
+    from wedetect_tpu_torch.eval import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.maybe_initialize("cpu")
+    if DIST_DEV == "cuda":
+        torch.cuda.set_device(0)
+    return dist.process_index()
+
+
+def dist_det_args(batch: int, dtype: str):
+    """cli/train's arguments at WeDetect-Base, 640x640, K = 80, global
+    batch `batch`, lr DIST_LR, drop path DIST_DET_DROP_PATH; the config
+    in `dtype` (the CLI's is bf16)."""
+    import dataclasses as dc
+
+    from wedetect_tpu_torch.cli import train as CLI
+
+    args = CLI.parse_args(["--size", "base", "--batch-size", str(batch),
+                           "--lr", str(DIST_LR), "--drop-path",
+                           str(DIST_DET_DROP_PATH), "--device", DIST_DEV])
+    return args, dc.replace(CLI.build_config(args), compute_dtype=dtype)
+
+
+def dist_det_state(args, cfg, sd, mesh):
+    """The CLI's train state on the saved weights over `mesh` (None: one
+    process), and its batches: each rank builds only its rows."""
+    from wedetect_tpu_torch.cli import train as CLI
+    from wedetect_tpu_torch.models.wedetect import WeDetectModule
+    from wedetect_tpu_torch.train.loop import (TrainLoopCfg,
+                                               make_batch_iterator)
+    from wedetect_tpu_torch.train.train_step import TrainState, det_optimizer
+
+    model = WeDetectModule(cfg).to(DIST_DEV)
+    model.load_state_dict(sd)
+    tx = det_optimizer(model, base_lr=args.lr,
+                       weight_decay=args.weight_decay,
+                       total_batch_size=args.batch_size)
+    state = TrainState.create(model, tx, mesh)
+    sample_fn = CLI.make_sample_fn(
+        args, cfg, lambda rng: det_raw_sample(rng, cfg.img_size[0],
+                                              args.num_classes),
+        [[f"class {i}"] for i in range(args.num_classes)])
+    batches = make_batch_iterator(
+        cfg, TrainLoopCfg(batch_size=args.batch_size), sample_fn,
+        CLI.random_text_bank(cfg.embed_dims), seed=1, mesh=mesh)
+    return state, batches
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms (no atomic weight gradients)."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+@contextlib.contextmanager
+def data_parallel_bn_formula():
+    """Every train-mode BatchNorm through the data-parallel formula
+    (`BatchNorm2d._global_forward`: gathered count, mean and variance
+    combined by Chan's rule) on a group of one rank, in place of cuDNN's
+    kernel: the same statistics, other rounding."""
+    from wedetect_tpu_torch.nn.layers import BatchNorm2d
+    from wedetect_tpu_torch.parallel.collectives import (CollectiveStats,
+                                                         Group)
+
+    one = Group(None, [0], 0, CollectiveStats())
+    stock = BatchNorm2d.forward
+
+    def forward(self, x):
+        if not self.training:
+            return stock(self, x)
+        self.group = one
+        try:
+            return self._global_forward(x)
+        finally:
+            self.group = None
+
+    BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm2d.forward = stock
+
+
+def dist_det_steps(sd, kind: str, mesh, steps: int = 2,
+                   local_bn: bool = False) -> dict:
+    """f32 steps of the dist_det cell `kind` (global batch
+    DIST_DET_BATCH[kind]) over `mesh`, cuDNN deterministic: metrics, and
+    after the first step the summed gradients, BN statistics and this
+    rank's moments; after the last the parameters (card tensors)."""
+    from wedetect_tpu_torch.nn.layers import BatchNorm2d
+    from wedetect_tpu_torch.train.train_step import train_step
+
+    args, cfg = dist_det_args(DIST_DET_BATCH[kind], "float32")
+    state, batches = dist_det_state(args, cfg, sd, mesh)
+    if local_bn:
+        for m in state.model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.group = None
+    out = {"metrics": []}
+    det_launches(reset=True)
+    for step in range(steps):
+        with cudnn_deterministic():
+            state, m = train_step(cfg, state, next(batches))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        if step == 0:
+            named = list(state.model.named_parameters())
+            out["grads"] = {n: p.grad.detach().clone() for n, p in named}
+            out["stats"] = {n: t.clone() for n, t in
+                            state.model.state_dict().items()
+                            if n.endswith(("running_mean", "running_var"))}
+            out["mu"] = [t.clone() for t in state.tx.mu]
+            out["nu"] = [t.clone() for t in state.tx.nu]
+    out["launches"] = det_launches()
+    out["params"] = {n: p.detach().clone()
+                     for n, p in state.model.named_parameters()}
+    out["specs"] = list(state.tx.specs)
+    out["names"] = [n for n, _ in state.model.named_parameters()]
+    out["bn"] = [f"{mn}.{pn}" for mn, m in state.model.named_modules()
+                 if isinstance(m, BatchNorm2d) for pn in ("weight", "bias")]
+    return out
+
+
+def det_group(name: str) -> str:
+    return name.split(".")[0]          # backbone, neck, bbox_head
+
+
+def rel_l2_by_group(got: dict, want: dict) -> dict:
+    """Relative L2 error of each parameter group (det_group) and of the
+    whole: ||got - want|| / ||want|| over the group's tensors."""
+    num, den = {}, {}
+    for n, w in want.items():
+        for grp in (det_group(n), "all"):
+            num[grp] = num.get(grp, 0.0) + float(
+                (got[n].double() - w.double()).square().sum())
+            den[grp] = den.get(grp, 0.0) + float(w.double().square().sum())
+    return {g: math.sqrt(num[g] / max(den[g], 1e-300)) for g in num}
+
+
+def rel_l2(got, want) -> float:
+    return math.sqrt(float((got.double() - want.double()).square().sum())
+                     / max(float(want.double().square().sum()), 1e-300))
+
+
+def dist_det_check(got: dict, want: dict, init: dict, fidx: int,
+                   fsdp: int) -> dict:
+    """The rank's run `got` against the one-process run `want` (card
+    tensors; `init`: the weights both started from) by the rules above
+    DIST_TOL."""
+    from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+
+    keys = ("loss", "loss_cls", "loss_bbox", "loss_dfl", "grad_norm")
+    rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-30) for k in keys}
+           for g, w in zip(got["metrics"], want["metrics"])]
+    names = want["names"]
+    mom, bitwise = {}, got["metrics"] == want["metrics"]
+    for kind in ("mu", "nu"):
+        ws = {n: fsdp_slice(want[kind][i], got["specs"][i], fidx, fsdp)
+              for i, n in enumerate(names)}
+        gs = {n: got[kind][i] for i, n in enumerate(names)}
+        mom[kind] = rel_l2_by_group(gs, ws)
+        bitwise &= all(torch.equal(gs[n], ws[n]) for n in names)
+    stats = max(float((got["stats"][n] - w).abs().max())
+                / (DET_STATS_TOL * max(1.0, float(w.abs().max())))
+                for n, w in want["stats"].items())
+    loose = total = 0
+    for n in names:
+        bitwise &= bool(torch.equal(got["params"][n], want["params"][n])
+                        and torch.equal(got["grads"][n], want["grads"][n]))
+        err = (got["params"][n] - want["params"][n]).abs()
+        loose += int((err > 1e-6 + 1e-5 * want["params"][n].abs()).sum())
+        total += err.numel()
+    tensor_rel = {n: rel_l2(got["grads"][n], want["grads"][n])
+                  for n in names}
+    worst = max(names, key=tensor_rel.get)
+    return {"metric_rel_err": rel,
+            "num_pos": [[g["num_pos"], w["num_pos"]] for g, w in
+                        zip(got["metrics"], want["metrics"])],
+            "grad_rel_l2": rel_l2_by_group(got["grads"], want["grads"]),
+            "mu_rel_l2": mom["mu"], "nu_rel_l2": mom["nu"],
+            "bn_grad_rel_l2": max(tensor_rel[n] for n in want["bn"]),
+            "worst_grad_tensor": [worst, tensor_rel[worst]],
+            "stats_over_limit": stats,
+            "move_rel_l2": rel_l2_by_group(
+                {n: got["params"][n] - init[n] for n in names},
+                {n: want["params"][n] - init[n] for n in names}),
+            "loose_share": loose / total, "bitwise": bitwise}
+
+
+def dist_det_ok(e: dict, kind: str) -> bool:
+    """The rules above DIST_TOL: fsdp = 2 bitwise; data = 2 within the
+    constant limits."""
+    if kind == "fsdp":
+        return e["bitwise"]
+    return (all(max(r.values()) <= tol for r, tol in
+                zip(e["metric_rel_err"], (DIST_TOL, DIST_DET_STEP2_TOL)))
+            and all(g == w for g, w in e["num_pos"])
+            and all(e[k][g] <= DIST_DET_TOL for g in e["grad_rel_l2"]
+                    for k in ("grad_rel_l2", "mu_rel_l2", "nu_rel_l2"))
+            and e["bn_grad_rel_l2"] <= DIST_DET_BN_TOL
+            and e["stats_over_limit"] <= 1
+            and max(e["move_rel_l2"].values()) <= DIST_DET_MOVE_TOL)
+
+
+def dist_det_time(sd, kind: str, mesh, steps: int = 3) -> dict:
+    """`steps` bf16 steps (the CLI's dtype) of the cell `kind` over
+    `mesh`, its collectives timed (each synchronised): ms a step and
+    collective ms a step (steps 2-3), peak GB of this process."""
+    from wedetect_tpu_torch.train.train_step import train_step
+
+    args, cfg = dist_det_args(DIST_DET_BATCH[kind], "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, batches = dist_det_state(args, cfg, sd, mesh)
+    stats = mesh.stats if mesh is not None else None
+    if stats is not None:
+        stats.timed = True
+    step_ms, coll_ms = [], []
+    for _ in range(steps):
+        batch = next(batches)
+        if stats is not None:
+            stats.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(cfg, state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        coll_ms.append(1e3 * stats.seconds if stats is not None else 0.0)
+    res = {"step_ms": step_ms, "ms_per_step": float(np.mean(step_ms[1:])),
+           "collective_ms": coll_ms,
+           "collective_ms_per_step": float(np.mean(coll_ms[1:])),
+           "collective_calls_per_step": stats.calls if stats else 0,
+           "collective_mb_per_step": stats.bytes / 1e6 if stats else 0.0,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if stats is not None:
+        stats.timed = False
+    del state, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def dist_det_worker(root: str) -> None:
+    """A dist_det rank: data parallel (data = 2, B = 16) and its per-rank
+    BatchNorm control, fsdp = 2 (B = 8), each held to the one-process
+    run in root; then the bf16 timing of both."""
+    rank = dist_join()
+    from wedetect_tpu_torch.parallel.mesh import make_mesh
+
+    dp, fsdp = make_mesh(data=2), make_mesh(data=1, fsdp=2)
+    sd = torch.load(os.path.join(root, "det_init.pt"), map_location=DIST_DEV)
+    res = {"rank": rank}
+    for kind, mesh in (("dp", dp), ("fsdp", fsdp)):
+        want = torch.load(os.path.join(root, f"det_{kind}_want.pt"),
+                          map_location=DIST_DEV)
+        got = dist_det_steps(sd, kind, mesh)
+        res[kind] = {"errors": dist_det_check(got, want, sd,
+                                              mesh.fsdp_index,
+                                              mesh.shape["fsdp"]),
+                     "metrics": got["metrics"],
+                     "launches": got["launches"],
+                     "sharded_tensors": sum(d is not None
+                                            for d in got["specs"])}
+        del got
+        if kind == "dp":
+            ctrl = dist_det_steps(sd, kind, mesh, local_bn=True)
+            res["dp_local_bn"] = {"errors": dist_det_check(
+                ctrl, want, sd, 0, 1)}
+            del ctrl
+        del want
+        torch.cuda.empty_cache()
+    for kind, mesh in (("dp", dp), ("fsdp", fsdp)):
+        res[f"time_{kind}"] = dist_det_time(sd, kind, mesh)
+    with open(os.path.join(root, f"dist_det_worker.rank{rank}.json"),
+              "w") as f:
+        json.dump(res, f)
+
+
+def phase_dist_det(dev, one_process: dict = None):
+    """Detector training over two ranks on the one card: WeDetect-Base,
+    640x640, K = 80, f32, data = 2 (B = 16) and fsdp = 2 (B = 8) against
+    the one-process step on the same weights and global batch; the
+    per-rank BatchNorm control; bf16 timing (`one_process`: det_train's
+    one-process result of this run, B = 16)."""
+    from wedetect_tpu_torch.models.wedetect import init_variables
+
+    root = dist_root()
+    t0 = time.perf_counter()
+    _, cfg = dist_det_args(16, "float32")
+    sd = {k: v for k, v in init_variables(cfg, seed=0, device=dev)
+          .state_dict().items()}
+    torch.save(sd, os.path.join(root, "det_init.pt"))
+    for kind in ("dp", "fsdp"):
+        want = dist_det_steps(sd, kind, None)
+        torch.save(want, os.path.join(root, f"det_{kind}_want.pt"))
+        if kind == "dp":
+            # the rounding floor: one process, BatchNorm through the
+            # data-parallel formula
+            with data_parallel_bn_formula():
+                formula = dist_det_steps(sd, kind, None)
+            floor = dist_det_check(formula, want, sd, 0, 1)
+            del formula
+        del want
+        torch.cuda.empty_cache()
+    del sd
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("dist_det_worker", root)
+    res = {"ranks": ranks, "seconds": time.perf_counter() - t0,
+           "bn_formula_floor": floor,
+           "tolerance": {"metrics": DIST_TOL,
+                         "step2_metrics": DIST_DET_STEP2_TOL,
+                         "groups": DIST_DET_TOL,
+                         "bn_tensor": DIST_DET_BN_TOL,
+                         "move": DIST_DET_MOVE_TOL, "stats": DET_STATS_TOL,
+                         "fsdp": "bitwise"},
+           "one_process_bf16_ms_per_step": (one_process or {}).get(
+               "ms_per_step"),
+           "one_process_bf16_peak_gb": (one_process or {}).get(
+               "peak_mem_gb")}
+    ok = dist_det_ok(floor, "dp") and all(dist_det_ok(r[k]["errors"], k)
+                    for r in ranks for k in ("dp", "fsdp"))
+    ok = ok and all(r["dp_local_bn"]["errors"]["stats_over_limit"] > 1
+                    and not dist_det_ok(r["dp_local_bn"]["errors"], "dp")
+                    for r in ranks)
+    ok = ok and all(not any(r[k]["launches"].values()) for r in ranks
+                    for k in ("dp", "fsdp"))
+    ok = ok and all(r["fsdp"]["sharded_tensors"] > 0 for r in ranks)
+    emit({"phase": "dist_det", **res})
+    if not ok:
+        raise AssertionError("dist_det: a rank's step missed the "
+                             "one-process step, the BatchNorm-formula floor "
+                             "passed the limits, or the control did not "
+                             "miss")
+    return res
+
+
+def dist_ref_cfg():
+    """ref_2b's widths at DIST_REF_DEPTH."""
+    import dataclasses as dc
+
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    cfg = ref_2b()
+    return dc.replace(
+        cfg, text=dc.replace(cfg.text, layers=DIST_REF_DEPTH["layers"]),
+        vision=dc.replace(cfg.vision, depth=DIST_REF_DEPTH["vit"],
+                          deepstack_idx=DIST_REF_DEPTH["deepstack"]))
+
+
+def dist_ref_step(root: str, mesh, tag: str) -> dict:
+    """One stage-3 ref_sft_step of the cut ref_2b (f32, the CLI's
+    defaults, lr TRAIN_LR) over `mesh` on the seeded sample, then a
+    second step for its time: the first step's loss, grad_norm,
+    launches and ms, the parameters' checksum before it, and the card
+    tensors after it (parameters, this rank's moments)."""
+    from wedetect_tpu_torch.cli.train_ref import build_step_inputs
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.train.ref_sft import ref_optimizer, ref_sft_step
+    from wedetect_tpu_torch.train.train_step import TrainState
+
+    cfg = dist_ref_cfg()
+    inp = np.load(os.path.join(root, "ref_inputs.npz"))
+    sub = os.path.join(root, tag)
+    os.makedirs(sub, exist_ok=True)
+    ds = ref_sft_dataset(cfg, inp["image"], inp["proposals"], 1024,
+                         root=sub)
+    b = build_step_inputs(cfg, ds.sample(0), 3, (1024, 2048, 4096), 100,
+                          151643)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=DIST_DEV)
+    checksum = float(sum(p.detach().double().sum()
+                         for p in model.parameters()))
+    tx = ref_optimizer(model, base_lr=TRAIN_LR)
+    state = TrainState.create(model, tx, mesh)
+    gh, gw = b["grid"]
+    args = (b["patches"], b["input_ids"], b["attn_mask"], b["position_ids"],
+            b["visual_start"], b["boxes"], b["ori_wh"], b["object_positions"],
+            b["soft_labels"], b["valid"])
+    launch_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = ref_sft_step(cfg, gh, gw, state, *args)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    torch.cuda.synchronize()
+    out["first_step_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["launches"] = launch_counts()
+    out["init_checksum"] = checksum
+    tensors = {"mults": list(tx.mults), "params": {n: p.detach().clone()
+                          for n, p in model.named_parameters()},
+               "mu": [t.clone() for t in tx.mu],
+               "nu": [t.clone() for t in tx.nu], "specs": list(tx.specs)}
+    stats = mesh.stats if mesh is not None else None
+    if stats is not None:
+        stats.reset()
+        stats.timed = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = ref_sft_step(cfg, gh, gw, state, *args)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0)
+    out["collective_ms_per_step"] = (1e3 * stats.seconds if stats else 0.0)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seq_len"] = int(b["input_ids"].shape[1])
+    out["vit_tokens"] = int(gh * gw)
+    del state, model, tx
+    return out, tensors
+
+
+def dist_ref_worker(root: str) -> None:
+    """A dist_ref rank (fsdp = 2): its step held to the one-process step
+    in root."""
+    rank = dist_join()
+    from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+    from wedetect_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, fsdp=2)
+    out, got = dist_ref_step(root, mesh, f"rank{rank}")
+    torch.cuda.empty_cache()
+    want = torch.load(os.path.join(root, "ref_want.pt"), map_location="cpu",
+                      mmap=True)
+    param_ok, mom = True, 0.0
+    bitwise = True
+    for i, (n, p) in enumerate(got["params"].items()):
+        w = want["params"][n].to(DIST_DEV)
+        param_ok &= param_close(p, w, got["mults"][i])
+        bitwise &= bool(torch.equal(p, w))
+        for kind in ("mu", "nu"):
+            ws = fsdp_slice(want[kind][i], got["specs"][i], mesh.fsdp_index,
+                            2).to(DIST_DEV)
+            x = got[kind][i]
+            err = float((x - ws).abs().max())
+            mom = max(mom, err / (TRAIN_RANK_TOL * float(ws.abs().max())
+                                  + 1e-30))
+            bitwise &= bool(torch.equal(x, ws))
+    out.update(rank=rank, params_ok=bool(param_ok), moments_over_limit=mom,
+               bitwise=bitwise,
+               sharded_tensors=sum(d is not None for d in got["specs"]))
+    with open(os.path.join(root, f"dist_ref_worker.rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+# dist_ref: a rank's loss and grad_norm against the one-process step
+# (relative), and its moments' slices (of each tensor's largest entry):
+# every rank computes the whole gradient on the same sample with the
+# same kernels, so only a nondeterministic reduction could part them
+TRAIN_RANK_TOL = 1e-5
+
+
+def phase_dist_ref(dev, image, proposals):
+    """One stage-3 step of ref_2b's widths cut to DIST_REF_DEPTH over
+    fsdp = 2 (two gloo ranks on the one card), against one process:
+    loss, grad_norm, the parameters after the step (TRAIN_PARAM_RULE),
+    each rank's mu and nu slices; K2, K3, K2-bwd and K3-bwd launches per
+    rank; ms a step and peak GB per rank."""
+    root = dist_root()
+    t0 = time.perf_counter()
+    np.savez(os.path.join(root, "ref_inputs.npz"), image=image,
+             proposals=np.asarray(proposals))
+    one, tensors = dist_ref_step(root, None, "one")
+    torch.save({"params": {n: t.cpu() for n, t in tensors["params"].items()},
+                "mu": [t.cpu() for t in tensors["mu"]],
+                "nu": [t.cpu() for t in tensors["nu"]]},
+               os.path.join(root, "ref_want.pt"))
+    del tensors
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("dist_ref_worker", root)
+    cfg = dist_ref_cfg()
+    per_step = expected_counts(
+        k2=cfg.text.layers, k3=cfg.vision.depth, k2_f32=cfg.text.layers,
+        k3_f32=cfg.vision.depth, k2_bwd=cfg.text.layers,
+        k3_bwd=cfg.vision.depth, k2_bwd_dkdv_f32=cfg.text.layers,
+        k2_bwd_dq_f32=cfg.text.layers, k3_bwd_dkv_f32=cfg.vision.depth,
+        k3_bwd_dq_f32=cfg.vision.depth)
+    res = {"one_process": one, "ranks": ranks,
+           "seconds": time.perf_counter() - t0,
+           "depth": {"layers": cfg.text.layers, "vit": cfg.vision.depth},
+           "tolerance": {"loss_grad_norm_rel": TRAIN_RANK_TOL,
+                         "moments": TRAIN_RANK_TOL,
+                         "params": "TRAIN_PARAM_RULE"}}
+    ok = all(abs(r[k] - one[k]) <= TRAIN_RANK_TOL * abs(one[k])
+             for r in ranks for k in ("loss", "grad_norm"))
+    ok = ok and all(r["params_ok"] and r["moments_over_limit"] <= 1
+                    and r["init_checksum"] == one["init_checksum"]
+                    and r["launches"] == per_step
+                    and r["sharded_tensors"] > 0 for r in ranks)
+    ok = ok and one["launches"] == per_step
+    emit({"phase": "dist_ref", **res})
+    if not ok:
+        raise AssertionError("dist_ref: a rank's step missed the "
+                             "one-process step")
+    return res
+
+
+NCCL_CHECK = r"""
+import json, sys, torch
+import torch.distributed as dist
+from wedetect_tpu_torch.parallel.collectives import (CollectiveStats, Group,
+                                                     fsdp_slice)
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=sys.argv[1], rank=0,
+                        world_size=1)
+g = Group(dist.group.WORLD, [0], 0, CollectiveStats())
+x = torch.arange(12.0, device="cuda").view(3, 4)
+y = g.all_reduce(x.clone())
+full = torch.empty(3, 4, device="cuda")
+g.gather_flat([full], [lambda v: fsdp_slice(v, 1, 0, 1).copy_(x)])
+b = g.broadcast(x.clone(), 0)
+dist.destroy_process_group()
+print(json.dumps({"backend": "nccl",
+                  "all_reduce_equal": bool(torch.equal(y, x)),
+                  "gather_equal": bool(torch.equal(full, x)),
+                  "broadcast_equal": bool(torch.equal(b, x)),
+                  "calls": g.stats.calls}))
+"""
+
+REF_CLI_FULL = r"""
+import json, sys, torch
+from wedetect_tpu_torch.cli import _ref_load
+from wedetect_tpu_torch.cli import train_ref as TCLI
+_ref_load.load_ref = lambda ckpt, device: _ref_load.random_ref("2b", device)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.cuda.reset_peak_memory_stats()
+TCLI.main(["--stage", "3", "--data", sys.argv[1], "--proposals", sys.argv[2],
+           "--steps", "1", "--log-every", "1", "--device", "cuda"])
+print(json.dumps({"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+"""
+
+
+def torchrun_env(port: int) -> dict:
+    """torchrun's variables for a world of one on card 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), PYTHONPATH=here)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_json(cmd, env, timeout: int = 600) -> tuple:
+    """(the last stdout line's JSON or None, the process) of `cmd`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(cmd, env=env, cwd=here, capture_output=True,
+                          text=True, timeout=timeout)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        last = None
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], file=sys.stderr)
+    return last, proc
+
+
+def phase_dist_nccl(dev, image, proposals):
+    """The NCCL route at world 1: cli/train.py (WeDetect-Base, B = 4, 2
+    steps, a checkpoint) and cli/train_ref.py (ref_2b at full depth,
+    random weights, stage 3, one f32 step: its peak GB) under torchrun's
+    variables with WORLD_SIZE=1, through the mesh code; one all_reduce,
+    one gather and one broadcast of the collectives module on a one-rank
+    NCCL group."""
+    import cv2
+
+    root = os.path.join(dist_root(), "nccl")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    from pathlib import Path
+
+    _, coco = write_eval_dataset(Path(root), 6, 20, 80)
+    ckpt = os.path.join(root, "det_ckpt")
+    det_cmd = [sys.executable, "-m", "wedetect_tpu_torch.cli.train",
+               "--ann", coco, "--img-root", root, "--size", "base",
+               "--steps", "2", "--batch-size", "4", "--ckpt-dir", ckpt,
+               "--ckpt-every", "2", "--device", "cuda"]
+    _, det = run_json(det_cmd, torchrun_env(free_port()))
+    det_state = None
+    if det.returncode == 0:
+        tree = torch.load(os.path.join(ckpt, "step_2", "train_state.pt"),
+                          map_location="cpu", weights_only=True)
+        det_state = {"step": tree["step"],
+                     "count": tree["opt_state"]["count"],
+                     "finite": all(bool(torch.isfinite(v).all())
+                                   for v in tree["model"].values()
+                                   if v.is_floating_point())}
+        del tree
+    img = os.path.join(root, "ref_image.png")
+    cv2.imwrite(img, cv2.cvtColor(np.asarray(image), cv2.COLOR_RGB2BGR))
+    data, props = (os.path.join(root, n) for n in ("stage3.json",
+                                                   "props.json"))
+    with open(data, "w") as f:
+        json.dump([{"image": img, "class_name": REF_QUERIES[0],
+                    "bounding_boxes": TRAIN_GT}], f)
+    with open(props, "w") as f:
+        json.dump({img: np.asarray(proposals).tolist()}, f)
+    ref_out, ref = run_json([sys.executable, "-c", REF_CLI_FULL, data,
+                             props], torchrun_env(free_port()))
+    rdv = os.path.join(root, "nccl.rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    nccl_out, nccl = run_json([sys.executable, "-c", NCCL_CHECK,
+                               f"file://{rdv}"], torchrun_env(free_port()))
+    res = {"det_cli": {"rc": det.returncode, "checkpoint": det_state},
+           "ref_cli": {"rc": ref.returncode, **(ref_out or {})},
+           "nccl": {"rc": nccl.returncode, **(nccl_out or {})},
+           "seconds": time.perf_counter() - t0}
+    ok = (det.returncode == 0 and det_state["step"] == 2
+          and det_state["count"] == 2 and det_state["finite"]
+          and ref.returncode == 0 and ref_out is not None
+          and nccl.returncode == 0 and nccl_out is not None
+          and nccl_out["all_reduce_equal"] and nccl_out["gather_equal"]
+          and nccl_out["broadcast_equal"] and nccl_out["calls"] == 3)
+    emit({"phase": "dist_nccl", **res})
+    if not ok:
+        raise AssertionError("dist_nccl: a CLI or the NCCL collectives "
+                             "failed at world 1")
+    return res
+
+
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
                 "sm90": ("max_abs_err_bf16", "max_abs_err_bf16")}
@@ -5924,7 +6707,7 @@ def main() -> int:
     phase_train_grad(dev, image, proposals)
     train, train_counts = phase_train(dev, image, proposals)
     phase_det_train_parity(dev)
-    phase_det_train(dev)
+    det_train = phase_det_train(dev)
     phase_gen_parity(dev)
     phase_gen(dev, image)
     serve = phase_serve(dev, image)
@@ -5934,6 +6717,9 @@ def main() -> int:
     video_sft = phase_video_sft(dev)
     phase_video_cli(dev, video["npy"])
     phase_vis(dev)
+    dist_det = phase_dist_det(dev, det_train)
+    dist_ref = phase_dist_ref(dev, image, proposals)
+    phase_dist_nccl(dev, image, proposals)
     # K2's and K3's launches a fused REC step and a multi-image call
     # (prefix sharing), by type: f32 on the FFMA kernels, bf16 on wgmma,
     # the SIMT kernels none (their nonzero counts)
@@ -6153,9 +6939,28 @@ def main() -> int:
         bwd_entry("flash_attention_bwd_dkv_sm90", K3_SM90_BWD_SOURCE,
                   f"{STOCK_FA}:796", k3_bf16["flash_attention_bwd_dkv_sm90"],
                   k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bfloat16")]
+    # every attention kernel's launches in each rank of a 2-rank (fsdp =
+    # 2) SFT step of the cut ref_2b (dist_ref), and K1's in each rank's
+    # detector steps (dist_det: none)
+    def by_kernel(c):
+        return {**k2_bwd_launches(c), **k3_bwd_launches(c),
+                "gqa_flash_fwd_f32": c["k2_f32"],
+                "gqa_flash_fwd_sm90": c["k2_sm90"],
+                "gqa_flash_fwd": c["k2"] - c["k2_sm90"] - c["k2_f32"],
+                "flash_attention_fwd_f32": c["k3_f32"],
+                "flash_attention_fwd_sm90": c["k3_sm90"],
+                "flash_attention_fwd": c["k3"] - c["k3_sm90"] - c["k3_f32"]}
+
+    per_rank = [by_kernel(r["launches"]) for r in dist_ref["ranks"]]
     for entry in kernels:
         if entry["name"] in vsft_bwd:
             entry["launches_video_sft_step"] = vsft_bwd[entry["name"]]
+        if entry["name"] in per_rank[0]:
+            entry["launches_dist_sft_step_per_rank"] = [
+                c[entry["name"]] for c in per_rank]
+    kernels[0]["launches_dist_det_step"] = [
+        r[k]["launches"]["row_topk"] for r in dist_det["ranks"]
+        for k in ("dp", "fsdp")]
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

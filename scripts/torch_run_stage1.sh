@@ -1,0 +1,22 @@
+#!/usr/bin/env bash
+# WeDetect-Ref SFT stage 1 with the PyTorch port: torchrun starts one
+# process a card, each joins through eval/dist.maybe_initialize (nccl),
+# and cli/train_ref.py shards the optimizer state over every rank
+# (--fsdp -1, make_mesh(data=1, fsdp=world)); every rank takes the same
+# sample. Stage default LR 1e-3 and the stage's freeze schedule come from
+# train/ref_lm.stage_optimizer (stage 3: train/ref_sft.ref_optimizer).
+#   DATA=<stage-1 data json> CKPT=<hf checkpoint dir> \
+#   OUT=output/stage1 NPROC=8 scripts/torch_run_stage1.sh [extra flags]
+set -euo pipefail
+DATA=${DATA:?set DATA=<path to stage-1 data json>}
+CKPT=${CKPT:-}
+OUT=${OUT:-output/stage1}
+NPROC=${NPROC:-$(nvidia-smi --list-gpus 2>/dev/null | wc -l)}
+[ "$NPROC" -gt 0 ] || NPROC=1
+mkdir -p "$OUT"
+torchrun --standalone --nproc_per_node "$NPROC" \
+    -m wedetect_tpu_torch.cli.train_ref \
+    --stage 1 --data "$DATA" \
+    ${CKPT:+--ref_checkpoint "$CKPT"} \
+    --ckpt-dir "$OUT" \
+    "$@" 2>&1 | tee -a "$OUT/stage1_log.txt"

@@ -327,7 +327,9 @@ def test_cli_init_checkpoint_loads_the_weights(tmp_path):
 
 
 def test_cli_refuses_fsdp_and_a_missing_card(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError):
+    """--fsdp beyond the world (one process here) raises, as JAX's
+    make_mesh asserts; so does a missing card."""
+    with pytest.raises(ValueError, match="fsdp=2"):
         TCLI.main(["--ann", "x.json", "--fsdp", "2", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -2,18 +2,27 @@
 
 Port of `wedetect_tpu/cli/train.py`: trains WeDetect / WeDetect-Uni on
 COCO-format annotations or webdataset tar shards with the loop of
-`train/loop.py`, computing in bf16, on one card.
+`train/loop.py`, computing in bf16, on one card or several.
 
     python -m wedetect_tpu_torch.cli.train \\
         --ann train.json --img-root imgs --size tiny \\
         --steps 5000 --batch-size 16 --ckpt-dir runs/tiny
 
+Several cards: `torchrun --nproc_per_node N -m
+wedetect_tpu_torch.cli.train ...` (the process group is joined by
+`eval/dist.maybe_initialize`). The ranks form `make_mesh(data=-1,
+fsdp=--fsdp)` as the JAX CLI does: the batch of `--batch-size` (global,
+divisible by the data axis) is split over "data", BatchNorm and the
+loss normalisers see the global batch, and the optimizer state is
+sharded over "fsdp" (`train/optimizer.py`). Webdataset shards are split
+over the data ranks (the JAX CLI splits them over processes; ranks that
+differ only on "fsdp" must take the same rows).
+
 Class texts are encoded by the text tower of `--init-checkpoint`, else
 by a random bank: one unit vector per prompt list, seeded by a stable
 hash of the list (crc32), so a run and its resume see the same bank.
 `--device` defaults to `cuda` and raises without a card; `--device cpu`
-runs the plain PyTorch path. Not ported: multi-card training
-(`--fsdp` > 1 raises).
+runs the plain PyTorch path (gloo between the ranks).
 
 `parse_args`, `build_config`, `build_state` and `make_sample_fn` are what
 `main` runs; chip_smoke.py builds its training run from them.
@@ -60,7 +69,8 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=1000)
     p.add_argument("--fsdp", type=int, default=1,
-                   help="cards to shard over (one card only: 1)")
+                   help="ranks the optimizer state is sharded over; the "
+                        "data axis takes the rest of the world")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -98,13 +108,14 @@ def random_text_bank(dims: int) -> Callable[[Sequence[str]], np.ndarray]:
     return encode
 
 
-def build_state(args, cfg):
+def build_state(args, cfg, mesh=None):
     """(TrainState, text encoder) of the run: the model (from
     `--init-checkpoint` with its text tower, else random from `--seed`
     with the random text bank) on `--device`, the optimizer (AdamW with
     the reference's decay rules, batch-scaled weight decay, the lr
-    schedule, gradient accumulation), restored from the latest
-    checkpoint under `--ckpt-dir` with `--resume`."""
+    schedule, gradient accumulation), over `mesh` (rank 0's model
+    broadcast to every rank), restored from the latest checkpoint under
+    `--ckpt-dir` with `--resume`."""
     from wedetect_tpu_torch.ckpt.io import (latest_checkpoint,
                                             restore_train_state)
     from wedetect_tpu_torch.models.wedetect import init_variables
@@ -138,12 +149,18 @@ def build_state(args, cfg):
                       weight_decay=args.weight_decay,
                       total_batch_size=args.batch_size,
                       lr_schedule=schedule), args.grad_accum)
-    state = TrainState.create(model, tx)
+    if mesh is not None:
+        from wedetect_tpu_torch.parallel.mesh import replicate_tree
+
+        replicate_tree(mesh, model.state_dict())
+    state = TrainState.create(model, tx, mesh)
     if args.resume and args.ckpt_dir:
         last = latest_checkpoint(args.ckpt_dir)
         if last is not None:
             state = restore_train_state(last, state)
-            print(f"resumed from {last} at step {state.step}", flush=True)
+            if mesh is None or mesh.rank == 0:
+                print(f"resumed from {last} at step {state.step}",
+                      flush=True)
     return state, text_encode
 
 
@@ -176,19 +193,33 @@ def make_sample_fn(args, cfg, raw_sample: Callable[[np.random.Generator],
     return sample_fn
 
 
+def make_run_mesh(args):
+    """The run's mesh over the joined world: `make_mesh(data=-1,
+    fsdp=--fsdp)`; raises where --fsdp does not divide the world or the
+    data axis does not divide --batch-size."""
+    from wedetect_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=-1, fsdp=args.fsdp)
+    if args.batch_size % mesh.shape["data"]:
+        raise ValueError(f"--batch-size {args.batch_size} (the global "
+                         f"batch) does not divide over the data axis of "
+                         f"{mesh.shape['data']} ranks")
+    return mesh
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.fsdp > 1:
-        raise NotImplementedError("--fsdp > 1 (multi-card training): not "
-                                  "ported yet")
     from wedetect_tpu_torch import resolve_device
     from wedetect_tpu_torch.data.coco import (CocoDetDataset,
                                               load_class_texts)
     from wedetect_tpu_torch.data.loader import load_image_rgb
+    from wedetect_tpu_torch.eval.dist import maybe_initialize
     from wedetect_tpu_torch.train.loop import (TrainLoopCfg,
                                                make_batch_iterator,
                                                run_training)
 
+    maybe_initialize(args.device)
+    mesh = make_run_mesh(args)
     resolve_device(args.device)
     cfg = build_config(args)
     class_texts = (load_class_texts(args.class_texts)
@@ -196,7 +227,10 @@ def main(argv=None):
     if args.wds_shards:
         from wedetect_tpu_torch.data.wds import WdsDetDataset
 
-        wds = WdsDetDataset(args.wds_shards)
+        # each data rank reads its own shards (the ranks of one data
+        # index, which differ on "fsdp", take the same rows)
+        wds = WdsDetDataset(args.wds_shards, rank=mesh.data_index,
+                            world_size=mesh.shape["data"])
 
         def raw_sample(rng):
             return wds.next_sample()
@@ -213,7 +247,7 @@ def main(argv=None):
                     "gt_bboxes": g["boxes"][keep],
                     "gt_labels": g["labels"][keep]}
 
-    state, text_encode = build_state(args, cfg)
+    state, text_encode = build_state(args, cfg, mesh)
     loop_cfg = TrainLoopCfg(
         steps=args.steps, batch_size=args.batch_size,
         ckpt_dir=args.ckpt_dir or None,
@@ -221,7 +255,7 @@ def main(argv=None):
         mixup_prob=args.mixup_prob)
     batches = make_batch_iterator(
         cfg, loop_cfg, make_sample_fn(args, cfg, raw_sample, class_texts),
-        text_encode, seed=args.seed, start_batch=state.step)
+        text_encode, seed=args.seed, start_batch=state.step, mesh=mesh)
     return run_training(cfg, state, batches, loop_cfg)
 
 

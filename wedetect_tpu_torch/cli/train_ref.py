@@ -22,8 +22,15 @@ Usage:
 Runs on the card (`--device cuda`, the default) through the flash
 attention kernels and their backward kernels. Stage 1-2 data may hold
 video samples (data/sft_chat.ChatSftDataset: one contiguous video span,
-get_rope_index_single_video ids, ref_lm_step(grid_t=...)). Not ported
-yet: multi-card FSDP (`--fsdp` > 1).
+get_rope_index_single_video ids, ref_lm_step(grid_t=...)).
+
+Several cards: `torchrun --nproc_per_node N -m
+wedetect_tpu_torch.cli.train_ref ...` (scripts/torch_run_stage{1,2,3}.sh;
+the process group is joined by `eval/dist.maybe_initialize`). As in the
+JAX CLI, the ranks form `make_mesh(data=1, fsdp=--fsdp)` (`--fsdp -1`:
+the whole world): every rank takes the same sample, drawn from the same
+seeded stream, and the optimizer state is sharded over the ranks
+(`train/optimizer.py`). Rank 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--fsdp", type=int, default=-1,
-                   help="cards to shard over (one card only: -1 or 1)")
+                   help="ranks the optimizer state is sharded over "
+                        "(-1: the whole world)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -138,10 +146,17 @@ def train_ref_loop(cfg, state, dataset, stage: int, steps: int, *,
                    ckpt_every: int = 500, seed: int = 0, log_fn=None):
     """Run single-sequence SFT steps from state.step to `steps`; returns
     the final state (restore with ckpt.io.restore_train_state before
-    calling to resume). Losses are read back only when logged."""
+    calling to resume). Losses are read back only when logged. Over a
+    mesh (`state.mesh`, data = 1) every rank draws the same sample from
+    the stream seeded by `seed` and the step, the default log_fn prints
+    on rank 0, and every rank calls the checkpoint writer."""
     from wedetect_tpu_torch.train.ref_lm import ref_lm_step
     from wedetect_tpu_torch.train.ref_sft import ref_sft_step
 
+    if log_fn is None:
+        log_fn = (lambda s, m: print(m, flush=True)) if (
+            state.mesh is None or state.mesh.rank == 0) else (
+            lambda s, m: None)
     rng = np.random.default_rng(seed + int(state.step))
     t0 = time.time()
     losses = []
@@ -164,7 +179,7 @@ def train_ref_loop(cfg, state, dataset, stage: int, steps: int, *,
             msg = {"step": step + 1, "stage": stage,
                    "loss": float(np.mean([float(x) for x in losses])),
                    "steps_per_s": log_every / max(time.time() - t0, 1e-9)}
-            (log_fn or (lambda s, m: print(m, flush=True)))(step, msg)
+            log_fn(step, msg)
             losses.clear()
             t0 = time.time()
         if ckpt_dir and (step + 1) % ckpt_every == 0:
@@ -176,9 +191,14 @@ def train_ref_loop(cfg, state, dataset, stage: int, steps: int, *,
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.fsdp > 1:
-        raise NotImplementedError("--fsdp > 1 (multi-card FSDP): not "
-                                  "ported yet")
+    from wedetect_tpu_torch import resolve_device
+    from wedetect_tpu_torch.eval import dist
+    from wedetect_tpu_torch.parallel.mesh import make_mesh, replicate_tree
+
+    dist.maybe_initialize(args.device)
+    mesh = make_mesh(data=1, fsdp=args.fsdp if args.fsdp > 0
+                     else dist.process_count())
+    resolve_device(args.device)
     from wedetect_tpu_torch.ckpt.io import (latest_checkpoint,
                                             restore_train_state,
                                             save_train_state)
@@ -221,12 +241,15 @@ def main(argv=None):
         tx = stage_optimizer(model, args.stage, base_lr=lr,
                              lr_schedule=schedule)
     tx = with_grad_accum(tx, args.grad_accum)
-    state = TrainState.create(model, tx)
+    replicate_tree(mesh, model.state_dict())
+    state = TrainState.create(model, tx, mesh)
     if args.resume and args.ckpt_dir:
         last = latest_checkpoint(args.ckpt_dir)
         if last is not None:
             state = restore_train_state(last, state)
-            print(f"resumed from {last} at step {state.step}", flush=True)
+            if mesh.rank == 0:
+                print(f"resumed from {last} at step {state.step}",
+                      flush=True)
 
     pad_id = tok.pad_token_id if tok.pad_token_id is not None else 0
     state = train_ref_loop(

@@ -26,7 +26,9 @@ def maybe_initialize(device="cuda") -> None:
     method from WEDETECT_DIST_INIT, default "env://"). nccl when
     `device` is a card (each process on LOCAL_RANK's card), gloo on the
     CPU. A world of one, or no such environment, stays single-process.
-    Safe to call twice."""
+    Safe to call twice. This is the port's one join point: training
+    (`parallel/mesh.make_mesh`) and the eval merges run on the group it
+    joins."""
     env = os.environ
     if dist.is_initialized():
         return

@@ -15,7 +15,11 @@ drops its residual branch per sample with rate `drop_path_rate * k /
 (n - 1)`, scaling the kept ones by 1 / keep. The mask is drawn from an
 explicit `torch.Generator` that the caller passes to `forward` (the
 train step seeds one per step); the global RNG is never used. At rate 0
-or in eval mode a block is exactly the identity on that branch.
+or in eval mode a block is exactly the identity on that branch. Under a
+data group (`ConvNeXtBlock.group`, a `parallel/collectives.Group` set
+by `train_step.attach_mesh`) a block draws the global batch's mask and
+keeps this rank's rows of it, so the ranks drop what one process would
+drop on the whole batch.
 
 Under the int8 mode the block MLP's Linears (`pwconv1`, `pwconv2`) run
 in int8 (`ops/int8.QuantLinear`); the stem, the downsampling convs and
@@ -52,14 +56,22 @@ class LayerNorm2d(nn.Module):
 
 
 def drop_path(y: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator],
+              group=None) -> torch.Tensor:
     """Zero whole samples of `y` with probability `rate` and scale the
-    kept ones by 1 / (1 - rate); the mask is drawn from `generator`."""
+    kept ones by 1 / (1 - rate); the mask is drawn from `generator`.
+    With a data `group`, `y` is member `group.index`'s block of a global
+    batch of `group.size` such blocks: the global mask is drawn and this
+    block's rows of it are used."""
     if generator is None:
         raise ValueError("drop path at rate > 0 needs a torch.Generator")
     keep = 1.0 - rate
-    shape = (y.shape[0],) + (1,) * (y.dim() - 1)
+    n = y.shape[0]
+    parts = 1 if group is None else group.size
+    shape = (n * parts,) + (1,) * (y.dim() - 1)
     mask = torch.rand(shape, generator=generator, device=y.device) < keep
+    if parts > 1:
+        mask = mask[group.index * n:(group.index + 1) * n]
     return torch.where(mask, y / keep, torch.zeros_like(y))
 
 
@@ -73,6 +85,7 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = QuantLinear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
         self.drop_path = drop_path
+        self.group = None
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         y = self.dwconv(x).permute(0, 2, 3, 1)
@@ -81,7 +94,7 @@ class ConvNeXtBlock(nn.Module):
         y = F.gelu(self.pwconv1(y).float(), approximate="none").to(y.dtype)
         y = self.pwconv2(y) * self.gamma.to(y.dtype)
         if self.drop_path > 0 and self.training:
-            y = drop_path(y, self.drop_path, generator)
+            y = drop_path(y, self.drop_path, generator, self.group)
         return x + y.permute(0, 3, 1, 2)
 
 

@@ -4,8 +4,14 @@ Port of `wedetect_tpu/train/loop.py`: host threads build each batch's
 samples (augmentation, letterbox, per-row text banks) while the card
 runs the previous step, since a step's kernels are queued and the loss
 stays a device tensor until a log step reads it; a checkpoint every
-`ckpt_every` steps (`ckpt/io.py`). One card: the JAX package's mesh
-sharding of the batch is not ported.
+`ckpt_every` steps (`ckpt/io.py`).
+
+Over a mesh (`parallel/mesh.py`), `loop_cfg.batch_size` is the global
+batch: `make_batch_iterator(mesh=)` builds only this rank's rows of it,
+from the seeds the one-process loop draws for those rows, so host work
+does not grow with the world; `run_training` trains over the state's
+mesh (`TrainState.mesh`), logs from rank 0 and writes checkpoints
+through `ckpt/io.save_train_state`, which every rank calls.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import numpy as np
 import torch
 
 from wedetect_tpu_torch.configs import ModelCfg
+from wedetect_tpu_torch.parallel.mesh import Mesh
 from wedetect_tpu_torch.train.train_step import Batch, TrainState, train_step
 
 
@@ -44,17 +51,23 @@ def make_batch_iterator(cfg: ModelCfg, loop_cfg: TrainLoopCfg,
                         text_embed_fn: Callable[[Sequence[str]],
                                                 np.ndarray],
                         seed: int = 0, num_workers: int = 8,
-                        start_batch: int = 0) -> Iterator[Batch]:
+                        start_batch: int = 0,
+                        mesh: Optional[Mesh] = None) -> Iterator[Batch]:
     """Static-shape Batches from host samples.
 
     sample_fn(rng) -> {image (HWC u8 at cfg.img_size), gt_bboxes,
     gt_labels, texts (list of prompt strings)}; each sample is built from
     its own rng, seeded from `seed`'s stream. `start_batch` skips that
     many batches' seeds without building them, so a resumed run reads
-    the batches an uninterrupted one would.
+    the batches an uninterrupted one would. With `mesh`, each batch is
+    this rank's rows (`Mesh.rows`) of the global batch of
+    `loop_cfg.batch_size`: the same samples, built from the same seeds.
     """
     h, w = cfg.img_size
     g = cfg.train.max_gt_per_image
+    if mesh is not None and loop_cfg.batch_size % mesh.shape["data"]:
+        raise ValueError(f"batch_size {loop_cfg.batch_size} does not divide "
+                         f"over the data axis of {mesh.shape['data']}")
 
     def build_one(rng: np.random.Generator) -> Dict:
         from wedetect_tpu_torch.data.augment import (merge_mixed_texts,
@@ -89,6 +102,8 @@ def make_batch_iterator(cfg: ModelCfg, loop_cfg: TrainLoopCfg,
     pool = cf.ThreadPoolExecutor(num_workers)
     while True:
         seeds = rng0.integers(0, 2**31, loop_cfg.batch_size)
+        if mesh is not None:
+            seeds = seeds[mesh.rows(len(seeds))]
         futs = [pool.submit(build_one, np.random.default_rng(int(sd)))
                 for sd in seeds]
         samples = [f.result() for f in futs]
@@ -134,9 +149,17 @@ def run_training(cfg: ModelCfg, state: TrainState,
                  batches: Iterator[Batch], loop_cfg: TrainLoopCfg,
                  log_fn: Callable[[int, Dict], None] = None
                  ) -> TrainState:
-    """Steps from state.step to loop_cfg.steps. A log line every
-    `log_every` steps: the window's mean loss, and the last step's loss
-    parts, num_pos and grad_norm, and img/s over the window."""
+    """Steps from state.step to loop_cfg.steps, over `state.mesh` where
+    the state has one (the batches are then this rank's rows). A log
+    line every `log_every` steps: the window's mean loss, and the last
+    step's loss parts, num_pos and grad_norm (global values on every
+    rank), and the global batch's img/s over the window; the default
+    log_fn prints on rank 0 only."""
+    mesh = state.mesh
+    data = 1 if mesh is None else mesh.shape["data"]
+    if log_fn is None:
+        log_fn = (lambda s, m: print(m, flush=True)) if (
+            mesh is None or mesh.rank == 0) else (lambda s, m: None)
     t0 = time.time()
     window: List[torch.Tensor] = []
     prof = None
@@ -158,9 +181,9 @@ def run_training(cfg: ModelCfg, state: TrainState,
                    **{k: float(metrics[k]) for k in
                       ("loss_cls", "loss_bbox", "loss_dfl", "num_pos",
                        "grad_norm")},
-                   "img_per_s": len(window) * len(batch.images)
+                   "img_per_s": len(window) * len(batch.images) * data
                    / max(time.time() - t0, 1e-9)}
-            (log_fn or (lambda s, m: print(m, flush=True)))(step, msg)
+            log_fn(step, msg)
             window.clear()
             t0 = time.time()
         if loop_cfg.ckpt_dir and (step + 1) % loop_cfg.ckpt_every == 0:

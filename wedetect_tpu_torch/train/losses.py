@@ -10,6 +10,11 @@ assigned_sum); config/wedetect_base.py:82-97).
 Every anchor is masked, never gathered: each contributes a term whose
 weight may be zero, so the work does not depend on the number of
 positives.
+
+Under a data group of several ranks (`group`), each rank holds its rows
+of the global batch: the normalisers `assigned_sum` and `num_pos` are
+summed over the group (outside autograd), so each rank's loss is its
+share of the global batch's loss and the gradients sum over the ranks.
 """
 
 from __future__ import annotations
@@ -64,14 +69,21 @@ def detection_loss(cfg: ModelCfg,
                    fg_mask: torch.Tensor,          # (B, A) bool
                    priors_xy: torch.Tensor,        # (A, 2)
                    strides: torch.Tensor,          # (A,)
-                   loss_scale: float = 1.0) -> DetLosses:
+                   loss_scale: float = 1.0, group=None) -> DetLosses:
     """The combined loss. `loss_scale` is the reference's
     `num_imgs * world_size` factor (yolo_world_head.py:570-576): the
-    train step passes the batch size."""
+    train step passes the global batch size. `group`: the data group
+    (a `parallel/collectives.Group`) over which the normalisers sum."""
     t = cfg.train
     cls_logits = cls_logits.float()
-    assigned_sum = assigned_scores.sum().clamp(min=1.0)
     fg = fg_mask.float()
+    if group is not None and group.size > 1:
+        sums = group.all_reduce(torch.stack(
+            [assigned_scores.sum(), fg.sum()]).detach())
+        assigned_sum, num_pos = sums[0].clamp(min=1.0), sums[1]
+    else:
+        assigned_sum = assigned_scores.sum().clamp(min=1.0)
+        num_pos = fg.sum()
 
     loss_cls = bce_with_logits(cls_logits, assigned_scores).sum()
     loss_cls = loss_cls / assigned_sum * t.loss_cls_weight
@@ -92,7 +104,7 @@ def detection_loss(cfg: ModelCfg,
 
     total = (loss_cls + loss_bbox + loss_dfl) * loss_scale
     return DetLosses(total=total, cls=loss_cls, bbox=loss_bbox,
-                     dfl=loss_dfl, num_pos=fg.sum())
+                     dfl=loss_dfl, num_pos=num_pos)
 
 
 def cov_mse_loss(pred: torch.Tensor, dim: int = 0,

@@ -20,6 +20,26 @@ The masks and multipliers read each tensor's JAX param path ("/"-joined,
 e.g. "vision/block0/qkv/kernel"): callers pass (path, tensor) pairs, so
 the JAX segment rule applies unchanged (for WeDetect-Ref the paths come
 from `ckpt/convert_ref.jax_param_paths`).
+
+Over a `parallel/mesh.Mesh` (`Optimizer.shard`), the step is the JAX
+package's over its mesh, where `fsdp_sharding` shards the optax state:
+- the gradients are summed over the data group (each rank's loss is its
+  share of the global batch's, `train/losses.py`), through flat buffers;
+- `mu`, `nu` and the MultiSteps accumulator hold this rank's slice of
+  each tensor along the axis `parallel/mesh.fsdp_spec` picks over the
+  fsdp group (whole where no axis divides);
+- each rank updates its slice of each parameter, and the whole
+  parameter is assembled again by the gather of
+  `parallel/collectives.Group.gather_flat` (a frozen tensor, whose
+  update is exactly 0, is not gathered);
+- `global_norm` and the clip read the norm of the full gradient: the
+  gradients are whole on every rank, and an accumulated gradient's norm
+  sums its slices' squares over the fsdp group.
+The parameters and their gradients stay whole on every rank, where JAX
+also shards the parameters (ZeRO-3): a difference in memory only, not
+in the numbers. `state_dict` gathers the full moments (every rank must
+call it) and `load_state_dict` takes full moments and keeps this rank's
+slices, so a checkpoint moves between meshes of any shape.
 """
 
 from __future__ import annotations
@@ -115,20 +135,91 @@ class Optimizer:
         self.accum_steps = 1
         self.count = 0          # applied updates (optax's inner count)
         self.mini_step = 0      # MultiSteps' micro-step within an update
+        self.mesh = None
+        self.specs: List[Optional[int]] = [None] * len(self.params)
         self.mu = [torch.zeros_like(t) for t in self.params]
         self.nu = [torch.zeros_like(t) for t in self.params]
         self.acc: List[torch.Tensor] = []
+        self._reduced = False
+
+    def shard(self, mesh) -> "Optimizer":
+        """Run over `mesh` (module docstring): this rank keeps its
+        slices of the state it holds now. Returns self."""
+        from wedetect_tpu_torch.parallel.mesh import fsdp_spec
+
+        size = mesh.shape["fsdp"]
+        self.mesh = mesh
+        self.specs = [fsdp_spec(tuple(p.shape), size) for p in self.params]
+        self.mu = [self._local(m, i).clone() for i, m in enumerate(self.mu)]
+        self.nu = [self._local(m, i).clone() for i, m in enumerate(self.nu)]
+        self.acc = [self._local(a, i).clone()
+                    for i, a in enumerate(self.acc)]
+        return self
+
+    def _local(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's slice of a tensor shaped as params[i]."""
+        if self.specs[i] is None:
+            return t
+        from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+
+        g = self.mesh.fsdp_group
+        return fsdp_slice(t, self.specs[i], g.index, g.size)
+
+    def _gather(self, fulls: List[torch.Tensor], locals_: List[torch.Tensor],
+                idx: List[int]) -> None:
+        """fulls[k] (shaped as params[idx[k]]) from every rank's slice,
+        this rank's being locals_[k]."""
+        writes = [lambda v, i=i, x=x: self._local(v, i).copy_(x)
+                  for i, x in zip(idx, locals_)]
+        self.mesh.fsdp_group.gather_flat(fulls, writes)
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.shape["fsdp"] > 1
 
     def grads(self) -> List[torch.Tensor]:
         return [torch.zeros_like(t) if t.grad is None else t.grad
                 for t in self.params]
 
     @torch.no_grad()
+    def reduce_grads(self) -> None:
+        """Sum the gradients over the mesh's data group, in place (each
+        rank's `.grad` then holds the global batch's gradient); once per
+        backward, before reading the gradients. A no-op without a data
+        group of several ranks."""
+        if self.mesh is not None and not self._reduced:
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.mesh.data_group.all_reduce_flat(
+                [p.grad for p in self.params])
+        self._reduced = True
+
+    def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The norm of the full gradient whose local slices are
+        `grads`: the sharded slices' squares summed over the fsdp
+        group."""
+        if not self._sharded():
+            return global_norm(grads)
+        dev = grads[0].device
+        sharded = torch.zeros(1, device=dev)
+        whole = torch.zeros((), device=dev)
+        for g, d in zip(grads, self.specs):
+            sq = (g.float() ** 2).sum()
+            if d is None:
+                whole = whole + sq
+            else:
+                sharded = sharded + sq
+        self.mesh.fsdp_group.all_reduce(sharded)
+        return torch.sqrt(sharded[0] + whole)
+
+    @torch.no_grad()
     def step(self) -> None:
-        grads = self.grads()
+        self.reduce_grads()
+        self._reduced = False
+        grads = [self._local(g, i) for i, g in enumerate(self.grads())]
         if self.accum_steps > 1:
             if not self.acc:
-                self.acc = [torch.zeros_like(t) for t in self.params]
+                self.acc = [torch.zeros_like(g) for g in grads]
             n = self.mini_step
             for a, g in zip(self.acc, grads):
                 a.add_((g - a) / (n + 1))
@@ -137,42 +228,69 @@ class Optimizer:
                 return
             grads = self.acc
         if self.grad_clip_norm:
-            norm = global_norm(grads)
+            # whole gradients (no accumulation) give the one-process
+            # norm bitwise; the accumulator's slices sum over the group
+            norm = (global_norm(self.grads()) if self.accum_steps == 1
+                    else self._norm(grads))
             if not bool(norm < self.grad_clip_norm):
                 grads = [g / norm * self.grad_clip_norm for g in grads]
         t = self.count + 1
         bc1, bc2 = 1 - self.b1 ** t, 1 - self.b2 ** t
         lr = self.lr(self.count)
+        moved = []
         for i, (p, g) in enumerate(zip(self.params, grads)):
             mu, nu = self.mu[i], self.nu[i]
             mu.mul_(self.b1).add_(g * (1 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1 - self.b2))
             if self.mults[i] == 0.0:
                 continue        # a frozen tensor: the update is exactly 0
+            ps = self._local(p, i)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.decay[i] and self.weight_decay:
-                u = u + self.weight_decay * p
+                u = u + self.weight_decay * ps
             if self.mults[i] != 1.0:
                 u = u * self.mults[i]
-            p.add_(u * -lr)
+            ps.add_(u * -lr)
+            if self.specs[i] is not None:
+                moved.append(i)
+        if moved:
+            self._gather([self.params[i].data for i in moved],
+                         [self._local(self.params[i].data, i)
+                          for i in moved], moved)
         self.count = t
         if self.accum_steps > 1:
             self.mini_step = 0
             for a in self.acc:
                 a.zero_()
 
+    def _full(self, state: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Full tensors from every rank's slices of `state`."""
+        if not self._sharded() or not state:
+            return state
+        fulls = [torch.empty_like(p) for p in self.params]
+        idx = [i for i, d in enumerate(self.specs) if d is not None]
+        self._gather([fulls[i] for i in idx], [state[i] for i in idx], idx)
+        for i, d in enumerate(self.specs):
+            if d is None:
+                fulls[i] = state[i]
+        return fulls
+
     def state_dict(self) -> dict:
+        """The state with full moments (a collective over the fsdp group
+        when sharded: every rank calls it)."""
         return {"count": self.count, "mini_step": self.mini_step,
-                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+                "mu": self._full(self.mu), "nu": self._full(self.nu),
+                "acc": self._full(self.acc)}
 
     def load_state_dict(self, state: dict) -> None:
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
-            for d, s in zip(dst, src, strict=True):
-                d.copy_(s)
-        self.acc = [a.to(p.device) for a, p in zip(state["acc"],
-                                                    self.params)]
+            for i, (d, s) in enumerate(zip(dst, src, strict=True)):
+                d.copy_(self._local(s, i))
+        self.acc = [self._local(a.to(p.device), i).clone()
+                    for i, (a, p) in enumerate(zip(state["acc"],
+                                                   self.params))]
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch
 from wedetect_tpu_torch.models.ref import RefModules
 from wedetect_tpu_torch.train.optimizer import (Optimizer, Schedule,
                                                 global_norm, make_optimizer)
-from wedetect_tpu_torch.train.ref_sft import ref_named_params
+from wedetect_tpu_torch.train.ref_sft import check_ref_mesh, ref_named_params
 from wedetect_tpu_torch.train.train_step import TrainState
 
 IGNORE_INDEX = -100
@@ -79,6 +79,7 @@ def ref_lm_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
     """One LM-loss step through the grounding trunk, updating `state` in
     place. labels: (B, L) token ids with IGNORE_INDEX masking. grid_t > 1
     feeds a video sample (one contiguous span; RefModules.hidden_states)."""
+    check_ref_mesh(state)
     model = state.model
     model.zero_grad(set_to_none=True)
     hidden = model.hidden_states(patches, input_ids, attn_mask,

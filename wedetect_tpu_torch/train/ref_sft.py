@@ -13,8 +13,14 @@ wedetect_ref/sft_referring.py):
 One step runs the whole `RefModules` forward and backward (the vision
 tower's gradient is computed and enters `grad_norm` even when frozen,
 as in JAX), so every step runs the flash backward kernels of the ViT
-(K3-bwd) and of the decoder (K2-bwd) on the card. The JAX package's
-fsdp sharding over a mesh is not ported (one card).
+(K3-bwd) and of the decoder (K2-bwd) on the card.
+
+Over a mesh (`TrainState.create(..., mesh=)`), the SFT steps shard over
+"fsdp" only, as the JAX CLI's `make_mesh(data=1, fsdp=W)`: every rank
+takes the same sample and computes the whole gradient, and the
+optimizer keeps and updates this rank's slice of its state
+(`train/optimizer.Optimizer.shard`). A mesh with a data axis above 1
+raises (`check_ref_mesh`).
 """
 
 from __future__ import annotations
@@ -84,6 +90,15 @@ def ref_optimizer(model: RefModules, base_lr: float = 1e-5,
                           custom_lr_mults=mults)
 
 
+def check_ref_mesh(state: TrainState) -> None:
+    """Raise unless the state's mesh (if any) has data = 1: the SFT
+    losses normalise over the one sample every rank takes."""
+    if state.mesh is not None and state.mesh.shape["data"] > 1:
+        raise ValueError(
+            f"WeDetect-Ref SFT shards over fsdp only (data = 1, every "
+            f"rank on the same sample); got {state.mesh}")
+
+
 def ref_sft_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
                  input_ids, attn_mask, position_ids, visual_start: int,
                  boxes, ori_wh, object_positions, labels, valid=None
@@ -93,6 +108,7 @@ def ref_sft_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
     proposal-axis padding. Metrics stay on the device: loss, grad_norm
     (over every gradient, the frozen vision tower's included) and
     num_pos."""
+    check_ref_mesh(state)
     model = state.model
     dev = model.device
     model.zero_grad(set_to_none=True)

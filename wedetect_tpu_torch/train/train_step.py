@@ -12,10 +12,19 @@ updating the params in place.
   mask (`Batch`, built by `train/loop.make_batch_iterator`).
 - text embeddings arrive precomputed, (B, K, C) per row or (K, C); the
   Uni variant (cfg.num_prompts) scores against its own prompt bank.
-- the loss is scaled by the batch size (the reference's
-  `num_imgs * world_size` on one card).
+- the loss is scaled by the global batch size (the reference's
+  `num_imgs * world_size`).
 - drop path draws its masks from a torch.Generator seeded per step
   (`drop_path_generator`); at rate 0 none is made.
+
+Over a `parallel/mesh.Mesh` (`TrainState.create(..., mesh=)`), each rank
+takes its rows of the global batch and the step is the JAX package's
+global-view step on a mesh of that shape: BatchNorm's statistics and
+drop path's masks are the global batch's (`attach_mesh`), the loss
+normalisers are global sums (`train/losses.py`), the gradients are
+summed over the data group and the optimizer's state is sharded over
+the fsdp group (`train/optimizer.Optimizer.shard`); the logged loss,
+num_pos and grad_norm are the global values on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from wedetect_tpu_torch.configs import ModelCfg
 from wedetect_tpu_torch.models.wedetect import _as, _images
 from wedetect_tpu_torch.ops.boxes import distance2bbox
 from wedetect_tpu_torch.ops.priors import flat_priors_and_strides
+from wedetect_tpu_torch.parallel.mesh import Mesh
 from wedetect_tpu_torch.train.assigner import assign
 from wedetect_tpu_torch.train.losses import DetLosses, detection_loss
 from wedetect_tpu_torch.train.optimizer import (Optimizer, global_norm,
@@ -46,10 +56,31 @@ class TrainState:
     step: int
     model: nn.Module
     tx: Optimizer
+    mesh: Optional[Mesh] = None
 
     @classmethod
-    def create(cls, model: nn.Module, tx: Optimizer) -> "TrainState":
-        return cls(step=0, model=model, tx=tx)
+    def create(cls, model: nn.Module, tx: Optimizer,
+               mesh: Optional[Mesh] = None) -> "TrainState":
+        """The state at step 0; over `mesh`, the model's BatchNorms and
+        drop paths take the mesh's data group (`attach_mesh`) and the
+        optimizer shards its state (`Optimizer.shard`)."""
+        if mesh is not None:
+            attach_mesh(model, mesh)
+            tx.shard(mesh)
+        return cls(step=0, model=model, tx=tx, mesh=mesh)
+
+
+def attach_mesh(model: nn.Module, mesh: Mesh) -> None:
+    """Give every train-mode BatchNorm (`nn/layers.BatchNorm2d`) and
+    ConvNeXt block (its drop path) the mesh's data group, or none where
+    the data axis is 1 (the one-process path)."""
+    from wedetect_tpu_torch.nn.convnext import ConvNeXtBlock
+    from wedetect_tpu_torch.nn.layers import BatchNorm2d
+
+    group = mesh.data_group if mesh.shape["data"] > 1 else None
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, ConvNeXtBlock)):
+            m.group = group
 
 
 class Batch(NamedTuple):
@@ -88,11 +119,14 @@ def drop_path_generator(cfg: ModelCfg, step: int,
 
 
 def loss_fn(cfg: ModelCfg, model: nn.Module, batch: Batch,
-            generator: Optional[torch.Generator] = None
+            generator: Optional[torch.Generator] = None,
+            mesh: Optional[Mesh] = None
             ) -> Tuple[torch.Tensor, DetLosses]:
     """The detector's loss on `batch`, with the model in train mode (BN
     on batch statistics, its running statistics updated; drop path from
-    `generator`); the model's mode is restored afterwards."""
+    `generator`); the model's mode is restored afterwards. Over `mesh`,
+    `batch` is this rank's rows and the loss is its share of the global
+    batch's (module docstring)."""
     dev = next(model.parameters()).device
     images = _images(batch.images, dev)
     texts = None if cfg.num_prompts else _as(batch.texts, dev,
@@ -111,6 +145,8 @@ def loss_fn(cfg: ModelCfg, model: nn.Module, batch: Batch,
     pred_bboxes = distance2bbox(priors[None],
                                 out.dists.float() * strides[None, :, None])
     t = cfg.train
+    group = None if mesh is None else mesh.data_group
+    rows = images.shape[0] * (1 if mesh is None else mesh.shape["data"])
     res = assign(pred_bboxes, torch.sigmoid(out.logits), priors,
                  _as(batch.gt_labels, dev), _as(batch.gt_bboxes, dev,
                                                 torch.float32),
@@ -119,7 +155,7 @@ def loss_fn(cfg: ModelCfg, model: nn.Module, batch: Batch,
                  alpha=t.tal_alpha, beta=t.tal_beta, eps=t.tal_eps)
     losses = detection_loss(cfg, out.logits, pred_bboxes, out.dist_logits,
                             res.bboxes, res.scores, res.fg_mask, priors,
-                            strides, loss_scale=float(images.shape[0]))
+                            strides, loss_scale=float(rows), group=group)
     return losses.total, losses
 
 
@@ -132,12 +168,17 @@ def train_step(cfg: ModelCfg, state: TrainState, batch: Batch
     dev = next(model.parameters()).device
     model.zero_grad(set_to_none=True)
     total, losses = loss_fn(cfg, model, batch,
-                            drop_path_generator(cfg, state.step, dev))
+                            drop_path_generator(cfg, state.step, dev),
+                            state.mesh)
     total.backward()
+    state.tx.reduce_grads()
     grad_norm = global_norm(state.tx.grads())
     state.tx.step()
     state.step += 1
-    return state, {"loss": total.detach(), "loss_cls": losses.cls.detach(),
-                   "loss_bbox": losses.bbox.detach(),
-                   "loss_dfl": losses.dfl.detach(),
+    parts = torch.stack([total.detach(), losses.cls.detach(),
+                         losses.bbox.detach(), losses.dfl.detach()])
+    if state.mesh is not None:
+        state.mesh.data_group.all_reduce(parts)
+    return state, {"loss": parts[0], "loss_cls": parts[1],
+                   "loss_bbox": parts[2], "loss_dfl": parts[3],
                    "num_pos": losses.num_pos, "grad_norm": grad_norm}
