@@ -419,12 +419,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             variables with WORLD_SIZE=1, through make_mesh at world 1;
             then an all_reduce, a gather and a broadcast of
             parallel/collectives on a one-rank nccl group.
+35. tp_serve  tensor-parallel Ref serving, two gloo ranks on the one
+            card (make_tp_mesh, tp = 2): ref_2b at full width cut to
+            dist_ref's depth (gloo's ~1.8 ms a call made a full-depth
+            GenServer run 46 s a mode on an NVIDIA H100 80GB HBM3 at
+            700 W; full_depth=True runs it whole),
+            each rank holding its slices of the serve phase's seeded
+            weights (init_ref_variables(mesh=)), f32 with TF32 off,
+            against one process on the same weights: RefScorer's score
+            logits on the ref phase's inputs within TP_LOGIT_TOL (a
+            control without the row-parallel all_reduce must miss it);
+            64 greedy tokens of ref_generate and GenServer(mesh=) at the
+            serve cell (8 slots, chunk 16, G = 64, 16 requests) greedy,
+            warped (0.8, top-k 30, top-p 0.9), int8 KV and piggyback:
+            every request's tokens equal one process's by the margin
+            rule, the two ranks' tokens bitwise equal; K2 and K3
+            launches per rank in a score call and an admission prefill;
+            K2 (prefix, suffix) and K3 (ViT) at a rank's heads against
+            their plain versions (K_TOL), f32 and bf16, with device ms;
+            each rank's score ms, prefill ms, ms a token, GenServer
+            tokens/s, collective calls, MB and ms a score call and a
+            token, peak GB, in f32 and (where gloo carries a bf16
+            all_reduce of a CUDA tensor) bf16.
 
 Then the kernels line (each K2 and K3 entry with its launches a video
 prefill and its times at the video shape, each backward entry with its
 launches a video SFT step, every attention kernel with its launches in
-each rank of a dist_ref step and K1 with its launches in dist_det's
-ranks), the nvidia-smi line, and as the last line
+each rank of a dist_ref step, K1 with its launches in dist_det's ranks,
+and the f32 and bf16 K2 and K3 entries with their launches in each
+tp_serve rank and their times at a rank's shapes), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
 of the repository beside it, the script fails before printing a result.
 """
@@ -3685,12 +3708,11 @@ GEN_EOS, GEN_PAD = 151645, 151643
 SERVE_TAILS = "What is in the pict"   # tails of 2-19 stub tokens
 
 
-def teacher_margins(model, gh, gw, patches, ids, mask, pos, nxt, toks,
-                    boxes, ori, vs):
-    """Each emitted token's argmax agreement, top-2 margin and gap (the
-    top logit less the emitted token's; 0 where it is the argmax) under
-    a teacher-forced forward of prompt + tokens (one row, padded to a
-    multiple of 128): (argmax ok, margin, gap), each per step."""
+def teacher_logits(model, gh, gw, patches, ids, mask, pos, nxt, toks,
+                   boxes, ori, vs):
+    """The f32 logits (len(toks), vocab) from which each emitted token was
+    drawn, under a teacher-forced forward of prompt + tokens (one row,
+    padded to a multiple of 128)."""
     n_p = int(mask.sum())
     toks = [int(t) for t in toks]
     seq = np.concatenate([ids[:n_p], toks]).astype(np.int32)
@@ -3706,7 +3728,19 @@ def teacher_margins(model, gh, gw, patches, ids, mask, pos, nxt, toks,
         h = model.hidden_states(patches, sid, smask, sp, boxes, ori, vs,
                                 np.full((1, 1), -1, np.int32), grid_h=gh,
                                 grid_w=gw)
-        lg = model.lm_logits(h)[0, n_p - 1:n_p - 1 + len(toks)].float()
+        return model.lm_logits(h)[0, n_p - 1:n_p - 1 + len(toks)].float()
+
+
+def teacher_margins(model, gh, gw, patches, ids, mask, pos, nxt, toks,
+                    boxes, ori, vs):
+    """Each emitted token's argmax agreement, top-2 margin and gap (the
+    top logit less the emitted token's; 0 where it is the argmax) under
+    a teacher-forced forward of prompt + tokens (teacher_logits): (argmax
+    ok, margin, gap), each per step."""
+    toks = [int(t) for t in toks]
+    lg = teacher_logits(model, gh, gw, patches, ids, mask, pos, nxt, toks,
+                        boxes, ori, vs)
+    with torch.inference_mode():
         top = torch.topk(lg, 2).values
         own = lg.gather(1, torch.tensor(toks, device=lg.device)[:, None])
     return ((lg.argmax(-1).cpu().numpy() == np.array(toks)),
@@ -6611,6 +6645,398 @@ def phase_dist_nccl(dev, image, proposals):
     return res
 
 
+# ------------------------------------------------ tensor-parallel serving
+# tp_serve: ref_2b at full width held by TP_RANKS gloo ranks on card 0
+# (parallel/mesh.make_tp_mesh; nccl refuses two ranks on one GPU), each
+# rank holding its slices of the serve phase's seeded weights
+# (init_ref_variables(mesh=)), against one process on the same weights,
+# f32 with TF32 off. A rank's gloo collectives carry CUDA tensors through
+# the host, ~1.8 ms a call on an NVIDIA H100 80GB HBM3 at 700 W (58
+# calls a decode token at full depth), so its times are a floor on what
+# the collectives cost, not a multi-card speed; and the phase runs at
+# dist_ref's depth (DIST_REF_DEPTH: 8 of 28 decoder layers, 8 of 24 ViT
+# blocks), where a full-depth GenServer run took 46 s a mode on that
+# card. phase_tp_serve(full_depth=True) runs ref_2b whole.
+TP_RANKS = 2
+# a rank's f32 score logits against the one-process call: the limit the
+# Ref path's kernels are held to (REF_LOGIT_TOL["float32"]); summing a
+# row-parallel product over two ranks only reorders f32 additions
+TP_LOGIT_TOL = 1e-4
+TP_GEN_TOKENS = 64
+TP_TIMED_TOKENS = 16      # decode tokens counted with every collective
+#                           synchronised (CollectiveStats.timed)
+TP_SERVE_CELL = dict(slots=8, chunk=16, p=384, g=64, n_req=16)
+TP_SERVE_MODES = {"greedy": {},
+                  "warped": dict(temperature=0.8, top_k=30, top_p=0.9),
+                  "kv8": dict(kv_bits=8), "piggyback": dict(piggyback=True)}
+
+
+def tp_shapes(tp: int) -> dict:
+    """K2's prefix and suffix and K3's ViT case at one rank's heads."""
+    def k2(case):
+        b, s, lk, h, kvh, d, causal, holes = case
+        return (b, s, lk, h // tp, kvh // tp, d, causal, holes)
+
+    b, l, h, d, n_real, causal = K3_VIT
+    return {"k2_prefix": k2(K2_PREFIX), "k2_suffix": k2(K2_SUFFIX),
+            "k3_vit": (b, l, h // tp, d, n_real, causal)}
+
+
+def tp_rank_kernels(dev, tp: int = TP_RANKS) -> dict:
+    """K2 and K3 at a rank's shapes (tp_shapes), f32 and bf16: each
+    route's kernel launched once and held to its plain version (K_TOL, lse
+    within 1e-3); device ms beside the plain version's, the bound and
+    SDPA's."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for i, (name, case) in enumerate(tp_shapes(tp).items()):
+            if name.startswith("k2"):
+                b, s, lk, h, kvh, d, causal, holes = case
+                q, k, v, valid = k2_case(dev, *case, dtype=dtype, seed=i)
+                kw = dict(causal=True, kv_valid=valid)
+                run = lambda **x: fg.gqa_flash_attention(  # noqa: E731
+                    q, k, v, **kw, **x)
+                plain = lambda **x: fg.gqa_flash_attention_plain(  # noqa
+                    q, k, v, **kw, **x)
+                route = fg.gqa_flash_fwd_sm90 if bf16 else \
+                    fg.gqa_flash_fwd_f32
+                pairs = k2_visible_pairs(s, lk, True, valid)
+                mask = k2_mask(valid, s, lk)
+                bound = attn_bound(h, d, pairs, q.numel() + 2 * k.numel(),
+                                   q.numel(), b * s * h, dtype)
+            else:
+                b, l, h, d, n_real, causal = case
+                q, k, v, seg = k3_case(dev, *case, dtype=dtype, seed=i)
+                kw = dict(q_segment_ids=seg, kv_segment_ids=seg,
+                          sm_scale=d ** -0.5)
+                run = lambda **x: fa.flash_attention(  # noqa: E731
+                    q, k, v, **kw, **x)
+                plain = lambda **x: fa.flash_attention_plain(  # noqa
+                    q, k, v, **kw, **x)
+                route = fa.flash_attention_fwd_sm90 if bf16 else \
+                    fa.flash_attention_fwd_f32
+                pairs = b * (n_real * n_real + (l - n_real) ** 2)
+                mask = (seg[:, :, None] == seg[:, None, :])[:, None]
+                bound = attn_bound(h, d, pairs, 3 * q.numel(), q.numel(),
+                                   b * l * h, dtype)
+            route.launches = 0
+            o, lse = run(return_lse=True)
+            torch.cuda.synchronize()
+            launched = route.launches
+            po, plse = plain(return_lse=True)
+            r = {"shape": list(case[:6]), "launches": launched,
+                 "max_abs_err": float((o.float() - po.float()).abs().max()),
+                 "lse_err": float((lse - plse).abs().max()), **bound,
+                 "ms": graph_ms(run),
+                 "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                 "library_ms": graph_ms(lambda: sdpa_gqa(q, k, v, mask))}
+            r["match"] = (launched == 1 and kernel_close(o, po, dtype)
+                          and r["lse_err"] <= 1e-3)
+            res[f"{name}_{str(dtype)[6:]}"] = r
+            del q, k, v, o, lse, po, plse, mask
+    return res
+
+
+def gen_margins(model, b, toks, sampling=None, seed=0):
+    """The margin of each of a request's tokens under the one-process
+    model (teacher_logits), in logit units: greedy, the top-2 logit gap;
+    sampled (the GenServer's (temperature, top_k, top_p) and the
+    request's seed), the top-2 gap of the warped, Gumbel-perturbed
+    logits, and where a token outside the top-k or top-p cut would beat
+    the draw if let in (or the draw sits at the cut), the logit gap at
+    that cut."""
+    from wedetect_tpu_torch.ops import prng
+
+    lg = teacher_logits(model, b["gh"], b["gw"], b["patches"], b["ids"],
+                        b["mask"], b["pos"], b["nxt"], toks, b["boxes"],
+                        b["ori"], b["vs"])
+    with torch.inference_mode():
+        if sampling is None:
+            top = torch.topk(lg, 2).values
+            return (top[:, 0] - top[:, 1]).cpu().numpy()
+        t, top_k, top_p = sampling
+        n = len(toks)
+        keys = prng.fold_in(prng.PRNGKey(torch.full(
+            (n,), seed, dtype=torch.int32, device=lg.device)),
+            torch.arange(n, dtype=torch.int32, device=lg.device))
+        raw = lg / t
+        pert = raw + prng.gumbel(keys, raw.shape[-1:])
+        cut = torch.topk(raw, top_k + 1).values
+        lw = torch.where(raw < cut[:, top_k - 1:top_k], -torch.inf, raw)
+        srt = torch.sort(lw, dim=-1, descending=True).values
+        p = torch.softmax(srt, dim=-1)
+        n_keep = ((torch.cumsum(p, -1) - p) < top_p).sum(-1, keepdim=True)
+        last, first_out = srt.gather(1, n_keep - 1), srt.gather(1, n_keep)
+        kept = raw >= last
+        top = torch.topk(torch.where(kept, pert, -torch.inf), 2)
+        win = top.indices[:, :1]
+        at_win = pert.gather(1, win)
+        threat = ((pert > at_win) & ~kept).any(-1)
+        win_raw = raw.gather(1, win)[:, 0]
+        inf = torch.full_like(win_raw, torch.inf)
+        gap_k = torch.where(threat | (win_raw == cut[:, top_k - 1]),
+                            t * (cut[:, top_k - 1] - cut[:, top_k]), inf)
+        gap_p = torch.where(threat | (win_raw == last[:, 0]),
+                            t * (last - first_out)[:, 0], inf)
+        gaps = torch.stack([t * (top.values[:, 0] - top.values[:, 1]),
+                            gap_k, gap_p.nan_to_num(torch.inf)])
+        return gaps.amin(0).cpu().numpy()
+
+
+def tp_stream_check(model, b, got, want, sampling=None, seed=0) -> dict:
+    """One stream of a rank against the one-process stream under the
+    margin rule (the margins computed only where they part)."""
+    got, want = [int(t) for t in got], [int(t) for t in want]
+    if got == want:
+        return {"ok": True, "agree": len(want), "margin": None}
+    d = divergence(got, want, gen_margins(model, b, want, sampling, seed))
+    return {"ok": d[0], "agree": d[1], "margin": d[2]}
+
+
+def collective_cost(stats, fn) -> dict:
+    """Calls, MB and ms of the collectives of fn(), each synchronised
+    (device time)."""
+    stats.reset()
+    stats.timed = True
+    try:
+        fn()
+    finally:
+        stats.timed = False
+    return {"calls": stats.calls, "mb": stats.bytes / 1e6,
+            "ms": stats.seconds * 1e3}
+
+
+def tp_cfg(full_depth: bool):
+    from wedetect_tpu_torch.nn.qwen3vl import ref_2b
+
+    return ref_2b() if full_depth else dist_ref_cfg()
+
+
+def tp_timings(cfg, model, scorer, mesh, image, proposals, b, reqs,
+               served=None) -> dict:
+    """A rank's times: a score call, the generation prefill and ms a
+    token, GenServer tokens/s at the serve cell (greedy; `served`: the
+    (tokens, wall ms) of a run already made), and the collectives'
+    calls, MB and ms a score call and a decode token."""
+    from wedetect_tpu_torch.models import ref_generate as TG
+
+    c = TP_SERVE_CELL
+    call = lambda: scorer.score(image, proposals, REF_QUERIES)  # noqa
+
+    def prefill():
+        with torch.inference_mode():
+            return TG._prefill_hidden_kvs(
+                model, b["gh"], b["gw"], b["patches"], b["ids"][None],
+                b["mask"][None], b["pos"][:, None], b["boxes"], b["ori"],
+                b["vs"], np.full((1, 1), -1, np.int32))
+
+    r = {"score_ms": host_ms(call, 2), "prefill_ms": host_ms(prefill, 2)}
+    call_ms = host_ms(lambda: gen_call(cfg, model, b, TP_GEN_TOKENS), 1,
+                      warmup=0)
+    r["decode_ms_per_token"] = (call_ms - r["prefill_ms"]) / TP_GEN_TOKENS
+    if served is None:
+        toks, _, ms, _, _, _ = serve_run(cfg, model, reqs, c["slots"],
+                                         c["p"], c["g"], c["chunk"],
+                                         mesh=mesh)
+    else:
+        toks, ms = served
+    r["serve"] = {"wall_ms": ms, "tokens": sum(map(len, toks)),
+                  "tokens_per_s": sum(map(len, toks)) / ms * 1e3}
+    r["collectives_score_call"] = collective_cost(mesh.stats, call)
+    one = collective_cost(mesh.stats, lambda: gen_call(cfg, model, b, 1))
+    many = collective_cost(mesh.stats, lambda: gen_call(
+        cfg, model, b, 1 + TP_TIMED_TOKENS))
+    r["collectives_per_token"] = {k: (many[k] - one[k]) / TP_TIMED_TOKENS
+                                  for k in one}
+    r["collectives_prefill"] = one
+    return r
+
+
+def tp_serve_worker(root: str) -> None:
+    """A tp_serve rank: its slices of ref_2b, then the score call (and
+    its control without the row-parallel sum), 64 greedy tokens, the
+    GenServer(mesh=) runs of every TP_SERVE_MODES mode, and its times in
+    f32 and, where gloo carries a bf16 all_reduce, in bf16."""
+    rank = dist_join()
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+    from wedetect_tpu_torch.parallel import mesh as pm
+
+    dev, c = torch.device(DIST_DEV), TP_SERVE_CELL
+    inp = np.load(os.path.join(root, "tp_inputs.npz"))
+    image, proposals = inp["image"], inp["proposals"]
+    cfg = tp_cfg(bool(inp["full_depth"]))
+    mesh = pm.make_tp_mesh(data=1, tp=TP_RANKS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_ref_variables(cfg, seed=0, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "tp_index": mesh.tp_index,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    tok = CharTok()
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok, device=dev)
+    launch_counts(reset=True)
+    logits = scorer.logits(image, proposals, REF_QUERIES)
+    out["score_launches"] = launch_counts()
+    row_sum = pm.row_sum
+    pm.row_sum = lambda tp, y: y
+    try:
+        control = scorer.logits(image, proposals, REF_QUERIES)
+    finally:
+        pm.row_sum = row_sum
+    np.savez(os.path.join(root, f"tp_logits.rank{rank}.npz"),
+             logits=logits, control=control)
+    b = gen_prompt(scorer, image, GEN_PROMPT)
+    out["gen"] = trim(gen_call(cfg, model, b, TP_GEN_TOKENS)[0].cpu()
+                      .numpy())
+    reqs = serve_requests(scorer, image, c["n_req"], c["p"], c["g"])
+    out["serve"] = {}
+    for name, kw in TP_SERVE_MODES.items():
+        toks, st, ms, pool, counts, _ = serve_run(
+            cfg, model, reqs, c["slots"], c["p"], c["g"], c["chunk"],
+            mesh=mesh, **kw)
+        out["serve"][name] = {
+            "tokens": toks, "stats": st, "pool_gb": pool / 1e9,
+            "wall_ms": ms, "launches_per_admit": {
+                k: v / st["admits"] for k, v in counts.items()
+                if "bwd" not in k}}
+    greedy = out["serve"]["greedy"]
+    out["float32"] = tp_timings(cfg, model, scorer, mesh, image, proposals,
+                                b, reqs, (greedy["tokens"],
+                                          greedy["wall_ms"]))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # bf16 timing, where gloo carries a bf16 all_reduce of a CUDA tensor
+    probe = torch.ones(4, dtype=torch.bfloat16, device=dev)
+    try:
+        mesh.tp.all_reduce(probe)
+        out["bf16_all_reduce"] = bool((probe == TP_RANKS).all())
+    except (RuntimeError, ValueError) as e:
+        out["bf16_all_reduce"], out["bf16_refused"] = False, str(e)
+    if out["bf16_all_reduce"]:
+        scorer = RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                           dtype="bfloat16", device=dev)
+        launch_counts(reset=True)
+        scorer.score(image, proposals, REF_QUERIES)
+        out["score_launches_bf16"] = launch_counts()
+        out["bfloat16"] = tp_timings(cfg, model, scorer, mesh, image,
+                                     proposals, b, reqs)
+    with open(os.path.join(root, f"tp_serve_worker.rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
+    """ref_2b (at DIST_REF_DEPTH, or whole with `full_depth`) served by
+    TP_RANKS tensor-parallel ranks on the one card against one process on
+    the same weights (f32): RefScorer's score logits within
+    TP_LOGIT_TOL, a control without the row-parallel sum missing it; 64
+    greedy tokens of ref_generate and the GenServer(mesh=) tokens of each
+    TP_SERVE_MODES mode equal to one process's by the margin rule, and
+    bitwise equal between the ranks; K2 and K3 launches per rank in a
+    score call and an admission prefill; K2 and K3 at a rank's shapes
+    against their plain versions; each rank's times and collective
+    costs, and peak GB beside one process's."""
+    from wedetect_tpu_torch.models.ref import init_ref_variables
+    from wedetect_tpu_torch.models.ref_api import RefScorer
+
+    cfg, c = tp_cfg(full_depth), TP_SERVE_CELL
+    root = os.path.join(dist_root(), "tp")
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    np.savez(os.path.join(root, "tp_inputs.npz"), image=image,
+             proposals=np.asarray(proposals), full_depth=full_depth)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_ref_variables(cfg, seed=0, device=dev)
+    scorer = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(), device=dev)
+    want = scorer.logits(image, proposals, REF_QUERIES)
+    b = gen_prompt(scorer, image, GEN_PROMPT)
+    want_gen = trim(gen_call(cfg, model, b, TP_GEN_TOKENS)[0].cpu().numpy())
+    reqs = serve_requests(scorer, image, c["n_req"], c["p"], c["g"])
+    want_serve = {name: serve_run(cfg, model, reqs, c["slots"], c["p"],
+                                  c["g"], c["chunk"], **kw)[0]
+                  for name, kw in TP_SERVE_MODES.items()}
+    kernels = tp_rank_kernels(dev)
+    ranks = spawn_ranks("tp_serve_worker", root, world=TP_RANKS)
+    logits = [np.load(os.path.join(root, f"tp_logits.rank{r}.npz"))
+              for r in range(TP_RANKS)]
+    res = {"ranks": TP_RANKS, "config": c, "tolerance": TP_LOGIT_TOL,
+           "depth": {"layers": cfg.text.layers, "vit": cfg.vision.depth},
+           "margin_limit": GEN_LOGIT_TOL, "kernels": kernels}
+    res["score"] = {
+        "max_abs_err": [float(np.abs(x["logits"] - want).max())
+                        for x in logits],
+        "control_max_abs_err": [float(np.abs(x["control"] - want).max())
+                                for x in logits],
+        "ranks_bitwise": all(np.array_equal(x["logits"], logits[0]["logits"])
+                             for x in logits)}
+    ok = (all(e <= TP_LOGIT_TOL for e in res["score"]["max_abs_err"])
+          and all(e > TP_LOGIT_TOL
+                  for e in res["score"]["control_max_abs_err"])
+          and res["score"]["ranks_bitwise"])
+    res["gen"] = tp_stream_check(model, b, ranks[0]["gen"], want_gen)
+    res["gen"]["ranks_equal"] = all(r["gen"] == ranks[0]["gen"]
+                                    for r in ranks)
+    ok = ok and res["gen"]["ok"] and res["gen"]["ranks_equal"]
+    res["serve"] = {}
+    for name, kw in TP_SERVE_MODES.items():
+        got = ranks[0]["serve"][name]["tokens"]
+        sampling = (kw["temperature"], kw["top_k"], kw["top_p"]) \
+            if "temperature" in kw else None
+        checks = [tp_stream_check(model, q, g, w, sampling, 1000 + k)
+                  for k, (q, g, w) in enumerate(zip(reqs, got,
+                                                    want_serve[name]))]
+        r = res["serve"][name] = {
+            "ok": all(x["ok"] for x in checks),
+            "equal": sum(x["margin"] is None and x["ok"] for x in checks),
+            "partings": [x for x in checks if x["margin"] is not None],
+            "ranks_equal": all(x["serve"][name]["tokens"] == got
+                               for x in ranks),
+            "complete": complete(got, reqs),
+            "stats": ranks[0]["serve"][name]["stats"],
+            "pool_gb_per_rank": ranks[0]["serve"][name]["pool_gb"]}
+        ok = ok and r["ok"] and r["ranks_equal"] and r["complete"]
+    k2, k3 = cfg.text.layers, cfg.vision.depth
+    per_score = expected_counts(k2=2 * k2, k2_f32=2 * k2, k3=k3, k3_f32=k3)
+    per_admit = {n: float(v) for n, v in expected_counts(
+        k2=k2, k2_f32=k2, k3=k3, k3_f32=k3).items() if "bwd" not in n}
+    res["launches"] = {
+        "score_per_rank": [r["score_launches"] for r in ranks],
+        "admit_per_rank": [r["serve"]["greedy"]["launches_per_admit"]
+                           for r in ranks],
+        "score_bf16_per_rank": [r.get("score_launches_bf16")
+                                for r in ranks]}
+    ok = ok and all(r["score_launches"] == per_score
+                    and r["serve"]["greedy"]["launches_per_admit"]
+                    == per_admit for r in ranks)
+    ok = ok and all(x["match"] for x in kernels.values())
+    res["timings_per_rank"] = {
+        t: [r[t] for r in ranks] for t in ("float32", "bfloat16")
+        if t in ranks[0]}
+    res["bf16_all_reduce"] = ranks[0]["bf16_all_reduce"]
+    if "bf16_refused" in ranks[0]:
+        res["bf16_refused"] = ranks[0]["bf16_refused"]
+    res["peak_mem_gb_per_rank"] = [r["peak_mem_gb"] for r in ranks]
+    res["init_peak_gb_per_rank"] = [r["init_peak_gb"] for r in ranks]
+    res["params_per_rank"] = [r["params"] for r in ranks]
+    res["one_process_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["seconds"] = time.perf_counter() - t0
+    emit({"phase": "tp_serve", **res})
+    del model, scorer
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("tp_serve: a tensor-parallel rank missed the "
+                             "one-process run")
+    return res
+
+
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
                 "sm90": ("max_abs_err_bf16", "max_abs_err_bf16")}
@@ -6720,6 +7146,7 @@ def main() -> int:
     dist_det = phase_dist_det(dev, det_train)
     dist_ref = phase_dist_ref(dev, image, proposals)
     phase_dist_nccl(dev, image, proposals)
+    tp = phase_tp_serve(dev, image, proposals)
     # K2's and K3's launches a fused REC step and a multi-image call
     # (prefix sharing), by type: f32 on the FFMA kernels, bf16 on wgmma,
     # the SIMT kernels none (their nonzero counts)
@@ -6958,6 +7385,33 @@ def main() -> int:
         if entry["name"] in per_rank[0]:
             entry["launches_dist_sft_step_per_rank"] = [
                 c[entry["name"]] for c in per_rank]
+    # K2's and K3's launches in each tp_serve rank: a score call and an
+    # admission prefill in f32 (the FFMA kernels), a score call in bf16
+    # (the wgmma ones, where gloo carried bf16), and their times at a
+    # rank's shapes (tp_rank_kernels)
+    tp_counter = {"gqa_flash_fwd_f32": "k2_f32",
+                  "flash_attention_fwd_f32": "k3_f32",
+                  "gqa_flash_fwd_sm90": "k2_sm90",
+                  "flash_attention_fwd_sm90": "k3_sm90"}
+    for entry in kernels:
+        name = entry["name"]
+        if name not in tp_counter:
+            continue
+        n = tp_counter[name]
+        bf16 = name.endswith("sm90")
+        tl = tp["launches"]
+        entry["launches_tp_score_per_rank"] = [
+            (c or {}).get(n, 0) for c in
+            tl["score_bf16_per_rank" if bf16 else "score_per_rank"]]
+        if not bf16:
+            entry["launches_tp_admit_per_rank"] = [
+                c[n] for c in tl["admit_per_rank"]]
+        for shape in (("k2_prefix", "k2_suffix") if n.startswith("k2")
+                      else ("k3_vit",)):
+            r = tp["kernels"][f"{shape}_{'bfloat16' if bf16 else 'float32'}"]
+            entry[f"tp_{shape[3:]}"] = {
+                k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "max_abs_err")}
     kernels[0]["launches_dist_det_step"] = [
         r[k]["launches"]["row_topk"] for r in dist_det["ranks"]
         for k in ("dp", "fsdp")]

@@ -354,6 +354,59 @@ def test_flash_attention_kernel_matches_plain(cuda, monkeypatch, dtype, b, l,
     assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
 
 
+# the per-rank shapes of tensor-parallel serving at ref_2b: each of tp
+# ranks runs 16 / tp query heads, 8 / tp kv heads and 16 / tp ViT heads
+# (a 480x640 image: the prefix of 384 keys, the suffix of 8 rows of 256
+# over 640 keys, the ViT's 1280 padded tokens of which 1200 are real)
+TP_RANK_SHAPES = {
+    "k2_prefix": lambda tp: ("k2", 1, 384, 384, 16 // tp, 8 // tp, 128),
+    "k2_suffix": lambda tp: ("k2", 8, 256, 640, 16 // tp, 8 // tp, 128),
+    "k3_vit": lambda tp: ("k3", 1, 1280, 1200, 16 // tp, None, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("shape", list(TP_RANK_SHAPES))
+def test_tp_rank_shapes_match_plain(cuda, monkeypatch, dtype, tp, shape):
+    """K2 and K3 at a tensor-parallel rank's head counts take the same
+    routes (f32 the FFMA kernels, bf16 the wgmma ones) and agree with
+    their plain versions."""
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    kind, b, s, lk, h, kvh, d = TP_RANK_SHAPES[shape](tp)
+    f32 = dtype == torch.float32
+    if kind == "k2":
+        route = fg.gqa_flash_fwd_f32 if f32 else fg.gqa_flash_fwd_sm90
+        monkeypatch.setattr(route, "launches", 0)
+        q, k, v = _attn_inputs((b, s, h, d), (b, lk, kvh, d), dtype, cuda,
+                               seed=s + lk + h)
+        p = lk - s if lk > s else lk              # the prefix's keys
+        valid = torch.ones((b, lk), dtype=torch.int32)
+        valid[:, p - 20:p] = 0                    # the prefix's padding
+        valid[1:, -40:] = 0                       # shorter suffix rows
+        valid = valid.to(cuda)
+        kw = dict(causal=True, kv_valid=valid, return_lse=True)
+        got, lse = fg.gqa_flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want, wlse = fg.gqa_flash_attention_plain(q, k, v, **kw)
+    else:
+        route = fa.flash_attention_fwd_f32 if f32 else \
+            fa.flash_attention_fwd_sm90
+        monkeypatch.setattr(route, "launches", 0)
+        q, k, v = _attn_inputs((b, s, h, d), (b, s, h, d), dtype, cuda,
+                               seed=s + h)
+        seg = (torch.arange(s, device=cuda) < lk).to(torch.int32)[None]
+        kw = dict(q_segment_ids=seg, kv_segment_ids=seg, causal=False,
+                  sm_scale=d ** -0.5, return_lse=True)
+        got, lse = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want, wlse = fa.flash_attention_plain(q, k, v, **kw)
+    assert route.launches == 1
+    assert _close(got, want, dtype)
+    assert torch.allclose(lse, wlse, atol=1e-3, rtol=1e-5)
+
+
 def test_attention_kernels_reject_bad_input(cuda):
     from wedetect_tpu_torch.ops.flash_attention import flash_attention
     from wedetect_tpu_torch.ops.flash_gqa import gqa_flash_attention

@@ -13,6 +13,7 @@ installs nothing.
 """
 
 import copy
+import types
 
 import numpy as np
 import pytest
@@ -28,7 +29,9 @@ from wedetect_tpu.models.quant import quantize_decode_params as j_quantize
 from wedetect_tpu.nn.qwen3vl import get_rope_index_single_image
 from wedetect_tpu_torch.models import quant as TQ
 from wedetect_tpu_torch.models import serve as TSV
+from wedetect_tpu_torch.models.ref import RefModules
 from wedetect_tpu_torch.models.ref_generate import ref_generate
+from wedetect_tpu_torch.parallel.collectives import CollectiveStats, Group
 
 GH = GW = 8
 P, G = 32, 6
@@ -235,7 +238,17 @@ def test_pool_allocated_once_and_kv8_bytes(tiny):
 
 
 def test_mesh_raises(tiny):
+    """GenServer(mesh=) serves a model built on the mesh's tp group (the
+    tensor-parallel runs are tests/test_torch_tp.py's): a one-process
+    model under a tp = 2 mesh raises, and so does a quantized decode
+    tree under tensor parallelism, which is not ported."""
     _, tcfg, _, model = tiny
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
+    tp = Group(None, [0, 1], 0, CollectiveStats())
+    mesh = types.SimpleNamespace(shape={"data": 1, "tp": 2}, tp=tp)
+    with pytest.raises(ValueError, match="mesh.tp"):
         TSV.GenServer(tcfg, GH, GW, model, prompt_len=P, max_new=G,
-                      eos_id=EOS, mesh=object())
+                      eos_id=EOS, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        TSV.GenServer(tcfg, GH, GW, RefModules(tcfg, tp=tp), prompt_len=P,
+                      max_new=G, eos_id=EOS, mesh=mesh,
+                      decode_params=TQ.quantize_decode_params(model))

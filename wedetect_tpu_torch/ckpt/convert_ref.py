@@ -8,7 +8,10 @@ that `wedetect_tpu/ckpt/convert_ref.py` reads (`model.visual.*`,
 `from_jax_ref_params` goes the other way from the JAX package: the
 `{vision, text, embed, extras}` params of `wedetect_tpu.models.ref`
 (as numpy) -> a port state dict, the exact inverse of
-`convert_ref_model`, the untied `lm_head` included. Layouts: Dense
+`convert_ref_model`, the untied `lm_head` included; with `mesh` (a
+tensor-parallel rank's `parallel/mesh.TpMesh`), only that rank's slices
+(`parallel/mesh.shard_ref_state`), cut on the host, for
+`models/ref.tp_ref_model` to move to its card. Layouts: Dense
 (in, out) -> Linear (out, in); the patch-embed Dense (C*T*P*P, hidden)
 -> the checkpoint's Conv3d weight (hidden, C, T, P, P); ConvT2x (in,
 out, 2, 2) unchanged; norm scales -> `weight`. `from_jax_decode_params`
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from wedetect_tpu_torch.nn.qwen3vl import RefCfg
+from wedetect_tpu_torch.parallel.mesh import shard_ref_state
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -112,10 +116,12 @@ def jax_param_paths(cfg: RefCfg) -> Dict[str, str]:
     return {key: "/".join(path) for key, path, _ in _entries(cfg)}
 
 
-def from_jax_ref_params(params: Mapping, cfg: RefCfg) -> StateDict:
+def from_jax_ref_params(params: Mapping, cfg: RefCfg,
+                        mesh=None) -> StateDict:
     """JAX Ref params (numpy leaves) -> port state dict (f32 tensors).
     A params["lm_head"]["kernel"] (the stage-1/2 untied head) becomes
-    `lm_head.weight`, transposed: load it into RefModules(lm_head=True)."""
+    `lm_head.weight`, transposed: load it into RefModules(lm_head=True).
+    With `mesh`, the slices of tensor-parallel rank mesh.tp_index."""
     v = cfg.vision
     out: StateDict = {}
     for key, path, layout in _entries(cfg, lm_head="lm_head" in params):
@@ -129,7 +135,7 @@ def from_jax_ref_params(params: Mapping, cfg: RefCfg) -> StateDict:
             x = x.T.reshape(v.hidden, v.in_ch, v.temporal_patch, v.patch,
                             v.patch)
         out[key] = torch.tensor(np.asarray(x, np.float32))
-    return out
+    return out if mesh is None else shard_ref_state(out, mesh, cfg)
 
 
 def load_hf_state_dict(checkpoint_dir: str) -> StateDict:

@@ -12,7 +12,7 @@ The decode-param tree (`decode_params`, what `models/ref_generate`,
     {"text": {"layer{i}": {"q_proj": leaf, ..., "down_proj": leaf,
                            "input_ln": w, "post_ln": w, "q_norm": w,
                            "k_norm": w}, "norm": w},
-     "embed": (vocab, hidden) table, ["lm_head": leaf]}
+     "embed": (vocab, hidden) table, ["lm_head": leaf], ["tp": group]}
 
 A full-precision leaf is `{"weight": (out, in)}`, the module's own
 Linear weight (no copy); a quantized leaf keeps JAX's (in, out) layout,
@@ -32,6 +32,12 @@ quantized transposed copy of the embedding, whose table stays for the
 token lookup. `quantize_decode_params(..., calib=...)` takes the
 per-matmul activation RMS statistics of `models/quant_calib` for the
 activation-weighted int4 fit, which runs on the weights' device.
+
+A tensor-parallel model's tree (`decode_params` of RefModules(tp=...))
+holds the rank's slices and its group under "tp": the decode layers sum
+their row-parallel products over it and gather the tied head's logits.
+Quantized trees under tensor parallelism are not ported
+(`quantize_decode_params` raises; ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import torch.nn.functional as F
 
 from wedetect_tpu_torch.ops.int8 import true_div
 
+TP_QUANT_MSG = ("int8 / int4 decode trees under tensor parallelism are not "
+                "ported (ROADMAP.md §1 item 12)")
 _LAYER_MATMULS = ("q_proj", "k_proj", "v_proj", "o_proj",
                   "gate_proj", "up_proj", "down_proj")
 
@@ -196,7 +204,8 @@ def prepare_decode_params(dp: Dict) -> Dict:
 
 def decode_params(model) -> Dict:
     """The full-precision decode-param tree of a RefModules: references
-    to the model's own tensors, in its dtype."""
+    to the model's own tensors, in its dtype (a tensor-parallel model's
+    slices, with its group under "tp")."""
     lm = model.model.language_model
     text = {}
     for i, layer in enumerate(lm.layers):
@@ -213,7 +222,24 @@ def decode_params(model) -> Dict:
     out = {"text": text, "embed": lm.embed_tokens.weight}
     if getattr(model, "lm_head", None) is not None:
         out["lm_head"] = {"weight": model.lm_head.weight}
+    if getattr(model, "tp", None) is not None:
+        out["tp"] = model.tp
     return out
+
+
+def is_quantized(tree: Dict) -> bool:
+    """True where a decode-param tree holds an int8 or int4 leaf."""
+    if isinstance(tree, dict):
+        return ("w8" in tree or "w4" in tree or "w4p" in tree
+                or any(is_quantized(v) for v in tree.values()))
+    return False
+
+
+def check_tp_decode(tree: Dict, tp) -> None:
+    """Raise where a tensor-parallel model (tp not None) would decode
+    from a quantized tree: not ported (ROADMAP.md §1 item 12)."""
+    if tp is not None and is_quantized(tree):
+        raise NotImplementedError(TP_QUANT_MSG)
 
 
 @torch.no_grad()
@@ -232,6 +258,8 @@ def quantize_decode_params(model_or_tree, bits: int = 8,
         "calibration applies to the int4 fit only (int8 is plain absmax)"
     params = (model_or_tree if isinstance(model_or_tree, dict)
               else decode_params(model_or_tree))
+    if params.get("tp") is not None:
+        raise NotImplementedError(TP_QUANT_MSG)
 
     def qw(kernel, rms):
         if bits == 8:

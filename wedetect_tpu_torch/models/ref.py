@@ -33,6 +33,13 @@ i's prefix KV. RoI object features loop over the images. A video
 runs the ViT over every group's tokens as one segment, repeats the image
 pos-embeds per group and reads the RoI pyramid from the first group, as
 the JAX package does.
+
+Tensor-parallel serving (`RefModules(cfg, tp=mesh.tp)`, built by
+`tp_ref_model` from a rank's slices of a state dict or by
+`init_ref_variables(mesh=)`): each rank holds its slices of the two
+towers (`parallel/mesh.py`) and the whole grounding extras and
+`out_proj`; every method runs unchanged on them, the tied LM head's
+logits gathered to the whole vocabulary (`lm_logits`).
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ from wedetect_tpu_torch.data.vision_process import IMAGE_MEAN, IMAGE_STD
 from wedetect_tpu_torch.ops.int8 import set_quant
 from wedetect_tpu_torch.nn.qwen3vl import (RefCfg, RMSNorm, TextModel,
                                            VisionModel, layer_norm)
+from wedetect_tpu_torch.parallel.mesh import (active_tp, check_ref_tp,
+                                              gather_vocab, ref_tp_kind,
+                                              ref_tp_slice)
 from wedetect_tpu_torch.ops.roi_align import roi_align
 from wedetect_tpu_torch.ops.sine_embed import box_xyxy_to_cxcywh, sine_embed
 
@@ -170,12 +180,13 @@ class GroundingExtras(nn.Module):
 
 class GroundingModel(GroundingExtras):
     """The checkpoint's `model.`: Qwen3-VL's vision tower and decoder
-    beside the grounding extras."""
+    beside the grounding extras (with `tp`, this rank's slices of the
+    towers)."""
 
-    def __init__(self, cfg: RefCfg):
+    def __init__(self, cfg: RefCfg, tp=None):
         super().__init__(cfg)
-        self.visual = VisionModel(cfg.vision)
-        self.language_model = TextModel(cfg.text)
+        self.visual = VisionModel(cfg.vision, tp)
+        self.language_model = TextModel(cfg.text, tp)
 
 
 def _t(x, device, dtype=None):
@@ -186,14 +197,25 @@ class RefModules(nn.Module):
     """The whole scorer: `model` (trunk + extras) and `out_proj`, and the
     untied LM head `lm_head` of a stage-1/2 checkpoint (reference
     qwen3vl_grounding.py:315), which the LM loss and generation read
-    over the tied embedding; None unless the weights carry one."""
+    over the tied embedding; None unless the weights carry one. `tp`: the
+    tensor-parallel group whose ranks hold this model between them (a
+    `parallel/mesh.TpMesh`'s `tp`; module docstring); an untied
+    `lm_head` stays whole on every rank, as JAX's rule keeps it."""
 
     def __init__(self, cfg: RefCfg, attn_impl: str = "auto",
-                 lm_head: bool = False):
+                 lm_head: bool = False, tp=None):
         super().__init__()
+        tp = active_tp(tp)
+        if tp is not None:
+            check_ref_tp(cfg, tp.size)
+            if cfg.quant_int8:
+                raise NotImplementedError(
+                    "the int8 prefill under tensor parallelism is not "
+                    "ported (ROADMAP.md §1 item 12)")
         self.cfg = cfg
+        self.tp = tp
         self.attn_impl = attn_impl
-        self.model = GroundingModel(cfg)
+        self.model = GroundingModel(cfg, tp)
         self.out_proj = nn.Linear(cfg.text.hidden, 1)
         self.lm_head = (nn.Linear(cfg.text.hidden, cfg.text.vocab_size,
                                   bias=False) if lm_head else None)
@@ -203,10 +225,13 @@ class RefModules(nn.Module):
 
     def lm_logits(self, hidden):
         """f32 LM logits of hidden states: the untied head when present,
-        else the tied input embedding (JAX train/ref_lm.py:99-104)."""
-        w = (self.lm_head.weight if self.lm_head is not None
-             else self.model.language_model.embed_tokens.weight)
-        return hidden.float() @ w.float().T
+        else the tied input embedding (JAX train/ref_lm.py:99-104), whose
+        rows a tensor-parallel rank holds in part: its logits are
+        gathered over the whole vocabulary."""
+        if self.lm_head is not None:
+            return hidden.float() @ self.lm_head.weight.float().T
+        w = self.model.language_model.embed_tokens.weight
+        return gather_vocab(hidden.float() @ w.float().T, self.tp)
 
     @property
     def device(self) -> torch.device:
@@ -513,45 +538,91 @@ def _lecun_(w: torch.Tensor, fan_in: int, g: torch.Generator):
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
 
 
+def _init_draws(name: str, m: nn.Module):
+    """(attribute, fill) of module m's own tensors in the order
+    init_ref_variables draws them; fill(t, g) draws t in place. Fan-ins
+    are m's, a module of the whole model."""
+    out = []
+    if isinstance(m, ConvT2x):
+        fan = 2 * m.in_channels * m.out_channels
+        out.append(("weight", lambda t, g: _lecun_(t, fan, g)))
+    elif isinstance(m, (nn.Linear, nn.Conv3d)):
+        fan = m.weight[0].numel()
+        out.append(("weight", lambda t, g: _lecun_(t, fan, g)))
+    elif isinstance(m, nn.Embedding):
+        std = 0.02 if name.endswith("pos_embed") else \
+            1.0 / math.sqrt(m.embedding_dim)
+        out.append(("weight", lambda t, g: t.normal_(0.0, std, generator=g)))
+    elif isinstance(m, (nn.LayerNorm, RMSNorm)):
+        out.append(("weight", lambda t, g: t.fill_(1.0)))
+    if getattr(m, "bias", None) is not None:
+        out.append(("bias", lambda t, g: t.zero_()))
+    return out
+
+
 def init_ref_variables(cfg: RefCfg, seed: int = 0, device="cuda",
-                       lm_head: bool = False) -> RefModules:
+                       lm_head: bool = False, mesh=None) -> RefModules:
     """A RefModules with random weights from torch.Generator(seed), built
     on `device` (meta first: the full model is never made on the host).
     The flax initializers' distributions: lecun-normal Dense kernels
     (ConvT2x with flax's fan-in of its (in, out, 2, 2) kernel, 2*in*out),
     zero biases, unit norm scales, token embeddings N(0, 1/hidden),
     pos_embed N(0, 0.02), and out_proj's prior bias -log(0.99/0.01).
-    `lm_head` adds an untied LM head (lecun-normal, drawn last)."""
+    `lm_head` adds an untied LM head (lecun-normal, drawn last).
+
+    `mesh` (a parallel/mesh.TpMesh): this rank's slices of the same
+    weights, RefModules(cfg, tp=mesh.tp). Each tensor is drawn whole, in
+    the same order, and sliced at once: the rank never holds more than
+    one whole tensor beside its slices."""
     dev = resolve_device(device)
+    tp = None if mesh is None else active_tp(mesh.tp)
     with torch.device("meta"):
-        model = RefModules(cfg, lm_head=lm_head)
+        full = RefModules(cfg, lm_head=lm_head)
+        model = full if tp is None else RefModules(cfg, lm_head=lm_head,
+                                                   tp=tp)
     model = model.to_empty(device=dev)
+    local = dict(model.named_parameters())
+    shapes = {k: tuple(t.shape) for k, t in full.named_parameters()}
     g = torch.Generator(device=dev).manual_seed(seed)
     done = set()
 
-    def put(t):
-        done.add(id(t))
-        return t
-
     with torch.no_grad():
-        for name, m in model.named_modules():
-            if isinstance(m, ConvT2x):
-                _lecun_(put(m.weight), 2 * m.in_channels * m.out_channels, g)
-            elif isinstance(m, (nn.Linear, nn.Conv3d)):
-                _lecun_(put(m.weight), m.weight[0].numel(), g)
-            elif isinstance(m, nn.Embedding):
-                std = 0.02 if name.endswith("pos_embed") else \
-                    1.0 / math.sqrt(m.embedding_dim)
-                put(m.weight).normal_(0.0, std, generator=g)
-            elif isinstance(m, (nn.LayerNorm, RMSNorm)):
-                put(m.weight).fill_(1.0)
-            if getattr(m, "bias", None) is not None:
-                put(m.bias).zero_()
+        for name, m in full.named_modules():
+            for attr, fill in _init_draws(name, m):
+                key = f"{name}.{attr}" if name else attr
+                done.add(key)
+                if tp is None:
+                    fill(getattr(m, attr), g)
+                    continue
+                whole = torch.empty(shapes[key], device=dev)
+                fill(whole, g)
+                local[key].copy_(ref_tp_slice(
+                    whole, ref_tp_kind(key, shapes, tp.size), tp.index,
+                    tp.size))
         model.out_proj.bias.fill_(-math.log((1 - 0.01) / 0.01))
-    missed = [n for n, t in model.named_parameters() if id(t) not in done]
+    missed = [n for n in local if n not in done]
     if missed:
         raise RuntimeError(f"init_ref_variables: left uninitialized: "
                            f"{missed}")
+    return model.eval()
+
+
+def tp_ref_model(cfg: RefCfg, shard, mesh, device="cuda",
+                 attn_impl: str = "auto") -> RefModules:
+    """This rank's model of a tensor-parallel group: its slices of a Ref
+    state dict (`parallel/mesh.shard_ref_state` of a full one, or
+    `ckpt/convert_ref.from_jax_ref_params(params, cfg, mesh)`; cut on
+    the host for a checkpoint) loaded into RefModules(cfg, tp=mesh.tp)
+    built on `device`: the rank's card holds only its slices. Entries
+    the model has no tensor for (an HF checkpoint's extras) are not
+    read, as in cli/_ref_load.load_ref."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = RefModules(cfg, attn_impl=attn_impl,
+                           lm_head="lm_head.weight" in shard, tp=mesh.tp)
+    model = model.to_empty(device=dev)
+    model.load_state_dict({k: shard[k] for k in model.state_dict()
+                           if k in shard}, strict=True)
     return model.eval()
 
 

@@ -25,6 +25,14 @@ model's multi-image assembly, each image's ViT at its own grid) onto
 the same decode. A video prompt (`grid_t > 1`) runs the ViT over every
 temporal group's tokens as one sequence, through the same prefill and
 decode.
+
+On a tensor-parallel model (models/ref.RefModules(tp=...)), the prefill
+runs the rank's heads and the decode tree holds its slices and its
+group (`models/quant.decode_params`): each decode layer runs its own
+heads on its (B, C, KVH / tp, HD) caches and sums o_proj and down_proj
+over the group, and the tied head's logits are gathered to the whole
+vocabulary before sampling, so every rank draws the same token from
+the same keys.
 """
 
 from __future__ import annotations
@@ -38,9 +46,11 @@ import torch.nn.functional as F
 from wedetect_tpu_torch.models import quant
 from wedetect_tpu_torch.models.quant import matmul_any, prepare_decode_params
 from wedetect_tpu_torch.nn.qwen3vl import (RefTextCfg, _apply_rope,
-                                           interleaved_mrope_cos_sin)
+                                           interleaved_mrope_cos_sin,
+                                           tp_text_cfg)
 from wedetect_tpu_torch.ops import prng
 from wedetect_tpu_torch.ops.attention import gqa_attention
+from wedetect_tpu_torch.parallel import mesh as pmesh
 
 # how often (in steps) the decode loop reads back whether every row is done
 DONE_CHECK_EVERY = 8
@@ -55,11 +65,25 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 def _lm_logits(dp: Dict, hidden: torch.Tensor) -> torch.Tensor:
     """f32 LM logits: the decode tree's `lm_head` leaf (untied, or a
     quantized copy of the tied table) when present, else the tied input
-    embedding."""
+    embedding (a tensor-parallel rank's range, gathered)."""
     h = hidden.float()
     if "lm_head" in dp:
         return matmul_any(h, dp["lm_head"], torch.float32)
-    return h @ dp["embed"].float().T
+    return pmesh.gather_vocab(h @ dp["embed"].float().T, dp.get("tp"))
+
+
+def _embed_rows(dp: Dict, tok: torch.Tensor) -> torch.Tensor:
+    """The decode tree's token-table rows of `tok` (a tensor-parallel
+    rank's table: parallel/mesh.vocab_embed)."""
+    if dp.get("tp") is None:
+        return dp["embed"][tok]
+    return pmesh.vocab_embed(dp["embed"], tok, dp["tp"])
+
+
+def local_text_cfg(c: RefTextCfg, dp: Dict) -> RefTextCfg:
+    """The decoder widths the decode tree `dp` holds: c, or a
+    tensor-parallel rank's (nn/qwen3vl.tp_text_cfg)."""
+    return tp_text_cfg(c, pmesh.tp_size(dp.get("tp")))
 
 
 def _qkv(p, c: RefTextCfg, x, cos, sin):
@@ -78,19 +102,21 @@ def _qkv(p, c: RefTextCfg, x, cos, sin):
     return q, k, v
 
 
-def _out_mlp(p, c: RefTextCfg, x, o):
-    """The layer's post-attention half: o_proj residual, then the MLP."""
+def _out_mlp(p, c: RefTextCfg, x, o, tp=None):
+    """The layer's post-attention half: o_proj residual, then the MLP;
+    o_proj and down_proj summed over the tensor-parallel group `tp`."""
     dt = x.dtype
-    x = x + matmul_any(o.to(dt).reshape(x.shape[0], x.shape[1], -1),
-                       p["o_proj"], dt)
+    x = x + pmesh.row_sum(tp, matmul_any(
+        o.to(dt).reshape(x.shape[0], x.shape[1], -1), p["o_proj"], dt))
     y = _rms(x, p["post_ln"], c.rms_eps)
     gate = matmul_any(y, p["gate_proj"], dt)
     up = matmul_any(y, p["up_proj"], dt)
-    return x + matmul_any(F.silu(gate) * up, p["down_proj"], dt)
+    return x + pmesh.row_sum(tp, matmul_any(F.silu(gate) * up,
+                                            p["down_proj"], dt))
 
 
 def _decode_layer(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v,
-                  write_at: int, kv_valid):
+                  write_at: int, kv_valid, tp=None):
     """One decoder layer for a single-token step. x (B, 1, D); cache_k/v
     (B, C, KVH, HD), this step's post-rope KV written in place at column
     `write_at` (the same for every row); the query attends the whole
@@ -100,7 +126,7 @@ def _decode_layer(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v,
     cache_v[:, write_at] = v[:, 0].to(cache_v.dtype)
     o = gqa_attention(q, cache_k, cache_v, causal=False, kv_valid=kv_valid,
                       sm_scale=1.0 / math.sqrt(c.head_dim), impl="einsum")
-    return _out_mlp(p, c, x, o)
+    return _out_mlp(p, c, x, o, tp)
 
 
 def _sample(logits: torch.Tensor, temperature: float, key) -> torch.Tensor:
@@ -207,6 +233,8 @@ def ref_generate_multi(cfg, grids, model, patches_list, input_ids, attn_mask,
     from wedetect_tpu_torch.models.ref import _t
 
     dev = model.device
+    if decode_params is not None:
+        quant.check_tp_decode(decode_params, getattr(model, "tp", None))
     input_ids = _t(input_ids, dev)
     attn_mask = _t(attn_mask, dev)
     b = input_ids.shape[0]
@@ -232,6 +260,7 @@ def _decode_from_prefill(c: RefTextCfg, dp, hidden, kvs, attn_mask,
     """Sample the first token at each row's last real prompt position,
     then single-token steps over the preallocated cache."""
     dp = prepare_decode_params(dp)
+    c, tp = local_text_cfg(c, dp), dp.get("tp")
     dev = hidden.device
     b, p_len = attn_mask.shape
     dtype = hidden.dtype
@@ -241,7 +270,7 @@ def _decode_from_prefill(c: RefTextCfg, dp, hidden, kvs, attn_mask,
     tok = _sample(_lm_logits(dp, _gather_last(hidden, attn_mask)),
                   temperature, r0 if sampled else None)
     caches = _new_caches(kvs, max_new)
-    tp, emb = dp["text"], dp["embed"]
+    layers = dp["text"]
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     gen_valid = torch.zeros((b, max_new), dtype=torch.int32, device=dev)
     kv_valid = torch.cat([attn_mask.to(torch.int32), gen_valid], dim=1)
@@ -251,15 +280,15 @@ def _decode_from_prefill(c: RefTextCfg, dp, hidden, kvs, attn_mask,
         done = done | (tok == eos_id)
         if t % DONE_CHECK_EVERY == DONE_CHECK_EVERY - 1 and bool(done.all()):
             break           # every later column is pad
-        x = emb[tok][:, None, :].to(dtype)
+        x = _embed_rows(dp, tok)[:, None, :].to(dtype)
         pos3 = (next_pos + t).reshape(1, b, 1).expand(3, b, 1)
         cos, sin = interleaved_mrope_cos_sin(pos3, c)
         kv_valid[:, p_len + t] = 1
         for i in range(c.layers):
             kc, vc = caches[i]
-            x = _decode_layer(tp[f"layer{i}"], c, x, cos, sin, kc, vc,
-                              p_len + t, kv_valid)
-        h = _rms(x, tp["norm"], c.rms_eps)[:, 0]
+            x = _decode_layer(layers[f"layer{i}"], c, x, cos, sin, kc, vc,
+                              p_len + t, kv_valid, tp)
+        h = _rms(x, layers["norm"], c.rms_eps)[:, 0]
         if sampled:
             rng, r = prng.split(rng)
         nxt = _sample(_lm_logits(dp, h), temperature, r if sampled else None)

@@ -97,6 +97,10 @@ def ref_generate_spec(cfg, grid_h: int, grid_w: int, model, patches,
     draft (each verify emits one token); the tokens stay greedy."""
     from wedetect_tpu_torch.models.ref import _t
 
+    if getattr(model, "tp", None) is not None:
+        raise NotImplementedError(
+            "speculative decode under tensor parallelism is not ported "
+            "(ROADMAP.md §1 item 12)")
     dev = model.device
     input_ids = _t(input_ids, dev)
     attn_mask = _t(attn_mask, dev)

@@ -38,7 +38,19 @@ overlaps a chunk's token readback (a non-blocking copy into pinned
 memory and a CUDA event) with the next chunk. The decode and the
 piggybacked prompt rows attend with plain einsums, as the JAX package's
 do (`impl="einsum"`, serve.py:244-247, :507-529): no Pallas kernel lies
-on them. Tensor-parallel serving (`mesh=`) is not ported yet.
+on them.
+
+Tensor-parallel serving (`GenServer(mesh=)`, a model built on the mesh's
+tp group: models/ref.tp_ref_model or init_ref_variables(mesh=)): every
+rank of the group runs this engine on its own slices, the KV pool (codes
+and scales for kv_bits=8) on its kv heads, as the JAX package pins the
+pool sharded over the kv-head axis. The decode tree carries the group
+(models/ref_generate): each layer sums its row-parallel products over
+it, and the sampler reads the gathered logits, so every rank draws the
+same tokens. Every rank submits the same requests in one order and runs
+the same host scheduler on them; as each reads back the same tokens,
+their admissions and slots stay in lockstep, and no rank decides alone.
+int8 / int4 decode trees under TP raise (ROADMAP.md §1 item 12).
 """
 
 from __future__ import annotations
@@ -53,10 +65,13 @@ import torch
 
 from wedetect_tpu_torch.models import quant
 from wedetect_tpu_torch.models.quant import prepare_decode_params
-from wedetect_tpu_torch.models.ref_generate import (_lm_logits, _out_mlp,
+from wedetect_tpu_torch.models.ref_generate import (_embed_rows, _lm_logits,
+                                                    _out_mlp,
                                                     _prefill_hidden_kvs, _qkv,
-                                                    _rms)
-from wedetect_tpu_torch.nn.qwen3vl import RefTextCfg, interleaved_mrope_cos_sin
+                                                    _rms, local_text_cfg)
+from wedetect_tpu_torch.nn.qwen3vl import (RefTextCfg,
+                                           interleaved_mrope_cos_sin,
+                                           tp_text_cfg)
 from wedetect_tpu_torch.ops import prng
 from wedetect_tpu_torch.ops.attention import gqa_attention
 from wedetect_tpu_torch.ops.int8 import true_div
@@ -164,7 +179,7 @@ def _gqa_int8kv(q, kc, vc, kv_valid, sm_scale: float):
 
 
 def _decode_layer_rowwise(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v,
-                          write_col, kv_valid):
+                          write_col, kv_valid, tp=None):
     """One decoder layer, one token a row, each row at its own depth: the
     KV written at cache[row, write_col[row]], attention under the
     per-row kv_valid (B, C); int8 caches fold their scales."""
@@ -178,7 +193,7 @@ def _decode_layer_rowwise(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v,
     else:
         o = gqa_attention(q, cache_k, cache_v, causal=False,
                           kv_valid=kv_valid, sm_scale=sm, impl="einsum")
-    return _out_mlp(p, c, x, o)
+    return _out_mlp(p, c, x, o, tp)
 
 
 def _install_slots(state: EngineState, slots, mask, next_pos0, tok0, seeds,
@@ -285,9 +300,9 @@ def _decode_chunk(cfg, chunk: int, eos_id: int, pad_id: int, decode_params,
     done on eos or the request's cap, then samples the next token.
     decode_params: a tree through quant.prepare_decode_params (GenServer
     unpacks int4 codes once, at construction)."""
-    c = cfg.text
     dp = decode_params
-    tp, emb = dp["text"], dp["embed"]
+    c, tp = local_text_cfg(cfg.text, dp), dp.get("tp")
+    layers = dp["text"]
     b, p_len = state.prompt_mask.shape
     g_cap = state.g_cap
     dev = state.prompt_mask.device
@@ -297,7 +312,8 @@ def _decode_chunk(cfg, chunk: int, eos_id: int, pad_id: int, decode_params,
         done = state.done | (state.gen_count >= state.caps)
         toks.append(torch.where(done, pad_id, state.cur_tok))
         done = done | (state.cur_tok == eos_id)
-        x = emb[state.cur_tok.long()][:, None, :].to(state.dtype)
+        x = _embed_rows(dp, state.cur_tok.long())[:, None, :].to(
+            state.dtype)
         pos3 = state.next_pos.reshape(1, b, 1).expand(3, b, 1)
         cos, sin = interleaved_mrope_cos_sin(pos3, c)
         depth = torch.clamp(state.gen_count, max=g_cap - 1)
@@ -306,9 +322,9 @@ def _decode_chunk(cfg, chunk: int, eos_id: int, pad_id: int, decode_params,
                               <= depth[:, None]).to(torch.int32)], dim=1)
         for i in range(c.layers):
             kc, vc = state.caches[i]
-            x = _decode_layer_rowwise(tp[f"layer{i}"], c, x, cos, sin, kc,
-                                      vc, wcol, kv_valid)
-        h = _rms(x, tp["norm"], c.rms_eps)[:, 0]
+            x = _decode_layer_rowwise(layers[f"layer{i}"], c, x, cos, sin,
+                                      kc, vc, wcol, kv_valid, tp)
+        h = _rms(x, layers["norm"], c.rms_eps)[:, 0]
         nxt = _sample_rows(_lm_logits(dp, h), sampling, state.seeds,
                            state.gen_count + 1)
         state.cur_tok = torch.where(done, state.cur_tok, nxt.to(torch.int32))
@@ -339,7 +355,7 @@ def _encode_prompt(model, grid_h: int, grid_w: int, patches, input_ids,
 
 def _pb_layer(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v, wcol_dec,
               kv_valid_dec, kv_valid_pref, pref_write, pend_slot: int,
-              n_dec: int):
+              n_dec: int, tp=None):
     """One decoder layer over n_dec decode rows and F piggybacked prompt
     rows: the matmuls run on the concatenated (n_dec + F, 1, D) rows; the
     groups split for the cache writes and the attention.
@@ -379,7 +395,7 @@ def _pb_layer(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v, wcol_dec,
         f, 1, c.heads * c.head_dim)
     o = torch.cat([o_dec.reshape(n_dec, 1, -1).to(x.dtype),
                    o_pref.to(x.dtype)], dim=0)
-    return _out_mlp(p, c, x, o)
+    return _out_mlp(p, c, x, o, tp)
 
 
 @torch.inference_mode()
@@ -399,14 +415,14 @@ def _decode_chunk_pb(cfg, chunk: int, eos_id: int, pad_id: int,
 
     pend_emb (P, D), pend_ds (n_taps, V, D) from _encode_prompt;
     pend_mask (P,); pend_pos (3, P); pend_len the prompt's real length."""
-    c = cfg.text
+    dp = decode_params
+    c, tp = local_text_cfg(cfg.text, dp), dp.get("tp")
+    layers = dp["text"]
     dev = state.prompt_mask.device
     b, p_len = state.prompt_mask.shape
     g_cap = state.g_cap
     f = -(-p_len // chunk)
     l_pad = f * chunk
-    dp = decode_params
-    tp, emb = dp["text"], dp["embed"]
     gen_cols = torch.arange(g_cap, dtype=torch.int32, device=dev)
     prompt_cols = torch.arange(p_len, dtype=torch.int32, device=dev)
     n_taps, n_vis = pend_ds.shape[0], pend_ds.shape[1]
@@ -427,7 +443,8 @@ def _decode_chunk_pb(cfg, chunk: int, eos_id: int, pad_id: int,
         done = done | (state.cur_tok == eos_id)
         seg = t * f
         offs = seg + torch.arange(f, dtype=torch.int32, device=dev)
-        x = torch.cat([emb[state.cur_tok.long()][:, None, :].to(state.dtype),
+        x = torch.cat([_embed_rows(dp, state.cur_tok.long())[:, None, :]
+                       .to(state.dtype),
                        pe[seg:seg + f, None, :].to(state.dtype)], dim=0)
         pos = torch.cat([state.next_pos.reshape(1, b, 1).expand(3, b, 1),
                          pp[:, seg:seg + f, None].to(state.next_pos.dtype)],
@@ -446,20 +463,20 @@ def _decode_chunk_pb(cfg, chunk: int, eos_id: int, pad_id: int,
         lo, hi = max(seg, visual_start), min(seg + f, visual_start + n_vis)
         for i in range(c.layers):
             kc, vc = state.caches[i]
-            x = _pb_layer(tp[f"layer{i}"], c, x, cos, sin, kc, vc, wcol_dec,
-                          kv_valid_dec, kv_valid_pref, pref_write, pend_slot,
-                          b)
+            x = _pb_layer(layers[f"layer{i}"], c, x, cos, sin, kc, vc,
+                          wcol_dec, kv_valid_dec, kv_valid_pref, pref_write,
+                          pend_slot, b, tp)
             if i < n_taps and lo < hi:
                 x[b + lo - seg:b + hi - seg, 0] += pend_ds[i][
                     lo - visual_start:hi - visual_start].to(x.dtype)
-        h = _rms(x[:b], tp["norm"], c.rms_eps)[:, 0]
+        h = _rms(x[:b], layers["norm"], c.rms_eps)[:, 0]
         nxt = _sample_rows(_lm_logits(dp, h), sampling, state.seeds,
                            state.gen_count + 1)
         # the prompt's last real token's hidden state, when this step's
         # rows hold it (the admitted slot's first token samples from it)
         last_idx = pend_len - 1 - seg
         if 0 <= last_idx < f:
-            h_pend = _rms(x[b + last_idx], tp["norm"], c.rms_eps)[0]
+            h_pend = _rms(x[b + last_idx], layers["norm"], c.rms_eps)[0]
         state.cur_tok = torch.where(done, state.cur_tok, nxt.to(torch.int32))
         state.done = done
         state.gen_count = state.gen_count + 1
@@ -474,9 +491,10 @@ def _decode_chunk_pb(cfg, chunk: int, eos_id: int, pad_id: int,
 
 
 def new_state(cfg, slots: int, prompt_len: int, max_new: int, dtype, device,
-              pad_id: int = 0, kv_bits: int = 16) -> EngineState:
-    """An empty engine: every slot done, the KV pool allocated once."""
-    c = cfg.text
+              pad_id: int = 0, kv_bits: int = 16, tp: int = 1) -> EngineState:
+    """An empty engine: every slot done, the KV pool allocated once (on
+    this rank's kv heads of a `tp`-way group)."""
+    c = tp_text_cfg(cfg.text, tp)
     cap = prompt_len + max_new
     kv_shape = (slots, cap, c.kv_heads, c.head_dim)
 
@@ -518,7 +536,9 @@ class GenServer:
     shape-compatible waves of at least half the pool through one batched
     prefill (`_admit_many`). `piggyback=True` rides one admission a
     chunk on the decode steps; further free slots take the classic
-    admission. `mesh` (tensor-parallel serving) is not ported yet."""
+    admission. `mesh` (a parallel/mesh.TpMesh): tensor-parallel serving
+    of a model built on mesh.tp (module docstring); every rank of the
+    group constructs its GenServer, submits and runs alike."""
 
     def __init__(self, cfg, grid_h: int, grid_w: int, model, *,
                  slots: int = 8, prompt_len: int, max_new: int,
@@ -531,10 +551,15 @@ class GenServer:
         assert kv_bits in (16, 8), kv_bits
         assert not (piggyback and kv_bits == 8), \
             "piggyback prefill rides full-precision caches only"
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh=): not ported yet; one "
-                "card serves one GenServer")
+        tp = getattr(model, "tp", None)
+        if mesh is None and tp is not None:
+            raise ValueError("a tensor-parallel model serves through "
+                             "GenServer(mesh=)")
+        if mesh is not None and mesh.shape["tp"] > 1 and tp is not mesh.tp:
+            raise ValueError("GenServer(mesh=) serves a model built on "
+                             "mesh.tp (models/ref.tp_ref_model)")
+        if decode_params is not None:
+            quant.check_tp_decode(decode_params, tp)
         self.kv_bits = kv_bits
         self.batch_admit = batch_admit
         self.piggyback = piggyback
@@ -551,7 +576,8 @@ class GenServer:
         self.device = model.device
         self._state = new_state(cfg, slots, prompt_len, max_new,
                                 model.model.language_model.dtype,
-                                self.device, pad_id, kv_bits)
+                                self.device, pad_id, kv_bits,
+                                1 if tp is None else tp.size)
         self._queue = deque()
         self._live = {}            # slot -> request id
         self._buf = {}             # request id -> [tokens]

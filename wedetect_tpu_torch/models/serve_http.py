@@ -125,6 +125,10 @@ class GenService:
                  pad_token_id: int = 151643,
                  temperature: float = 0.0, top_k: int = 0,
                  top_p: float = 1.0, kv_bits: int = 16):
+        if getattr(scorer.model, "tp", None) is not None:
+            raise NotImplementedError(
+                "the HTTP service under tensor parallelism is not ported "
+                "(ROADMAP.md §1 item 13)")
         self.scorer = scorer
         self.kv_bits = kv_bits   # 8 = int8 KV pools (models/serve)
         self.slots, self.chunk, self.max_new = slots, chunk, max_new

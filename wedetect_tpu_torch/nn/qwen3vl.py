@@ -17,6 +17,15 @@ decoder's through `ops/attention.gqa_attention` (K2 on the card).
 ViT blocks' four Linears and the decoder layers' seven projections are
 `QuantLinear`s, as JAX passes them `dot_general=`; the patch embed, the
 mergers and everything outside the two towers stay float.
+
+Tensor parallelism (`tp`, a `parallel/collectives.Group` of the ranks
+that hold one model between them; `parallel/mesh.py` states the layout):
+each module is built with this rank's slices. A ViT block or decoder
+layer runs its own heads (the decoder's layers on `tp_text_cfg`, the
+local widths) and ffn channels, and sums its row-parallel outputs over
+the group (`row_linear`); the mergers' fc1 / fc2 likewise; the token
+table holds this rank's vocabulary range (`vocab_embed`). tp None is
+the one-process model.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from torch import nn
 from wedetect_tpu_torch.ops.attention import (dot_product_attention,
                                               gqa_attention)
 from wedetect_tpu_torch.ops.int8 import QuantLinear
+from wedetect_tpu_torch.parallel.mesh import (row_linear, tp_size,
+                                              vocab_embed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +117,16 @@ class RefCfg:
             video_token_id=getattr(hf, "video_token_id", 151656),
             vision_start_token_id=hf.vision_start_token_id,
         )
+
+
+def tp_text_cfg(c: RefTextCfg, tp: int) -> RefTextCfg:
+    """The decoder widths one of `tp` ranks holds: its heads, kv heads
+    and ffn channels (the same group ratio); c itself for tp = 1."""
+    if tp == 1:
+        return c
+    return dataclasses.replace(c, heads=c.heads // tp,
+                               kv_heads=c.kv_heads // tp,
+                               intermediate=c.intermediate // tp)
 
 
 def ref_2b() -> RefCfg:
@@ -201,27 +222,28 @@ def vision_pos_interp(grid_h: int, grid_w: int, side: int, merge: int):
 
 
 class _VisionAttn(nn.Module):
-    def __init__(self, c: RefVisionCfg):
+    def __init__(self, c: RefVisionCfg, tp: int = 1):
         super().__init__()
-        self.qkv = QuantLinear(c.hidden, 3 * c.hidden)
-        self.proj = QuantLinear(c.hidden, c.hidden)
+        self.qkv = QuantLinear(c.hidden, 3 * c.hidden // tp)
+        self.proj = QuantLinear(c.hidden // tp, c.hidden)
 
 
 class _VisionMlp(nn.Module):
-    def __init__(self, c: RefVisionCfg):
+    def __init__(self, c: RefVisionCfg, tp: int = 1):
         super().__init__()
-        self.linear_fc1 = QuantLinear(c.hidden, c.intermediate)
-        self.linear_fc2 = QuantLinear(c.intermediate, c.hidden)
+        self.linear_fc1 = QuantLinear(c.hidden, c.intermediate // tp)
+        self.linear_fc2 = QuantLinear(c.intermediate // tp, c.hidden)
 
 
 class VisionBlock(nn.Module):
-    def __init__(self, cfg: RefVisionCfg):
+    def __init__(self, cfg: RefVisionCfg, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.norm1 = nn.LayerNorm(cfg.hidden, eps=1e-6)
         self.norm2 = nn.LayerNorm(cfg.hidden, eps=1e-6)
-        self.attn = _VisionAttn(cfg)
-        self.mlp = _VisionMlp(cfg)
+        self.attn = _VisionAttn(cfg, tp_size(tp))
+        self.mlp = _VisionMlp(cfg, tp_size(tp))
 
     def forward(self, x, cos, sin, valid=None, attn_impl: str = "auto"):
         """x (S, hidden), or (B, S, hidden): B images of one grid, one
@@ -233,9 +255,9 @@ class VisionBlock(nn.Module):
         s = shape[-2]
         x = x.reshape(-1, s, c.hidden)
         b = x.shape[0]
-        h, d = c.heads, c.head_dim
+        d = c.head_dim
         y = layer_norm(self.norm1, x, dt)
-        q, k, v = (t.reshape(b, s, h, d)
+        q, k, v = (t.reshape(b, s, -1, d)       # this rank's heads
                    for t in self.attn.qkv(y).chunk(3, dim=-1))
         q, k = _apply_rope(q, k, cos[None, :, None, :],
                            sin[None, :, None, :])
@@ -243,23 +265,27 @@ class VisionBlock(nn.Module):
             q, k, v, causal=False,
             kv_valid=None if valid is None else valid.expand(b, s),
             sm_scale=1.0 / math.sqrt(d), impl=attn_impl)
-        x = x + self.attn.proj(o.reshape(b, s, c.hidden))
+        x = x + row_linear(self.attn.proj, o.reshape(b, s, -1), self.tp)
         y = layer_norm(self.norm2, x, dt)
         y = self.mlp.linear_fc1(y)
         y = F.gelu(y.float(), approximate="tanh").to(dt)
-        return (x + self.mlp.linear_fc2(y)).reshape(shape)
+        return (x + row_linear(self.mlp.linear_fc2, y,
+                               self.tp)).reshape(shape)
 
 
 class PatchMerger(nn.Module):
-    def __init__(self, cfg: RefVisionCfg, postshuffle: bool = False):
+    def __init__(self, cfg: RefVisionCfg, postshuffle: bool = False,
+                 tp=None):
         super().__init__()
         self.cfg = cfg
         self.postshuffle = postshuffle
+        self.tp = tp
         m2 = cfg.merge ** 2
         self.norm = nn.LayerNorm(cfg.hidden * m2 if postshuffle
                                  else cfg.hidden, eps=1e-6)
-        self.linear_fc1 = nn.Linear(cfg.hidden * m2, cfg.hidden * m2)
-        self.linear_fc2 = nn.Linear(cfg.hidden * m2, cfg.out_hidden)
+        width = cfg.hidden * m2 // tp_size(tp)
+        self.linear_fc1 = nn.Linear(cfg.hidden * m2, width)
+        self.linear_fc2 = nn.Linear(width, cfg.out_hidden)
 
     def forward(self, x):
         c = self.cfg
@@ -271,7 +297,7 @@ class PatchMerger(nn.Module):
             x = layer_norm(self.norm, x, dt).reshape(-1, c.hidden * m2)
         x = self.linear_fc1(x)
         x = F.gelu(x.float(), approximate="none").to(dt)
-        return self.linear_fc2(x)
+        return row_linear(self.linear_fc2, x, self.tp)
 
 
 class _PatchEmbed(nn.Module):
@@ -293,16 +319,16 @@ class VisionModel(nn.Module):
     out_hidden) and taps of the same, each block one attention launch
     over the batch (the JAX package vmaps the single-image tower)."""
 
-    def __init__(self, cfg: RefVisionCfg):
+    def __init__(self, cfg: RefVisionCfg, tp=None):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = _PatchEmbed(cfg)
         self.pos_embed = nn.Embedding(cfg.num_pos_emb, cfg.hidden)
-        self.blocks = nn.ModuleList(VisionBlock(cfg)
+        self.blocks = nn.ModuleList(VisionBlock(cfg, tp)
                                     for _ in range(cfg.depth))
-        self.merger = PatchMerger(cfg, postshuffle=False)
+        self.merger = PatchMerger(cfg, postshuffle=False, tp=tp)
         self.deepstack_merger_list = nn.ModuleList(
-            PatchMerger(cfg, postshuffle=True)
+            PatchMerger(cfg, postshuffle=True, tp=tp)
             for _ in cfg.deepstack_idx)
 
     def forward(self, patches, grid_h: int, grid_w: int, grid_t: int = 1,
@@ -407,11 +433,13 @@ class TextLayer(nn.Module):
     prefix_kv: optional (pk, pv), each (1 | B, P, kv_heads, head_dim):
     post-rope KV of a shared leading prefix, placed before this call's
     own keys (end-aligned causal). return_kv: also return this call's
-    own post-rope (k, v), pre-repeat."""
+    own post-rope (k, v), pre-repeat. With `tp`, cfg is this rank's
+    widths (tp_text_cfg) and o_proj and down_proj are row-parallel."""
 
-    def __init__(self, cfg: RefTextCfg):
+    def __init__(self, cfg: RefTextCfg, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         self.input_layernorm = RMSNorm(cfg.hidden, cfg.rms_eps)
         self.post_attention_layernorm = RMSNorm(cfg.hidden, cfg.rms_eps)
         self.self_attn = _SelfAttn(cfg)
@@ -436,19 +464,28 @@ class TextLayer(nn.Module):
         o = gqa_attention(q, k, v, causal=True, kv_valid=kv_valid,
                           sm_scale=1.0 / math.sqrt(c.head_dim),
                           impl=attn_impl)
-        x = x + a.o_proj(o.reshape(b, l, -1))
+        x = x + row_linear(a.o_proj, o.reshape(b, l, -1), self.tp)
         y = self.post_attention_layernorm(x, dt)
         m = self.mlp
-        out = x + m.down_proj(F.silu(m.gate_proj(y)) * m.up_proj(y))
+        out = x + row_linear(m.down_proj,
+                             F.silu(m.gate_proj(y)) * m.up_proj(y), self.tp)
         return (out, own_kv) if return_kv else out
 
 
 class Embedder(nn.Embedding):
     """Token embedding (HF `embed_tokens`): ids -> (..., hidden) in the
-    table's dtype."""
+    table's dtype. With `tp`, the table holds this rank's vocabulary
+    range (vocab_embed)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, tp=None):
+        super().__init__(num_embeddings, embedding_dim)
+        self.tp = tp
 
     def forward(self, input_ids):
-        return super().forward(torch.as_tensor(input_ids).long())
+        ids = torch.as_tensor(input_ids).long()
+        if self.tp is None:
+            return super().forward(ids)
+        return vocab_embed(self.weight, ids, self.tp)
 
 
 class TextModel(nn.Module):
@@ -458,13 +495,17 @@ class TextModel(nn.Module):
     layers 0..n-1 over the span [visual_start, visual_start + V) of every
     row (one shared image), or of (B, V, out_hidden), one image a row;
     or, for sequences holding several images, a list of tuples of
-    (V_i, out_hidden) with visual_start a tuple of the spans' starts."""
+    (V_i, out_hidden) with visual_start a tuple of the spans' starts.
+    `cfg` is the whole model's; with `tp` the layers run on this rank's
+    widths (tp_text_cfg)."""
 
-    def __init__(self, cfg: RefTextCfg):
+    def __init__(self, cfg: RefTextCfg, tp=None):
         super().__init__()
         self.cfg = cfg
-        self.embed_tokens = Embedder(cfg.vocab_size, cfg.hidden)
-        self.layers = nn.ModuleList(TextLayer(cfg)
+        self.embed_tokens = Embedder(cfg.vocab_size // tp_size(tp),
+                                     cfg.hidden, tp)
+        local = tp_text_cfg(cfg, tp_size(tp))
+        self.layers = nn.ModuleList(TextLayer(local, tp)
                                     for _ in range(cfg.layers))
         self.norm = RMSNorm(cfg.hidden, cfg.rms_eps)
 

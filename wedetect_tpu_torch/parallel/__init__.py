@@ -1,3 +1,3 @@
-"""Multi-process training: the ("data", "fsdp") rank layout of
-`mesh.py` over torch.distributed, and the collectives of
-`collectives.py` it runs on."""
+"""Multi-process training and serving: the ("data", "fsdp") and
+("data", "tp") rank layouts of `mesh.py` over torch.distributed, and the
+collectives of `collectives.py` they run on."""
