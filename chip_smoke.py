@@ -5919,10 +5919,13 @@ def phase_odinw(dev, n_images: int = ODINW_IMAGES, sides=(480, 1000),
 # dist_root() for the ranks, which compare on the card and write JSON.
 DIST_LR = 1e-4            # tests/test_torch_dist_train.py's rate
 # detector, one process vs 2 ranks, f32 with TF32 off, cuDNN
-# deterministic. fsdp = 2 (data = 1): each rank computes the one-process
-# step on the whole batch and updates its slice of the moments, so it is
-# held bitwise: both steps' metrics, the summed gradients and moment
-# slices after the first step, the parameters after the second. data =
+# deterministic. fsdp = 2 (data = 1): the parameters are sharded
+# (ZeRO-3, parallel/fsdp.py: each rank stores its slices and gathers a
+# unit at a time for the forward and again for the backward); each rank
+# computes the one-process step on the whole batch from the gathered
+# weights and updates its slices, so it is held bitwise: both steps'
+# metrics, the summed gradients (gathered) and moment slices after the
+# first step, the parameters (gathered) after the second. data =
 # 2: the first step's loss, its parts and grad_norm within DIST_TOL
 # relative, the second's within DIST_DET_STEP2_TOL, num_pos equal; after
 # the first step the relative L2 error of the summed gradients, mu and
@@ -5949,8 +5952,12 @@ DIST_DET_MOVE_TOL = 0.3
 DIST_DET_BATCH = {"dp": 16, "fsdp": 8}    # global batches
 DIST_DET_DROP_PATH = 0.2
 # dist_ref: ref_2b's widths at 8 of 28 decoder layers and 8 of 24 ViT
-# blocks (two full-depth f32 ranks do not fit one card beside each
-# other); its deepstack taps scaled from (5, 11, 17) of 24
+# blocks, its deepstack taps scaled from (5, 11, 17) of 24: the tensor
+# checks. phase_dist_ref(full_depth=True) runs ref_2b whole (with its
+# parameters sharded, two full-depth f32 ranks fit the card: 33.12 GB a
+# rank on an NVIDIA H100 80GB HBM3 at 700 W), held by exact checksums;
+# it is left out of main(), whose gloo phases vary by up to 2x: with it
+# the whole script took 936 s on that card, without it 802 s
 DIST_REF_DEPTH = {"layers": 8, "vit": 8, "deepstack": (1, 3, 5)}
 DIST_DEV = "cuda"         # the ranks' device (a CPU rehearsal sets "cpu")
 
@@ -6034,21 +6041,28 @@ def dist_det_args(batch: int, dtype: str):
     return args, dc.replace(CLI.build_config(args), compute_dtype=dtype)
 
 
+def sharded(mesh) -> bool:
+    return mesh is not None and mesh.shape["fsdp"] > 1
+
+
 def dist_det_state(args, cfg, sd, mesh):
     """The CLI's train state on the saved weights over `mesh` (None: one
-    process), and its batches: each rank builds only its rows."""
+    process), and its batches: each rank builds only its rows. With an
+    fsdp axis the model is built on the host, as cli/train.py builds it,
+    and only this rank's slices reach the card."""
     from wedetect_tpu_torch.cli import train as CLI
     from wedetect_tpu_torch.models.wedetect import WeDetectModule
     from wedetect_tpu_torch.train.loop import (TrainLoopCfg,
                                                make_batch_iterator)
     from wedetect_tpu_torch.train.train_step import TrainState, det_optimizer
 
-    model = WeDetectModule(cfg).to(DIST_DEV)
+    model = WeDetectModule(cfg).to("cpu" if sharded(mesh) else DIST_DEV)
     model.load_state_dict(sd)
     tx = det_optimizer(model, base_lr=args.lr,
                        weight_decay=args.weight_decay,
                        total_batch_size=args.batch_size)
-    state = TrainState.create(model, tx, mesh)
+    state = TrainState.create(model, tx, mesh,
+                              device=DIST_DEV if sharded(mesh) else None)
     sample_fn = CLI.make_sample_fn(
         args, cfg, lambda rng: det_raw_sample(rng, cfg.img_size[0],
                                               args.num_classes),
@@ -6107,12 +6121,16 @@ def dist_det_steps(sd, kind: str, mesh, steps: int = 2,
     """f32 steps of the dist_det cell `kind` (global batch
     DIST_DET_BATCH[kind]) over `mesh`, cuDNN deterministic: metrics, and
     after the first step the summed gradients, BN statistics and this
-    rank's moments; after the last the parameters (card tensors)."""
+    rank's moments; after the last the parameters (card tensors; the
+    sharded gradients and parameters gathered to their full shapes)."""
     from wedetect_tpu_torch.nn.layers import BatchNorm2d
+    from wedetect_tpu_torch.parallel.fsdp import full_state_dict, gather_full
     from wedetect_tpu_torch.train.train_step import train_step
 
     args, cfg = dist_det_args(DIST_DET_BATCH[kind], "float32")
     state, batches = dist_det_state(args, cfg, sd, mesh)
+    storage = (zero3_storage(state.model, sd, mesh) if sharded(mesh)
+               else None)
     if local_bn:
         for m in state.model.modules():
             if isinstance(m, BatchNorm2d):
@@ -6125,19 +6143,25 @@ def dist_det_steps(sd, kind: str, mesh, steps: int = 2,
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if step == 0:
             named = list(state.model.named_parameters())
-            out["grads"] = {n: p.grad.detach().clone() for n, p in named}
+            grads = [p.grad.detach() for _, p in named]
+            if sharded(mesh):
+                grads = [g.to(DIST_DEV) for g in gather_full(
+                    mesh, grads, state.tx.specs, state.tx.shapes)]
+            out["grads"] = {n: g.clone() for (n, _), g in zip(named, grads)}
             out["stats"] = {n: t.clone() for n, t in
                             state.model.state_dict().items()
                             if n.endswith(("running_mean", "running_var"))}
             out["mu"] = [t.clone() for t in state.tx.mu]
             out["nu"] = [t.clone() for t in state.tx.nu]
     out["launches"] = det_launches()
-    out["params"] = {n: p.detach().clone()
-                     for n, p in state.model.named_parameters()}
+    full = full_state_dict(state.model)
+    out["params"] = {n: full[n].to(DIST_DEV, copy=True)
+                     for n, _ in state.model.named_parameters()}
     out["specs"] = list(state.tx.specs)
     out["names"] = [n for n, _ in state.model.named_parameters()]
     out["bn"] = [f"{mn}.{pn}" for mn, m in state.model.named_modules()
                  if isinstance(m, BatchNorm2d) for pn in ("weight", "bias")]
+    out["storage"] = storage
     return out
 
 
@@ -6222,24 +6246,75 @@ def dist_det_ok(e: dict, kind: str) -> bool:
             and max(e["move_rel_l2"].values()) <= DIST_DET_MOVE_TOL)
 
 
+def zero3_storage(model, sd, mesh) -> dict:
+    """This rank's stored parameters against the one-process weights
+    `sd`: each exactly its fsdp_spec slice (`exact_slices`), none of the
+    sharded ones whole, and the bytes stored (`param_bytes`) against the
+    slices' sum (`want_bytes`) and the whole model's (`model_bytes`)."""
+    from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+    from wedetect_tpu_torch.parallel.fsdp import param_bytes
+    from wedetect_tpu_torch.parallel.mesh import fsdp_spec
+
+    size, index = mesh.shape["fsdp"], mesh.fsdp_index
+    exact, want, total, whole = True, 0, 0, 0
+    for n, p in model.named_parameters():
+        w = sd[n]
+        d = fsdp_spec(tuple(w.shape), size)
+        sl = fsdp_slice(w, d, index, size)
+        exact &= bool(torch.equal(p.detach(), sl.to(p.device)))
+        whole += int(d is not None and tuple(p.shape) == tuple(w.shape))
+        want += sl.numel() * sl.element_size()
+        total += w.numel() * w.element_size()
+    return {"exact_slices": exact, "sharded_stored_whole": whole,
+            "param_bytes": param_bytes(model), "want_bytes": want,
+            "model_bytes": total}
+
+
+def zero3_ok(st: dict) -> bool:
+    return (st["exact_slices"] and st["sharded_stored_whole"] == 0
+            and st["param_bytes"]["stored"] == st["want_bytes"])
+
+
+def zero3_cost(model) -> dict:
+    """The parameter bytes this rank stores, and its unit gathers since
+    the last reset (count, MB, ms: device time when the mesh's stats are
+    timed), from parallel/fsdp.Zero3.stats."""
+    from wedetect_tpu_torch.parallel.fsdp import param_bytes
+
+    z = getattr(model, "zero3", None)
+    out = {"param_bytes": param_bytes(model)}
+    if z is not None:
+        out.update(units=len(z.units), gathers=z.stats.calls,
+                   gather_mb=z.stats.bytes / 1e6,
+                   gather_ms=1e3 * z.stats.seconds)
+    return out
+
+
 def dist_det_time(sd, kind: str, mesh, steps: int = 3) -> dict:
     """`steps` bf16 steps (the CLI's dtype) of the cell `kind` over
     `mesh`, its collectives timed (each synchronised): ms a step and
-    collective ms a step (steps 2-3), peak GB of this process."""
+    collective ms a step (steps 2-3), the unit gathers a step and the
+    parameter bytes stored (zero3_cost), the peak GB of this process in
+    set-up and in the steps."""
     from wedetect_tpu_torch.train.train_step import train_step
 
     args, cfg = dist_det_args(DIST_DET_BATCH[kind], "bfloat16")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state, batches = dist_det_state(args, cfg, sd, mesh)
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     stats = mesh.stats if mesh is not None else None
     if stats is not None:
         stats.timed = True
-    step_ms, coll_ms = [], []
+    z = getattr(state.model, "zero3", None)
+    step_ms, coll_ms, gathers = [], [], []
     for _ in range(steps):
         batch = next(batches)
         if stats is not None:
             stats.reset()
+        if z is not None:
+            z.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = train_step(cfg, state, batch)
@@ -6247,11 +6322,14 @@ def dist_det_time(sd, kind: str, mesh, steps: int = 3) -> dict:
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         coll_ms.append(1e3 * stats.seconds if stats is not None else 0.0)
+        gathers.append(zero3_cost(state.model))
     res = {"step_ms": step_ms, "ms_per_step": float(np.mean(step_ms[1:])),
            "collective_ms": coll_ms,
            "collective_ms_per_step": float(np.mean(coll_ms[1:])),
            "collective_calls_per_step": stats.calls if stats else 0,
            "collective_mb_per_step": stats.bytes / 1e6 if stats else 0.0,
+           "zero3_per_step": gathers[-1],
+           "setup_peak_gb": setup_gb,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if stats is not None:
         stats.timed = False
@@ -6280,7 +6358,8 @@ def dist_det_worker(root: str) -> None:
                      "metrics": got["metrics"],
                      "launches": got["launches"],
                      "sharded_tensors": sum(d is not None
-                                            for d in got["specs"])}
+                                            for d in got["specs"]),
+                     "storage": got["storage"]}
         del got
         if kind == "dp":
             ctrl = dist_det_steps(sd, kind, mesh, local_bn=True)
@@ -6344,41 +6423,83 @@ def phase_dist_det(dev, one_process: dict = None):
                     for r in ranks)
     ok = ok and all(not any(r[k]["launches"].values()) for r in ranks
                     for k in ("dp", "fsdp"))
-    ok = ok and all(r["fsdp"]["sharded_tensors"] > 0 for r in ranks)
+    ok = ok and all(r["fsdp"]["sharded_tensors"] > 0
+                    and zero3_ok(r["fsdp"]["storage"])
+                    and r["time_fsdp"]["zero3_per_step"]["gathers"]
+                    == 2 * r["time_fsdp"]["zero3_per_step"]["units"]
+                    for r in ranks)
+    for r in ranks:
+        t = r["time_fsdp"]
+        z = t["zero3_per_step"]
+        print(f"dist_det rank {r['rank']} fsdp = 2: "
+              f"{z['param_bytes']['stored'] / 1e9:.3f} GB of parameters "
+              f"stored ({r['fsdp']['storage']['model_bytes'] / 1e9:.3f} "
+              f"whole), {z['gathers']} unit gathers a step "
+              f"({z['gather_mb']:.1f} MB, {z['gather_ms']:.1f} ms), "
+              f"peak {t['setup_peak_gb']:.2f} GB set-up, "
+              f"{t['peak_mem_gb']:.2f} GB step", flush=True)
     emit({"phase": "dist_det", **res})
     if not ok:
         raise AssertionError("dist_det: a rank's step missed the "
                              "one-process step, the BatchNorm-formula floor "
-                             "passed the limits, or the control did not "
-                             "miss")
+                             "passed the limits, the control did not miss, "
+                             "or a fsdp rank stored more than its slices")
     return res
 
 
-def dist_ref_cfg():
-    """ref_2b's widths at DIST_REF_DEPTH."""
+def dist_ref_cfg(full_depth: bool = False):
+    """ref_2b's widths at DIST_REF_DEPTH, or ref_2b whole."""
     import dataclasses as dc
 
     from wedetect_tpu_torch.nn.qwen3vl import ref_2b
 
     cfg = ref_2b()
+    if full_depth:
+        return cfg
     return dc.replace(
         cfg, text=dc.replace(cfg.text, layers=DIST_REF_DEPTH["layers"]),
         vision=dc.replace(cfg.vision, depth=DIST_REF_DEPTH["vit"],
                           deepstack_idx=DIST_REF_DEPTH["deepstack"]))
 
 
-def dist_ref_step(root: str, mesh, tag: str) -> dict:
-    """One stage-3 ref_sft_step of the cut ref_2b (f32, the CLI's
-    defaults, lr TRAIN_LR) over `mesh` on the seeded sample, then a
-    second step for its time: the first step's loss, grad_norm,
-    launches and ms, the parameters' checksum before it, and the card
-    tensors after it (parameters, this rank's moments)."""
+def bit_checksum(tensors, specs=None, mesh=None) -> int:
+    """An exact checksum of f32 tensors: the sum of their bit patterns
+    as integers. With `specs` and `mesh` the tensors are this rank's
+    fsdp slices (a None spec: whole): the slices' sums are added over
+    the fsdp group and the whole tensors counted once, so a sharded model
+    gives the one-process model's checksum."""
+    part = [0, 0]                       # sharded, whole
+    for i, t in enumerate(tensors):
+        v = int(t.detach().float().contiguous().view(torch.int32)
+                .to(torch.int64).sum())
+        part[specs is None or specs[i] is None] += v
+    if mesh is not None and specs is not None:
+        buf = torch.tensor([part[0]], dtype=torch.int64)
+        mesh.fsdp_group.all_reduce(buf)
+        part[0] = int(buf[0])
+    return part[0] + part[1]
+
+
+def dist_ref_step(root: str, mesh, tag: str, full_depth: bool = False,
+                  keep: bool = True) -> dict:
+    """One stage-3 ref_sft_step of ref_2b (cut to DIST_REF_DEPTH unless
+    `full_depth`; f32, the CLI's defaults, lr TRAIN_LR) over `mesh` on
+    the seeded sample, then a second step for its time: the first step's
+    loss, grad_norm, launches and ms, the exact checksums (bit_checksum)
+    of the parameters before it and of the parameters and moments after
+    it, the peak GB in set-up and in the steps, the parameter bytes
+    stored and the unit gathers of the timed step (zero3_cost); and, with
+    `keep`, host copies of the tensors after the first step (parameters,
+    this rank's moments: slices where sharded). Over a mesh with an fsdp
+    axis the model is initialised sharded (`init_ref_variables(mesh=)`:
+    each tensor drawn whole on the card, in the one-process order, then
+    sliced)."""
     from wedetect_tpu_torch.cli.train_ref import build_step_inputs
     from wedetect_tpu_torch.models.ref import init_ref_variables
     from wedetect_tpu_torch.train.ref_sft import ref_optimizer, ref_sft_step
     from wedetect_tpu_torch.train.train_step import TrainState
 
-    cfg = dist_ref_cfg()
+    cfg = dist_ref_cfg(full_depth)
     inp = np.load(os.path.join(root, "ref_inputs.npz"))
     sub = os.path.join(root, tag)
     os.makedirs(sub, exist_ok=True)
@@ -6388,11 +6509,15 @@ def dist_ref_step(root: str, mesh, tag: str) -> dict:
                           151643)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = init_ref_variables(cfg, seed=0, device=DIST_DEV)
-    checksum = float(sum(p.detach().double().sum()
-                         for p in model.parameters()))
+    model = init_ref_variables(cfg, seed=0, device=DIST_DEV,
+                               mesh=mesh if sharded(mesh) else None)
     tx = ref_optimizer(model, base_lr=TRAIN_LR)
     state = TrainState.create(model, tx, mesh)
+    specs = tx.specs if sharded(mesh) else None
+    on = mesh if sharded(mesh) else None
+    checksum = bit_checksum(tx.params, specs, on)
+    out = {"setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.reset_peak_memory_stats()
     gh, gw = b["grid"]
     args = (b["patches"], b["input_ids"], b["attn_mask"], b["position_ids"],
             b["visual_start"], b["boxes"], b["ori_wh"], b["object_positions"],
@@ -6401,19 +6526,28 @@ def dist_ref_step(root: str, mesh, tag: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, m = ref_sft_step(cfg, gh, gw, state, *args)
-    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
     torch.cuda.synchronize()
     out["first_step_ms"] = 1e3 * (time.perf_counter() - t0)
     out["launches"] = launch_counts()
     out["init_checksum"] = checksum
-    tensors = {"mults": list(tx.mults), "params": {n: p.detach().clone()
-                          for n, p in model.named_parameters()},
-               "mu": [t.clone() for t in tx.mu],
-               "nu": [t.clone() for t in tx.nu], "specs": list(tx.specs)}
+    out["sharded_tensors"] = sum(d is not None for d in tx.specs)
+    out["checksums"] = {k: bit_checksum(v, specs, on) for k, v in (
+        ("params", tx.params), ("mu", tx.mu), ("nu", tx.nu))}
+    tensors = None
+    if keep:
+        tensors = {"mults": list(tx.mults), "specs": list(tx.specs),
+                   "params": {n: p.detach().cpu()
+                              for n, p in model.named_parameters()},
+                   "mu": [t.cpu() for t in tx.mu],
+                   "nu": [t.cpu() for t in tx.nu]}
     stats = mesh.stats if mesh is not None else None
     if stats is not None:
         stats.reset()
         stats.timed = True
+    z = getattr(model, "zero3", None)
+    if z is not None:
+        z.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, m = ref_sft_step(cfg, gh, gw, state, *args)
@@ -6421,42 +6555,51 @@ def dist_ref_step(root: str, mesh, tag: str) -> dict:
     torch.cuda.synchronize()
     out["ms_per_step"] = 1e3 * (time.perf_counter() - t0)
     out["collective_ms_per_step"] = (1e3 * stats.seconds if stats else 0.0)
+    out["collective_calls_per_step"] = stats.calls if stats else 0
+    out["zero3_per_step"] = zero3_cost(model)
+    if z is not None:
+        out["unit_gathers"] = z.gathers()
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     out["seq_len"] = int(b["input_ids"].shape[1])
     out["vit_tokens"] = int(gh * gw)
+    out["depth"] = {"layers": cfg.text.layers, "vit": cfg.vision.depth}
     del state, model, tx
     return out, tensors
 
 
 def dist_ref_worker(root: str) -> None:
-    """A dist_ref rank (fsdp = 2): its step held to the one-process step
-    in root."""
+    """A dist_ref rank (fsdp = 2, the parameters sharded): its step held
+    to the one-process step in root (at the cut, tensor by tensor on
+    this rank's slices; at full depth by the exact checksums)."""
     rank = dist_join()
     from wedetect_tpu_torch.parallel.collectives import fsdp_slice
     from wedetect_tpu_torch.parallel.mesh import make_mesh
 
+    with open(os.path.join(root, "dist_ref_job.json")) as f:
+        full_depth = json.load(f)["full_depth"]
     mesh = make_mesh(data=1, fsdp=2)
-    out, got = dist_ref_step(root, mesh, f"rank{rank}")
+    out, got = dist_ref_step(root, mesh, f"rank{rank}", full_depth,
+                             keep=not full_depth)
     torch.cuda.empty_cache()
-    want = torch.load(os.path.join(root, "ref_want.pt"), map_location="cpu",
-                      mmap=True)
-    param_ok, mom = True, 0.0
-    bitwise = True
-    for i, (n, p) in enumerate(got["params"].items()):
-        w = want["params"][n].to(DIST_DEV)
-        param_ok &= param_close(p, w, got["mults"][i])
-        bitwise &= bool(torch.equal(p, w))
-        for kind in ("mu", "nu"):
-            ws = fsdp_slice(want[kind][i], got["specs"][i], mesh.fsdp_index,
-                            2).to(DIST_DEV)
-            x = got[kind][i]
-            err = float((x - ws).abs().max())
-            mom = max(mom, err / (TRAIN_RANK_TOL * float(ws.abs().max())
-                                  + 1e-30))
-            bitwise &= bool(torch.equal(x, ws))
-    out.update(rank=rank, params_ok=bool(param_ok), moments_over_limit=mom,
-               bitwise=bitwise,
-               sharded_tensors=sum(d is not None for d in got["specs"]))
+    if got is not None:
+        want = torch.load(os.path.join(root, "ref_want.pt"),
+                          map_location="cpu", mmap=True)
+        param_ok, mom, bitwise = True, 0.0, True
+        for i, (n, p) in enumerate(got["params"].items()):
+            d = got["specs"][i]
+            w = fsdp_slice(want["params"][n], d, mesh.fsdp_index, 2)
+            param_ok &= param_close(p, w, got["mults"][i])
+            bitwise &= bool(torch.equal(p, w))
+            for kind in ("mu", "nu"):
+                ws = fsdp_slice(want[kind][i], d, mesh.fsdp_index, 2)
+                x = got[kind][i]
+                err = float((x - ws).abs().max())
+                mom = max(mom, err / (TRAIN_RANK_TOL * float(ws.abs().max())
+                                      + 1e-30))
+                bitwise &= bool(torch.equal(x, ws))
+        out.update(params_ok=bool(param_ok), moments_over_limit=mom,
+                   bitwise=bitwise)
+    out["rank"] = rank
     with open(os.path.join(root, f"dist_ref_worker.rank{rank}.json"),
               "w") as f:
         json.dump(out, f)
@@ -6469,45 +6612,67 @@ def dist_ref_worker(root: str) -> None:
 TRAIN_RANK_TOL = 1e-5
 
 
-def phase_dist_ref(dev, image, proposals):
-    """One stage-3 step of ref_2b's widths cut to DIST_REF_DEPTH over
-    fsdp = 2 (two gloo ranks on the one card), against one process:
-    loss, grad_norm, the parameters after the step (TRAIN_PARAM_RULE),
-    each rank's mu and nu slices; K2, K3, K2-bwd and K3-bwd launches per
-    rank; ms a step and peak GB per rank."""
+def phase_dist_ref(dev, image, proposals, full_depth: bool = False):
+    """One stage-3 step of ref_2b's widths cut to DIST_REF_DEPTH (or
+    whole, `full_depth`) over fsdp = 2 with the parameters sharded (two
+    gloo ranks on the one card), against one process: loss, grad_norm,
+    the parameters after the step (TRAIN_PARAM_RULE on each rank's
+    slices, and exact checksums of the parameters and moments), each
+    rank's mu and nu slices (at the cut); K2, K3, K2-bwd and K3-bwd
+    launches per rank; ms a step, the parameter bytes each rank stores,
+    its unit gathers (count, MB, ms) a step and its set-up and step peak
+    GB. At full depth the one-process tensors are not written out: the
+    checksums hold the ranks to it."""
     root = dist_root()
     t0 = time.perf_counter()
     np.savez(os.path.join(root, "ref_inputs.npz"), image=image,
              proposals=np.asarray(proposals))
-    one, tensors = dist_ref_step(root, None, "one")
-    torch.save({"params": {n: t.cpu() for n, t in tensors["params"].items()},
-                "mu": [t.cpu() for t in tensors["mu"]],
-                "nu": [t.cpu() for t in tensors["nu"]]},
-               os.path.join(root, "ref_want.pt"))
+    with open(os.path.join(root, "dist_ref_job.json"), "w") as f:
+        json.dump({"full_depth": full_depth}, f)
+    one, tensors = dist_ref_step(root, None, "one", full_depth,
+                                 keep=not full_depth)
+    if tensors is not None:
+        torch.save({"params": tensors["params"], "mu": tensors["mu"],
+                    "nu": tensors["nu"]}, os.path.join(root, "ref_want.pt"))
     del tensors
     torch.cuda.empty_cache()
-    ranks = spawn_ranks("dist_ref_worker", root)
-    cfg = dist_ref_cfg()
+    ranks = spawn_ranks("dist_ref_worker", root,
+                        timeout=1200 if full_depth else 600)
+    cfg = dist_ref_cfg(full_depth)
     per_step = expected_counts(
         k2=cfg.text.layers, k3=cfg.vision.depth, k2_f32=cfg.text.layers,
         k3_f32=cfg.vision.depth, k2_bwd=cfg.text.layers,
         k3_bwd=cfg.vision.depth, k2_bwd_dkdv_f32=cfg.text.layers,
         k2_bwd_dq_f32=cfg.text.layers, k3_bwd_dkv_f32=cfg.vision.depth,
         k3_bwd_dq_f32=cfg.vision.depth)
-    res = {"one_process": one, "ranks": ranks,
+    res = {"one_process": one, "ranks": ranks, "full_depth": full_depth,
            "seconds": time.perf_counter() - t0,
            "depth": {"layers": cfg.text.layers, "vit": cfg.vision.depth},
            "tolerance": {"loss_grad_norm_rel": TRAIN_RANK_TOL,
                          "moments": TRAIN_RANK_TOL,
-                         "params": "TRAIN_PARAM_RULE"}}
+                         "params": "TRAIN_PARAM_RULE",
+                         "checksums": "exact"}}
     ok = all(abs(r[k] - one[k]) <= TRAIN_RANK_TOL * abs(one[k])
              for r in ranks for k in ("loss", "grad_norm"))
-    ok = ok and all(r["params_ok"] and r["moments_over_limit"] <= 1
-                    and r["init_checksum"] == one["init_checksum"]
+    ok = ok and all(r["init_checksum"] == one["init_checksum"]
+                    and r["checksums"] == one["checksums"]
                     and r["launches"] == per_step
                     and r["sharded_tensors"] > 0 for r in ranks)
+    if not full_depth:
+        ok = ok and all(r["params_ok"] and r["moments_over_limit"] <= 1
+                        for r in ranks)
     ok = ok and one["launches"] == per_step
-    emit({"phase": "dist_ref", **res})
+    for r in ranks:
+        z = r["zero3_per_step"]
+        print(f"dist_ref{' full depth' if full_depth else ''} rank "
+              f"{r['rank']}: {z['param_bytes']['stored'] / 1e9:.3f} GB of "
+              f"parameters stored ({z['param_bytes']['sharded'] / 1e9:.3f} "
+              f"GB slices), {z['gathers']} unit gathers a step "
+              f"({z['gather_mb']:.1f} MB, {z['gather_ms']:.1f} ms), "
+              f"{r['ms_per_step']:.1f} ms a step, peak "
+              f"{r['setup_peak_gb']:.2f} GB set-up, {r['peak_mem_gb']:.2f} "
+              f"GB step (one process {one['peak_mem_gb']:.2f})", flush=True)
+    emit({"phase": "dist_ref_full" if full_depth else "dist_ref", **res})
     if not ok:
         raise AssertionError("dist_ref: a rank's step missed the "
                              "one-process step")
@@ -7367,8 +7532,8 @@ def main() -> int:
                   f"{STOCK_FA}:796", k3_bf16["flash_attention_bwd_dkv_sm90"],
                   k3_bwd, k3_bwd["dkv_bfloat16"], dtype="bfloat16")]
     # every attention kernel's launches in each rank of a 2-rank (fsdp =
-    # 2) SFT step of the cut ref_2b (dist_ref), and K1's in each rank's
-    # detector steps (dist_det: none)
+    # 2, the parameters sharded) SFT step of the cut ref_2b (dist_ref),
+    # and K1's in each rank's detector steps (dist_det: none)
     def by_kernel(c):
         return {**k2_bwd_launches(c), **k3_bwd_launches(c),
                 "gqa_flash_fwd_f32": c["k2_f32"],

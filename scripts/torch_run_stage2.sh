@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # WeDetect-Ref SFT stage 2 with the PyTorch port: torchrun starts one
 # process a card, each joins through eval/dist.maybe_initialize (nccl),
-# and cli/train_ref.py shards the optimizer state over every rank
+# and cli/train_ref.py shards the parameters, their gradients and the
+# optimizer state over every rank (ZeRO-3)
 # (--fsdp -1, make_mesh(data=1, fsdp=world)); every rank takes the same
 # sample. Stage default LR 1e-5 and the stage's freeze schedule come from
 # train/ref_lm.stage_optimizer (stage 3: train/ref_sft.ref_optimizer).

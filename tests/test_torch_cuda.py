@@ -2458,3 +2458,58 @@ def test_video_lm_step_card_matches_cpu(cuda, monkeypatch):
     for key in ("loss", "grad_norm"):
         assert metrics["card"][key] == pytest.approx(metrics["cpu"][key],
                                                      rel=1e-5), key
+
+
+ZERO3_UNIT = r"""
+import json
+from wedetect_tpu_torch.parallel import fsdp
+from wedetect_tpu_torch.parallel.mesh import make_mesh
+
+
+def run(dev):
+    torch.manual_seed(0)
+    unit = torch.nn.Sequential(torch.nn.Linear(64, 256), torch.nn.GELU(),
+                               torch.nn.Linear(256, 64))
+    z = fsdp.shard_params(unit, make_mesh(data=1, fsdp=2),
+                          units=[("unit", [unit])], device=dev)
+    x = torch.randn(32, 64, generator=torch.Generator().manual_seed(1))
+    x = x.to(dev).requires_grad_()
+    with fsdp.forward_scope(unit):
+        y = unit(x)
+    y.square().sum().backward()
+    return ([t.detach().cpu() for t in (y, x.grad)]
+            + [p.grad.cpu() for p in unit.parameters()]), z.gathers()
+
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.cuda.set_device(0)
+card, card_gathers = run("cuda")
+host, _ = run("cpu")
+err = max(float((a - b).abs().max() / b.abs().max())
+          for a, b in zip(card, host))
+with open(f"{OUT}/rank{RANK}.json", "w") as f:
+    json.dump({"err": err, "gathers": card_gathers,
+               "shapes": [list(t.shape) for t in card[2:]]}, f)
+"""
+
+
+def test_zero3_unit_gather_on_card_matches_cpu(cuda, tmp_path):
+    """Parameter sharding (parallel/fsdp.py) on the card: two gloo ranks
+    on card 0 shard one unit (a Linear-GELU-Linear block), gather it for
+    the forward and again, through the saved-tensor hooks on autograd's
+    device thread, for the backward; the output, the input's gradient
+    and each rank's gradient slices equal the same run on the CPU within
+    1e-5 of each tensor's largest entry (f32, TF32 off)."""
+    import json
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    from torch_dist_util import run_ranks
+
+    run_ranks(ZERO3_UNIT, tmp_path, timeout=300)
+    for r in range(2):
+        res = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert res["gathers"] == {"unit": [1, 1]}
+        assert res["shapes"] == [[128, 64], [128], [64, 128], [32]]
+        assert res["err"] <= 1e-5, res

@@ -389,14 +389,22 @@ def test_save_and_load_checkpoint_round_trip(tmp_path):
 
 OPTIMIZER = r"""
 import torch
-from wedetect_tpu_torch.parallel.mesh import make_mesh
+from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+from wedetect_tpu_torch.parallel.fsdp import mark_slice
+from wedetect_tpu_torch.parallel.mesh import fsdp_spec, make_mesh
 from wedetect_tpu_torch.train.optimizer import make_optimizer, with_grad_accum
 
 
 def run(mesh):
     g = torch.Generator().manual_seed(0)
-    params = [torch.randn(6, 4, generator=g), torch.randn(3, generator=g),
-              torch.randn(5, 5, generator=g)]
+    full = [torch.randn(6, 4, generator=g), torch.randn(3, generator=g),
+            torch.randn(5, 5, generator=g)]
+    specs = [None if mesh is None else fsdp_spec(tuple(p.shape), 2)
+             for p in full]
+    # over the mesh the parameters are this rank's slices (ZeRO-3)
+    params = [p if d is None else
+              mark_slice(fsdp_slice(p, d, RANK, 2).clone(), p.shape)
+              for p, d in zip(full, specs)]
     named = [("a/kernel", params[0]), ("a/bias", params[1]),
              ("b/kernel", params[2])]
     tx = with_grad_accum(make_optimizer(named, base_lr=1e-2,
@@ -405,9 +413,11 @@ def run(mesh):
         tx.shard(mesh)
     for step in range(6):
         for i, p in enumerate(params):
-            p.grad = torch.randn(p.shape, generator=g) * (i + 1)
+            grad = torch.randn(full[i].shape, generator=g) * (i + 1)
+            p.grad = (grad if specs[i] is None else
+                      fsdp_slice(grad, specs[i], RANK, 2).clone())
         tx.step()
-    return params, tx.state_dict(), [list(t.shape) for t in tx.mu]
+    return params, tx.state_dict(), [list(t.shape) for t in tx.mu], specs
 
 
 one = run(None)
@@ -418,19 +428,24 @@ torch.save({"one": one, "two": two}, f"{OUT}/rank{RANK}.pt")
 
 def test_sharded_optimizer_with_accumulation_and_clip(tmp_path):
     """Optimizer.shard over fsdp = 2 with MultiSteps (2 micro-steps) and
-    the global-norm clip active: each rank's parameters and its gathered
-    state_dict equal the one-process optimizer's within 1e-6 relative
-    (the accumulated gradient's norm sums the slices' squares over the
-    ranks, in another order); the moments are stored as half-size
-    slices of the sharded tensors."""
+    the global-norm clip active, on parameters and gradients that are
+    each rank's slices (ZeRO-3): each rank's parameter slices and its
+    gathered state_dict equal the one-process optimizer's within 1e-6
+    relative (the accumulated gradient's norm sums the slices' squares
+    over the ranks, in another order); the moments are stored as
+    half-size slices of the sharded tensors."""
+    from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+
     run_ranks(OPTIMIZER, tmp_path)
     for r in range(2):
         res = torch.load(tmp_path / f"rank{r}.pt")
-        (p1, s1, shapes1), (p2, s2, shapes2) = res["one"], res["two"]
+        (p1, s1, shapes1, _), (p2, s2, shapes2, specs) = (res["one"],
+                                                          res["two"])
         assert shapes1 == [[6, 4], [3], [5, 5]]
         assert shapes2 == [[3, 4], [3], [5, 5]]
-        for a, b in zip(p1, p2):
-            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
+        for a, b, d in zip(p1, p2, specs):
+            torch.testing.assert_close(b, fsdp_slice(a, d, r, 2),
+                                       rtol=1e-6, atol=1e-7)
         assert s1["count"] == s2["count"] == 3
         for key in ("mu", "nu", "acc"):
             for a, b in zip(s1[key], s2[key]):

@@ -11,6 +11,7 @@ import torch
 from wedetect_tpu_torch.ckpt import io as CIO
 from wedetect_tpu_torch.models import wedetect as TW
 from wedetect_tpu_torch.nn.layers import BatchNorm2d
+from wedetect_tpu_torch.parallel.fsdp import full_state_dict
 from wedetect_tpu_torch.parallel.mesh import shard_batch
 from wedetect_tpu_torch.train import train_step as TS
 
@@ -33,7 +34,8 @@ def det_run(out, mesh, rate, opt, steps=2, local_bn=False, ckpt=None,
     path at `rate`) on the saved global batches, over `mesh` (None: one
     process on the whole batch): metrics, parameters, BN statistics,
     this rank's moments (after the last step, and `mu1` / `nu1` after
-    the first) and their specs; `grads` adds the first step's
+    the first) and their specs; the parameters gathered to their full
+    shapes where the fsdp axis shards them; `grads` adds the first step's
     summed gradients; `local_bn` gives the BatchNorms no group (each
     rank's own statistics: the control); `ckpt` writes the state after
     the first step there."""
@@ -74,7 +76,7 @@ def det_run(out, mesh, rate, opt, steps=2, local_bn=False, ckpt=None,
             if ckpt:
                 CIO.save_train_state(ckpt, state)
     res["state"] = {k: v.clone() for k, v in
-                    state.model.state_dict().items()}
+                    full_state_dict(state.model).items()}
     res["mu"] = [t.clone() for t in state.tx.mu]
     res["nu"] = [t.clone() for t in state.tx.nu]
     res["specs"] = list(state.tx.specs)
@@ -84,7 +86,8 @@ def det_run(out, mesh, rate, opt, steps=2, local_bn=False, ckpt=None,
 
 def ref_run(out, mesh, lr, steps=2):
     """`steps` stage-3 SFT steps of the saved tiny Ref on the saved
-    inputs over `mesh`: metrics, parameters, this rank's moments."""
+    inputs over `mesh`: metrics, parameters (gathered to their full
+    shapes), this rank's moments."""
     from wedetect_tpu_torch.models.ref import RefModules
     from wedetect_tpu_torch.train import ref_sft as TSFT
 
@@ -100,8 +103,8 @@ def ref_run(out, mesh, lr, steps=2):
     for _ in range(steps):
         state, m = TSFT.ref_sft_step(cfg, 8, 8, state, *args)
         res["metrics"].append({k: float(v) for k, v in m.items()})
-    res["params"] = {n: p.detach().clone()
-                     for n, p in model.named_parameters()}
+    full = full_state_dict(model)
+    res["params"] = {n: full[n].clone() for n, _ in model.named_parameters()}
     res["mu"] = [t.clone() for t in state.tx.mu]
     res["nu"] = [t.clone() for t in state.tx.nu]
     res["specs"] = list(state.tx.specs)

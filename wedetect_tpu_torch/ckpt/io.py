@@ -13,11 +13,13 @@ written to a temporary name and renamed, so a crash never leaves a
 half-written checkpoint.
 
 Over a mesh (`TrainState.mesh`), `save_train_state` is called by every
-rank: the optimizer gathers its full moments (`Optimizer.state_dict`)
-and rank 0 writes the one file, in the one-process layout; the ranks
-leave together. `restore_train_state` reads that file on every rank and
-each keeps its slices. So a checkpoint written by W ranks resumes in
-one process, and the reverse.
+rank: the sharded parameters and the optimizer's moments are gathered
+to the host a bucket at a time (`parallel/fsdp.full_state_dict`,
+`Optimizer.state_dict`) and rank 0 writes the one file, in the
+one-process layout; the ranks leave together. `restore_train_state`
+reads that file on the host (memory-mapped) on every rank and each
+keeps its slices (`parallel/fsdp.load_full_state_dict`). So a checkpoint
+written by W ranks resumes in one process, and the reverse.
 """
 
 from __future__ import annotations
@@ -77,9 +79,11 @@ def save_train_state(path: str, state) -> None:
     reference's HF resume_from_checkpoint carries the same —
     sft_referring.py:439-443). Over a mesh every rank calls it and rank
     0 writes (module docstring)."""
+    from wedetect_tpu_torch.parallel.fsdp import full_state_dict
+
     mesh = state.mesh
     tree = {"step": int(state.step),
-            "model": state.model.state_dict(),
+            "model": full_state_dict(state.model),
             "opt_state": state.tx.state_dict()}
     if mesh is None or mesh.rank == 0:
         os.makedirs(path, exist_ok=True)
@@ -92,10 +96,11 @@ def restore_train_state(path: str, state):
     """Restore into an existing TrainState (its model and optimizer give
     the structure, the device and, over a mesh, this rank's slices), in
     place; returns it."""
-    device = next(state.model.parameters()).device
-    tree = torch.load(os.path.join(path, _FILE), map_location=device,
-                      weights_only=True)
-    state.model.load_state_dict(tree["model"], strict=True)
+    from wedetect_tpu_torch.parallel.fsdp import load_full_state_dict
+
+    tree = torch.load(os.path.join(path, _FILE), map_location="cpu",
+                      weights_only=True, mmap=True)
+    load_full_state_dict(state.model, tree["model"])
     state.tx.load_state_dict(tree["opt_state"])
     state.step = int(tree["step"])
     return state

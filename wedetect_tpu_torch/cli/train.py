@@ -14,7 +14,10 @@ wedetect_tpu_torch.cli.train ...` (the process group is joined by
 fsdp=--fsdp)` as the JAX CLI does: the batch of `--batch-size` (global,
 divisible by the data axis) is split over "data", BatchNorm and the
 loss normalisers see the global batch, and the optimizer state is
-sharded over "fsdp" (`train/optimizer.py`). Webdataset shards are split
+sharded over "fsdp" with the parameters and their gradients (ZeRO-3:
+`parallel/fsdp.py`, `train/optimizer.py`; with --fsdp above 1 the model
+is built on the host and only a rank's slices move to its card; a
+random init then draws on the host). Webdataset shards are split
 over the data ranks (the JAX CLI splits them over processes; ranks that
 differ only on "fsdp" must take the same rows).
 
@@ -69,8 +72,9 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-dir", default="")
     p.add_argument("--ckpt-every", type=int, default=1000)
     p.add_argument("--fsdp", type=int, default=1,
-                   help="ranks the optimizer state is sharded over; the "
-                        "data axis takes the rest of the world")
+                   help="ranks the parameters, gradients and optimizer "
+                        "state are sharded over; the data axis takes the "
+                        "rest of the world")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -114,8 +118,9 @@ def build_state(args, cfg, mesh=None):
     with the random text bank) on `--device`, the optimizer (AdamW with
     the reference's decay rules, batch-scaled weight decay, the lr
     schedule, gradient accumulation), over `mesh` (rank 0's model
-    broadcast to every rank), restored from the latest checkpoint under
-    `--ckpt-dir` with `--resume`."""
+    broadcast to every rank; with an fsdp axis above 1 built and
+    broadcast on the host, then sharded onto `--device`), restored from
+    the latest checkpoint under `--ckpt-dir` with `--resume`."""
     from wedetect_tpu_torch.ckpt.io import (latest_checkpoint,
                                             restore_train_state)
     from wedetect_tpu_torch.models.wedetect import init_variables
@@ -123,13 +128,17 @@ def build_state(args, cfg, mesh=None):
                                                     with_grad_accum)
     from wedetect_tpu_torch.train.train_step import TrainState, det_optimizer
 
+    sharded = mesh is not None and mesh.shape["fsdp"] > 1
+    where = "cpu" if sharded else args.device
     if args.init_checkpoint:
         from wedetect_tpu_torch.data.tokenizer import TextTokenizer
         from wedetect_tpu_torch.models.api import Detector
 
         det = Detector.from_torch_checkpoint(
             args.init_checkpoint, args.size, tokenizer_path=args.tokenizer,
-            device=args.device, **_cfg_kw(args))
+            device=where, **_cfg_kw(args))
+        if det.text_tower is not None:
+            det.text_tower.to(args.device)
         model = det.model
         tok = []            # the tokenizer, loaded at the first batch
 
@@ -138,7 +147,7 @@ def build_state(args, cfg, mesh=None):
                 tok.append(TextTokenizer(args.tokenizer))
             return det.encode_texts(*tok[0](texts)).float().cpu().numpy()
     else:
-        model = init_variables(cfg, seed=args.seed, device=args.device)
+        model = init_variables(cfg, seed=args.seed, device=where)
         text_encode = random_text_bank(cfg.embed_dims)
 
     schedule = make_lr_schedule(args.lr, args.steps,
@@ -153,7 +162,8 @@ def build_state(args, cfg, mesh=None):
         from wedetect_tpu_torch.parallel.mesh import replicate_tree
 
         replicate_tree(mesh, model.state_dict())
-    state = TrainState.create(model, tx, mesh)
+    state = TrainState.create(model, tx, mesh,
+                              device=args.device if sharded else None)
     if args.resume and args.ckpt_dir:
         last = latest_checkpoint(args.ckpt_dir)
         if last is not None:

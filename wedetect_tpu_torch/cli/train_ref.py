@@ -29,8 +29,11 @@ wedetect_tpu_torch.cli.train_ref ...` (scripts/torch_run_stage{1,2,3}.sh;
 the process group is joined by `eval/dist.maybe_initialize`). As in the
 JAX CLI, the ranks form `make_mesh(data=1, fsdp=--fsdp)` (`--fsdp -1`:
 the whole world): every rank takes the same sample, drawn from the same
-seeded stream, and the optimizer state is sharded over the ranks
-(`train/optimizer.py`). Rank 0 logs and writes the checkpoints.
+seeded stream, and the parameters, their gradients and the optimizer
+state are sharded over the ranks (ZeRO-3: `parallel/fsdp.py`,
+`train/optimizer.py`): with --fsdp above 1 the model is loaded and
+replicated on the host and only a rank's slices reach its card. Rank 0
+logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -67,8 +70,8 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=500)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--fsdp", type=int, default=-1,
-                   help="ranks the optimizer state is sharded over "
-                        "(-1: the whole world)")
+                   help="ranks the parameters, gradients and optimizer "
+                        "state are sharded over (-1: the whole world)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
@@ -212,7 +215,10 @@ def main(argv=None):
     from wedetect_tpu_torch.train.ref_sft import ref_optimizer
     from wedetect_tpu_torch.train.train_step import TrainState
 
-    cfg, model, tok = load_ref(args.ref_checkpoint, device=args.device)
+    # sharded ranks load on the host (TrainState.create moves the slices)
+    sharded = mesh.shape["fsdp"] > 1
+    cfg, model, tok = load_ref(args.ref_checkpoint,
+                               device="cpu" if sharded else args.device)
     buckets = make_grid_buckets(total_tokens=args.grid_tokens)
     if args.stage == 3:
         dataset = ReferringSftDataset(
@@ -242,7 +248,8 @@ def main(argv=None):
                              lr_schedule=schedule)
     tx = with_grad_accum(tx, args.grad_accum)
     replicate_tree(mesh, model.state_dict())
-    state = TrainState.create(model, tx, mesh)
+    state = TrainState.create(model, tx, mesh,
+                              device=args.device if sharded else None)
     if args.resume and args.ckpt_dir:
         last = latest_checkpoint(args.ckpt_dir)
         if last is not None:

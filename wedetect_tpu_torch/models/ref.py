@@ -235,7 +235,9 @@ class RefModules(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.out_proj.weight.device
+        # read from the parameter list: under parameter sharding an
+        # attribute read of a weight gathers its unit
+        return next(self.out_proj.parameters()).device
 
     def score(self, hidden):
         return self.out_proj(hidden.float())[..., 0]
@@ -571,35 +573,55 @@ def init_ref_variables(cfg: RefCfg, seed: int = 0, device="cuda",
     `lm_head` adds an untied LM head (lecun-normal, drawn last).
 
     `mesh` (a parallel/mesh.TpMesh): this rank's slices of the same
-    weights, RefModules(cfg, tp=mesh.tp). Each tensor is drawn whole, in
-    the same order, and sliced at once: the rank never holds more than
-    one whole tensor beside its slices."""
+    weights, RefModules(cfg, tp=mesh.tp); a parallel/mesh.Mesh with an
+    fsdp axis above 1: the model with its parameters sharded
+    (`parallel/fsdp.shard_params`, ZeRO-3). Each tensor is drawn whole,
+    in the same order, and sliced at once: the rank never holds more
+    than one whole tensor beside its slices."""
+    from wedetect_tpu_torch.parallel.fsdp import shard_params
+
     dev = resolve_device(device)
-    tp = None if mesh is None else active_tp(mesh.tp)
+    tp = None if mesh is None or not hasattr(mesh, "tp") else \
+        active_tp(mesh.tp)
     with torch.device("meta"):
         full = RefModules(cfg, lm_head=lm_head)
         model = full if tp is None else RefModules(cfg, lm_head=lm_head,
                                                    tp=tp)
-    model = model.to_empty(device=dev)
+    if tp is None and mesh is not None and mesh.shape.get("fsdp", 1) > 1:
+        with torch.device("meta"):
+            model = RefModules(cfg, lm_head=lm_head)
+        shard_params(model, mesh, device=dev)
+    else:
+        model = model.to_empty(device=dev)
     local = dict(model.named_parameters())
     shapes = {k: tuple(t.shape) for k, t in full.named_parameters()}
     g = torch.Generator(device=dev).manual_seed(seed)
     done = set()
+
+    def keep(key, whole):
+        """This rank's part of a whole drawn tensor."""
+        if tp is not None:
+            return ref_tp_slice(whole, ref_tp_kind(key, shapes, tp.size),
+                                tp.index, tp.size)
+        from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+        from wedetect_tpu_torch.parallel.mesh import fsdp_spec
+
+        size = mesh.shape["fsdp"]
+        return fsdp_slice(whole, fsdp_spec(shapes[key], size),
+                          mesh.fsdp_index, size)
 
     with torch.no_grad():
         for name, m in full.named_modules():
             for attr, fill in _init_draws(name, m):
                 key = f"{name}.{attr}" if name else attr
                 done.add(key)
-                if tp is None:
-                    fill(getattr(m, attr), g)
+                if tuple(local[key].shape) == shapes[key]:
+                    fill(local[key], g)
                     continue
                 whole = torch.empty(shapes[key], device=dev)
                 fill(whole, g)
-                local[key].copy_(ref_tp_slice(
-                    whole, ref_tp_kind(key, shapes, tp.size), tp.index,
-                    tp.size))
-        model.out_proj.bias.fill_(-math.log((1 - 0.01) / 0.01))
+                local[key].copy_(keep(key, whole))
+        local["out_proj.bias"].fill_(-math.log((1 - 0.01) / 0.01))
     missed = [n for n in local if n not in done]
     if missed:
         raise RuntimeError(f"init_ref_variables: left uninitialized: "

@@ -339,9 +339,11 @@ class VisionModel(nn.Module):
         dt = x.dtype
         side = int(c.num_pos_emb ** 0.5)
         idx, wgt = vision_pos_interp(grid_h, grid_w, side, c.merge)
-        table = self.pos_embed.weight.float()
+        # no local keeps the table: under parameter sharding it is a
+        # gathered tensor, dropped when the next unit is gathered
         pos = torch.einsum("ksd,ks->sd",
-                           table[torch.as_tensor(idx, device=dev)],
+                           self.pos_embed.weight.float()[
+                               torch.as_tensor(idx, device=dev)],
                            torch.as_tensor(wgt, dtype=torch.float32,
                                            device=dev))
         x = x + pos.repeat(grid_t, 1).to(dt)
@@ -511,7 +513,9 @@ class TextModel(nn.Module):
 
     @property
     def dtype(self):
-        return self.layers[0].self_attn.q_proj.weight.dtype
+        # the parameter list, not an attribute read that would gather
+        # layer 0 under parameter sharding (parallel/fsdp.py)
+        return next(self.layers[0].self_attn.q_proj.parameters()).dtype
 
     def _inject_deepstack(self, x, ds, visual_start):
         """Add tap features over visual span(s). ds: (V, D) shared by

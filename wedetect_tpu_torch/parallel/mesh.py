@@ -12,10 +12,11 @@ on the whole. Training runs on a ("data", "fsdp") layout (`make_mesh`):
   (`nn/layers.BatchNorm2d`), the detector's loss normalisers are global
   sums, and the gradients are summed over the data group
   (`train/optimizer.Optimizer`).
-- "fsdp": the optimizer's state (Adam's moments, the accumulator) is
-  stored as this rank's slice by `fsdp_spec`, JAX's largest-axis rule;
-  each rank updates its slice and the parameters are re-assembled by
-  the collectives' gather.
+- "fsdp": the parameters, their gradients and the optimizer's state
+  (Adam's moments, the accumulator) are stored as this rank's slice by
+  `fsdp_spec`, JAX's largest-axis rule (ZeRO-3, `parallel/fsdp.py`):
+  each unit of the model is gathered for its forward and again for its
+  backward, and each rank updates only its slices.
 
 Tensor-parallel serving of the Ref runs on a ("data", "tp") layout
 (`make_tp_mesh`), each "tp" group holding one copy of the model in the
@@ -223,10 +224,20 @@ def replicate_tree(mesh: Mesh, tree: Any) -> Any:
     """Broadcast every tensor of `tree` from rank 0, in place (a state
     dict's tensors share storage with the module's, so this replicates
     a model); returns the tree. numpy leaves and scalars are left as
-    they are."""
+    they are. Host tensors under nccl go through the card one at a
+    time (a model replicated on the host before `parallel/fsdp.
+    shard_params` never sits whole on the card)."""
+    hop = (mesh.world_group.pg is not None
+           and dist.get_backend(mesh.world_group.pg) == "nccl")
+
     def put(x):
         if isinstance(x, torch.Tensor):
-            mesh.world_group.broadcast(x.data, 0)
+            if hop and not x.is_cuda:
+                y = x.data.to(torch.cuda.current_device())
+                mesh.world_group.broadcast(y, 0)
+                x.data.copy_(y)
+            else:
+                mesh.world_group.broadcast(x.data, 0)
         return x
 
     _tree_map(put, tree)

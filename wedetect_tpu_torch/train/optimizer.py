@@ -22,23 +22,25 @@ the JAX segment rule applies unchanged (for WeDetect-Ref the paths come
 from `ckpt/convert_ref.jax_param_paths`).
 
 Over a `parallel/mesh.Mesh` (`Optimizer.shard`), the step is the JAX
-package's over its mesh, where `fsdp_sharding` shards the optax state:
-- the gradients are summed over the data group (each rank's loss is its
-  share of the global batch's, `train/losses.py`), through flat buffers;
-- `mu`, `nu` and the MultiSteps accumulator hold this rank's slice of
-  each tensor along the axis `parallel/mesh.fsdp_spec` picks over the
-  fsdp group (whole where no axis divides);
-- each rank updates its slice of each parameter, and the whole
-  parameter is assembled again by the gather of
-  `parallel/collectives.Group.gather_flat` (a frozen tensor, whose
-  update is exactly 0, is not gathered);
-- `global_norm` and the clip read the norm of the full gradient: the
-  gradients are whole on every rank, and an accumulated gradient's norm
-  sums its slices' squares over the fsdp group.
-The parameters and their gradients stay whole on every rank, where JAX
-also shards the parameters (ZeRO-3): a difference in memory only, not
-in the numbers. `state_dict` gathers the full moments (every rank must
-call it) and `load_state_dict` takes full moments and keeps this rank's
+package's over its mesh, where `fsdp_sharding` shards the parameters
+and the optax state (ZeRO-3):
+- with an fsdp axis above 1 the parameters are already this rank's
+  slices (`parallel/fsdp.shard_params`: each marked with its full shape,
+  sharded along the axis `parallel/mesh.fsdp_spec` picks, whole where
+  no axis divides), and so are their gradients;
+- the gradients are summed over the data group (the ranks that hold the
+  same slices; each rank's loss is its share of the global batch's,
+  `train/losses.py`), through flat buffers;
+- `mu`, `nu` and the MultiSteps accumulator hold the same slices, and
+  each rank updates its slice of each parameter in place: nothing is
+  gathered after the step;
+- `grad_norm` and the clip read the norm of the full gradient: the
+  slices' squares summed over the fsdp group, the whole tensors' counted
+  once. Squares and sums are taken in f64 and the root rounded to f32,
+  so the norm does not depend on how the gradient is cut (the f32 sum
+  of one process and the sharded sum would differ in the last bits).
+`state_dict` gathers the full moments to the host (every rank must call
+it) and `load_state_dict` takes full moments and keeps this rank's
 slices, so a checkpoint moves between meshes of any shape.
 """
 
@@ -137,6 +139,7 @@ class Optimizer:
         self.mini_step = 0      # MultiSteps' micro-step within an update
         self.mesh = None
         self.specs: List[Optional[int]] = [None] * len(self.params)
+        self.shapes = [tuple(t.shape) for t in self.params]
         self.mu = [torch.zeros_like(t) for t in self.params]
         self.nu = [torch.zeros_like(t) for t in self.params]
         self.acc: List[torch.Tensor] = []
@@ -144,34 +147,46 @@ class Optimizer:
 
     def shard(self, mesh) -> "Optimizer":
         """Run over `mesh` (module docstring): this rank keeps its
-        slices of the state it holds now. Returns self."""
+        slices of the state it holds now. With an fsdp axis above 1 the
+        parameters must be this rank's slices already
+        (`parallel/fsdp.shard_params`). Returns self."""
+        from wedetect_tpu_torch.parallel.fsdp import full_shape
         from wedetect_tpu_torch.parallel.mesh import fsdp_spec
 
         size = mesh.shape["fsdp"]
         self.mesh = mesh
-        self.specs = [fsdp_spec(tuple(p.shape), size) for p in self.params]
-        self.mu = [self._local(m, i).clone() for i, m in enumerate(self.mu)]
-        self.nu = [self._local(m, i).clone() for i, m in enumerate(self.nu)]
-        self.acc = [self._local(a, i).clone()
-                    for i, a in enumerate(self.acc)]
+        self.shapes = [full_shape(p) for p in self.params]
+        self.specs = [fsdp_spec(s, size) for s in self.shapes]
+        whole = [self.paths[i] for i, (p, d) in enumerate(
+            zip(self.params, self.specs))
+            if d is not None and tuple(p.shape) == self.shapes[i]]
+        if whole:
+            raise ValueError(
+                f"fsdp = {size}: the parameters must be this rank's slices "
+                f"(parallel/fsdp.shard_params); whole: {whole[:4]}")
+
+        def local(ts):
+            # a slice is copied (its full tensor is then freed); a tensor
+            # that is already local only moves to its parameter's device
+            out = []
+            for i, t in enumerate(ts):
+                x = self._local(t, i)
+                out.append(x.to(self.params[i].device, copy=x is not t))
+            return out
+
+        self.mu, self.nu, self.acc = (local(self.mu), local(self.nu),
+                                      local(self.acc))
         return self
 
     def _local(self, t: torch.Tensor, i: int) -> torch.Tensor:
-        """This rank's slice of a tensor shaped as params[i]."""
-        if self.specs[i] is None:
+        """This rank's slice of a tensor shaped as the full params[i]; a
+        tensor shaped as the slice is already local."""
+        if self.specs[i] is None or tuple(t.shape) != self.shapes[i]:
             return t
         from wedetect_tpu_torch.parallel.collectives import fsdp_slice
 
         g = self.mesh.fsdp_group
         return fsdp_slice(t, self.specs[i], g.index, g.size)
-
-    def _gather(self, fulls: List[torch.Tensor], locals_: List[torch.Tensor],
-                idx: List[int]) -> None:
-        """fulls[k] (shaped as params[idx[k]]) from every rank's slice,
-        this rank's being locals_[k]."""
-        writes = [lambda v, i=i, x=x: self._local(v, i).copy_(x)
-                  for i, x in zip(idx, locals_)]
-        self.mesh.fsdp_group.gather_flat(fulls, writes)
 
     def _sharded(self) -> bool:
         return self.mesh is not None and self.mesh.shape["fsdp"] > 1
@@ -195,22 +210,29 @@ class Optimizer:
         self._reduced = True
 
     def _norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The norm of the full gradient whose local slices are
-        `grads`: the sharded slices' squares summed over the fsdp
-        group."""
+        """The norm of the full gradient whose local slices are `grads`:
+        the sharded slices' squares summed over the fsdp group (module
+        docstring)."""
         if not self._sharded():
             return global_norm(grads)
         dev = grads[0].device
-        sharded = torch.zeros(1, device=dev)
-        whole = torch.zeros((), device=dev)
+        sharded = torch.zeros(1, dtype=torch.float64, device=dev)
+        whole = torch.zeros((), dtype=torch.float64, device=dev)
         for g, d in zip(grads, self.specs):
-            sq = (g.float() ** 2).sum()
             if d is None:
-                whole = whole + sq
+                whole = whole + _square_sum(g)
             else:
-                sharded = sharded + sq
+                sharded = sharded + _square_sum(g)
         self.mesh.fsdp_group.all_reduce(sharded)
-        return torch.sqrt(sharded[0] + whole)
+        return torch.sqrt(sharded[0] + whole).float()
+
+    @torch.no_grad()
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of this backward's gradients (summed over the
+        data group first), the frozen tensors' included."""
+        self.reduce_grads()
+        return self._norm([self._local(g, i)
+                           for i, g in enumerate(self.grads())])
 
     @torch.no_grad()
     def step(self) -> None:
@@ -228,16 +250,12 @@ class Optimizer:
                 return
             grads = self.acc
         if self.grad_clip_norm:
-            # whole gradients (no accumulation) give the one-process
-            # norm bitwise; the accumulator's slices sum over the group
-            norm = (global_norm(self.grads()) if self.accum_steps == 1
-                    else self._norm(grads))
+            norm = self._norm(grads)
             if not bool(norm < self.grad_clip_norm):
                 grads = [g / norm * self.grad_clip_norm for g in grads]
         t = self.count + 1
         bc1, bc2 = 1 - self.b1 ** t, 1 - self.b2 ** t
         lr = self.lr(self.count)
-        moved = []
         for i, (p, g) in enumerate(zip(self.params, grads)):
             mu, nu = self.mu[i], self.nu[i]
             mu.mul_(self.b1).add_(g * (1 - self.b1))
@@ -251,12 +269,6 @@ class Optimizer:
             if self.mults[i] != 1.0:
                 u = u * self.mults[i]
             ps.add_(u * -lr)
-            if self.specs[i] is not None:
-                moved.append(i)
-        if moved:
-            self._gather([self.params[i].data for i in moved],
-                         [self._local(self.params[i].data, i)
-                          for i in moved], moved)
         self.count = t
         if self.accum_steps > 1:
             self.mini_step = 0
@@ -264,16 +276,12 @@ class Optimizer:
                 a.zero_()
 
     def _full(self, state: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Full tensors from every rank's slices of `state`."""
+        """Full host tensors from every rank's slices of `state`."""
         if not self._sharded() or not state:
             return state
-        fulls = [torch.empty_like(p) for p in self.params]
-        idx = [i for i, d in enumerate(self.specs) if d is not None]
-        self._gather([fulls[i] for i in idx], [state[i] for i in idx], idx)
-        for i, d in enumerate(self.specs):
-            if d is None:
-                fulls[i] = state[i]
-        return fulls
+        from wedetect_tpu_torch.parallel.fsdp import gather_full
+
+        return gather_full(self.mesh, state, self.specs, self.shapes)
 
     def state_dict(self) -> dict:
         """The state with full moments (a collective over the fsdp group
@@ -288,14 +296,21 @@ class Optimizer:
         for dst, src in ((self.mu, state["mu"]), (self.nu, state["nu"])):
             for i, (d, s) in enumerate(zip(dst, src, strict=True)):
                 d.copy_(self._local(s, i))
-        self.acc = [self._local(a.to(p.device), i).clone()
+        self.acc = [self._local(a, i).to(p.device, copy=True)
                     for i, (a, p) in enumerate(zip(state["acc"],
                                                    self.params))]
 
 
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """The f64 sum of g's squares (exact squares of f32 entries)."""
+    d = g.detach().reshape(-1).double()
+    return torch.dot(d, d)
+
+
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (optax.global_norm)."""
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    """sqrt of the sum of squares over every tensor (optax.global_norm),
+    accumulated in f64 and rounded to f32 (module docstring)."""
+    return torch.sqrt(sum(_square_sum(g) for g in grads)).float()
 
 
 def with_grad_accum(tx: Optimizer, accum_steps: int) -> Optimizer:

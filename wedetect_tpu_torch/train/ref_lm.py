@@ -23,8 +23,9 @@ import numpy as np
 import torch
 
 from wedetect_tpu_torch.models.ref import RefModules
+from wedetect_tpu_torch.parallel.fsdp import forward_scope
 from wedetect_tpu_torch.train.optimizer import (Optimizer, Schedule,
-                                                global_norm, make_optimizer)
+                                                make_optimizer)
 from wedetect_tpu_torch.train.ref_sft import check_ref_mesh, ref_named_params
 from wedetect_tpu_torch.train.train_step import TrainState
 
@@ -82,15 +83,17 @@ def ref_lm_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
     check_ref_mesh(state)
     model = state.model
     model.zero_grad(set_to_none=True)
-    hidden = model.hidden_states(patches, input_ids, attn_mask,
-                                 position_ids, boxes, ori_wh, visual_start,
-                                 object_positions, grid_h=grid_h,
-                                 grid_w=grid_w, grid_t=grid_t)
-    logits = model.lm_logits(hidden)
+    with forward_scope(model):
+        hidden = model.hidden_states(patches, input_ids, attn_mask,
+                                     position_ids, boxes, ori_wh,
+                                     visual_start, object_positions,
+                                     grid_h=grid_h, grid_w=grid_w,
+                                     grid_t=grid_t)
+        logits = model.lm_logits(hidden)
     loss = lm_cross_entropy(
         logits, torch.as_tensor(labels, device=model.device).long())
     loss.backward()
-    grad_norm = global_norm(state.tx.grads())
+    grad_norm = state.tx.grad_norm()
     state.tx.step()
     state.step += 1
     return state, {"loss": loss.detach(), "grad_norm": grad_norm}

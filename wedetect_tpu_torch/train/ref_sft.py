@@ -17,10 +17,11 @@ as in JAX), so every step runs the flash backward kernels of the ViT
 
 Over a mesh (`TrainState.create(..., mesh=)`), the SFT steps shard over
 "fsdp" only, as the JAX CLI's `make_mesh(data=1, fsdp=W)`: every rank
-takes the same sample and computes the whole gradient, and the
-optimizer keeps and updates this rank's slice of its state
-(`train/optimizer.Optimizer.shard`). A mesh with a data axis above 1
-raises (`check_ref_mesh`).
+takes the same sample and computes the whole gradient from gathered
+parameters, and keeps and updates only its slices of the parameters,
+their gradients and the optimizer's state (ZeRO-3:
+`parallel/fsdp.shard_params`, `train/optimizer.Optimizer.shard`). A
+mesh with a data axis above 1 raises (`check_ref_mesh`).
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ import torch
 
 from wedetect_tpu_torch.ckpt.convert_ref import jax_param_paths
 from wedetect_tpu_torch.models.ref import RefModules, sigmoid_focal_loss
+from wedetect_tpu_torch.parallel.fsdp import forward_scope
 from wedetect_tpu_torch.train.optimizer import (Optimizer, Schedule,
-                                                global_norm, make_optimizer)
+                                                make_optimizer)
 from wedetect_tpu_torch.train.train_step import TrainState
 
 
@@ -112,16 +114,17 @@ def ref_sft_step(cfg, grid_h: int, grid_w: int, state: TrainState, patches,
     model = state.model
     dev = model.device
     model.zero_grad(set_to_none=True)
-    logits = model(patches, input_ids, attn_mask, position_ids, boxes,
-                   ori_wh, visual_start, object_positions, grid_h=grid_h,
-                   grid_w=grid_w)
+    with forward_scope(model):
+        logits = model(patches, input_ids, attn_mask, position_ids, boxes,
+                       ori_wh, visual_start, object_positions,
+                       grid_h=grid_h, grid_w=grid_w)
     labels = torch.as_tensor(labels, device=dev, dtype=torch.float32)
     if valid is not None:
         valid = torch.as_tensor(valid, device=dev).reshape(-1)
     loss = sigmoid_focal_loss(logits.reshape(-1), labels.reshape(-1),
                               valid=valid)
     loss.backward()
-    grad_norm = global_norm(state.tx.grads())
+    grad_norm = state.tx.grad_norm()
     state.tx.step()
     state.step += 1
     return state, {"loss": loss.detach(), "grad_norm": grad_norm,

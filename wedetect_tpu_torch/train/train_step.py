@@ -22,9 +22,13 @@ takes its rows of the global batch and the step is the JAX package's
 global-view step on a mesh of that shape: BatchNorm's statistics and
 drop path's masks are the global batch's (`attach_mesh`), the loss
 normalisers are global sums (`train/losses.py`), the gradients are
-summed over the data group and the optimizer's state is sharded over
-the fsdp group (`train/optimizer.Optimizer.shard`); the logged loss,
-num_pos and grad_norm are the global values on every rank.
+summed over the data group, and with an fsdp axis above 1 the
+parameters, their gradients and the optimizer's state are this rank's
+slices (`parallel/fsdp.shard_params`, `train/optimizer.Optimizer.shard`:
+ZeRO-3, each unit of the model gathered for its forward and again for
+its backward); the BatchNorms' running statistics, buffers, stay whole,
+as JAX replicates its batch_stats. The logged loss, num_pos and
+grad_norm are the global values on every rank.
 """
 
 from __future__ import annotations
@@ -40,11 +44,11 @@ from wedetect_tpu_torch.configs import ModelCfg
 from wedetect_tpu_torch.models.wedetect import _as, _images
 from wedetect_tpu_torch.ops.boxes import distance2bbox
 from wedetect_tpu_torch.ops.priors import flat_priors_and_strides
+from wedetect_tpu_torch.parallel.fsdp import forward_scope
 from wedetect_tpu_torch.parallel.mesh import Mesh
 from wedetect_tpu_torch.train.assigner import assign
 from wedetect_tpu_torch.train.losses import DetLosses, detection_loss
-from wedetect_tpu_torch.train.optimizer import (Optimizer, global_norm,
-                                                make_optimizer)
+from wedetect_tpu_torch.train.optimizer import Optimizer, make_optimizer
 
 # drop path's per-step seed is DROP_PATH_SEED * 2**32 + step (JAX folds
 # the step into PRNGKey(17); the two RNGs draw different masks)
@@ -60,12 +64,19 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, tx: Optimizer,
-               mesh: Optional[Mesh] = None) -> "TrainState":
+               mesh: Optional[Mesh] = None, device=None) -> "TrainState":
         """The state at step 0; over `mesh`, the model's BatchNorms and
-        drop paths take the mesh's data group (`attach_mesh`) and the
-        optimizer shards its state (`Optimizer.shard`)."""
+        drop paths take the mesh's data group (`attach_mesh`), an fsdp
+        axis above 1 shards the parameters (`parallel/fsdp.shard_params`:
+        this rank's slices, and the whole tensors and buffers, moved to
+        `device` if given, so a model built on the host never sits whole
+        on the card) and the optimizer shards its state, on the
+        parameters' devices (`Optimizer.shard`)."""
         if mesh is not None:
+            from wedetect_tpu_torch.parallel.fsdp import shard_params
+
             attach_mesh(model, mesh)
+            shard_params(model, mesh, device=device)
             tx.shard(mesh)
         return cls(step=0, model=model, tx=tx, mesh=mesh)
 
@@ -134,7 +145,8 @@ def loss_fn(cfg: ModelCfg, model: nn.Module, batch: Batch,
     was_training = model.training
     model.train()
     try:
-        out = model(images, texts, generator=generator)
+        with forward_scope(model):
+            out = model(images, texts, generator=generator)
     finally:
         model.train(was_training)
 
@@ -171,8 +183,7 @@ def train_step(cfg: ModelCfg, state: TrainState, batch: Batch
                             drop_path_generator(cfg, state.step, dev),
                             state.mesh)
     total.backward()
-    state.tx.reduce_grads()
-    grad_norm = global_norm(state.tx.grads())
+    grad_norm = state.tx.grad_norm()
     state.tx.step()
     state.step += 1
     parts = torch.stack([total.detach(), losses.cls.detach(),
