@@ -441,11 +441,35 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             tokens/s, collective calls, MB and ms a score call and a
             token, peak GB, in f32 and (where gloo carries a bf16
             all_reduce of a CUDA tensor) bf16.
+36. legacy  the legacy modules at the JAX modules' default widths (no
+            Pallas kernel lies inside them), each held to the same call
+            on the CPU on the same weights and the first 2 inputs
+            (LEGACY_TOL: max |card - CPU| over max |CPU|, 1e-4 in f32,
+            5e-2 in bf16): the CLIP text tower (ViT-B/32's: 12 x 512, 8
+            heads, 77 positions, 49,408 tokens) on 80 seeded prompts and
+            the vision tower (12 x 768, 224 px, patch 32) at B = 8, f32
+            and bf16; PseudoTextBackbone on the tower's embeddings;
+            YOLOWorldPAFPN (channels 256/512/1024, embed 128/256/512,
+            heads 4/8/16, 3 CSP blocks; dual off and on), YOLOv8PAFPN and
+            YOLOv5PAFPN on a seeded 640 pyramid (80, 40, 20) at B = 8,
+            the guide the text tower's (8, 80, 512) embeddings, BN
+            statistics from the inputs; YOLOv5HeadModule at K = 80 on
+            the YOLOv5 neck (obj bias shifted so that 15,000 (anchor,
+            class) scores of image 0 pass score_thr), yolov5_decode
+            (25,200 anchors an image) and batched_static_nms at the
+            detect path's TestCfg, K1's launches counted around it, its
+            slots bitwise the CPU's on the same decode; one yolov5_loss
+            forward and backward at B = 8, 20 boxes an image (each term
+            and the gradients of the predictions); RepVGGBlock at 256
+            channels, 80 x 80, stride 1 and 2, and its repvgg_fuse
+            deploy form against the train form. ms a call (device time)
+            of each, with the nvidia-smi line.
 
 Then the kernels line (each K2 and K3 entry with its launches a video
 prefill and its times at the video shape, each backward entry with its
 launches a video SFT step, every attention kernel with its launches in
-each rank of a dist_ref step, K1 with its launches in dist_det's ranks,
+each rank of a dist_ref step, K1 with its launches in dist_det's ranks
+and in the legacy phase,
 and the f32 and bf16 K2 and K3 entries with their launches in each
 tp_serve rank and their times at a rank's shapes), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Without a CUDA card, or without the rest
@@ -455,6 +479,7 @@ of the repository beside it, the script fails before printing a result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -7202,6 +7227,286 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
     return res
 
 
+# ------------------------------------------------------------- legacy
+# card against the same call on the CPU (same weights, the first
+# LEGACY_CPU_BATCH inputs): max |card - CPU| over max |CPU|, by type
+LEGACY_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+LEGACY_CPU_BATCH = 2
+LEGACY_PROMPTS = 80
+LEGACY_BOXES = 20          # ground truths an image in the yolov5_loss step
+LEGACY_CANDIDATES = 15000  # (anchor, class) scores above score_thr, image 0
+
+
+def rel_max(got, want) -> float:
+    """rel_max_err over a tensor or a sequence of them, on the CPU."""
+    if not isinstance(got, (tuple, list)):
+        got, want = [got], [want]
+    return max(rel_max_err(g.detach().cpu(), w.detach().cpu())
+               for g, w in zip(got, want))
+
+
+def legacy_module(make, seed: int, *inputs):
+    """make() on the CPU under torch.manual_seed(seed) (torch's default
+    init), its BN running statistics those of `inputs` (one train-mode
+    pass at momentum 1, so activations stay O(1) through depth), BN
+    scales and shifts then drawn around 1 and 0; eval mode."""
+    torch.manual_seed(seed)
+    module = make()
+    bns = [m for m in module.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    keep = [m.momentum for m in bns]
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in bns:
+            m.momentum = 1.0
+        module.train()(*inputs)
+        for m, mom in zip(bns, keep):
+            m.momentum = mom
+            m.weight.normal_(1.0, 0.2, generator=g)
+            m.bias.normal_(0.0, 0.2, generator=g)
+    return module.eval()
+
+
+def clip_prompts(cfg, n: int, seed: int = 3):
+    """n seeded CLIP prompts at max_positions: BOS, random tokens, EOS at a
+    random length, 0 after; the attention mask up to the EOS."""
+    g = torch.Generator().manual_seed(seed)
+    length = cfg.max_positions
+    ids = torch.randint(1, cfg.eos_token_id - 1, (n, length), generator=g)
+    eos = torch.randint(2, length, (n,), generator=g)
+    pos = torch.arange(length)[None]
+    ids[:, 0] = cfg.eos_token_id - 1
+    ids = torch.where(pos == eos[:, None], cfg.eos_token_id, ids)
+    ids = torch.where(pos > eos[:, None], 0, ids)
+    return ids, (pos <= eos[:, None]).long()
+
+
+def v5_obj_shift(raw, thr: float, target: int) -> float:
+    """The obj-logit shift s at which about `target` (anchor, class)
+    scores sigmoid(obj + s) * sigmoid(cls) of image 0 exceed thr
+    (bisection; raw: per-level (B, A, 5+K, H, W) on the CPU)."""
+    obj = torch.cat([p[0, :, 4].reshape(-1) for p in raw]).double()
+    cls = torch.cat([p[0, :, 5:].transpose(0, 1).reshape(p.shape[2] - 5, -1)
+                     for p in raw], 1).double().sigmoid()
+    lo, hi = -30.0, 30.0
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        n = int((torch.sigmoid(obj + mid)[None] * cls > thr).sum())
+        lo, hi = (mid, hi) if n < target else (lo, mid)
+    return (lo + hi) / 2
+
+
+def card_copy(module, dev):
+    """A copy of a CPU module on the card (the CPU one stays)."""
+    return copy.deepcopy(module).to(dev)
+
+
+def phase_legacy(dev, timing: bool = True, text_cfg=None, vision_cfg=None,
+                 widths=(256, 512, 1024), img: int = 640,
+                 batch: int = BATCH, n_prompts: int = LEGACY_PROMPTS,
+                 rep=(256, 80)):
+    """The legacy modules (no Pallas kernel lies inside them) at the JAX
+    modules' default widths, each held to the same call on the CPU."""
+    from wedetect_tpu_torch.configs import TestCfg
+    from wedetect_tpu_torch.nn import clip
+    from wedetect_tpu_torch.nn import yolo_world_pafpn as ywp
+    from wedetect_tpu_torch.nn.layers import RepVGGBlock, repvgg_fuse
+    from wedetect_tpu_torch.nn.pseudo_text import PseudoTextBackbone
+    from wedetect_tpu_torch.nn.yolov5_head import YOLOv5HeadModule
+    from wedetect_tpu_torch.ops import nms
+    from wedetect_tpu_torch.ops.row_topk import row_topk
+    from wedetect_tpu_torch.ops.yolov5 import yolov5_decode
+    from wedetect_tpu_torch.train.yolov5_loss import yolov5_loss
+
+    nb = LEGACY_CPU_BATCH
+    errors, ms, device_ms = {}, {}, {}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def check(name, got, want, dtype="float32"):
+        errors[name] = e = rel_max(got, want)
+        assert e <= LEGACY_TOL[dtype], (name, e, LEGACY_TOL[dtype])
+
+    def timed(name, fn, graph=True):
+        """ms a call with the host (cuda_ms) and, where the call can be
+        captured (no host sync or pageable copy), its device time alone
+        (graph_ms)."""
+        ms[name] = cuda_ms(fn, 5) if timing else None
+        if timing and graph:
+            device_ms[name] = graph_ms(fn, iters=10, replays=3)
+
+    # CLIP: the text tower (ViT-B/32's, 12 x 512) on 80 prompts, the
+    # vision tower (12 x 768, 224 px, patch 32) at B = batch, f32 and bf16
+    tc = text_cfg or clip.ClipTextCfg()
+    vc = vision_cfg or clip.ClipVisionCfg()
+    ids, mask = clip_prompts(tc, n_prompts)
+    ids_d, mask_d = ids.to(dev), mask.to(dev)
+    images = torch.randn(batch, 3, vc.image_size, vc.image_size,
+                         generator=torch.Generator().manual_seed(4))
+    images_d = images.to(dev)
+    torch.manual_seed(5)
+    text_sd = clip.ClipTextTower(tc).state_dict()
+    torch.manual_seed(6)
+    vision_sd = clip.ClipVisionTower(vc).state_dict()
+    for dt, name in ((f32, "float32"), (bf16, "bfloat16")):
+        text, vision = clip.ClipTextTower(tc, dt), clip.ClipVisionTower(vc, dt)
+        text.load_state_dict(text_sd)
+        vision.load_state_dict(vision_sd)
+        text_d = clip.ClipTextTower(tc, dt).to(dev).eval()
+        text_d.load_state_dict(text_sd)
+        vision_d = clip.ClipVisionTower(vc, dt).to(dev).eval()
+        vision_d.load_state_dict(vision_sd)
+        with torch.inference_mode():
+            emb = text_d(ids_d, mask_d)
+            cls_tok = vision_d(images_d)
+            assert emb.shape == (n_prompts, tc.projection_dim)
+            assert cls_tok.shape == (batch, vc.hidden)
+            assert torch.isfinite(emb).all() and torch.isfinite(cls_tok).all()
+            check(f"clip_text_{name}", emb[:nb],
+                  text.eval()(ids[:nb], mask[:nb]), name)
+            check(f"clip_vision_{name}", cls_tok[:nb],
+                  vision.eval()(images[:nb]), name)
+            timed(f"clip_text_{name}", lambda: text_d(ids_d, mask_d))
+            timed(f"clip_vision_{name}", lambda: vision_d(images_d))
+        if dt == f32:
+            text_embeds = emb
+        del text, vision, text_d, vision_d
+    # the pseudo-text backbone on the tower's embeddings
+    table = {f"class_{i}": e for i, e in enumerate(text_embeds.cpu().numpy())}
+    pseudo = PseudoTextBackbone(table=table, device=dev)(list(table))
+    assert pseudo.device.type == dev.type
+    check("pseudo_text", pseudo, text_embeds.cpu())
+
+    # the necks on a 640 pyramid (80, 40, 20) at B = batch, the guide the
+    # text tower's (batch, 80, 512) embeddings
+    g = torch.Generator().manual_seed(7)
+    sides = (img // 8, img // 16, img // 32)
+    feats = [torch.randn(batch, c, s, s, generator=g)
+             for c, s in zip(widths, sides)]
+    feats_d = [f.to(dev) for f in feats]
+    guide_d = text_embeds[None].expand(batch, -1, -1).contiguous()
+    guide = guide_d[:nb].cpu()
+    cpu_in = [f[:nb] for f in feats]
+    world_kw = dict(out_channels=widths, guide_channels=tc.projection_dim,
+                    embed_channels=tuple(w // 2 for w in widths),
+                    num_heads=tuple(w // 64 for w in widths))
+    necks = {
+        "yolo_world": (lambda: ywp.YOLOWorldPAFPN(**world_kw), True),
+        "yolo_world_dual": (lambda: ywp.YOLOWorldPAFPN(dual=True,
+                                                       **world_kw), True),
+        "yolov8_pafpn": (lambda: ywp.YOLOv8PAFPN(out_channels=widths), False),
+        "yolov5_pafpn": (lambda: ywp.YOLOv5PAFPN(widths), False)}
+    for i, (name, (make, guided)) in enumerate(necks.items()):
+        args = (cpu_in, guide) if guided else (cpu_in,)
+        cpu = legacy_module(make, 10 + i, *args)
+        card = card_copy(cpu, dev)
+        args_d = (feats_d, guide_d) if guided else (feats_d,)
+        with torch.inference_mode():
+            outs = card(*args_d)
+            assert [tuple(o.shape) for o in outs] == [
+                (batch, c, s, s) for c, s in zip(widths, sides)]
+            check(name, [o[:nb] for o in outs], cpu(*args))
+            timed(name, lambda: card(*args_d))
+        if name == "yolov5_pafpn":
+            v5_out_d, v5_out = outs, cpu(*args)
+        del cpu, card
+
+    # the YOLOv5 head at K = 80 on the YOLOv5 neck, its decode (25,200
+    # anchors an image at 640) and the detect path's NMS, K1 counted
+    k = 80
+    test = TestCfg()
+    torch.manual_seed(20)
+    head = YOLOv5HeadModule(k, widths).eval()
+    with torch.no_grad():
+        shift = v5_obj_shift(head(v5_out), test.score_thr,
+                             LEGACY_CANDIDATES)
+        for conv in head.convs_pred:
+            conv.bias.view(3, 5 + k)[:, 4] += shift
+    head_d = card_copy(head, dev)
+    with torch.inference_mode():
+        raw_d = head_d(v5_out_d)
+        check("yolov5_head", [r[:nb] for r in raw_d], head(v5_out))
+        boxes_d, scores_d = yolov5_decode(raw_d)
+        n_anchors = boxes_d.shape[1]
+        assert n_anchors == 3 * sum(s * s for s in sides), n_anchors
+        check("yolov5_decode", [boxes_d[:nb], scores_d[:nb]],
+              yolov5_decode([r[:nb].cpu() for r in raw_d]))
+        nms_kw = dict(score_thr=test.score_thr, nms_pre=test.nms_pre,
+                      iou_thr=test.nms_iou_thr, max_out=test.max_per_img,
+                      multi_label=test.multi_label)
+        row_topk.launches = 0
+        dets = nms.batched_static_nms(scores_d, boxes_d, **nms_kw)
+        torch.cuda.synchronize()
+        k1 = row_topk.launches
+        dets_cpu = nms.batched_static_nms(scores_d[:nb].cpu(),
+                                          boxes_d[:nb].cpu(), **nms_kw)
+        nms_match = all(bitwise_equal(a[:nb].cpu(), b)
+                        for a, b in zip(dets, dets_cpu))
+        assert nms_match, "yolov5 NMS: card != CPU on the same decode"
+        n_cand = int((scores_d > test.score_thr).sum(dim=(1, 2))[0])
+        n_det = int(dets.valid.sum())
+        assert n_det > 0 and torch.isfinite(dets.boxes).all()
+        timed("yolov5_head", lambda: head_d(v5_out_d))
+        timed("yolov5_decode", lambda: yolov5_decode(raw_d), graph=False)
+        timed("yolov5_nms", lambda: nms.batched_static_nms(
+            scores_d, boxes_d, **nms_kw), graph=False)
+
+    # one yolov5_loss forward and backward at B = batch, 20 boxes an
+    # image, card against the CPU on the same predictions
+    g = torch.Generator().manual_seed(21)
+    ctr = torch.rand(batch, LEGACY_BOXES, 2, generator=g) * img
+    wh = 8 + torch.rand(batch, LEGACY_BOXES, 2, generator=g) * (img / 2 - 8)
+    gt = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).clamp(0, img)
+    labels = torch.randint(0, k, (batch, LEGACY_BOXES), generator=g)
+    gmask = torch.ones(batch, LEGACY_BOXES, dtype=torch.bool)
+
+    def loss_step(preds, d):
+        ps = [p.detach().clone().requires_grad_() for p in preds]
+        out = yolov5_loss(ps, gt.to(d), labels.to(d), gmask.to(d),
+                          (img, img), loss_scale=float(batch))
+        out.total.backward()
+        return out, [p.grad for p in ps]
+
+    loss_d, grads_d = loss_step(raw_d, dev)
+    loss_c, grads_c = loss_step([r.cpu() for r in raw_d], "cpu")
+    for name in ("total", "cls", "obj", "bbox", "num_pos"):
+        check(f"yolov5_loss_{name}", getattr(loss_d, name),
+              getattr(loss_c, name))
+    check("yolov5_loss_grad", grads_d, grads_c)
+    assert float(loss_d.num_pos) > 0 and torch.isfinite(loss_d.total)
+    timed("yolov5_loss_fwd_bwd", lambda: loss_step(raw_d, dev), graph=False)
+    del raw_d, boxes_d, scores_d, dets, grads_d, v5_out_d
+
+    # RepVGGBlock at 256 channels, 80 x 80, stride 1 and 2: train form
+    # card vs CPU, and the fused deploy form against the train form
+    ch, side = rep
+    x = torch.randn(batch, ch, side, side,
+                    generator=torch.Generator().manual_seed(22))
+    x_d = x.to(dev)
+    for stride in (1, 2):
+        blk = legacy_module(lambda: RepVGGBlock(ch, ch, stride), 30 + stride,
+                            x[:nb])
+        blk_d = card_copy(blk, dev)
+        fused_d = RepVGGBlock(ch, ch, stride, deploy=True).to(dev)
+        fused_d.load_state_dict(repvgg_fuse(blk_d))
+        with torch.inference_mode():
+            y = blk_d(x_d)
+            assert y.shape == (batch, ch, side // stride, side // stride)
+            check(f"repvgg_s{stride}", y[:nb], blk(x[:nb]))
+            check(f"repvgg_s{stride}_fused", fused_d(x_d), y)
+            timed(f"repvgg_s{stride}", lambda: blk_d(x_d))
+            timed(f"repvgg_s{stride}_fused", lambda: fused_d(x_d))
+    res = {"row_topk_launches": k1, "ms": ms, "device_ms": device_ms,
+           "errors": errors,
+           "tolerance": LEGACY_TOL, "cpu_batch": nb, "batch": batch,
+           "anchors_per_image": n_anchors, "obj_shift": shift,
+           "candidates_image0": n_cand, "detections": n_det,
+           "nms_card_equals_cpu": nms_match,
+           "loss": {n: float(getattr(loss_d, n).detach())
+                    for n in loss_d._fields}}
+    emit({"phase": "legacy", "nvidia_smi": nvidia_smi(), **res})
+    return res
+
+
 ENTRY_ERRORS = {"simt": ("max_abs_err_f32_simt", "max_abs_err_bf16_simt"),
                 "f32": ("max_abs_err_f32", None),
                 "sm90": ("max_abs_err_bf16", "max_abs_err_bf16")}
@@ -7312,6 +7617,7 @@ def main() -> int:
     dist_ref = phase_dist_ref(dev, image, proposals)
     phase_dist_nccl(dev, image, proposals)
     tp = phase_tp_serve(dev, image, proposals)
+    legacy = phase_legacy(dev)
     # K2's and K3's launches a fused REC step and a multi-image call
     # (prefix sharing), by type: f32 on the FFMA kernels, bf16 on wgmma,
     # the SIMT kernels none (their nonzero counts)
@@ -7366,6 +7672,9 @@ def main() -> int:
          "launches_detect_files": files["row_topk_launches"],
          "launches_fold": fold["row_topk_launches"],
          "launches_odinw": odinw["row_topk_launches"],
+         # the YOLOv5 head's decode through batched_static_nms at K = 80,
+         # B = 8 (legacy): A*K = 2,016,000 < 2^21, so the sort path
+         "launches_legacy": legacy["row_topk_launches"],
          "max_abs_err": k1["max_abs_err"], "max_abs_err_bf16": None,
          "tolerance": 0.0, "match": True,
          # ms / library_ms on k1_inputs (dense rows); path_ms on the

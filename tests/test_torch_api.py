@@ -250,6 +250,35 @@ def test_deploy_slice_modules_scanned():
         "wedetect_tpu/native/image_pipeline.cc", "")
 
 
+# the legacy modules: RepVGG and the legacy necks, the YOLOv5 family,
+# the CLIP towers and the pseudo-text backbone
+LEGACY_SLICE = ("nn/layers.py", "nn/yolo_world_pafpn.py", "nn/yolov5_head.py",
+                "ops/yolov5.py", "train/yolov5_loss.py", "nn/clip.py",
+                "nn/pseudo_text.py", "nn/__init__.py", "train/__init__.py",
+                "ckpt/convert.py")
+
+
+def test_legacy_slice_modules_scanned():
+    sources = _port_sources()
+    for rel in LEGACY_SLICE:
+        assert PKG / rel in sources, rel
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each file of the JAX package's nn/, ops/ and train/ has its
+    counterpart in the port; K1's Pallas file is ported as
+    ops/row_topk.py."""
+    jax_pkg = ROOT / "wedetect_tpu"
+    renamed = {"ops/pallas_topk.py": "ops/row_topk.py"}
+    missing = []
+    for sub in ("nn", "ops", "train"):
+        for f in sorted((jax_pkg / sub).glob("*.py")):
+            rel = f"{sub}/{f.name}"
+            if not (PKG / renamed.get(rel, rel)).is_file():
+                missing.append(rel)
+    assert not missing, missing
+
+
 def test_port_imports_with_jax_blocked():
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)

@@ -2513,3 +2513,181 @@ def test_zero3_unit_gather_on_card_matches_cpu(cuda, tmp_path):
         assert res["gathers"] == {"unit": [1, 1]}
         assert res["shapes"] == [[128, 64], [128], [64, 128], [32]]
         assert res["err"] <= 1e-5, res
+
+
+# ------------------------------------------------ the legacy modules
+def _legacy_rel(got, want):
+    """max |got - want| over max |want|, over a tensor or a sequence."""
+    if not isinstance(got, (tuple, list)):
+        got, want = [got], [want]
+    return max(float((g.detach().float().cpu() - w.detach().float().cpu())
+                     .abs().max() / w.detach().float().cpu().abs().max())
+               for g, w in zip(got, want))
+
+
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def _legacy_neck(name):
+    from wedetect_tpu_torch.nn import yolo_world_pafpn as ywp
+
+    w = (64, 128, 256)
+    kw = dict(out_channels=w, guide_channels=32, embed_channels=(32, 64, 128),
+              num_heads=(1, 2, 4), num_csp_blocks=2)
+    return {"yolo_world": lambda: ywp.YOLOWorldPAFPN(**kw),
+            "yolo_world_dual": lambda: ywp.YOLOWorldPAFPN(dual=True, **kw),
+            "yolov8_pafpn": lambda: ywp.YOLOv8PAFPN(out_channels=w),
+            "yolov5_pafpn": lambda: ywp.YOLOv5PAFPN(w)}[name]()
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("name", ["yolo_world", "yolo_world_dual",
+                                  "yolov8_pafpn", "yolov5_pafpn"])
+def test_legacy_necks_card_match_cpu(cuda, monkeypatch, name, train):
+    """The legacy necks on the card against the same weights on the CPU
+    (f32, TF32 off): outputs within 1e-4 of their largest entry, and in
+    train mode the BN running statistics after one update within 1e-5."""
+    import copy
+
+    _no_tf32(monkeypatch)
+    torch.manual_seed(0)
+    cpu = _legacy_neck(name).train(train)
+    card = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    feats = [torch.randn(2, c, s, s, generator=g)
+             for c, s in ((64, 16), (128, 8), (256, 4))]
+    args = [feats] + ([torch.randn(2, 5, 32, generator=g)]
+                      if name.startswith("yolo_world") else [])
+    with torch.no_grad():
+        want = cpu(*args)
+        got = card(*[[f.to(cuda) for f in a] if isinstance(a, list)
+                     else a.to(cuda) for a in args])
+    assert _legacy_rel(got, want) <= 1e-4
+    if train:
+        sd = card.state_dict()
+        for k, v in cpu.state_dict().items():
+            if k.endswith(("running_mean", "running_var")):
+                assert _legacy_rel(sd[k], v) <= 1e-5, k
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_repvgg_card_matches_cpu_and_fused(cuda, monkeypatch, stride):
+    """RepVGGBlock on the card against the CPU (1e-4 of the largest
+    entry, f32), and its repvgg_fuse deploy form against the train form
+    on the card."""
+    import copy
+
+    from wedetect_tpu_torch.nn.layers import RepVGGBlock, repvgg_fuse
+
+    _no_tf32(monkeypatch)
+    torch.manual_seed(2)
+    cpu = RepVGGBlock(32, 32, stride)
+    g = torch.Generator().manual_seed(3)
+    for m in cpu.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.normal_(0, 0.2, generator=g)
+            m.running_var.uniform_(0.5, 1.5, generator=g)
+    cpu.eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(2, 32, 16, 16, generator=g)
+    fused = RepVGGBlock(32, 32, stride, deploy=True).to(cuda)
+    fused.load_state_dict(repvgg_fuse(card))
+    with torch.no_grad():
+        y = card(x.to(cuda))
+        assert _legacy_rel(y, cpu(x)) <= 1e-4
+        assert _legacy_rel(fused(x.to(cuda)), y) <= 1e-4
+
+
+def test_yolov5_head_decode_nms_loss_card_match_cpu(cuda, monkeypatch):
+    """YOLOv5HeadModule -> yolov5_decode -> batched_static_nms on the
+    card against the CPU (head and decode within 1e-4 of the largest
+    entry; NMS slots bitwise on the same decode), and yolov5_loss's terms
+    and gradients (1e-4 of the largest entry)."""
+    import copy
+
+    from wedetect_tpu_torch.nn.yolov5_head import YOLOv5HeadModule
+    from wedetect_tpu_torch.ops.nms import batched_static_nms
+    from wedetect_tpu_torch.ops.yolov5 import yolov5_decode
+    from wedetect_tpu_torch.train.yolov5_loss import yolov5_loss
+
+    _no_tf32(monkeypatch)
+    torch.manual_seed(4)
+    head = YOLOv5HeadModule(5, (16, 32, 64)).eval()
+    with torch.no_grad():
+        for conv in head.convs_pred:
+            conv.bias.view(3, 10)[:, 4] += 4.0
+    card = copy.deepcopy(head).to(cuda)
+    g = torch.Generator().manual_seed(5)
+    feats = [torch.randn(2, c, s, s, generator=g)
+             for c, s in ((16, 16), (32, 8), (64, 4))]
+    with torch.no_grad():
+        raw = card([f.to(cuda) for f in feats])
+        assert _legacy_rel(raw, head(feats)) <= 1e-4
+        boxes, scores = yolov5_decode(raw)
+        assert _legacy_rel([boxes, scores],
+                           yolov5_decode([r.cpu() for r in raw])) <= 1e-4
+        got = batched_static_nms(scores, boxes, 0.001, 30000, 0.7, 100)
+        want = batched_static_nms(scores.cpu(), boxes.cpu(), 0.001, 30000,
+                                  0.7, 100)
+    assert int(got.valid.sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    gt = torch.tensor([[[10., 12., 60., 70.], [64., 30., 120., 90.]]] * 2)
+    labels = torch.tensor([[1, 3], [0, 4]])
+    mask = torch.tensor([[True, True], [True, False]])
+
+    def step(preds, dev):
+        ps = [p.detach().clone().to(dev).requires_grad_() for p in preds]
+        out = yolov5_loss(ps, gt.to(dev), labels.to(dev), mask.to(dev),
+                          (128, 128))
+        out.total.backward()
+        return out, [p.grad for p in ps]
+
+    (lc, gc), (ld, gd) = step(raw, "cpu"), step(raw, cuda)
+    for a, b in zip(ld, lc):
+        assert _legacy_rel(a, b) <= 1e-4
+    assert _legacy_rel(gd, gc) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_clip_towers_card_match_cpu(cuda, monkeypatch, dtype, tol):
+    """The CLIP towers (4 layers, narrow) on the card against the same
+    weights and call on the CPU: max error over the largest entry, 1e-4
+    in f32 (TF32 off) and 5e-2 in bf16."""
+    from wedetect_tpu_torch.nn import clip
+
+    _no_tf32(monkeypatch)
+    tc = clip.ClipTextCfg(vocab_size=1000, hidden=128, layers=4, heads=4,
+                          intermediate=256, projection_dim=64,
+                          eos_token_id=999)
+    vc = clip.ClipVisionCfg(hidden=128, layers=4, heads=4, intermediate=256,
+                            image_size=64, patch=16)
+    torch.manual_seed(6)
+    text, vision = clip.ClipTextTower(tc, dtype), clip.ClipVisionTower(vc,
+                                                                       dtype)
+    text_d = clip.ClipTextTower(tc, dtype).to(cuda)
+    text_d.load_state_dict(text.state_dict())
+    vision_d = clip.ClipVisionTower(vc, dtype).to(cuda)
+    vision_d.load_state_dict(vision.state_dict())
+    g = torch.Generator().manual_seed(7)
+    ids = torch.randint(1, 998, (3, 77), generator=g)
+    ids[:, 20] = 999
+    mask = (torch.arange(77)[None] <= 20).long().expand(3, -1)
+    img = torch.randn(2, 3, 64, 64, generator=g)
+    with torch.no_grad():
+        assert _legacy_rel(text_d(ids.to(cuda), mask.to(cuda)),
+                           text(ids, mask)) <= tol
+        assert _legacy_rel(vision_d(img.to(cuda)), vision(img)) <= tol
+
+
+def test_pseudo_text_backbone_on_card(cuda):
+    from wedetect_tpu_torch.nn.pseudo_text import PseudoTextBackbone
+
+    out = PseudoTextBackbone(table={"a": [3.0, 4.0], "b": [0.0, 2.0]})(
+        ["b", "a"])
+    assert out.is_cuda
+    torch.testing.assert_close(out.cpu(), torch.tensor([[0.0, 1.0],
+                                                        [0.6, 0.8]]))

@@ -9,7 +9,9 @@ text generation and continuous-batching serving (`models/ref_generate`,
 `models/serve`, `models/serve_http`), its grounding evaluation
 (`cli/eval_grounding`: cross-image and multi-image scoring), and
 multi-process training over a ("data", "fsdp") layout of ranks
-(`parallel/`). The TPU kernels on these paths
+(`parallel/`), and the legacy modules no preset builds (RepVGG, the
+YOLO-World / YOLOv5 / YOLOv8 necks, the YOLOv5 head with its decode and
+loss, the CLIP towers). The TPU kernels on these paths
 are CUDA C++ kernels under `csrc/`, built with nvcc at first use: the
 per-anchor row top-k (detection), the two flash attention forwards
 (the Qwen3-VL decoder's grouped-KV one and the ViT's) and their

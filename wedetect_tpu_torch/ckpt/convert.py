@@ -8,7 +8,13 @@ and `load_state_dict(strict=True)`.
 `from_jax_variables` goes the other way from the JAX package: flax
 `variables` (as numpy) -> a port state dict, the exact inverse of
 `wedetect_tpu.ckpt.convert.convert_detector`; `from_jax_text_params`
-inverts `wedetect_tpu.nn.xlmr.convert_hf_text_tower`. Layouts:
+inverts `wedetect_tpu.nn.xlmr.convert_hf_text_tower`;
+`from_jax_module` carries one legacy module across (RepVGGBlock, the
+YOLO-World / YOLOv5 / YOLOv8 necks and bricks, the YOLOv5 head: the
+inverses of `convert_yolo_world_pafpn`, `convert_yolov5_pafpn`, ...),
+and `from_jax_clip_text` / `from_jax_clip_vision` the CLIP towers (the
+inverses of `wedetect_tpu.nn.clip.convert_clip_text` / `_vision`).
+Layouts:
     conv HWIO -> OIHW (depthwise (kh, kw, 1, C) -> (C, 1, kh, kw))
     linear (in, out) -> (out, in)
     conv-transpose (in, out, 2, 2) unchanged
@@ -179,6 +185,132 @@ class _Writer:
         self.put(p + "upsample.upsample_transpose.weight", self.t(up["kernel"]))
         self.put(p + "upsample.upsample_transpose.bias", self.t(up["bias"]))
 
+    # ---- the legacy bricks (nn/layers.RepVGGBlock, nn/yolo_world_pafpn,
+    # nn/yolov5_head): mmcv ConvModule keys `<p>conv.*` / `<p>bn.*`, no
+    # `block.`; each writer takes (prefix, params, batch_stats, ...)
+    def convmodule(self, p: str, params, stats):
+        self.conv(p + "conv.", params["conv"])
+        self.bn(p + "bn.", params["bn"], stats["bn"])
+
+    def repvgg(self, p: str, params, stats):
+        """RepVGGBlock: the train form's branches, or the deploy conv."""
+        if "reparam" in params:
+            self.conv(p + "reparam.", params["reparam"])
+            return
+        for c in ("rbr_dense", "rbr_1x1"):
+            self.convmodule(f"{p}{c}.", params[c], stats[c])
+        if "rbr_identity" in params:
+            self.bn(p + "rbr_identity.", params["rbr_identity"],
+                    stats["rbr_identity"])
+
+    def darknet_bottleneck(self, p: str, params, stats):
+        for c in ("conv1", "conv2"):
+            self.convmodule(f"{p}{c}.", params[c], stats[c])
+
+    def csp2(self, p: str, params, stats, n: int):
+        """CSPLayerWithTwoConv (JAX `block{i}` -> `blocks.{i}`)."""
+        for c in ("main_conv", "final_conv"):
+            self.convmodule(f"{p}{c}.", params[c], stats[c])
+        for i in range(n):
+            self.darknet_bottleneck(f"{p}blocks.{i}.", params[f"block{i}"],
+                                    stats[f"block{i}"])
+
+    def max_sigmoid_attn(self, p: str, params, stats):
+        self.dense(p + "guide_fc.", params["guide_fc"])
+        self.put(p + "bias", self.t(params["bias"]))
+        if "scale" in params:
+            self.put(p + "scale", self.t(params["scale"]))
+        if "embed_conv" in params:
+            self.convmodule(p + "embed_conv.", params["embed_conv"],
+                            stats["embed_conv"])
+        self.convmodule(p + "project_conv.", params["project_conv"],
+                        stats["project_conv"])
+
+    def max_csp(self, p: str, params, stats, n: int):
+        """MaxSigmoidCSPLayerWithTwoConv: csp2 + the attention branch."""
+        self.csp2(p, params, stats, n)
+        self.max_sigmoid_attn(p + "attn_block.", params["attn_block"],
+                              stats["attn_block"])
+
+    def efficient_csp(self, p: str, params, stats, n: int):
+        """EfficientCSPLayerWithTwoConv: csp2 + VanillaSigmoidBlock."""
+        self.csp2(p, params, stats, n)
+        self.convmodule(p + "attn_block.project_conv.",
+                        params["attn_block"]["project_conv"],
+                        stats["attn_block"]["project_conv"])
+
+    def image_pool_attn(self, p: str, params, stats=None,
+                        num_feats: int = 3):
+        """ImagePoolingAttentionModule (no batch_stats)."""
+        for i in range(num_feats):
+            self.conv(f"{p}projections.{i}.conv.",
+                      params[f"projection{i}"]["conv"])
+        for name in ("query", "key", "value"):
+            self.ln(f"{p}{name}.0.", params[f"{name}_ln"])
+            self.dense(f"{p}{name}.1.", params[f"{name}_fc"])
+        self.dense(p + "proj.", params["proj"])
+        if "scale" in params:
+            self.put(p + "scale", self.t(params["scale"]))
+
+    def yolo_world_pafpn(self, p: str, params, stats, n_blocks: int,
+                         num_levels: int = 3, dual: bool = False):
+        for i in range(num_levels - 1):
+            for ours, theirs in (("top_down", "top_down_layers"),
+                                 ("bottom_up", "bottom_up_layers")):
+                self.max_csp(f"{p}{theirs}.{i}.", params[f"{ours}{i}"],
+                             stats[f"{ours}{i}"], n_blocks)
+            self.convmodule(f"{p}downsample_layers.{i}.",
+                            params[f"downsample{i}"],
+                            stats[f"downsample{i}"])
+        if dual:
+            self.image_pool_attn(p + "text_enhancer.",
+                                 params["text_enhancer"],
+                                 num_feats=num_levels)
+
+    def mmdet_csp(self, p: str, params, stats, n: int):
+        """CSPLayer (C3; JAX `block{i}_conv{j}` -> `blocks.{i}.conv{j}`)."""
+        for c in ("main_conv", "short_conv", "final_conv"):
+            self.convmodule(f"{p}{c}.", params[c], stats[c])
+        for i in range(n):
+            for c in ("conv1", "conv2"):
+                key = f"block{i}_{c}"
+                self.convmodule(f"{p}blocks.{i}.{c}.", params[key],
+                                stats[key])
+
+    def yolov5_pafpn(self, p: str, params, stats, n_blocks: int):
+        self.convmodule(p + "reduce_layers.2.", params["reduce2"],
+                        stats["reduce2"])
+        self.mmdet_csp(p + "top_down_layers.0.0.", params["top_down0"],
+                       stats["top_down0"], n_blocks)
+        self.convmodule(p + "top_down_layers.0.1.",
+                        params["top_down0_reduce"],
+                        stats["top_down0_reduce"])
+        self.mmdet_csp(p + "top_down_layers.1.", params["top_down1"],
+                       stats["top_down1"], n_blocks)
+        for i in range(2):
+            self.convmodule(f"{p}downsample_layers.{i}.",
+                            params[f"downsample{i}"],
+                            stats[f"downsample{i}"])
+            self.mmdet_csp(f"{p}bottom_up_layers.{i}.",
+                           params[f"bottom_up{i}"], stats[f"bottom_up{i}"],
+                           n_blocks)
+
+    def yolov8_pafpn(self, p: str, params, stats, n_blocks: int,
+                     num_levels: int = 3):
+        for i in range(num_levels - 1):
+            for ours, theirs in (("top_down", "top_down_layers"),
+                                 ("bottom_up", "bottom_up_layers")):
+                self.csp2(f"{p}{theirs}.{i}.", params[f"{ours}{i}"],
+                          stats[f"{ours}{i}"], n_blocks)
+            self.convmodule(f"{p}downsample_layers.{i}.",
+                            params[f"downsample{i}"],
+                            stats[f"downsample{i}"])
+
+    def yolov5_head(self, p: str, params, stats=None, num_levels: int = 3):
+        """YOLOv5HeadModule: JAX `convs_pred_{i}` -> `convs_pred.{i}`."""
+        for i in range(num_levels):
+            self.conv(f"{p}convs_pred.{i}.", params[f"convs_pred_{i}"])
+
 
 class _PathTree:
     """A stand-in for a flax tree: indexing extends the path, and every
@@ -312,4 +444,60 @@ def from_jax_text_params(params: Mapping, cfg: TextCfg) -> StateDict:
         w.dense(p + "output.dense.", lyr["output"])
         w.ln(p + "output.LayerNorm.", lyr["output_ln"])
     w.dense("head.", params["head"])
+    return w.sd
+
+
+def from_jax_module(kind: str, variables: Mapping, **kw) -> StateDict:
+    """One legacy module's JAX `variables` ({"params"[, "batch_stats"]},
+    numpy) -> its port state dict. `kind` names the writer: "repvgg",
+    "darknet_bottleneck", "csp2", "max_sigmoid_attn", "max_csp",
+    "efficient_csp", "image_pool_attn" (num_feats), "yolo_world_pafpn"
+    (n_blocks, dual), "mmdet_csp" (n), "yolov5_pafpn" (n_blocks),
+    "yolov8_pafpn" (n_blocks), "yolov5_head" (num_levels)."""
+    w = _Writer()
+    getattr(w, kind)("", variables["params"],
+                     variables.get("batch_stats", {}), **kw)
+    return w.sd
+
+
+def _clip_blocks(w: _Writer, params, prefix: str, layers: int) -> None:
+    for i in range(layers):
+        lyr, p = params[f"layer{i}"], f"{prefix}encoder.layers.{i}."
+        w.ln(p + "layer_norm1.", lyr["ln1"])
+        w.ln(p + "layer_norm2.", lyr["ln2"])
+        for ours, theirs in (("q", "q_proj"), ("k", "k_proj"),
+                             ("v", "v_proj"), ("out", "out_proj")):
+            w.dense(f"{p}self_attn.{theirs}.", lyr[ours])
+        w.dense(p + "mlp.fc1.", lyr["fc1"])
+        w.dense(p + "mlp.fc2.", lyr["fc2"])
+
+
+def from_jax_clip_text(params: Mapping, cfg) -> StateDict:
+    """JAX ClipTextTower params (numpy) -> the port's ClipTextTower state
+    dict in HF keys (`text_model.*`, `text_projection.weight`)."""
+    w = _Writer()
+    p = "text_model."
+    _clip_blocks(w, params, p, cfg.layers)
+    w.put(p + "embeddings.token_embedding.weight",
+          _t(params["token_embedding"]["embedding"]))
+    w.put(p + "embeddings.position_embedding.weight",
+          _t(params["position_embedding"]))
+    w.ln(p + "final_layer_norm.", params["final_ln"])
+    w.put("text_projection.weight",
+          _lin(params["text_projection"]["kernel"]))
+    return w.sd
+
+
+def from_jax_clip_vision(params: Mapping, cfg) -> StateDict:
+    """JAX ClipVisionTower params (numpy) -> the port's ClipVisionTower
+    state dict in HF keys (`vision_model.*`)."""
+    w = _Writer()
+    p = "vision_model."
+    _clip_blocks(w, params, p, cfg.layers)
+    w.put(p + "embeddings.patch_embedding.weight",
+          _conv(params["patch_embedding"]["kernel"]))
+    w.put(p + "embeddings.class_embedding", _t(params["class_embedding"]))
+    w.put(p + "embeddings.position_embedding.weight",
+          _t(params["position_embedding"]))
+    w.ln(p + "pre_layrnorm.", params["pre_ln"])
     return w.sd

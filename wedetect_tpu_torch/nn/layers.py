@@ -1,5 +1,5 @@
-"""Basic conv bricks in NCHW: Conv+BN+act, 2x transposed conv,
-BottleRep, RepBlock, BepC3, BiFusion.
+"""Basic conv bricks in NCHW: Conv+BN+act, 1x1 conv with bias, 2x
+transposed conv, BottleRep, RepBlock, BepC3, BiFusion, RepVGGBlock.
 
 Module and parameter names are the reference checkpoint's
 (generate_proposal.py:317-465: ConvBNReLU/ConvBNSiLU wrap a `block`
@@ -11,7 +11,9 @@ reference. BatchNorm eps is 1e-5 in the neck and 1e-3 in the head.
 train mode the running mean and variance move towards the batch's mean
 and *biased* variance, `ra = (1 - momentum) * ra + momentum * batch`
 (flax momentum 1 - `momentum`: torch 0.1 in the neck, 0.03 in the head).
-In eval mode it is torch's.
+In eval mode it is torch's. The legacy necks (`nn/yolo_world_pafpn.py`)
+use mmcv ConvModule's keys (`<name>.conv`, `<name>.bn`, no `block`)
+with eps 1e-3 and torch momentum 0.03.
 
 Every Conv+BN conv is an `ops/int8.QuantConv2d`: int8 under the model's
 int8 mode (`ModelCfg.quant_int8`), as JAX's ConvBN takes `quant`; the
@@ -26,7 +28,7 @@ from torch import nn
 
 from wedetect_tpu_torch.ops.int8 import QuantConv2d
 
-ACTS = {"silu": nn.SiLU, "relu": nn.ReLU}
+ACTS = {"silu": nn.SiLU, "relu": nn.ReLU, None: nn.Identity}
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -95,15 +97,16 @@ class BatchNorm2d(nn.BatchNorm2d):
 
 
 class ConvModule(nn.Module):
-    """Conv2d(bias=False) + BatchNorm2d (torch momentum 0.1) +
-    activation."""
+    """Conv2d(bias=False) + BatchNorm2d + activation (`act=None`: none).
+    BN momentum is torch's (0.1 here; flax's is 1 - it)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, act: str = "silu", bn_eps: float = 1e-5):
+                 stride: int = 1, act: str | None = "silu",
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1):
         super().__init__()
         self.conv = QuantConv2d(in_ch, out_ch, kernel, stride, kernel // 2,
                                 bias=False)
-        self.bn = BatchNorm2d(out_ch, eps=bn_eps)
+        self.bn = BatchNorm2d(out_ch, eps=bn_eps, momentum=bn_momentum)
         self.act = ACTS[act]()
 
     def forward(self, x):
@@ -121,6 +124,19 @@ class ConvBN(nn.Module):
 
     def forward(self, x):
         return self.block(x)
+
+
+class Conv1x1(nn.Module):
+    """Plain conv with bias under `conv` (prediction layers; mmcv
+    ConvModule without norm or activation)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel, 1, kernel // 2,
+                              bias=True)
+
+    def forward(self, x):
+        return self.conv(x)
 
 
 class Transpose2x(nn.Module):
@@ -200,3 +216,59 @@ class BiFusion(nn.Module):
     def forward(self, x0, x1, x2):
         return self.cv3(torch.cat([self.upsample(x0), self.cv1(x1),
                                    self.downsample(self.cv2(x2))], 1))
+
+
+class RepVGGBlock(nn.Module):
+    """3x3 ConvBN + 1x1 ConvBN + identity BN (only when in == out and
+    stride 1), summed, then ReLU (reference yolo_world_pafpn.py:211-334).
+    `deploy=True` is the fused form: one 3x3 conv with bias, `reparam`,
+    whose weights `repvgg_fuse` makes from a trained block. BN eps 1e-5,
+    torch momentum 0.1."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int = 1,
+                 deploy: bool = False):
+        super().__init__()
+        if deploy:
+            self.reparam = nn.Conv2d(in_ch, out_ch, 3, stride, 1, bias=True)
+            return
+        self.rbr_dense = ConvModule(in_ch, out_ch, 3, stride, None)
+        self.rbr_1x1 = ConvModule(in_ch, out_ch, 1, stride, None)
+        if in_ch == out_ch and stride == 1:
+            self.rbr_identity = BatchNorm2d(in_ch)
+
+    def forward(self, x):
+        if hasattr(self, "reparam"):
+            return F.relu(self.reparam(x))
+        y = self.rbr_dense(x) + self.rbr_1x1(x)
+        if hasattr(self, "rbr_identity"):
+            y = y + self.rbr_identity(x)
+        return F.relu(y)
+
+
+def _fold_bn(bn: nn.BatchNorm2d):
+    """BN in eval mode as a per-channel scale and shift."""
+    k = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+    return k, bn.bias - bn.running_mean * k
+
+
+def repvgg_fuse(block: RepVGGBlock) -> dict:
+    """Fold a train-form RepVGGBlock's branches into the deploy 3x3
+    conv: {"reparam.weight" (O, I, 3, 3), "reparam.bias" (O,)}, the
+    state dict of `RepVGGBlock(..., deploy=True)` (the algebra of
+    wedetect_tpu/nn/layers.py:284-307)."""
+    with torch.no_grad():
+        k3, b3 = _fold_bn(block.rbr_dense.bn)
+        k1, b1 = _fold_bn(block.rbr_1x1.bn)
+        weight = (block.rbr_dense.conv.weight * k3[:, None, None, None]
+                  + F.pad(block.rbr_1x1.conv.weight
+                          * k1[:, None, None, None], (1, 1, 1, 1)))
+        bias = b3 + b1
+        if hasattr(block, "rbr_identity"):
+            kid, bid = _fold_bn(block.rbr_identity)
+            cin = weight.shape[1]
+            eye = torch.zeros_like(weight)
+            eye[:, :, 1, 1] = torch.eye(cin, dtype=weight.dtype,
+                                        device=weight.device)
+            weight = weight + eye * kid[:, None, None, None]
+            bias = bias + bid
+    return {"reparam.weight": weight.clone(), "reparam.bias": bias.clone()}
