@@ -6856,9 +6856,126 @@ TP_GEN_TOKENS = 64
 TP_TIMED_TOKENS = 16      # decode tokens counted with every collective
 #                           synchronised (CollectiveStats.timed)
 TP_SERVE_CELL = dict(slots=8, chunk=16, p=384, g=64, n_req=16)
+# "bits": the rank's int8 / int4 decode tree (quantize_decode_params of
+# the rank's model) against the one-process model's
 TP_SERVE_MODES = {"greedy": {},
                   "warped": dict(temperature=0.8, top_k=30, top_p=0.9),
-                  "kv8": dict(kv_bits=8), "piggyback": dict(piggyback=True)}
+                  "kv8": dict(kv_bits=8), "piggyback": dict(piggyback=True),
+                  "int8": dict(bits=8), "int4": dict(bits=4),
+                  "int8_kv8": dict(bits=8, kv_bits=8)}
+# ref_generate_spec (TP_GEN_TOKENS greedy tokens, prompt lookup) per rank
+TP_SPEC_MODES = {"plain": {}, "int8": dict(bits=8)}
+
+
+# the int8 prefill under TP: every int8 product is the one-process one
+# bitwise (tp_int8_ops, at the path's row-parallel shapes), but the
+# mergers' float fc2 sums its row-parallel halves in f32 (parallel/
+# mesh.py) and the f32 kernels pick their tile by head count, either of
+# which can move an int8 code downstream, and random ref_2b weights
+# amplify a moved code (on an H100 as far from one process as int8 is
+# from float). So the served call is held as an approximation of the float
+# call: its distance to one process's float logits within
+# TP_INT8_FLOAT_RATIO x the one-process int8 call's; and the call with
+# that fc2 computed whole and the f32 kernels' tiles pinned to one
+# process's (int8_whole_merger_logits) is held bitwise
+TP_INT8_FLOAT_RATIO = 2.0
+# (rows, K, N) of the row-parallel int8 products of a score call: the
+# ViT's proj and fc2 (1280 tokens), the decoder's o_proj and down_proj
+# (the prefix's 384 rows)
+TP_INT8_OPS = {"vit_proj": (1280, 1024, 1024), "vit_fc2": (1280, 4096, 1024),
+               "o_proj": (384, 2048, 2048), "down_proj": (384, 6144, 2048)}
+
+
+def tp_int8_ops(mesh, dev) -> dict:
+    """ops/int8.quant_linear(group=) on this rank's K slice against the
+    one-process call on the whole operands, at TP_INT8_OPS in f32 and
+    bf16: bitwise (the same seeded operands on every rank)."""
+    from wedetect_tpu_torch.ops.int8 import quant_linear
+    from wedetect_tpu_torch.parallel.collectives import fsdp_slice
+
+    t, n = mesh.tp_index, mesh.shape["tp"]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (name, (m, k, nn_)) in enumerate(TP_INT8_OPS.items()):
+            g = torch.Generator(device=dev).manual_seed(100 + i)
+            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+            w = (torch.randn(nn_, k, generator=g, device=dev)
+                 * k ** -0.5).to(dtype)
+            bias = torch.randn(nn_, generator=g, device=dev).to(dtype)
+            with torch.inference_mode():
+                got = quant_linear(fsdp_slice(x, 1, t, n),
+                                   fsdp_slice(w, 1, t, n), bias, mesh.tp)
+                want = quant_linear(x, w, bias)
+            out[f"{name}_{str(dtype)[6:]}"] = bool(torch.equal(got, want))
+    return out
+
+
+def whole_float_rows(lin, x, group):
+    """parallel/mesh.row_linear with every float row-parallel layer (the
+    mergers' fc2 under the int8 prefill) computed whole: its input and
+    weight gathered exactly (gather_vocab), one product on each rank."""
+    import torch.nn.functional as F
+
+    from wedetect_tpu_torch.parallel import mesh as pm
+
+    if group is None or getattr(lin, "quant", False):
+        return pm.row_linear(lin, x, group)
+    return F.linear(pm.gather_vocab(x.contiguous(), group),
+                    pm.gather_vocab(lin.weight.contiguous(), group),
+                    lin.bias)
+
+
+def int8_whole_merger_logits(scorer, image, proposals, tp: int):
+    """The scorer's logits with the model's float row-parallel layers
+    computed whole (whole_float_rows) and the f32 kernels' tiles those of
+    one process's head counts (a tp-way rank's heads times tp)."""
+    from wedetect_tpu_torch.nn import qwen3vl
+    from wedetect_tpu_torch.ops import flash_attention as fa
+    from wedetect_tpu_torch.ops import flash_gqa as fg
+
+    saved = qwen3vl.row_linear, fa.fwd_f32_tile, fg.fwd_f32_tile
+    k3_tile, k2_tile = saved[1:]
+    qwen3vl.row_linear = whole_float_rows
+    fa.fwd_f32_tile = lambda b, l, h, sms: k3_tile(b, l, h * tp, sms)
+    fg.fwd_f32_tile = lambda b, s, g, kvh, sms: k2_tile(b, s, g, kvh * tp,
+                                                         sms)
+    try:
+        return scorer.logits(image, proposals, REF_QUERIES)
+    finally:
+        qwen3vl.row_linear, fa.fwd_f32_tile, fg.fwd_f32_tile = saved
+
+
+def tp_mode_kw(kw: dict, trees: dict) -> dict:
+    """A TP_SERVE_MODES / TP_SPEC_MODES entry as keyword arguments: its
+    "bits" as the decode tree of that width from `trees`."""
+    kw = dict(kw)
+    bits = kw.pop("bits", None)
+    if bits:
+        kw["decode_params"] = trees[bits]
+    return kw
+
+
+def tree_code_bytes(tree: dict) -> int:
+    """Bytes of a decode tree's quantized leaves (codes and scales of the
+    layers' matmuls and the LM head; not the token table or the norms)."""
+    from wedetect_tpu_torch.models.quant import quantized_bytes
+
+    leaves = [v for layer in tree["text"].values() if isinstance(layer, dict)
+              for v in layer.values() if isinstance(v, dict)]
+    return quantized_bytes({str(i): v for i, v in
+                            enumerate(leaves + [tree["lm_head"]])})
+
+
+def spec_call(cfg, model, b, new_tokens, **kw):
+    """ref_generate_spec of one prompt: (tokens, verify steps)."""
+    from wedetect_tpu_torch.models.ref_speculative import ref_generate_spec
+
+    toks, steps = ref_generate_spec(
+        cfg, b["gh"], b["gw"], model, b["patches"], b["ids"][None],
+        b["mask"][None], b["pos"][:, None], b["vs"],
+        np.array([b["nxt"]], np.int32), b["boxes"], b["ori"], new_tokens,
+        GEN_EOS, GEN_PAD, **kw)
+    return trim(toks[0].cpu().numpy()), int(steps)
 
 
 def tp_shapes(tp: int) -> dict:
@@ -6977,13 +7094,40 @@ def gen_margins(model, b, toks, sampling=None, seed=0):
         return gaps.amin(0).cpu().numpy()
 
 
-def tp_stream_check(model, b, got, want, sampling=None, seed=0) -> dict:
+def tree_margins(model, dp, b, toks):
+    """The top-2 margin of each token of a greedy stream decoded from the
+    tree `dp` (a quantized one): the first from the prefill's last state
+    through dp's head, the rest teacher-forced through dp's layers and
+    head from the prefill KV (block_logits; a full-precision cache where
+    the stream ran kv_bits=8)."""
+    from wedetect_tpu_torch.models import ref_generate as TG
+
+    dev = model.device
+    with torch.inference_mode():
+        hidden, kvs = TG._prefill_hidden_kvs(
+            model, b["gh"], b["gw"], b["patches"], b["ids"][None],
+            b["mask"][None], b["pos"][:, None], b["boxes"], b["ori"],
+            b["vs"], np.full((1, 1), -1, np.int32))
+        lg = TG._lm_logits(dp, hidden[0, int(b["mask"].sum()) - 1][None])
+    if len(toks) > 1:
+        lg = torch.cat([lg, block_logits(
+            model.cfg, dp, hidden, kvs, b["mask"],
+            torch.tensor(b["nxt"], device=dev), toks[:-1])])
+    top = torch.topk(lg, 2).values
+    return (top[:, 0] - top[:, 1]).cpu().numpy()
+
+
+def tp_stream_check(model, b, got, want, sampling=None, seed=0,
+                    dp=None) -> dict:
     """One stream of a rank against the one-process stream under the
-    margin rule (the margins computed only where they part)."""
+    margin rule (the margins computed only where they part; `dp`: the
+    one-process decode tree of a quantized stream)."""
     got, want = [int(t) for t in got], [int(t) for t in want]
     if got == want:
         return {"ok": True, "agree": len(want), "margin": None}
-    d = divergence(got, want, gen_margins(model, b, want, sampling, seed))
+    margins = (gen_margins(model, b, want, sampling, seed) if dp is None
+               else tree_margins(model, dp, b, want))
+    d = divergence(got, want, margins)
     return {"ok": d[0], "agree": d[1], "margin": d[2]}
 
 
@@ -7007,11 +7151,13 @@ def tp_cfg(full_depth: bool):
 
 
 def tp_timings(cfg, model, scorer, mesh, image, proposals, b, reqs,
-               served=None) -> dict:
+               served=None, trees=None) -> dict:
     """A rank's times: a score call, the generation prefill and ms a
     token, GenServer tokens/s at the serve cell (greedy; `served`: the
     (tokens, wall ms) of a run already made), and the collectives'
-    calls, MB and ms a score call and a decode token."""
+    calls, MB and ms a score call and a decode token; with `trees`
+    ({bits: decode tree}), ms a token decoding from each (over
+    TP_TIMED_TOKENS tokens)."""
     from wedetect_tpu_torch.models import ref_generate as TG
 
     c = TP_SERVE_CELL
@@ -7028,6 +7174,11 @@ def tp_timings(cfg, model, scorer, mesh, image, proposals, b, reqs,
     call_ms = host_ms(lambda: gen_call(cfg, model, b, TP_GEN_TOKENS), 1,
                       warmup=0)
     r["decode_ms_per_token"] = (call_ms - r["prefill_ms"]) / TP_GEN_TOKENS
+    for bits, tree in (trees or {}).items():
+        q_ms = host_ms(lambda: gen_call(cfg, model, b, TP_TIMED_TOKENS,
+                                        decode_params=tree), 1, warmup=0)
+        r[f"int{bits}_decode_ms_per_token"] = \
+            (q_ms - r["prefill_ms"]) / TP_TIMED_TOKENS
     if served is None:
         toks, _, ms, _, _, _ = serve_run(cfg, model, reqs, c["slots"],
                                          c["p"], c["g"], c["chunk"],
@@ -7048,10 +7199,15 @@ def tp_timings(cfg, model, scorer, mesh, image, proposals, b, reqs,
 
 def tp_serve_worker(root: str) -> None:
     """A tp_serve rank: its slices of ref_2b, then the score call (and
-    its control without the row-parallel sum), 64 greedy tokens, the
-    GenServer(mesh=) runs of every TP_SERVE_MODES mode, and its times in
-    f32 and, where gloo carries a bf16 all_reduce, in bf16."""
+    its control without the row-parallel sum), the int8-prefill score
+    call, 64 greedy tokens, its int8 and int4 decode trees
+    (quantize_decode_params of its model: bytes and collectives), the
+    GenServer(mesh=) runs of every TP_SERVE_MODES mode, ref_generate_spec
+    in every TP_SPEC_MODES mode, and its times in f32 and, where gloo
+    carries a bf16 all_reduce, in bf16 (there the int8-prefill score
+    call's logits and launches too)."""
     rank = dist_join()
+    from wedetect_tpu_torch.models.quant import quantize_decode_params
     from wedetect_tpu_torch.models.ref import init_ref_variables
     from wedetect_tpu_torch.models.ref_api import RefScorer
     from wedetect_tpu_torch.parallel import mesh as pm
@@ -7081,26 +7237,66 @@ def tp_serve_worker(root: str) -> None:
         control = scorer.logits(image, proposals, REF_QUERIES)
     finally:
         pm.row_sum = row_sum
+    # the int8 prefill: MAX scales and int32 sums over the group
+    scorer8 = RefScorer(cfg=cfg, model=model, tokenizer=tok, device=dev,
+                        quant_prefill=True)
+    launch_counts(reset=True)
+    mesh.stats.reset()
+    logits8 = scorer8.logits(image, proposals, REF_QUERIES)
+    out["score_int8"] = {"launches": launch_counts(),
+                         "collective_kinds": dict(mesh.stats.kinds),
+                         "collectives": collective_cost(
+                             mesh.stats, lambda: scorer8.logits(
+                                 image, proposals, REF_QUERIES))}
     np.savez(os.path.join(root, f"tp_logits.rank{rank}.npz"),
-             logits=logits, control=control)
+             logits=logits, control=control, int8=logits8,
+             int8_whole=int8_whole_merger_logits(scorer8, image, proposals,
+                                                 TP_RANKS))
+    out["int8_ops_bitwise"] = tp_int8_ops(mesh, dev)
     b = gen_prompt(scorer, image, GEN_PROMPT)
     out["gen"] = trim(gen_call(cfg, model, b, TP_GEN_TOKENS)[0].cpu()
                       .numpy())
+    trees, out["trees"] = {}, {}
+    for bits in (8, 4):
+        mesh.stats.reset()
+        t0 = time.perf_counter()
+        trees[bits] = quantize_decode_params(model, bits)
+        torch.cuda.synchronize()
+        out["trees"][bits] = {"code_bytes": tree_code_bytes(trees[bits]),
+                              "seconds": time.perf_counter() - t0,
+                              "collective_calls": mesh.stats.calls,
+                              "collective_kinds": dict(mesh.stats.kinds)}
     reqs = serve_requests(scorer, image, c["n_req"], c["p"], c["g"])
     out["serve"] = {}
     for name, kw in TP_SERVE_MODES.items():
+        mesh.stats.reset()
         toks, st, ms, pool, counts, _ = serve_run(
             cfg, model, reqs, c["slots"], c["p"], c["g"], c["chunk"],
-            mesh=mesh, **kw)
+            mesh=mesh, **tp_mode_kw(kw, trees))
         out["serve"][name] = {
             "tokens": toks, "stats": st, "pool_gb": pool / 1e9,
             "wall_ms": ms, "launches_per_admit": {
                 k: v / st["admits"] for k, v in counts.items()
-                if "bwd" not in k}}
+                if "bwd" not in k},
+            # host clock, not synchronised: gloo's wait included
+            "collectives": {"calls": mesh.stats.calls,
+                            "mb": mesh.stats.bytes / 1e6,
+                            "host_ms": mesh.stats.seconds * 1e3}}
+    out["spec"] = {}
+    for name, kw in TP_SPEC_MODES.items():
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        toks, steps = spec_call(cfg, model, b, TP_GEN_TOKENS,
+                                **tp_mode_kw(kw, trees))
+        torch.cuda.synchronize()
+        out["spec"][name] = {"tokens": toks, "steps": steps,
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": launch_counts()}
     greedy = out["serve"]["greedy"]
     out["float32"] = tp_timings(cfg, model, scorer, mesh, image, proposals,
                                 b, reqs, (greedy["tokens"],
-                                          greedy["wall_ms"]))
+                                          greedy["wall_ms"]), trees)
+    del trees
     out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     # bf16 timing, where gloo carries a bf16 all_reduce of a CUDA tensor
     probe = torch.ones(4, dtype=torch.bfloat16, device=dev)
@@ -7115,8 +7311,19 @@ def tp_serve_worker(root: str) -> None:
         launch_counts(reset=True)
         scorer.score(image, proposals, REF_QUERIES)
         out["score_launches_bf16"] = launch_counts()
+        scorer8 = RefScorer(cfg=cfg, model=model, tokenizer=tok,
+                            dtype="bfloat16", device=dev, quant_prefill=True)
+        launch_counts(reset=True)
+        logits8 = scorer8.logits(image, proposals, REF_QUERIES)
+        out["score_int8_bf16"] = {"launches": launch_counts()}
+        np.savez(os.path.join(root, f"tp_logits_int8_bf16.rank{rank}.npz"),
+                 int8=logits8,
+                 int8_whole=int8_whole_merger_logits(scorer8, image,
+                                                     proposals, TP_RANKS))
+        trees = {bits: quantize_decode_params(model, bits) for bits in (8, 4)}
         out["bfloat16"] = tp_timings(cfg, model, scorer, mesh, image,
-                                     proposals, b, reqs)
+                                     proposals, b, reqs, trees=trees)
+        del trees
     with open(os.path.join(root, f"tp_serve_worker.rank{rank}.json"),
               "w") as f:
         json.dump(out, f)
@@ -7126,13 +7333,19 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
     """ref_2b (at DIST_REF_DEPTH, or whole with `full_depth`) served by
     TP_RANKS tensor-parallel ranks on the one card against one process on
     the same weights (f32): RefScorer's score logits within
-    TP_LOGIT_TOL, a control without the row-parallel sum missing it; 64
-    greedy tokens of ref_generate and the GenServer(mesh=) tokens of each
-    TP_SERVE_MODES mode equal to one process's by the margin rule, and
-    bitwise equal between the ranks; K2 and K3 launches per rank in a
-    score call and an admission prefill; K2 and K3 at a rank's shapes
-    against their plain versions; each rank's times and collective
-    costs, and peak GB beside one process's."""
+    TP_LOGIT_TOL, a control without the row-parallel sum missing it; the
+    int8-prefill score logits bitwise one process's (f32; bf16 within
+    REF_LOGIT_TOL); 64 greedy tokens of ref_generate, the GenServer(mesh=)
+    tokens of each TP_SERVE_MODES mode (int8 / int4 decode trees among
+    them) and ref_generate_spec's in each TP_SPEC_MODES mode equal to one
+    process's by the margin rule (spec: the verify steps too where the
+    tokens agree), and bitwise equal between the ranks; K2 and K3
+    launches per rank in a score call, an int8-prefill score call, an
+    admission prefill of each mode and a speculative call; K2 and K3 at a
+    rank's shapes against their plain versions; each rank's quantized
+    bytes, times and collective costs, and peak GB beside one
+    process's."""
+    from wedetect_tpu_torch.models.quant import quantize_decode_params
     from wedetect_tpu_torch.models.ref import init_ref_variables
     from wedetect_tpu_torch.models.ref_api import RefScorer
 
@@ -7147,12 +7360,21 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
     model = init_ref_variables(cfg, seed=0, device=dev)
     scorer = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(), device=dev)
     want = scorer.logits(image, proposals, REF_QUERIES)
+    want8 = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(), device=dev,
+                      quant_prefill=True).logits(image, proposals,
+                                                 REF_QUERIES)
     b = gen_prompt(scorer, image, GEN_PROMPT)
     want_gen = trim(gen_call(cfg, model, b, TP_GEN_TOKENS)[0].cpu().numpy())
+    trees = {bits: quantize_decode_params(model, bits) for bits in (8, 4)}
+    tree_bytes = {bits: tree_code_bytes(t) for bits, t in trees.items()}
     reqs = serve_requests(scorer, image, c["n_req"], c["p"], c["g"])
     want_serve = {name: serve_run(cfg, model, reqs, c["slots"], c["p"],
-                                  c["g"], c["chunk"], **kw)[0]
+                                  c["g"], c["chunk"],
+                                  **tp_mode_kw(kw, trees))[0]
                   for name, kw in TP_SERVE_MODES.items()}
+    want_spec = {name: spec_call(cfg, model, b, TP_GEN_TOKENS,
+                                 **tp_mode_kw(kw, trees))
+                 for name, kw in TP_SPEC_MODES.items()}
     kernels = tp_rank_kernels(dev)
     ranks = spawn_ranks("tp_serve_worker", root, world=TP_RANKS)
     logits = [np.load(os.path.join(root, f"tp_logits.rank{r}.npz"))
@@ -7167,10 +7389,34 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
                                 for x in logits],
         "ranks_bitwise": all(np.array_equal(x["logits"], logits[0]["logits"])
                              for x in logits)}
+    one_gap = float(np.abs(want8 - want).max())
+    res["score_int8"] = {
+        "ops_bitwise_per_rank": [r["int8_ops_bitwise"] for r in ranks],
+        "whole_merger_bitwise": [bool(np.array_equal(x["int8_whole"], want8))
+                                 for x in logits],
+        "whole_merger_max_abs_err": [
+            float(np.abs(x["int8_whole"] - want8).max()) for x in logits],
+        "bitwise": [bool(np.array_equal(x["int8"], want8)) for x in logits],
+        "max_abs_err": [float(np.abs(x["int8"] - want8).max())
+                        for x in logits],
+        "vs_float_max_abs_err": [float(np.abs(x["int8"] - want).max())
+                                 for x in logits],
+        "one_process_vs_float_max_abs_err": one_gap,
+        "ratio_limit": TP_INT8_FLOAT_RATIO,
+        "ranks_bitwise": all(np.array_equal(x["int8"], logits[0]["int8"])
+                             for x in logits),
+        "collective_kinds": ranks[0]["score_int8"]["collective_kinds"],
+        "collectives": [r["score_int8"]["collectives"] for r in ranks]}
     ok = (all(e <= TP_LOGIT_TOL for e in res["score"]["max_abs_err"])
           and all(e > TP_LOGIT_TOL
                   for e in res["score"]["control_max_abs_err"])
-          and res["score"]["ranks_bitwise"])
+          and res["score"]["ranks_bitwise"]
+          and all(all(r.values())
+                  for r in res["score_int8"]["ops_bitwise_per_rank"])
+          and all(res["score_int8"]["whole_merger_bitwise"])
+          and all(e <= TP_INT8_FLOAT_RATIO * one_gap
+                  for e in res["score_int8"]["vs_float_max_abs_err"])
+          and res["score_int8"]["ranks_bitwise"])
     res["gen"] = tp_stream_check(model, b, ranks[0]["gen"], want_gen)
     res["gen"]["ranks_equal"] = all(r["gen"] == ranks[0]["gen"]
                                     for r in ranks)
@@ -7180,7 +7426,8 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
         got = ranks[0]["serve"][name]["tokens"]
         sampling = (kw["temperature"], kw["top_k"], kw["top_p"]) \
             if "temperature" in kw else None
-        checks = [tp_stream_check(model, q, g, w, sampling, 1000 + k)
+        dp = tp_mode_kw(kw, trees).get("decode_params")
+        checks = [tp_stream_check(model, q, g, w, sampling, 1000 + k, dp)
                   for k, (q, g, w) in enumerate(zip(reqs, got,
                                                     want_serve[name]))]
         r = res["serve"][name] = {
@@ -7191,21 +7438,67 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
                                for x in ranks),
             "complete": complete(got, reqs),
             "stats": ranks[0]["serve"][name]["stats"],
-            "pool_gb_per_rank": ranks[0]["serve"][name]["pool_gb"]}
+            "pool_gb_per_rank": ranks[0]["serve"][name]["pool_gb"],
+            "tokens_per_s_per_rank": [
+                sum(map(len, x["serve"][name]["tokens"]))
+                / x["serve"][name]["wall_ms"] * 1e3 for x in ranks],
+            "collectives_per_rank": [x["serve"][name]["collectives"]
+                                     for x in ranks]}
         ok = ok and r["ok"] and r["ranks_equal"] and r["complete"]
+    res["spec"] = {}
+    for name, kw in TP_SPEC_MODES.items():
+        got, steps = ranks[0]["spec"][name]["tokens"], \
+            ranks[0]["spec"][name]["steps"]
+        want_toks, want_steps = want_spec[name]
+        dp = tp_mode_kw(kw, trees).get("decode_params")
+        chk = tp_stream_check(model, b, got, want_toks, dp=dp)
+        r = res["spec"][name] = {
+            **chk, "steps": steps, "one_process_steps": want_steps,
+            "ranks_equal": all(x["spec"][name]["tokens"] == got
+                               and x["spec"][name]["steps"] == steps
+                               for x in ranks),
+            "ms_per_rank": [x["spec"][name]["ms"] for x in ranks]}
+        # the steps must agree where the tokens do
+        ok = ok and chk["ok"] and r["ranks_equal"] and (
+            steps == want_steps or chk["margin"] is not None)
+    res["tree_code_bytes"] = {
+        f"int{bits}": {"one_process": tree_bytes[bits],
+                       "per_rank": [r["trees"][str(bits)]["code_bytes"]
+                                    for r in ranks],
+                       "build_s_per_rank": [r["trees"][str(bits)]["seconds"]
+                                            for r in ranks],
+                       "collective_kinds":
+                           ranks[0]["trees"][str(bits)]["collective_kinds"]}
+        for bits in (8, 4)}
     k2, k3 = cfg.text.layers, cfg.vision.depth
     per_score = expected_counts(k2=2 * k2, k2_f32=2 * k2, k3=k3, k3_f32=k3)
     per_admit = {n: float(v) for n, v in expected_counts(
         k2=k2, k2_f32=k2, k3=k3, k3_f32=k3).items() if "bwd" not in n}
+    per_spec = expected_counts(k2=k2, k2_f32=k2, k3=k3, k3_f32=k3)
     res["launches"] = {
         "score_per_rank": [r["score_launches"] for r in ranks],
         "admit_per_rank": [r["serve"]["greedy"]["launches_per_admit"]
                            for r in ranks],
         "score_bf16_per_rank": [r.get("score_launches_bf16")
-                                for r in ranks]}
+                                for r in ranks],
+        "score_int8_per_rank": [r["score_int8"]["launches"] for r in ranks],
+        "score_int8_bf16_per_rank": [
+            r.get("score_int8_bf16", {}).get("launches") for r in ranks],
+        "admit_per_rank_by_mode": {
+            name: [r["serve"][name]["launches_per_admit"] for r in ranks]
+            for name in TP_SERVE_MODES},
+        "spec_per_rank": {name: [r["spec"][name]["launches"]
+                                 for r in ranks]
+                          for name in TP_SPEC_MODES}}
+    # every admission prefill but piggyback's, whose decoder rows ride
+    # the decode chunk
     ok = ok and all(r["score_launches"] == per_score
-                    and r["serve"]["greedy"]["launches_per_admit"]
-                    == per_admit for r in ranks)
+                    and r["score_int8"]["launches"] == per_score
+                    and all(r["serve"][n]["launches_per_admit"] == per_admit
+                            for n, kw in TP_SERVE_MODES.items()
+                            if not kw.get("piggyback"))
+                    and all(r["spec"][n]["launches"] == per_spec
+                            for n in TP_SPEC_MODES) for r in ranks)
     ok = ok and all(x["match"] for x in kernels.values())
     res["timings_per_rank"] = {
         t: [r[t] for r in ranks] for t in ("float32", "bfloat16")
@@ -7217,9 +7510,41 @@ def phase_tp_serve(dev, image, proposals, full_depth: bool = False):
     res["init_peak_gb_per_rank"] = [r["init_peak_gb"] for r in ranks]
     res["params_per_rank"] = [r["params"] for r in ranks]
     res["one_process_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if res["bf16_all_reduce"]:
+        # the int8 prefill in bf16: one process's calls on the cast model
+        want_bf16 = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(),
+                              dtype="bfloat16", device=dev).logits(
+            image, proposals, REF_QUERIES)
+        want8_bf16 = RefScorer(cfg=cfg, model=model, tokenizer=CharTok(),
+                               dtype="bfloat16", device=dev,
+                               quant_prefill=True).logits(
+            image, proposals, REF_QUERIES)
+        gap_bf16 = float(np.abs(want8_bf16 - want_bf16).max())
+        got = [np.load(os.path.join(root,
+                                    f"tp_logits_int8_bf16.rank{r}.npz"))
+               for r in range(TP_RANKS)]
+        per_bf16 = expected_counts(k2=2 * k2, k2_sm90=2 * k2, k3=k3,
+                                   k3_sm90=k3)
+        res["score_int8_bf16"] = {
+            "whole_merger_bitwise": [
+                bool(np.array_equal(g["int8_whole"], want8_bf16))
+                for g in got],
+            "bitwise": [bool(np.array_equal(g["int8"], want8_bf16))
+                        for g in got],
+            "max_abs_err": [float(np.abs(g["int8"] - want8_bf16).max())
+                            for g in got],
+            "vs_float_max_abs_err": [
+                float(np.abs(g["int8"] - want_bf16).max()) for g in got],
+            "one_process_vs_float_max_abs_err": gap_bf16,
+            "ratio_limit": TP_INT8_FLOAT_RATIO}
+        ok = ok and all(res["score_int8_bf16"]["whole_merger_bitwise"]) \
+            and all(e <= TP_INT8_FLOAT_RATIO * gap_bf16
+                    for e in res["score_int8_bf16"]["vs_float_max_abs_err"]) \
+            and all(r["score_int8_bf16"]["launches"] == per_bf16
+                    for r in ranks)
     res["seconds"] = time.perf_counter() - t0
     emit({"phase": "tp_serve", **res})
-    del model, scorer
+    del model, scorer, trees
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError("tp_serve: a tensor-parallel rank missed the "
@@ -7859,10 +8184,11 @@ def main() -> int:
         if entry["name"] in per_rank[0]:
             entry["launches_dist_sft_step_per_rank"] = [
                 c[entry["name"]] for c in per_rank]
-    # K2's and K3's launches in each tp_serve rank: a score call and an
-    # admission prefill in f32 (the FFMA kernels), a score call in bf16
-    # (the wgmma ones, where gloo carried bf16), and their times at a
-    # rank's shapes (tp_rank_kernels)
+    # K2's and K3's launches in each tp_serve rank: a score call, an
+    # int8-prefill score call, an admission prefill of each serving mode
+    # and a speculative call in f32 (the FFMA kernels), a score call and
+    # an int8-prefill one in bf16 (the wgmma ones, where gloo carried
+    # bf16), and their times at a rank's shapes (tp_rank_kernels)
     tp_counter = {"gqa_flash_fwd_f32": "k2_f32",
                   "flash_attention_fwd_f32": "k3_f32",
                   "gqa_flash_fwd_sm90": "k2_sm90",
@@ -7877,9 +8203,19 @@ def main() -> int:
         entry["launches_tp_score_per_rank"] = [
             (c or {}).get(n, 0) for c in
             tl["score_bf16_per_rank" if bf16 else "score_per_rank"]]
+        entry["launches_tp_int8_score_per_rank"] = [
+            (c or {}).get(n, 0) for c in tl[
+                "score_int8_bf16_per_rank" if bf16
+                else "score_int8_per_rank"]]
         if not bf16:
             entry["launches_tp_admit_per_rank"] = [
                 c[n] for c in tl["admit_per_rank"]]
+            entry["launches_tp_admit_per_rank_by_mode"] = {
+                mode: [c[n] for c in per]
+                for mode, per in tl["admit_per_rank_by_mode"].items()}
+            entry["launches_tp_spec_per_rank"] = {
+                mode: [c[n] for c in per]
+                for mode, per in tl["spec_per_rank"].items()}
         for shape in (("k2_prefix", "k2_suffix") if n.startswith("k2")
                       else ("k3_vit",)):
             r = tp["kernels"][f"{shape}_{'bfloat16' if bf16 else 'float32'}"]

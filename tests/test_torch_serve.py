@@ -239,16 +239,23 @@ def test_pool_allocated_once_and_kv8_bytes(tiny):
 
 def test_mesh_raises(tiny):
     """GenServer(mesh=) serves a model built on the mesh's tp group (the
-    tensor-parallel runs are tests/test_torch_tp.py's): a one-process
-    model under a tp = 2 mesh raises, and so does a quantized decode
-    tree under tensor parallelism, which is not ported."""
+    tensor-parallel runs are tests/test_torch_tp.py's and
+    tests/test_torch_tp_quant.py's): a one-process model under a tp = 2
+    mesh raises, and so does a quantized decode tree of the one-process
+    model handed to a tensor-parallel model; the tensor-parallel model's
+    own quantized tree (its slices and its group) is taken."""
     _, tcfg, _, model = tiny
     tp = Group(None, [0, 1], 0, CollectiveStats())
     mesh = types.SimpleNamespace(shape={"data": 1, "tp": 2}, tp=tp)
     with pytest.raises(ValueError, match="mesh.tp"):
         TSV.GenServer(tcfg, GH, GW, model, prompt_len=P, max_new=G,
                       eos_id=EOS, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        TSV.GenServer(tcfg, GH, GW, RefModules(tcfg, tp=tp), prompt_len=P,
+    tp_model = RefModules(tcfg, tp=tp)
+    with pytest.raises(ValueError, match="layout"):
+        TSV.GenServer(tcfg, GH, GW, tp_model, prompt_len=P,
                       max_new=G, eos_id=EOS, mesh=mesh,
                       decode_params=TQ.quantize_decode_params(model))
+    srv = TSV.GenServer(tcfg, GH, GW, tp_model, prompt_len=P, max_new=G,
+                        eos_id=EOS, mesh=mesh,
+                        decode_params=TQ.quantize_decode_params(tp_model))
+    assert srv.decode_params["tp"] is tp

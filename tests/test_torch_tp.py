@@ -15,7 +15,6 @@ P(None, "tp") lays out the fused kernel) where the port slices it by
 head inside each third.
 """
 
-import dataclasses
 import json
 import types
 
@@ -397,8 +396,6 @@ def _tp_model(cfg=None):
 
 
 def _limit(case):
-    from wedetect_tpu_torch.models import ref_generate as TG
-    from wedetect_tpu_torch.models import ref_speculative as TS
     from wedetect_tpu_torch.models.serve import GenServer
     from wedetect_tpu_torch.models.serve_http import GenService
 
@@ -410,27 +407,13 @@ def _limit(case):
         TM.shard_ref_state(RefModules(cfg).state_dict(),
                            types.SimpleNamespace(shape={"tp": 3},
                                                  tp_index=0), cfg)
-    elif case in ("int8_tree", "int4_tree"):
-        TQ.quantize_decode_params(_tp_model(),
-                                  bits=8 if case == "int8_tree" else 4)
-    elif case == "quantized_tree_to_server":
+    elif case == "one_process_tree_to_server":
         mesh = types.SimpleNamespace(shape={"tp": 2})
         model = _tp_model()
         mesh.tp = model.tp
         GenServer(cfg, GH, GW, model, prompt_len=P, max_new=G, eos_id=EOS,
                   mesh=mesh, decode_params=TQ.quantize_decode_params(
                       RefModules(cfg)))
-    elif case == "quantized_tree_to_generate":
-        model = _tp_model()
-        TG.ref_generate(cfg, GH, GW, model, None, np.zeros((1, 4), np.int32),
-                        np.ones((1, 4), np.int32), None, 1, None, None, None,
-                        2, EOS, decode_params=TQ.quantize_decode_params(
-                            RefModules(cfg), bits=8))
-    elif case == "quant_int8":
-        _tp_model(dataclasses.replace(cfg, quant_int8=True))
-    elif case == "speculative":
-        TS.ref_generate_spec(cfg, GH, GW, _tp_model(), None, None, None,
-                             None, 1, None, None, None, 2, EOS)
     elif case == "serve_http":
         GenService(types.SimpleNamespace(model=_tp_model()))
     elif case == "server_without_mesh":
@@ -440,11 +423,7 @@ def _limit(case):
 
 LIMITS = {"tp_not_dividing_heads": ValueError,
           "shard_not_dividing_heads": ValueError,
-          "int8_tree": NotImplementedError, "int4_tree": NotImplementedError,
-          "quantized_tree_to_server": NotImplementedError,
-          "quantized_tree_to_generate": NotImplementedError,
-          "quant_int8": NotImplementedError,
-          "speculative": NotImplementedError,
+          "one_process_tree_to_server": ValueError,
           "serve_http": NotImplementedError,
           "server_without_mesh": ValueError}
 
@@ -453,9 +432,10 @@ LIMITS = {"tp_not_dividing_heads": ValueError,
 def test_stated_limits_raise(case):
     """(g) What this port leaves out raises, with a message: a tp that
     does not divide the heads (where JAX's global view accepts any tp
-    that divides a width), int8 / int4 decode trees, the int8 prefill,
-    speculative decode and the HTTP service under TP, and a TP model
-    served without its mesh."""
+    that divides a width), the HTTP service under TP, a TP model served
+    without its mesh, and a TP server handed a one-process decode tree
+    (a rank decodes from its own slices: tests/test_torch_tp_quant.py
+    runs the quantized and speculative modes)."""
     with pytest.raises(LIMITS[case]) as e:
         _limit(case)
     if LIMITS[case] is NotImplementedError:

@@ -1,6 +1,7 @@
 """What the tensor-parallel tests share with their gloo ranks (no JAX
 here: the ranks import this module): tests/test_tp.py's configuration,
-the serving modes, and one GenServer run over a list of requests."""
+the serving modes (float, and with a quantized decode tree), and one
+GenServer run over a list of requests."""
 
 import numpy as np
 
@@ -11,6 +12,18 @@ WARPED = dict(temperature=0.8, top_k=30, top_p=0.9)
 SERVE_MODES = {"greedy": {}, "warped": WARPED, "kv8": dict(kv_bits=8),
                "piggyback": dict(piggyback=True),
                "batch_admit": dict(batch_admit=True)}
+# GenServer modes with an int8 / int4 decode tree ("bits"), and with the
+# int8 prefill ("prefill8": RefCfg.quant_int8 on the admissions)
+QUANT_SERVE_MODES = {
+    "int8": dict(bits=8), "int4": dict(bits=4),
+    "int8_kv8": dict(bits=8, kv_bits=8),
+    "int8_batch_admit": dict(bits=8, batch_admit=True),
+    "int4_piggyback": dict(bits=4, piggyback=True),
+    "int8_prefill8": dict(bits=8, prefill8=True, temperature=0.8, top_k=30,
+                          top_p=0.9)}
+SPEC_MODES = {"plain": {}, "force_reject": dict(force_reject=True),
+              "int8": dict(bits=8)}
+SPEC_NEW, SPEC_K = 12, 4
 
 
 def tp_cfg(pkg):

@@ -35,9 +35,27 @@ activation-weighted int4 fit, which runs on the weights' device.
 
 A tensor-parallel model's tree (`decode_params` of RefModules(tp=...))
 holds the rank's slices and its group under "tp": the decode layers sum
-their row-parallel products over it and gather the tied head's logits.
-Quantized trees under tensor parallelism are not ported
-(`quantize_decode_params` raises; ROADMAP.md §1 item 12).
+their row-parallel products over it (`matmul_any(tp=)`: the partial
+products first, then the output scale) and gather the tied head's
+logits. `quantize_decode_params` of such a model gives each rank, bitwise,
+its slice of the one-process tree:
+
+- column layers (q, k, v, gate, up, and the tied head's copy over the
+  rank's vocabulary range): int8 `w8` and `scale` by output column;
+  int4 `w4p` and `scale` by output column, `rscale` whole;
+- row layers (o_proj, down_proj): int8 `w8` by contraction row, its
+  per-output `scale` the group's MAX of the rows' absmax; int4 `w4p` at
+  h / (2 tp) packed rows (rows 2i and 2i + 1 stay in one byte), `rscale`
+  with the rows, `scale` whole;
+- the alternating int4 fit takes the group's MAX on whichever axis is
+  sliced (`row_group` / `col_group` of quantize_weight4);
+- the calibrated int4 fit sums errors over the contraction and over
+  every column: each matrix is gathered whole (one at a time), fit as in
+  one process and sliced, so `calib` holds whole widths.
+
+JAX's `ref_tp_sharding` replicates a quantized tree (its leaves are not
+named `kernel`); the port slices it, so a rank holds 1 / tp of the codes,
+the layout its decode layers read.
 """
 
 from __future__ import annotations
@@ -49,19 +67,30 @@ import torch
 import torch.nn.functional as F
 
 from wedetect_tpu_torch.ops.int8 import true_div
+from wedetect_tpu_torch.parallel import mesh as pmesh
+from wedetect_tpu_torch.parallel.collectives import MAX, fsdp_slice
 
-TP_QUANT_MSG = ("int8 / int4 decode trees under tensor parallelism are not "
-                "ported (ROADMAP.md §1 item 12)")
 _LAYER_MATMULS = ("q_proj", "k_proj", "v_proj", "o_proj",
                   "gate_proj", "up_proj", "down_proj")
+# the row-parallel matmuls of a tensor-parallel layer (parallel/mesh.py)
+_ROW_MATMULS = ("o_proj", "down_proj")
 
 
-def quantize_weight(w: torch.Tensor, axis: int = 0) -> Dict:
+def _group_max(group, t: torch.Tensor) -> torch.Tensor:
+    """t's MAX over `group` in place (t where group is None)."""
+    if group is not None:
+        group.all_reduce(t, op=MAX)
+    return t
+
+
+def quantize_weight(w: torch.Tensor, axis: int = 0, row_group=None) -> Dict:
     """Symmetric per-channel absmax int8 of an (in, out) kernel:
     {w8, scale} with w8 * scale ~= w, scale per output channel (the
-    max runs over `axis`, the contraction axis)."""
+    max runs over `axis`, the contraction axis). `row_group`: the
+    tensor-parallel group over which the contraction rows are sliced
+    (the absmax is its MAX)."""
     wf = w.float()
-    amax = wf.abs().amax(dim=axis, keepdim=True)
+    amax = _group_max(row_group, wf.abs().amax(dim=axis, keepdim=True))
     scale = true_div(torch.clamp(amax, min=1e-12), 127.0)
     w8 = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w8": w8, "scale": scale.squeeze(axis)}
@@ -69,15 +98,21 @@ def quantize_weight(w: torch.Tensor, axis: int = 0) -> Dict:
 
 def quantize_weight4(w: torch.Tensor, axis: int = 0, iters: int = 2,
                      act_rms=None, alphas=(0.0, 0.25, 0.5),
-                     clip_grid=(1.0, 0.95, 0.9, 0.85, 0.8, 0.7)) -> Dict:
+                     clip_grid=(1.0, 0.95, 0.9, 0.85, 0.8, 0.7),
+                     row_group=None, col_group=None) -> Dict:
     """Rank-1 two-sided symmetric int4 of an (in, out) kernel:
     {w4p, rscale, scale} with diag(rscale) @ unpack(w4p) @ diag(scale)
     ~= w. Scales by alternating row/column absmax (the last column pass
     maps every column's absmax to +-7, so no code clips); w4p packs
     contraction rows 2i (low nibble) and 2i + 1 (high). `act_rms` (in,)
-    switches to the activation-weighted fit (`_fit_int4_calibrated`)."""
+    switches to the activation-weighted fit (`_fit_int4_calibrated`),
+    which takes whole kernels. `row_group` / `col_group`: the
+    tensor-parallel group over which w's rows / columns are sliced; the
+    column absmax (c) / row absmax (r) is its MAX."""
     assert axis == 0, "contraction axis must be 0"
     if act_rms is not None:
+        assert row_group is None and col_group is None, \
+            "the calibrated fit takes a whole kernel"
         return _fit_int4_calibrated(
             w.float(),
             np.asarray(torch.as_tensor(act_rms).float().cpu(), np.float32),
@@ -88,9 +123,10 @@ def quantize_weight4(w: torch.Tensor, axis: int = 0, iters: int = 2,
     wa = torch.clamp(wf.abs(), min=1e-12)
     r = torch.ones(h, dtype=torch.float32, device=wf.device)
     for _ in range(iters):
-        c = (wa / r[:, None]).amax(dim=0)
-        r = (wa / c[None, :]).amax(dim=1)
-    c = (wa / r[:, None]).amax(dim=0)              # colmax == 1 exactly
+        c = _group_max(row_group, (wa / r[:, None]).amax(dim=0))
+        r = _group_max(col_group, (wa / c[None, :]).amax(dim=1))
+    # colmax == 1 exactly
+    c = _group_max(row_group, (wa / r[:, None]).amax(dim=0))
     q = torch.clamp(torch.round(wf / (r[:, None] * c[None, :]) * 7.0),
                     -7, 7).to(torch.int8)
     return {"w4p": pack_int4(q), "rscale": r, "scale": true_div(c, 7.0)}
@@ -174,19 +210,23 @@ def unpack_int4(w4p: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=1).reshape(2 * h2, o).to(torch.int8)
 
 
-def matmul_any(y: torch.Tensor, leaf: Dict, dt) -> torch.Tensor:
+def matmul_any(y: torch.Tensor, leaf: Dict, dt, tp=None) -> torch.Tensor:
     """y @ kernel in compute dtype `dt` for a full-precision ({weight}),
     int8 ({w8, scale}), packed-int4 ({w4p, rscale, scale}) or unpacked
     int4 ({w4, rscale, scale}) leaf. The scales ride the activation
     (rscale, constant along its row) and the output (scale):
-    ((y * rscale) @ q) * scale == y @ (diag(rscale) q diag(scale))."""
+    ((y * rscale) @ q) * scale == y @ (diag(rscale) q diag(scale)).
+    `tp`: the group over which a row-parallel leaf's contraction is
+    sliced; the partial products are summed over it
+    (parallel/mesh.row_sum) before the output scale."""
     if "w8" in leaf:
-        return (y @ leaf["w8"].to(dt)) * leaf["scale"].to(dt)
+        return pmesh.row_sum(tp, y @ leaf["w8"].to(dt)) \
+            * leaf["scale"].to(dt)
     if "w4" in leaf or "w4p" in leaf:
         q4 = leaf["w4"] if "w4" in leaf else unpack_int4(leaf["w4p"])
-        return ((y * leaf["rscale"].to(dt)) @ q4.to(dt)) \
-            * leaf["scale"].to(dt)
-    return F.linear(y, leaf["weight"].to(dt))
+        return pmesh.row_sum(tp, (y * leaf["rscale"].to(dt))
+                             @ q4.to(dt)) * leaf["scale"].to(dt)
+    return pmesh.row_sum(tp, F.linear(y, leaf["weight"].to(dt)))
 
 
 def prepare_decode_params(dp: Dict) -> Dict:
@@ -227,19 +267,26 @@ def decode_params(model) -> Dict:
     return out
 
 
-def is_quantized(tree: Dict) -> bool:
-    """True where a decode-param tree holds an int8 or int4 leaf."""
-    if isinstance(tree, dict):
-        return ("w8" in tree or "w4" in tree or "w4p" in tree
-                or any(is_quantized(v) for v in tree.values()))
-    return False
+def check_decode_tree(tree: Dict, tp) -> None:
+    """Raise unless the decode tree belongs to a model on the group `tp`
+    (None: one process): a tensor-parallel model decodes from its own
+    slices (decode_params or quantize_decode_params of that model)."""
+    if tree.get("tp") is not tp:
+        raise ValueError(
+            "the decode tree was not built from this model's layout: pass "
+            "quantize_decode_params(model) of the model that serves")
 
 
-def check_tp_decode(tree: Dict, tp) -> None:
-    """Raise where a tensor-parallel model (tp not None) would decode
-    from a quantized tree: not ported (ROADMAP.md §1 item 12)."""
-    if tp is not None and is_quantized(tree):
-        raise NotImplementedError(TP_QUANT_MSG)
+def _slice_leaf(leaf: Dict, row: bool, group) -> Dict:
+    """A rank's slice of a whole quantized leaf: by contraction row (w8 or
+    w4p rows, rscale; `row`) or by output column (codes and scale)."""
+    def cut(name, t):
+        if row:
+            return t if name == "scale" else fsdp_slice(t, 0, group.index,
+                                                        group.size)
+        return t if name == "rscale" else fsdp_slice(t, t.ndim - 1,
+                                                     group.index, group.size)
+    return {k: cut(k, v).contiguous() for k, v in leaf.items()}
 
 
 @torch.no_grad()
@@ -252,19 +299,40 @@ def quantize_decode_params(model_or_tree, bits: int = 8,
     the transposed embedding (one scale per vocab row). `calib` (int4
     only): {"text": {"layer{i}": {matmul: (in,)}}, "lm_head": (in,)}
     activation RMS for quantize_weight4's weighted fit; missing entries
-    take the plain fit."""
+    take the plain fit. A tensor-parallel model's tree is this rank's
+    slice of the one-process tree, with its group under "tp" (module
+    docstring; every rank of the group calls this together), and its
+    `calib` holds whole widths."""
     assert bits in (8, 4), bits
     assert calib is None or bits == 4, \
         "calibration applies to the int4 fit only (int8 is plain absmax)"
     params = (model_or_tree if isinstance(model_or_tree, dict)
               else decode_params(model_or_tree))
-    if params.get("tp") is not None:
-        raise NotImplementedError(TP_QUANT_MSG)
+    tp = params.get("tp")
 
-    def qw(kernel, rms):
+    def qw(kernel, rms, sliced=None):
+        """The leaf of an (in, out) kernel; `sliced` "row" or "column":
+        this rank holds that slice of it over tp (module docstring)."""
+        row_group = tp if sliced == "row" else None
+        col_group = tp if sliced == "column" else None
         if bits == 8:
-            return quantize_weight(kernel, axis=0)
-        return quantize_weight4(kernel, axis=0, act_rms=rms)
+            return quantize_weight(kernel, axis=0, row_group=row_group)
+        if rms is None or tp is None or sliced is None:
+            return quantize_weight4(kernel, axis=0, act_rms=rms,
+                                    row_group=row_group, col_group=col_group)
+        # (in, out): gathered by output column, or by row through its
+        # transpose (parallel/mesh.gather_vocab gathers the last axis)
+        whole = (pmesh.gather_vocab(kernel.contiguous(), tp)
+                 if sliced == "column" else
+                 pmesh.gather_vocab(kernel.t().contiguous(), tp).t())
+        leaf = quantize_weight4(whole, axis=0, act_rms=rms)
+        del whole
+        return _slice_leaf(leaf, sliced == "row", tp)
+
+    def sliced(k):
+        if tp is None:
+            return None
+        return "row" if k in _ROW_MATMULS else "column"
 
     calib = calib or {}
     ctext = calib.get("text", {})
@@ -274,13 +342,21 @@ def quantize_decode_params(model_or_tree, bits: int = 8,
             qtext[name] = layer          # the final norm
             continue
         crms = ctext.get(name, {})
-        qtext[name] = {k: (qw(leaf["weight"].float().t(), crms.get(k))
+        qtext[name] = {k: (qw(leaf["weight"].float().t(), crms.get(k),
+                              sliced(k))
                            if k in _LAYER_MATMULS else leaf)
                        for k, leaf in layer.items()}
     out = {"text": qtext, "embed": params["embed"]}
     head = params.get("lm_head")
-    kernel = (head["weight"] if head is not None else params["embed"])
-    out["lm_head"] = qw(kernel.float().t(), calib.get("lm_head"))
+    if head is not None:          # an untied head is whole on every rank
+        out["lm_head"] = qw(head["weight"].float().t(),
+                            calib.get("lm_head"))
+    else:                         # the tied table: the rank's vocabulary
+        out["lm_head"] = qw(params["embed"].float().t(),
+                            calib.get("lm_head"),
+                            None if tp is None else "column")
+    if tp is not None:
+        out["tp"] = tp
     return out
 
 
@@ -302,9 +378,12 @@ def dequantize_decode_params(qparams: Dict) -> Dict:
 
 
 def quantized_bytes(qparams: Dict) -> int:
-    """Total bytes of the tree's tensors (diagnostic)."""
+    """Total bytes of the tree's tensors (diagnostic; a tensor-parallel
+    tree's are this rank's)."""
     def walk(node):
         if isinstance(node, dict):
             return sum(walk(v) for v in node.values())
-        return node.numel() * node.element_size()
+        if isinstance(node, torch.Tensor):
+            return node.numel() * node.element_size()
+        return 0                  # the tree's group
     return walk(qparams)

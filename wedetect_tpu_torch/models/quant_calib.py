@@ -22,6 +22,13 @@ card) and the object scatter. The replay's attention is the grouped
 einsum (`impl="einsum"`), as in JAX. It computes in the model's dtype;
 the sums leave the card as float64 and are accumulated on the host over
 any number of batches, then finalized to sqrt(sum / tokens).
+
+On a tensor-parallel model (models/ref.RefModules(tp=...)) every rank of
+the group replays its own heads and ffn channels, sums o_proj and
+down_proj over the group, and gathers the sums of squares of those two
+inputs (its slice of their channels) to the whole width, so each rank
+holds the whole-width statistics that quantize_decode_params(calib=)
+reads on a tensor-parallel model.
 """
 
 from __future__ import annotations
@@ -35,8 +42,10 @@ import torch.nn.functional as F
 
 from wedetect_tpu_torch.models.ref_generate import _rms
 from wedetect_tpu_torch.nn.qwen3vl import (_apply_rope,
-                                           interleaved_mrope_cos_sin)
+                                           interleaved_mrope_cos_sin,
+                                           tp_text_cfg)
 from wedetect_tpu_torch.ops.attention import gqa_attention
+from wedetect_tpu_torch.parallel import mesh as pmesh
 
 
 def _calib_assembly(model, grid_h: int, grid_w: int, patches, input_ids,
@@ -67,7 +76,8 @@ def collect_batch(cfg, grid_h: int, grid_w: int, model, patches, input_ids,
     "lm_head": ss}, count), the sums as float64 numpy arrays."""
     from wedetect_tpu_torch.models.ref import _t
 
-    c = cfg.text
+    tp = getattr(model, "tp", None)
+    c = tp_text_cfg(cfg.text, pmesh.tp_size(tp))
     dev = model.device
     input_ids = _t(input_ids, dev)
     b, p_len = input_ids.shape
@@ -87,6 +97,10 @@ def collect_batch(cfg, grid_h: int, grid_w: int, model, patches, input_ids,
     def ss(y):
         return (y.float().square() * valid).sum(dim=(0, 1))
 
+    def ss_row(y):
+        """ss of a row-parallel input: this rank's channels, gathered."""
+        return pmesh.gather_vocab(ss(y), tp)
+
     stats = {}
     for i, layer in enumerate(lm.layers):
         a, m = layer.self_attn, layer.mlp
@@ -105,14 +119,14 @@ def collect_batch(cfg, grid_h: int, grid_w: int, model, patches, input_ids,
         o = gqa_attention(q, k, v, causal=True, kv_valid=kv_valid,
                           sm_scale=1.0 / math.sqrt(c.head_dim),
                           impl="einsum").reshape(b, p_len, -1).to(x.dtype)
-        ls["o_proj"] = ss(o)
-        x = x + F.linear(o, a.o_proj.weight)
+        ls["o_proj"] = ss_row(o)
+        x = x + pmesh.row_sum(tp, F.linear(o, a.o_proj.weight))
         y = _rms(x, layer.post_attention_layernorm.weight, c.rms_eps)
         ls["gate_proj"] = ls["up_proj"] = ss(y)
         h = F.silu(F.linear(y, m.gate_proj.weight)) \
             * F.linear(y, m.up_proj.weight)
-        ls["down_proj"] = ss(h)
-        x = x + F.linear(h, m.down_proj.weight)
+        ls["down_proj"] = ss_row(h)
+        x = x + pmesh.row_sum(tp, F.linear(h, m.down_proj.weight))
         if i < len(taps):                               # deepstack taps
             x = lm._inject_deepstack(x, taps[i], visual_start)
         stats[f"layer{i}"] = ls

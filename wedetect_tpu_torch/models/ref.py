@@ -208,10 +208,6 @@ class RefModules(nn.Module):
         tp = active_tp(tp)
         if tp is not None:
             check_ref_tp(cfg, tp.size)
-            if cfg.quant_int8:
-                raise NotImplementedError(
-                    "the int8 prefill under tensor parallelism is not "
-                    "ported (ROADMAP.md §1 item 12)")
         self.cfg = cfg
         self.tp = tp
         self.attn_impl = attn_impl

@@ -32,7 +32,11 @@ group (`models/quant.decode_params`): each decode layer runs its own
 heads on its (B, C, KVH / tp, HD) caches and sums o_proj and down_proj
 over the group, and the tied head's logits are gathered to the whole
 vocabulary before sampling, so every rank draws the same token from
-the same keys.
+the same keys. A quantized tree of such a model (`models/quant.
+quantize_decode_params(model)`) holds the rank's slices of the codes:
+the row-parallel products are summed before their output scale, and
+the tied head's quantized copy covers the rank's vocabulary range and
+is gathered like the table's logits.
 """
 
 from __future__ import annotations
@@ -65,11 +69,16 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 def _lm_logits(dp: Dict, hidden: torch.Tensor) -> torch.Tensor:
     """f32 LM logits: the decode tree's `lm_head` leaf (untied, or a
     quantized copy of the tied table) when present, else the tied input
-    embedding (a tensor-parallel rank's range, gathered)."""
-    h = hidden.float()
-    if "lm_head" in dp:
-        return matmul_any(h, dp["lm_head"], torch.float32)
-    return pmesh.gather_vocab(h @ dp["embed"].float().T, dp.get("tp"))
+    embedding. A tensor-parallel rank's range of the vocabulary (the
+    tied table, or its quantized copy: as wide as the rank's table) is
+    gathered; an untied head is whole on every rank."""
+    h, tp = hidden.float(), dp.get("tp")
+    if "lm_head" not in dp:
+        return pmesh.gather_vocab(h @ dp["embed"].float().T, tp)
+    logits = matmul_any(h, dp["lm_head"], torch.float32)
+    if tp is not None and logits.shape[-1] == dp["embed"].shape[0]:
+        logits = pmesh.gather_vocab(logits, tp)
+    return logits
 
 
 def _embed_rows(dp: Dict, tok: torch.Tensor) -> torch.Tensor:
@@ -106,13 +115,12 @@ def _out_mlp(p, c: RefTextCfg, x, o, tp=None):
     """The layer's post-attention half: o_proj residual, then the MLP;
     o_proj and down_proj summed over the tensor-parallel group `tp`."""
     dt = x.dtype
-    x = x + pmesh.row_sum(tp, matmul_any(
-        o.to(dt).reshape(x.shape[0], x.shape[1], -1), p["o_proj"], dt))
+    x = x + matmul_any(o.to(dt).reshape(x.shape[0], x.shape[1], -1),
+                       p["o_proj"], dt, tp)
     y = _rms(x, p["post_ln"], c.rms_eps)
     gate = matmul_any(y, p["gate_proj"], dt)
     up = matmul_any(y, p["up_proj"], dt)
-    return x + pmesh.row_sum(tp, matmul_any(F.silu(gate) * up,
-                                            p["down_proj"], dt))
+    return x + matmul_any(F.silu(gate) * up, p["down_proj"], dt, tp)
 
 
 def _decode_layer(p, c: RefTextCfg, x, cos, sin, cache_k, cache_v,
@@ -234,7 +242,7 @@ def ref_generate_multi(cfg, grids, model, patches_list, input_ids, attn_mask,
 
     dev = model.device
     if decode_params is not None:
-        quant.check_tp_decode(decode_params, getattr(model, "tp", None))
+        quant.check_decode_tree(decode_params, getattr(model, "tp", None))
     input_ids = _t(input_ids, dev)
     attn_mask = _t(attn_mask, dev)
     b = input_ids.shape[0]

@@ -14,6 +14,13 @@ The verify layer attends with the grouped einsum under a per-query
 mask; no Pallas kernel lies on it. The prefill is `ref_generate`'s
 (K3 and K2 on the card). The loop runs on the host and reads back once
 a step whether every row is done.
+
+On a tensor-parallel model (models/ref.RefModules(tp=...)) each rank
+runs its own heads on its kv-head caches, sums the row-parallel products
+over the group, and gathers the verify rows' logits over the vocabulary
+(`models/ref_generate._lm_logits`): every rank drafts, accepts and
+stops on the same tokens, so the ranks stay in lockstep. A quantized
+tree is the model's own (`models/quant.quantize_decode_params(model)`).
 """
 
 from __future__ import annotations
@@ -25,10 +32,11 @@ import torch
 
 from wedetect_tpu_torch.models import quant
 from wedetect_tpu_torch.models.quant import prepare_decode_params
-from wedetect_tpu_torch.models.ref_generate import (_gather_last, _lm_logits,
-                                                    _new_caches, _out_mlp,
+from wedetect_tpu_torch.models.ref_generate import (_embed_rows, _gather_last,
+                                                    _lm_logits, _new_caches,
+                                                    _out_mlp,
                                                     _prefill_hidden_kvs, _qkv,
-                                                    _rms)
+                                                    _rms, local_text_cfg)
 from wedetect_tpu_torch.nn.qwen3vl import RefTextCfg, interleaved_mrope_cos_sin
 
 
@@ -47,17 +55,19 @@ def _spec_attention(q, k, v, mask, sm_scale: float):
 
 
 def _decode_layer_block(p: Dict, c: RefTextCfg, x, cos, sin, cache_k,
-                        cache_v, write_at, mask):
+                        cache_v, write_at, mask, tp=None):
     """One decoder layer over a K-token verify block. x (B, K, D); the
     block's post-rope KV written in place at the per-row columns
-    write_at (B, K); each query attends the cache under mask (B, K, C)."""
+    write_at (B, K); each query attends the cache under mask (B, K, C);
+    the row-parallel products summed over the tensor-parallel group
+    `tp` (c then holds the rank's widths)."""
     q, k, v = _qkv(p, c, x, cos, sin)
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     cache_k[rows, write_at] = k.to(cache_k.dtype)
     cache_v[rows, write_at] = v.to(cache_v.dtype)
     o = _spec_attention(q, cache_k, cache_v, mask,
                         1.0 / math.sqrt(c.head_dim))
-    return _out_mlp(p, c, x, o)
+    return _out_mlp(p, c, x, o, tp)
 
 
 def draft_lookup(hist, prev_gram, valid, spec_k: int):
@@ -97,11 +107,9 @@ def ref_generate_spec(cfg, grid_h: int, grid_w: int, model, patches,
     draft (each verify emits one token); the tokens stay greedy."""
     from wedetect_tpu_torch.models.ref import _t
 
-    if getattr(model, "tp", None) is not None:
-        raise NotImplementedError(
-            "speculative decode under tensor parallelism is not ported "
-            "(ROADMAP.md §1 item 12)")
     dev = model.device
+    if decode_params is not None:
+        quant.check_decode_tree(decode_params, getattr(model, "tp", None))
     input_ids = _t(input_ids, dev)
     attn_mask = _t(attn_mask, dev)
     b = input_ids.shape[0]
@@ -132,7 +140,8 @@ def _spec_decode(c: RefTextCfg, dp, hidden, kvs, input_ids, attn_mask,
                        dim=-1)
     caches = _new_caches(kvs, cap)
     dp = prepare_decode_params(dp)
-    tp, emb = dp["text"], dp["embed"]
+    c, tp = local_text_cfg(c, dp), dp.get("tp")
+    layers = dp["text"]
     # one sink column past max_new takes the writes the JAX scatter drops
     out = torch.full((b, max_new + 1), pad_id, dtype=torch.long, device=dev)
     jk = torch.arange(kk, device=dev)
@@ -165,7 +174,7 @@ def _spec_decode(c: RefTextCfg, dp, hidden, kvs, input_ids, attn_mask,
         block = torch.cat([cur[:, None], draft], dim=1)        # (B, K)
 
         # verify forward over the K-token block
-        x = emb[block].to(dtype)
+        x = _embed_rows(dp, block).to(dtype)
         posk = (next_pos + m)[:, None] + jk[None]
         cos, sin = interleaved_mrope_cos_sin(posk[None].expand(3, b, kk), c)
         gen_ok = (torch.arange(cap, device=dev)[None, None, :]
@@ -174,9 +183,9 @@ def _spec_decode(c: RefTextCfg, dp, hidden, kvs, input_ids, attn_mask,
         write_at = p_len + m[:, None] + jk[None]
         for i in range(c.layers):
             kc, vc = caches[i]
-            x = _decode_layer_block(tp[f"layer{i}"], c, x, cos, sin, kc, vc,
-                                    write_at, mask)
-        h = _rms(x, tp["norm"], c.rms_eps)
+            x = _decode_layer_block(layers[f"layer{i}"], c, x, cos, sin, kc,
+                                    vc, write_at, mask, tp)
+        h = _rms(x, layers["norm"], c.rms_eps)
         g = torch.argmax(_lm_logits(dp, h), dim=-1)            # (B, K)
 
         # accept the longest draft prefix that matches the argmax

@@ -50,7 +50,11 @@ it, and the sampler reads the gathered logits, so every rank draws the
 same tokens. Every rank submits the same requests in one order and runs
 the same host scheduler on them; as each reads back the same tokens,
 their admissions and slots stay in lockstep, and no rank decides alone.
-int8 / int4 decode trees under TP raise (ROADMAP.md §1 item 12).
+An int8 / int4 tree of the TP model (`decode_params=quantize_decode_
+params(model)`: the rank's slices of the codes) decodes alike, with
+`kv_bits=8` and `batch_admit`, and with piggyback where the one-process
+engine takes it (full-precision caches); a model with `quant_int8` runs
+its admissions' prefill in int8 (`parallel/mesh.row_linear`).
 """
 
 from __future__ import annotations
@@ -559,7 +563,7 @@ class GenServer:
             raise ValueError("GenServer(mesh=) serves a model built on "
                              "mesh.tp (models/ref.tp_ref_model)")
         if decode_params is not None:
-            quant.check_tp_decode(decode_params, tp)
+            quant.check_decode_tree(decode_params, tp)
         self.kv_bits = kv_bits
         self.batch_admit = batch_admit
         self.piggyback = piggyback

@@ -23,9 +23,10 @@ that hold one model between them; `parallel/mesh.py` states the layout):
 each module is built with this rank's slices. A ViT block or decoder
 layer runs its own heads (the decoder's layers on `tp_text_cfg`, the
 local widths) and ffn channels, and sums its row-parallel outputs over
-the group (`row_linear`); the mergers' fc1 / fc2 likewise; the token
-table holds this rank's vocabulary range (`vocab_embed`). tp None is
-the one-process model.
+the group (`row_linear`; under `quant_int8` its absmax scales and
+int32 sums too, so each int8 product is the one-process one bitwise);
+the mergers' fc1 / fc2 likewise; the token table holds this rank's
+vocabulary range (`vocab_embed`). tp None is the one-process model.
 """
 
 from __future__ import annotations

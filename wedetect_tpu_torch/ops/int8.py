@@ -28,6 +28,16 @@ card: rows, K and N are padded with zero codes, which leave the int32
 sums exact. A 1x1 convolution is a reshape and a k x k or strided one an
 unfold (zero codes in the border) ahead of the product.
 
+Under tensor parallelism (`quant_linear(..., group=)`, reached from
+`parallel/mesh.row_linear`) a row-parallel weight holds this rank's
+slice of the contraction: the activation rows' and the weight columns'
+absmax are MAXes over the group, and the int32 partial sums are summed
+over the group before the epilogue, so the codes, the scales and the
+sums are the one-process call's and the output is its output bitwise,
+as XLA's global view of JAX's op computes the same exact int32 sum. A
+column-parallel weight holds whole contractions, so its local call is
+already exact.
+
 `QuantLinear` and `QuantConv2d` are nn.Linear / nn.Conv2d (same
 parameters, same state-dict keys) whose `quant` flag routes the forward
 here; the detector and the Ref towers build them where JAX passes
@@ -45,6 +55,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wedetect_tpu_torch.parallel.collectives import MAX
+
 # torch._int_mm on CUDA: more than 16 rows, K and N multiples of 8
 INT_MM_MIN_ROWS = 17
 INT_MM_MULTIPLE = 8
@@ -57,13 +69,16 @@ def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
-def _quantize(x: torch.Tensor, dims, eps: float = 1e-12
+def _quantize(x: torch.Tensor, dims, eps: float = 1e-12, group=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric absmax int8 over `dims`: (x8, scale) with x8 * scale ~= x;
     the scale keeps the reduced dims for broadcasting. Rounds half to
-    even, as jnp.round does."""
+    even, as jnp.round does. `group`: the tensor-parallel group over
+    which `dims` is sliced (the absmax is its MAX)."""
     xf = x.float()
     amax = xf.abs().amax(dim=dims, keepdim=True)
+    if group is not None:
+        group.all_reduce(amax, op=MAX)
     scale = true_div(torch.clamp(amax, min=eps), 127.0)
     x8 = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return x8, scale
@@ -100,14 +115,20 @@ def _compute_dtype(x: torch.Tensor) -> torch.dtype:
 
 
 def quant_linear(x: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor = None) -> torch.Tensor:
+                 bias: torch.Tensor = None, group=None) -> torch.Tensor:
     """F.linear(x, weight, bias) with the product in int8: x (..., K) with
-    a scale a row, weight (N, K) with a scale an output channel."""
+    a scale a row, weight (N, K) with a scale an output channel. `group`:
+    the tensor-parallel group whose ranks hold the K slices of a
+    row-parallel layer (module docstring); the bias is added once, after
+    the sum."""
     dt = _compute_dtype(x)
     k = x.shape[-1]
-    x8, ls = _quantize(x.to(dt), dims=-1)              # (..., 1)
-    w8, rs = _quantize(weight.to(dt), dims=1)          # (N, 1)
+    x8, ls = _quantize(x.to(dt), dims=-1, group=group)      # (..., 1)
+    w8, rs = _quantize(weight.to(dt), dims=1, group=group)  # (N, 1)
     y = int8_matmul(x8.reshape(-1, k), w8).reshape(*x.shape[:-1], -1)
+    if group is not None:
+        # exact int32 sums; the padded product's view made contiguous
+        y = group.all_reduce(y.contiguous())
     out = (y.float() * ls * rs.reshape(-1)).to(dt)
     return out if bias is None else out + bias.to(dt)
 

@@ -1,5 +1,5 @@
-"""The collectives of multi-process training, built from two of
-torch.distributed's: `all_reduce` (SUM) and `broadcast`.
+"""The collectives of multi-process training and serving, built from two
+of torch.distributed's: `all_reduce` (SUM, or MAX) and `broadcast`.
 
 A gather is an all_reduce SUM of zero-filled full tensors into which
 each rank has written its own slice (x + 0 is exact, so the result is
@@ -7,7 +7,10 @@ each rank's values bitwise; a -0.0 comes back as +0.0). One code path
 then runs over NCCL on the card, over gloo on the CPU, and over gloo
 with several ranks on one card, where gloo carries only these two
 collectives for CUDA tensors. No collective chooses another route at
-run time.
+run time. A MAX gives the absmax of a tensor-parallel slice's int8 and
+int4 scales, and an int32 SUM the exact int8 partial sums of a
+row-parallel product (`ops/int8.quant_linear`); both are counted by
+kind, beside the float SUMs.
 
 `Group` is one axis of the mesh as seen from one rank: the process
 group of the ranks that share this rank's other coordinate, its size,
@@ -23,12 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 SUM = dist.ReduceOp.SUM
+MAX = dist.ReduceOp.MAX
 # the flat buffers of `all_reduce_flat` and `gather_flat` hold at most
 # this many elements (256 MiB of f32), so a sweep over a large model
 # adds at most one such buffer to its memory
@@ -39,15 +43,18 @@ BUCKET_NUMEL = 1 << 26
 class CollectiveStats:
     """What the collectives of one mesh cost: calls, bytes reduced or
     broadcast, and seconds on the host's clock (device seconds when
-    `timed`)."""
+    `timed`); `kinds` counts the calls by reduction and dtype ("max
+    float32", "sum int32", ...; "broadcast")."""
 
     timed: bool = False
     calls: int = 0
     bytes: int = 0
     seconds: float = 0.0
+    kinds: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.kinds = {}
 
 
 class Group:
@@ -61,7 +68,7 @@ class Group:
         self.index = index
         self.stats = stats
 
-    def _run(self, fn, t: torch.Tensor):
+    def _run(self, fn, t: torch.Tensor, kind: str):
         if self.stats.timed and t.is_cuda:
             torch.cuda.synchronize(t.device)
         t0 = time.perf_counter()
@@ -71,12 +78,16 @@ class Group:
         self.stats.seconds += time.perf_counter() - t0
         self.stats.calls += 1
         self.stats.bytes += t.numel() * t.element_size()
+        self.stats.kinds[kind] = self.stats.kinds.get(kind, 0) + 1
         return out
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """In-place SUM over the group, outside autograd; returns t."""
+    def all_reduce(self, t: torch.Tensor, op=SUM) -> torch.Tensor:
+        """In-place reduction over the group (SUM, or MAX), outside
+        autograd; returns t."""
         if self.pg is not None:
-            self._run(lambda: dist.all_reduce(t, SUM, group=self.pg), t)
+            kind = f"{'max' if op == MAX else 'sum'} {str(t.dtype)[6:]}"
+            self._run(lambda: dist.all_reduce(t, op, group=self.pg), t,
+                      kind)
         return t
 
     def all_reduce_grad(self, t: torch.Tensor) -> torch.Tensor:
@@ -87,13 +98,14 @@ class Group:
             return t
         from torch.distributed.nn.functional import all_reduce
 
-        return self._run(lambda: all_reduce(t, SUM, group=self.pg), t)
+        return self._run(lambda: all_reduce(t, SUM, group=self.pg), t,
+                         f"sum {str(t.dtype)[6:]}")
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """In place, from the group's member `src` (an axis index)."""
         if self.pg is not None:
             self._run(lambda: dist.broadcast(t, self.ranks[src],
-                                             group=self.pg), t)
+                                             group=self.pg), t, "broadcast")
         return t
 
     def barrier(self, device) -> None:

@@ -43,12 +43,27 @@ differs:
 - `tp` must divide every sharded width (the decoder's heads, kv heads
   and ffn width, the ViT's heads, ffn and merger widths, the
   vocabulary: `check_ref_tp` raises), where JAX replicates a tensor whose
-  width tp does not divide. For ref_2b and ref_4b, tp in {1, 2, 4, 8}.
-The port's TP layers run for inference only.
+  width tp does not divide. For ref_2b and ref_4b, tp in {1, 2, 4, 8};
+- a quantized decode tree (models/quant.quantize_decode_params of a TP
+  model) holds the rank's slices of the codes and scales, laid out as
+  the layers it replaces (a rank holds 1 / tp of the codes), where JAX's
+  rule replicates the tree (its leaves are `w8`, `scale`, `w4p`, not
+  `kernel`, so they fall to P()).
+The port's TP layers run for inference only. Under the int8 prefill
+(`RefCfg.quant_int8`) a row-parallel QuantLinear takes its absmax
+scales as MAXes and its int32 sums as SUMs over the group
+(`ops/int8.quant_linear(group=)`), so every int8 product is the
+one-process product bitwise. The mergers' fc2 stays a float
+row-parallel layer there, summed in f32 as in JAX's global view: its
+rounding can move an int8 code downstream, so the TP int8 score logits
+are the one-process call's to within that, not bitwise (they are
+bitwise once that fc2 is computed whole:
+tests/test_torch_tp_quant.py, chip_smoke.py tp_serve).
 
 Rank r sits at (d, f) with r = d * fsdp + f (r = d * tp + t), as
 `np.asarray(devices).reshape(data, fsdp)` lays the devices out. Every
-collective is an all_reduce or a broadcast (`parallel/collectives.py`).
+collective is an all_reduce (SUM, or MAX) or a broadcast
+(`parallel/collectives.py`).
 The process group is joined by `eval/dist.maybe_initialize`, and only
 there.
 """
@@ -61,6 +76,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from wedetect_tpu_torch.ops.int8 import quant_linear
 from wedetect_tpu_torch.parallel.collectives import (CollectiveStats, Group,
                                                      fsdp_slice)
 
@@ -356,17 +372,17 @@ def row_sum(tp: Optional[Group], y: torch.Tensor) -> torch.Tensor:
 def row_linear(lin, x: torch.Tensor, tp: Optional[Group]) -> torch.Tensor:
     """A Linear whose weight holds this rank's input columns: the
     partial product summed over the tp group (`row_sum`), then the bias
-    once. tp None: lin(x)."""
+    once; an int8 QuantLinear (`quant` set) through
+    ops/int8.quant_linear(group=tp). tp None: lin(x)."""
     if tp is None:
         return lin(x)
-    if getattr(lin, "quant", False):
-        raise NotImplementedError(
-            "the int8 prefill under tensor parallelism is not ported "
-            "(ROADMAP.md §1 item 12)")
     if torch.is_grad_enabled():
         raise NotImplementedError(
             "the tensor-parallel layers run for inference only: call "
             "them under torch.inference_mode() or torch.no_grad()")
+    if getattr(lin, "quant", False):
+        # the int8 prefill: MAX scales and an int32 sum over the group
+        return quant_linear(x, lin.weight, lin.bias, tp)
     y = row_sum(tp, F.linear(x, lin.weight))
     return y if lin.bias is None else y + lin.bias
 
