@@ -1,0 +1,8 @@
+"""Milliseconds a call in the det_post span (the benchmark's wrapper; see the
+entry's spans())."""
+
+from benchmark.harness import span_ms_per_call
+
+
+def read(run):
+    return span_ms_per_call(run, "det_post")
